@@ -10,21 +10,33 @@ continues:
    all at once), TF32 off for matmuls and cuDNN;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (bf16 and fp32, window and softcap variants,
-   int8 pools for the paged decode kernel), with CUDA-event times for the
-   kernel, its plain version and a library yardstick
-   (``F.scaled_dot_product_attention`` with an explicit mask over the same
-   dense or gathered KV; timed here only, never called by the port), and
-   the bound: bytes over 3.35 TB/s or operations over the peak rate;
+   int8 pools for the paged kernels, K1 of 1, 2 and 5 for the verify
+   kernel, which at K1 = 1 is also held against the paged decode kernel),
+   with CUDA-event times for the kernel, its plain version and a library
+   yardstick (``F.scaled_dot_product_attention`` with an explicit mask
+   over the same dense or gathered KV; timed here only, never called by
+   the port), and the bound: bytes over 3.35 TB/s or operations over the
+   peak rate;
 3. serve: full-width tinyllama-1.1b (22 layers, bf16 compute, random
    weights from a seed) in ``ServingEngine``, 8 requests plus a 256-token
    shared-prefix pair, through the background loop; every request must
    complete, and each kernel's launch count must equal 22 x the chunks or
    decode steps the engine ran;
+3b. speculative serve: the same model over int8 pages with a draft made of
+   its first 2 layers, residual write-backs zeroed so that every draft
+   token is accepted; 8 requests of 32 tokens; acceptance >= 0.95, the
+   verify kernel launched 22 x the verify rounds, the dense decode kernel
+   by every draft step, the streams equal to the same traffic served
+   without the draft, whose decode tokens/s is printed beside;
 4. consistency: fp32 at full width, 2 layers: every decode step's logits
    against ``Model.forward`` over the same prefix, within 2e-4 relative;
-5. golden: the JAX reference's token streams (``tests/data``) reproduced
-   by the port on the card in fp32;
-6. the kernels line, then the last line
+4b. speculative exactness: fp32 at full width, 2 random layers, the first
+   as the draft: speculative streams equal plain ones with pages in fp32
+   and in int8 (a token may differ only at a top-2 margin <= 1e-3);
+5. golden: the JAX reference's token streams (``tests/data``), plain and
+   speculative, reproduced by the port on the card in fp32;
+6. the kernels line (each kernel's launches from the path that runs it),
+   then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -172,15 +184,19 @@ def _sdpa_flash(torch, F, q, k, v, kw):
         qt, kt, vt, attn_mask=mask[None, None])
 
 
-def _paged_case(torch, gen, dtype, int8=False, window=0, softcap=0.0):
+def _paged_case(torch, gen, dtype, int8=False, window=0, softcap=0.0,
+                K1=0):
     """A decode tick of the serving path: B 8, Hq 32, Hkv 4, D 64, page
-    16, 64 table entries (max_seq 1024), pages scattered over the pool."""
+    16, 64 table entries (max_seq 1024), pages scattered over the pool,
+    lengths 36-543.  ``K1 > 0`` makes it a verify pass: K1 query tokens
+    per sequence, the last K1 of its length."""
     from repro_torch.models.attention import _quantize
 
     dt = getattr(torch, dtype)
     B, Hq, Hkv, D, page, MP = 8, 32, 4, 64, 16, 64
     P = B * MP + 1
-    q = torch.randn(B, Hq, D, generator=gen, device="cuda").to(dt)
+    qshape = (B, K1, Hq, D) if K1 else (B, Hq, D)
+    q = torch.randn(*qshape, generator=gen, device="cuda").to(dt)
     kf = torch.randn(P, page, Hkv, D, generator=gen, device="cuda")
     vf = torch.randn(P, page, Hkv, D, generator=gen, device="cuda")
     perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
@@ -196,19 +212,25 @@ def _paged_case(torch, gen, dtype, int8=False, window=0, softcap=0.0):
     else:
         kp, vp = kf.to(dt), vf.to(dt)
         e = q.element_size()
-    toks = int(clen.sum())
-    if window:
-        toks = int(clen.clamp(max=window).sum())
+    # what the data needs: the keys some query sees (read once) and the
+    # (query, key) pairs the masks keep
+    n = clen.long().cpu().numpy()
+    rows = [n] if not K1 else [n - K1 + i + 1 for i in range(K1)]
+    seen = [np.minimum(r, window) if window else r for r in rows]
+    toks = int(np.minimum(n, window + max(K1, 1) - 1).sum() if window
+               else n.sum())
+    pairs = int(sum(s.sum() for s in seen)) * Hq
     nbytes = (2 * q.numel() * q.element_size() + 2 * toks * Hkv * D * e
               + (2 * toks * Hkv * 4 if int8 else 0)
               + 4 * (B * MP + B))
-    flops = 4 * D * toks * Hq
+    flops = 4 * D * pairs
     return (q, kp, vp, table, clen), kw, nbytes, flops
 
 
 def _sdpa_paged(torch, F, args, kw):
     """Library yardstick: SDPA over the KV gathered dense and expanded to
-    the query heads beforehand (untimed), explicit length mask."""
+    the query heads beforehand (untimed), explicit mask: length (decode)
+    or causal from ``cache_len - K1`` (verify), and the window."""
     from repro_torch.kernels.ref import dequantize_pages, gather_pages
 
     q, kp, vp, table, clen = args
@@ -216,25 +238,67 @@ def _sdpa_paged(torch, F, args, kw):
     if kw.get("k_scale") is not None:
         k = dequantize_pages(k, gather_pages(kw["k_scale"], table)).to(q.dtype)
         v = dequantize_pages(v, gather_pages(kw["v_scale"], table)).to(q.dtype)
+    K1 = q.shape[1] if q.dim() == 4 else 1
+    pos = torch.arange(k.shape[1], device="cuda")[None, None]
+    qpos = (clen[:, None] - K1 + torch.arange(K1, device="cuda")[None])
+    mask = pos <= qpos[:, :, None]                 # [B, K1, S]
+    if kw["window"]:
+        mask &= pos > qpos[:, :, None] - kw["window"]
+    G = q.shape[-2] // k.shape[2]
+    qt = q.transpose(1, 2) if q.dim() == 4 else q[:, :, None]  # [B,Hq,K1,D]
+    kt, vt = (x.transpose(1, 2).repeat_interleave(G, dim=1)
+              for x in (k, v))                      # [B, Hq, S, D]
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask[:, None])
+
+
+def _dense_case(torch, gen, dtype, S, D=64, window=0, softcap=0.0,
+                full=False):
+    """A draft decode step of the serving path: B 8, Hq 32, Hkv 4 over a
+    dense [B, S, Hkv, D] cache, valid lengths 36-543 (one row at S with
+    ``full``)."""
+    dt = getattr(torch, dtype)
+    B, Hq, Hkv = 8, 32, 4
+    q = torch.randn(B, Hq, D, generator=gen, device="cuda").to(dt)
+    k = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dt)
+    clen = torch.randint(36, 544, (B,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    if full:
+        clen[0] = S
+    kw = dict(window=window, softcap=softcap)
+    n = np.minimum(clen.long().cpu().numpy(), S)
+    toks = int(np.minimum(n, window).sum() if window else n.sum())
+    e = q.element_size()
+    nbytes = 2 * q.numel() * e + 2 * toks * Hkv * D * e + 4 * B
+    flops = 4 * D * toks * Hq
+    return (q, k, v, clen), kw, nbytes, flops
+
+
+def _sdpa_dense(torch, F, args, kw):
+    """Library yardstick: SDPA over the dense cache expanded to the query
+    heads beforehand (untimed), explicit length and window mask."""
+    q, k, v, clen = args
     pos = torch.arange(k.shape[1], device="cuda")[None]
     mask = pos < clen[:, None]
     if kw["window"]:
         mask &= pos >= clen[:, None] - kw["window"]
     G = q.shape[1] // k.shape[2]
-    qt = q[:, :, None]                              # [B, Hq, 1, D]
-    kt, vt = (x.transpose(1, 2).repeat_interleave(G, dim=1)
-              for x in (k, v))                      # [B, Hq, S, D]
+    kt, vt = (x.transpose(1, 2).repeat_interleave(G, dim=1) for x in (k, v))
     return lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask[:, None, None])
+        q[:, :, None], kt, vt, attn_mask=mask[:, None, None])
 
 
 def phase_kernels(torch, timer, card):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_decode_attention import \
         paged_decode_attention
+    from repro_torch.kernels.paged_verify_attention import \
+        paged_verify_attention
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
@@ -311,6 +375,51 @@ def phase_kernels(torch, timer, card):
             run("paged_decode_attention", label, dtype,
                 paged_decode_attention, ref.paged_decode_attention, args,
                 kw, nb, fl, _sdpa_paged(torch, F, args, kw),
+                timed and dtype == "bfloat16")
+
+    # the target's verify pass; K1 = 5 is spec_k_max 4, the serving shape
+    verify_cases = [("B8/MP64 K1=5 verify", {"K1": 5}, True)] + [
+        (f"B8/MP64 K1={k1} {name}", dict(extra, K1=k1), False)
+        for k1 in (1, 2, 5)
+        for name, extra in (("window256", {"window": 256}),
+                            ("softcap30", {"softcap": 30.0}),
+                            ("int8", {"int8": True}),
+                            ("int8+softcap30",
+                             {"int8": True, "softcap": 30.0}))]
+    for dtype in ("bfloat16", "float32"):
+        for label, extra, timed in verify_cases:
+            args, kw, nb, fl = _paged_case(torch, gen, dtype, **extra)
+            run("paged_verify_attention", label, dtype,
+                paged_verify_attention, ref.paged_verify_attention, args,
+                kw, nb, fl, _sdpa_paged(torch, F, args, kw),
+                timed and dtype == "bfloat16")
+            if extra["K1"] == 1:        # one verify token is one decode step
+                q, *rest = args
+                got = paged_verify_attention(*args, **kw)[:, 0]
+                dec = paged_decode_attention(q[:, 0], *rest, **kw)
+                torch.cuda.synchronize()
+                err = rel_err(dec, got)
+                print(f"[kernel] paged_verify_attention {label} {dtype}: "
+                      f"vs the paged decode kernel rel_err={err:.3e}")
+                check(err < TOL[dtype], f"verify K1=1 vs paged decode {err}")
+
+    # the draft's dense decode steps: S 1024 is max_seq; 1000 is not a
+    # multiple of the 32-key tile
+    dense_cases = [
+        ("B8/S1024 decode", 1024, {}, True),
+        ("B8/S1024 window256", 1024, {"window": 256}, False),
+        ("B8/S1024 softcap30", 1024, {"softcap": 30.0}, False),
+        ("B8/S1000 full row", 1000, {"full": True}, False),
+        ("B8/S1000 D32 window100+softcap30", 1000,
+         {"D": 32, "window": 100, "softcap": 30.0, "full": True}, False),
+        ("B8/S1024 D32", 1024, {"D": 32}, False),
+    ]
+    for dtype in ("bfloat16", "float32"):
+        for label, S, extra, timed in dense_cases:
+            args, kw, nb, fl = _dense_case(torch, gen, dtype, S, **extra)
+            run("decode_attention", label, dtype, decode_attention,
+                ref.decode_attention, args, kw, nb, fl,
+                _sdpa_dense(torch, F, args, kw),
                 timed and dtype == "bfloat16")
     for name, res in results.items():
         by_dtype = worst[name]
@@ -398,16 +507,22 @@ def phase_serve(torch):
     return launches, len(done)
 
 
-def profile_decode(torch, eng, rng, steps: int = 10):
-    """Where a steady decode tick's time goes: 8 rows decoding, the host
-    wall of ``steps`` ticks without the profiler, then the device time of
-    the same number of ticks by kernel from ``torch.profiler``."""
+def profile_decode(torch, eng, rng, steps: int = 10, label: str = "decode",
+                   per_tick: int = 1):
+    """Where a steady decode tick's time goes: 8 rows decoding, ``steps``
+    ticks to settle (a speculative depth grows with its acceptance), the
+    host wall of ``steps`` ticks without the profiler, then the device
+    time of the same number of ticks by kernel from ``torch.profiler``.
+    A tick commits up to ``per_tick`` tokens per row (k+1 when
+    speculative)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(8):
         eng.submit(rng.integers(0, eng.cfg.vocab_size, size=64),
-                   max_new_tokens=4 + 2 * steps + 4)
+                   max_new_tokens=(4 + 3 * steps + 4) * per_tick)
     while eng.queue or any(r.phase != "decode" for r in eng.active.values()):
+        eng.step()
+    for _ in range(steps):
         eng.step()
     torch.cuda.synchronize()
     t0 = time.monotonic()
@@ -415,6 +530,7 @@ def profile_decode(torch, eng, rng, steps: int = 10):
         eng.step()
     torch.cuda.synchronize()
     wall_ms = (time.monotonic() - t0) * 1e3 / steps
+    toks = sum(t[4] for t in list(eng._tick_log)[-steps:]) / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
@@ -431,11 +547,207 @@ def profile_decode(torch, eng, rng, steps: int = 10):
             by_kernel[ev.key] = us / 1e3 / steps
     eng.run_until_drained()
     busy = sum(by_kernel.values())
-    print(f"[profile] decode tick, 8 rows: host wall {wall_ms:.2f} ms, "
-          f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}% of the "
-          f"wall; {'measured' if by_kernel else 'no device time seen'})")
-    for name, ms in sorted(by_kernel.items(), key=lambda x: -x[1])[:6]:
+    print(f"[profile] {label} tick, 8 rows: host wall {wall_ms:.2f} ms for "
+          f"{toks:.1f} tokens ({wall_ms / toks:.2f} ms/token), device busy "
+          f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}% of the wall; "
+          f"{'measured' if by_kernel else 'no device time seen'})")
+    for name, ms in sorted(by_kernel.items(), key=lambda x: -x[1])[:8]:
         print(f"[profile]   {ms:.4f} ms/tick  {name[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: speculative serving over int8 pages, full-width tinyllama
+# ---------------------------------------------------------------------------
+
+def _zero_residual(tree):
+    """Residual write-backs (attention ``w_o``, MLP ``w_down``) zeroed, as
+    in ``benchmarks/bench_paged_serving.py:299``: the residual stream is
+    the embedding alone, so any two models sharing embedding, final norm
+    and head give the same logits, and every draft token is accepted."""
+    if isinstance(tree, dict):
+        return {k: (v.zero_() if k in ("w_o", "w_down") else
+                    _zero_residual(v)) for k, v in tree.items()}
+    return tree
+
+
+def _truncated(params, n_layers: int):
+    """A draft of the target's first ``n_layers`` layers: the target's
+    embedding, head and final norm (views; the target is unchanged)."""
+    def first(tree):
+        if isinstance(tree, dict):
+            return {k: first(v) for k, v in tree.items()}
+        return tree[:n_layers]
+
+    return {**params, "stack": {"blocks": first(params["stack"]["blocks"]),
+                                "final_norm": params["stack"]["final_norm"]}}
+
+
+def _decode_rate(eng):
+    """Decode tokens/s over the tick log's decode ticks only, as the JAX
+    canary counts them.  The prefill ticks are left out, and they are not
+    the same work with and without speculation: each finished prompt also
+    runs the draft's whole-prompt prefill there, so the end-to-end rate
+    is printed beside this one."""
+    log = list(eng._tick_log)
+    secs = sum(d for _p, d, _t, n, _tk in log if n)
+    toks = sum(tk for _p, _d, _t, n, tk in log if n)
+    return toks / secs if secs else float("nan"), toks, secs
+
+
+def phase_spec_serve(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_verify_attention as pva
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("tinyllama-1.1b")
+    dcfg = dataclasses.replace(cfg, num_layers=2)
+    params = _zero_residual(Model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0)))
+    dparams = _truncated(params, 2)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n))
+               for n in rng.integers(4, 512, size=8)]
+    kw = dict(max_slots=8, max_seq=1024, page_size=16, prefill_chunk=64,
+              params=params, kv_dtype="int8", device="cuda")
+
+    counters = ((fa, "flash_attention"), (pda, "paged_decode_attention"),
+                (pva, "paged_verify_attention"), (da, "decode_attention"))
+
+    def serve(eng):
+        eng.warmup()
+        eng._tick_log.clear()
+        for mod, fn in counters:          # count the traffic's launches only
+            getattr(mod, fn).launches = 0
+        t0 = time.monotonic()
+        for p in prompts:
+            eng.submit(p, max_new_tokens=32)
+        done = sorted(eng.run_until_drained(), key=lambda r: r.rid)
+        torch.cuda.synchronize()
+        check(not eng.failed and len(done) == len(prompts)
+              and all(len(r.generated) == 32 for r in done),
+              "every request must complete with 32 tokens")
+        return [r.generated for r in done], time.monotonic() - t0
+
+    t0 = time.monotonic()
+    spec = ServingEngine(cfg, draft_cfg=dcfg, draft_params=dparams,
+                         spec_k_max=4, **kw)
+    print(f"[spec] tinyllama-1.1b 22L d2048 bf16, int8 pages, draft = its "
+          f"first 2 layers, zero-residual weights: init "
+          f"{time.monotonic() - t0:.1f}s")
+    got, wall = serve(spec)
+    launches = {fn: getattr(mod, fn).launches for mod, fn in counters}
+    st = spec.stats()
+    spec_rate, spec_toks, spec_s = _decode_rate(spec)
+    L = cfg.num_layers
+    check(st["acceptance_rate"] >= 0.95,
+          f"acceptance {st['acceptance_rate']} < 0.95")
+    check("spec_disabled_reason" not in st and st["speculative"],
+          f"speculation turned itself off: {st.get('spec_disabled_reason')}")
+    check(st["draft_ticks"] > 0 and st["spec_rounds"] > 0,
+          f"no speculative tick ran: {st}")
+    check(launches["paged_verify_attention"] == L * st["spec_rounds"],
+          f"verify launches {launches['paged_verify_attention']} != {L} x "
+          f"{st['spec_rounds']} rounds")
+    check(launches["decode_attention"] > 0
+          and launches["decode_attention"] % dcfg.num_layers == 0,
+          f"draft decode launches {launches['decode_attention']}")
+    check(launches["flash_attention"] ==
+          L * st["prefill_chunks"] + dcfg.num_layers * len(prompts),
+          f"flash launches {launches['flash_attention']} != {L} x "
+          f"{st['prefill_chunks']} chunks + {dcfg.num_layers} x "
+          f"{len(prompts)} draft prefills")
+    check(launches["paged_decode_attention"] == L * st["decode_steps"],
+          "paged decode launches differ from the normal ticks run")
+    print(f"[spec] {len(got)} requests x 32 tokens in {wall:.2f}s; "
+          f"acceptance {st['acceptance_rate']:.3f}, {st['spec_rounds']} "
+          f"verify rounds, {st['draft_ticks']} draft ticks, launches "
+          f"{launches}")
+    profile_decode(torch, spec, rng, steps=4, label="speculative",
+                   per_tick=spec.spec_k_max + 1)
+    del spec
+
+    base = ServingEngine(cfg, **kw)
+    want, base_wall = serve(base)
+    base_rate, base_toks, base_s = _decode_rate(base)
+    del base
+    torch.cuda.empty_cache()
+    check(got == want, "speculative streams differ from non-speculative "
+          "ones on the same weights")
+    print(f"[spec] decode tokens/s (decode ticks only, same traffic and "
+          f"weights, int8 pages): speculative {spec_rate:.1f} ({spec_toks} "
+          f"tokens in {spec_s:.3f}s) vs plain {base_rate:.1f} ({base_toks} "
+          f"in {base_s:.3f}s): {spec_rate / base_rate:.2f}x; streams equal")
+    n_tok = sum(len(g) for g in got)
+    print(f"[spec] end-to-end tokens/s (all {n_tok} generated tokens over "
+          f"the wall from first submit to drained, prefill and draft "
+          f"prefill included): speculative {n_tok / wall:.1f} ({wall:.3f}s)"
+          f" vs plain {n_tok / base_wall:.1f} ({base_wall:.3f}s): "
+          f"{base_wall / wall:.2f}x")
+    return launches, len(got)
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: speculative streams equal plain ones, fp32 full width
+# ---------------------------------------------------------------------------
+
+def phase_spec_exactness(torch):
+    """A random-weight 2-layer target and its first layer as the draft
+    (acceptance well below 1): with pages in fp32 and in int8, the
+    speculative token streams equal the non-speculative ones.  A token
+    may differ only where the two best logits of the full forward are
+    within 1e-3 (``phase_consistency``'s rule); the streams are compared
+    up to that token."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), num_layers=2,
+                              compute_dtype="float32")
+    dcfg = dataclasses.replace(cfg, num_layers=1)
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(3))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in (40, 100, 7, 300)]
+    kw = dict(max_slots=4, max_seq=512, page_size=16, params=params,
+              device="cuda")
+    for kv in ("auto", "int8"):
+        outs = []
+        for spec in (True, False):
+            extra = dict(draft_cfg=dcfg, draft_params=_truncated(params, 1),
+                         spec_k_max=4) if spec else {}
+            eng = ServingEngine(cfg, kv_dtype=kv, **kw, **extra)
+            for p in prompts:
+                eng.submit(p, max_new_tokens=24)
+            done = sorted(eng.run_until_drained(), key=lambda r: r.rid)
+            check(not eng.failed and len(done) == len(prompts),
+                  "a request failed")
+            outs.append([r.generated for r in done])
+            if spec:
+                st = eng.stats()
+                check(st["spec_rounds"] > 0 and st["speculative"],
+                      f"no speculative tick ran: {st}")
+        flips = 0
+        for p, s, b in zip(prompts, *outs):
+            j = next((i for i, (x, y) in enumerate(zip(s, b)) if x != y),
+                     None)
+            if j is None:
+                continue
+            with torch.no_grad():
+                full = model.forward(params, {"tokens": torch.tensor(
+                    [list(p) + b[:j]], device="cuda")})[0, -1]
+            top2 = torch.topk(full, 2).values
+            check(float(top2[0] - top2[1]) <= 1e-3,
+                  f"speculative token differs at a clear margin ({kv})")
+            flips += 1
+        print(f"[spec-exact] fp32 full width, 2-layer target, 1-layer "
+              f"draft, pages {kv}: acceptance {st['acceptance_rate']:.3f} "
+              f"over {st['spec_rounds']} rounds; {len(prompts)} streams "
+              f"of 24 equal the plain ones (near-tie flips {flips})")
 
 
 # ---------------------------------------------------------------------------
@@ -510,21 +822,37 @@ def phase_golden(torch):
                               "torch_port_golden.npz")) as f:
         g = {k: f[k] for k in f.files}
     cfg = ModelConfig.from_dict(json.loads(str(g["config"])))
-    params = from_numpy_tree(unflatten(
-        {k[len("params/"):]: v for k, v in g.items()
-         if k.startswith("params/")}), cfg, "cuda")
-    eng = ServingEngine(cfg, params=params, device="cuda",
-                        **json.loads(str(g["engine"])))
-    for w in (0, 1):
-        for p, n, pw in zip(g["prompts"], g["prompt_lens"], g["waves"]):
-            if pw == w:
-                eng.submit(p[:n], max_new_tokens=int(g["max_new"]))
-        eng.run_until_drained()
-    got = [r.generated for r in sorted(eng.completed.values(),
-                                       key=lambda r: r.rid)]
-    check(not eng.failed, "golden replay: a request failed")
-    check(got == g["streams"].tolist(),
-          f"golden streams differ:\n{got}\n{g['streams'].tolist()}")
+    dcfg = ModelConfig.from_dict(json.loads(str(g["draft_config"])))
+
+    def tree(prefix, c):
+        return from_numpy_tree(unflatten(
+            {k[len(prefix):]: v for k, v in g.items()
+             if k.startswith(prefix)}), c, "cuda")
+
+    def replay(want, **kw):
+        eng = ServingEngine(cfg, params=params, device="cuda",
+                            **json.loads(str(g["engine"])), **kw)
+        for w in (0, 1):
+            for p, n, pw in zip(g["prompts"], g["prompt_lens"], g["waves"]):
+                if pw == w:
+                    eng.submit(p[:n], max_new_tokens=int(g["max_new"]))
+            eng.run_until_drained()
+        got = [r.generated for r in sorted(eng.completed.values(),
+                                           key=lambda r: r.rid)]
+        check(not eng.failed, "golden replay: a request failed")
+        check(got == want.tolist(),
+              f"golden streams differ ({kw.get('kv_dtype', 'plain')}):\n"
+              f"{got}\n{want.tolist()}")
+        return eng
+
+    params = tree("params/", cfg)
+    eng = replay(g["streams"])
+    for kv in ("auto", "int8"):
+        spec = replay(g[f"spec_streams_{kv}"], kv_dtype=kv, draft_cfg=dcfg,
+                      draft_params=tree("draft_params/", dcfg),
+                      spec_k_max=int(g["spec_k_max"]))
+        check(spec.stats()["spec_rounds"] > 0, "golden: no speculative tick")
+    got = g["streams"].tolist()
     worst = 0.0
     with torch.no_grad():
         for p, n, want in zip(g["prompts"], g["prompt_lens"],
@@ -534,8 +862,9 @@ def phase_golden(torch):
             w = torch.tensor(want, device="cuda")
             worst = max(worst, float((lg - w).abs().max() / w.abs().max()))
     print(f"[golden] {len(got)} JAX token streams reproduced on the card "
-          f"(fp32, cow copies {eng.kv.cow_copies}); first-token logits "
-          f"max rel err {worst:.3e} (bound 2e-4)")
+          f"(fp32, cow copies {eng.kv.cow_copies}), and the JAX "
+          f"speculative streams with pages in fp32 and int8; first-token "
+          f"logits max rel err {worst:.3e} (bound 2e-4)")
     check(worst < 2e-4, f"golden logits {worst} >= 2e-4")
 
 
@@ -548,7 +877,16 @@ KERNELS = {
     "paged_decode_attention": dict(
         route="cuda", source="src/repro_torch/csrc/paged_decode_attention.cu",
         replaces="src/repro/kernels/paged_decode_attention.py:144"),
+    "paged_verify_attention": dict(
+        route="cuda", source="src/repro_torch/csrc/paged_verify_attention.cu",
+        replaces="src/repro/kernels/paged_verify_attention.py:154"),
+    "decode_attention": dict(
+        route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:99"),
 }
+# the path each kernel's launch count comes from
+PATH_OF = {"flash_attention": "serve", "paged_decode_attention": "serve",
+           "paged_verify_attention": "spec", "decode_attention": "spec"}
 
 
 def main() -> int:
@@ -568,14 +906,17 @@ def main() -> int:
     card = phase_device_and_build(torch)
     timer = Timer(torch)
     kernels = phase_kernels(torch, timer, card)
-    launches, n_requests = phase_serve(torch)
+    paths = {"serve": phase_serve(torch), "spec": phase_spec_serve(torch)}
     phase_consistency(torch)
+    phase_spec_exactness(torch)
     phase_golden(torch)
     line = []
     for name, meta in KERNELS.items():
         k = kernels[name]
+        launches, n_requests = paths[PATH_OF[name]]
         line.append({"name": name, **meta, "launches": launches[name],
                      "launches_per_request": launches[name] / n_requests,
+                     "path": PATH_OF[name],
                      **{key: k[key] for key in (
                          "max_abs_err", "rel_err", "err_by_dtype", "ms",
                          "plain_ms", "bound_ms", "bound_by", "library_ms")},

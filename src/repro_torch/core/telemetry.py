@@ -3,9 +3,11 @@
 A pure-Python copy of the part of ``repro.core.telemetry`` that the
 serving engine records into: one ``DispatchSample`` per finished request
 into ``DispatchStats``, summarised as percentiles (p50/p95/p99 wall, cold
-vs warm split, per-class footprints) for ``launch/serve.py``.  The
-per-service, per-tenant and per-replica splits come with the control-plane
-and fleet slices (ROADMAP Queue A items 9 and 10).
+vs warm split, per-class footprints) for ``launch/serve.py``, plus named
+annotation blocks (the speculation counters).  The JSON view and the
+windowed, per-service, per-tenant and per-replica views come with the
+control-plane and fleet slices that read them (ROADMAP Queue A items 9
+and 10).
 """
 from __future__ import annotations
 
@@ -50,10 +52,22 @@ class DispatchStats:
     def __init__(self):
         self._lock = threading.Lock()
         self.samples: List[DispatchSample] = []
+        # named annotation blocks (the engine's speculation counters);
+        # the latest value of each wins
+        self._extra: Dict[str, object] = {}
 
     def record(self, sample: DispatchSample) -> None:
         with self._lock:
             self.samples.append(sample)
+
+    def set_extra(self, key: str, value: object) -> None:
+        """Attach or refresh a named annotation block."""
+        with self._lock:
+            self._extra[key] = value
+
+    def extras(self) -> Dict[str, object]:
+        with self._lock:
+            return dict(self._extra)
 
     def __len__(self) -> int:
         with self._lock:

@@ -169,7 +169,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     qk_tile<D, RW>(q_s + warp * RW * D, kT_s, s);
 #pragma unroll
     for (int rr = 0; rr < RW; ++rr) {
-      if (softcap > 0.f) s[rr] = tanhf(s[rr] / softcap) * softcap;
+      s[rr] = softcap_logit(s[rr], softcap);
       const int qp = qp_s[warp * RW + rr];
       ok[rr] = in_range;
       if (causal) ok[rr] = ok[rr] && kp <= qp;

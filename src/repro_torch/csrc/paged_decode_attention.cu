@@ -33,7 +33,7 @@
 // and p is masked as well as the logits, so stale page rows can never
 // reach the accumulator (0·x stays 0).  In a tile each lane owns one key
 // for the logits of its warp's 2 rows and D/32 output columns for P·V,
-// through the same tile helpers as flash_attention.cu.
+// through the tile loader and softmax step of attention_common.cuh.
 
 #include "attention_common.cuh"
 
@@ -62,10 +62,6 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     float sm_scale) {
   constexpr int C = D / 32;
   constexpr int RW = kRowsPerWarp;
-  constexpr int VEC = 16 / sizeof(TKV);   // elements per 16-byte load
-  constexpr int RV = D / VEC;             // loads per key row
-  constexpr int TV = kBK * RV;            // loads per tile (K or V)
-  constexpr int NV = (TV + kThreads - 1) / kThreads;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);    // [kRows][D], scaled
   float* kT_s = q_s + kRows * D;                   // [D][kBK], K transposed
@@ -91,54 +87,11 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int valid = cache_len[b];
   const int n_keys = max(0, min(valid, MP * page));
   const int first = window > 0 ? max(0, valid - window) : 0;
-  auto token = [&](int pos) {             // row of the pool holding `pos`
-    return (size_t)table_s[pos / page] * page + pos % page;
+  // (pool row, KV head) of the key at `pos`
+  auto row = [&](int pos) {
+    return ((size_t)table_s[pos / page] * page + pos % page) * Hkv + h;
   };
-
-  // the next tile, staged in registers while the current one is computed;
-  // K key-fastest over the threads (its transposed store hits 32 banks),
-  // V chunk-fastest
-  uint4 kreg[NV], vreg[NV];
-  float ksreg = 0.f, vsreg = 0.f;
-  auto row_off = [&](int pos) { return (token(pos) * Hkv + h) * D; };
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int n = 0; n < NV; ++n) {
-      const int idx = threadIdx.x + n * kThreads;
-      const int kpos = k0 + idx % kBK, vpos = k0 + idx / RV;
-      kreg[n] = vreg[n] = make_uint4(0, 0, 0, 0);
-      if (idx < TV && kpos < n_keys)
-        kreg[n] = load16(k_pages + row_off(kpos) + (idx / kBK) * VEC);
-      if (idx < TV && vpos < n_keys)
-        vreg[n] = load16(v_pages + row_off(vpos) + (idx % RV) * VEC);
-    }
-    if (SCALED && threadIdx.x < kBK) {
-      const int pos = k0 + threadIdx.x;
-      ksreg = vsreg = 0.f;
-      if (pos < n_keys) {
-        ksreg = k_scale[token(pos) * Hkv + h];
-        vsreg = v_scale[token(pos) * Hkv + h];
-      }
-    }
-  };
-  auto stash = [&]() {
-#pragma unroll
-    for (int n = 0; n < NV; ++n) {
-      const int idx = threadIdx.x + n * kThreads;
-      if (idx >= TV) continue;
-      const int kc = (idx / kBK) * VEC, kj = idx % kBK;
-      const int vj = idx / RV, vc = (idx % RV) * VEC;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        kT_s[(kc + e) * kBK + kj] = elem<TKV>(kreg[n], e);
-        v_s[vj * D + vc + e] = elem<TKV>(vreg[n], e);
-      }
-    }
-    if (SCALED && threadIdx.x < kBK) {
-      ks_s[threadIdx.x] = ksreg;
-      vs_s[threadIdx.x] = vsreg;
-    }
-  };
+  KVTileLoader<TKV, D, kThreads, SCALED> tiles;
 
   float m[RW], l[RW], acc[RW][C];
 #pragma unroll
@@ -150,12 +103,14 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 
   const int k_begin = (first / kBK) * kBK;
-  if (k_begin < n_keys) fetch(k_begin);
+  if (k_begin < n_keys)
+    tiles.fetch(k_pages, v_pages, k_scale, v_scale, k_begin, n_keys, row);
   for (int k0 = k_begin; k0 < n_keys; k0 += kBK) {
     __syncthreads();                           // previous tile consumed
-    stash();
+    tiles.stash(kT_s, v_s, ks_s, vs_s);
     __syncthreads();
-    if (k0 + kBK < n_keys) fetch(k0 + kBK);    // in flight during compute
+    if (k0 + kBK < n_keys)                     // in flight during compute
+      tiles.fetch(k_pages, v_pages, k_scale, v_scale, k0 + kBK, n_keys, row);
 
     const int pos = k0 + lane;
     float s[RW];
@@ -164,7 +119,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 #pragma unroll
     for (int rr = 0; rr < RW; ++rr) {
       if (SCALED) s[rr] *= ks_s[lane];       // q·(k·s) == (q·k)·s
-      if (softcap > 0.f) s[rr] = tanhf(s[rr] / softcap) * softcap;
+      s[rr] = softcap_logit(s[rr], softcap);
       ok[rr] = pos < n_keys && pos >= first;
     }
     softmax_pv_tile<D, RW, SCALED>(s, ok, SCALED ? vs_s[lane] : 1.f, v_s, m,

@@ -31,6 +31,12 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build or to launch.  Callers that
+    degrade gracefully on other errors (the speculative draft) let this one
+    through: it is a fault of the build or the card, not of the input."""
+
+
 def kernel_names() -> list:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
@@ -39,8 +45,8 @@ def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
-                       "machine with the CUDA toolkit")
+    raise KernelError("nvcc not found: the CUDA kernels build only on a "
+                      "machine with the CUDA toolkit")
 
 
 def _target(name: str) -> Path:
@@ -67,7 +73,7 @@ def _finish(name: str, proc: subprocess.Popen) -> str:
     out = _target(name)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        raise KernelError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)        # atomic: a concurrent build sees all or none
     return log
 

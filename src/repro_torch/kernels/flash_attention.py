@@ -107,8 +107,8 @@ def flash_attention(
                    Hkv, D, _DTYPE_CODE[q.dtype], int(causal), int(window),
                    float(softcap), float(scale), ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise build.KernelError(f"flash_attention kernel launch failed: "
+                                f"CUDA error {err}")
     flash_attention.launches += 1
     return (out, lse) if return_lse else out
 

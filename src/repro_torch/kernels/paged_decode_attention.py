@@ -11,7 +11,7 @@ counts the launch.  The plain version is
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -35,6 +35,67 @@ def _entry():
     return _fn
 
 
+class PoolArgs(NamedTuple):
+    table: torch.Tensor               # [B, MP] int32
+    clen: torch.Tensor                # [B] int32
+    k_scale: Optional[torch.Tensor]   # [P, page, Hkv] f32, int8 pools only
+    v_scale: Optional[torch.Tensor]
+    kv_code: int                      # 0: pools in the q dtype, 2: int8
+    Hkv: int
+    page: int
+    MP: int
+
+
+def pool_args(name: str, q, k_pages, v_pages, page_table, cache_len,
+              k_scale, v_scale) -> PoolArgs:
+    """Check the page pools, table and lengths of a paged kernel call
+    (``q`` is ``[B, ..., Hq, D]``) and bring the small tensors to the
+    kernel's types.  Raises ``ValueError`` on anything the kernels do not
+    take; the pools themselves are never copied."""
+    dev = q.device
+    tensors = [k_pages, v_pages, page_table, cache_len, k_scale, v_scale]
+    if not q.is_cuda or any(t is not None and t.device != dev
+                            for t in tensors):
+        raise ValueError(f"{name} kernel needs every input on one CUDA "
+                         f"device")
+    if q.dtype not in _Q_CODE:
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    scaled = k_pages.dtype == torch.int8
+    if scaled:
+        if k_scale is None or v_scale is None or v_pages.dtype != torch.int8:
+            raise ValueError("int8 pools need int8 k/v and both scale planes")
+    elif k_pages.dtype != q.dtype or v_pages.dtype != q.dtype \
+            or k_scale is not None or v_scale is not None:
+        raise ValueError(f"pools must be int8 (with scales) or {q.dtype}, "
+                         f"got {k_pages.dtype}/{v_pages.dtype}")
+    if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError(f"bad pool shapes k{tuple(k_pages.shape)} "
+                         f"v{tuple(v_pages.shape)}")
+    B, Hq, D = q.shape[0], q.shape[-2], q.shape[-1]
+    P, page, Hkv = k_pages.shape[:3]
+    if k_pages.shape[3] != D or D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} (pool {k_pages.shape[3]}) not in "
+                         f"{HEAD_DIMS}")
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
+    if page_table.dim() != 2 or page_table.shape[0] != B:
+        raise ValueError(f"page_table must be [B={B}, MP], got "
+                         f"{tuple(page_table.shape)}")
+    MP = page_table.shape[1]
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()) or \
+            k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("pools must be contiguous and 16-byte aligned "
+                         "(copying a pool per call would hide its cost)")
+    if scaled:
+        k_scale = k_scale.to(torch.float32).contiguous()
+        v_scale = v_scale.to(torch.float32).contiguous()
+        if k_scale.shape != (P, page, Hkv) or v_scale.shape != (P, page, Hkv):
+            raise ValueError(f"scales must be [{P}, {page}, {Hkv}]")
+    return PoolArgs(_int32(page_table, (B, MP), dev),
+                    _int32(cache_len, (B,), dev), k_scale, v_scale,
+                    2 if scaled else 0, Hkv, page, MP)
+
+
 def paged_decode_attention(
     q: torch.Tensor,                  # [B, Hq, D]
     k_pages: torch.Tensor,            # [P, page, Hkv, D]
@@ -50,59 +111,23 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors (raises on anything else).
     Pools are in the dtype of ``q``, or int8 with both scale planes."""
-    dev = q.device
-    tensors = [k_pages, v_pages, page_table, cache_len, k_scale, v_scale]
-    if not q.is_cuda or any(t is not None and t.device != dev
-                            for t in tensors):
-        raise ValueError("paged_decode_attention kernel needs every input "
-                         "on one CUDA device")
-    if q.dtype not in _Q_CODE:
-        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
-    scaled = k_pages.dtype == torch.int8
-    if scaled:
-        if k_scale is None or v_scale is None or v_pages.dtype != torch.int8:
-            raise ValueError("int8 pools need int8 k/v and both scale planes")
-    elif k_pages.dtype != q.dtype or v_pages.dtype != q.dtype \
-            or k_scale is not None or v_scale is not None:
-        raise ValueError(f"pools must be int8 (with scales) or {q.dtype}, "
-                         f"got {k_pages.dtype}/{v_pages.dtype}")
-    if q.dim() != 3 or k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
-        raise ValueError(f"bad shapes q{tuple(q.shape)} "
-                         f"k{tuple(k_pages.shape)} v{tuple(v_pages.shape)}")
+    if q.dim() != 3:
+        raise ValueError(f"q must be [B, Hq, D], got {tuple(q.shape)}")
+    a = pool_args("paged_decode_attention", q, k_pages, v_pages, page_table,
+                  cache_len, k_scale, v_scale)
     B, Hq, D = q.shape
-    P, page, Hkv = k_pages.shape[:3]
-    if k_pages.shape[3] != D or D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} (pool {k_pages.shape[3]}) not in "
-                         f"{HEAD_DIMS}")
-    if Hq % Hkv:
-        raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
-    if page_table.dim() != 2 or page_table.shape[0] != B:
-        raise ValueError(f"page_table must be [B={B}, MP], got "
-                         f"{tuple(page_table.shape)}")
-    MP = page_table.shape[1]
     q = _aligned(q)
-    if not (k_pages.is_contiguous() and v_pages.is_contiguous()) or \
-            k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("pools must be contiguous and 16-byte aligned "
-                         "(copying a pool per call would hide its cost)")
-    table = _int32(page_table, (B, MP), dev)
-    clen = _int32(cache_len, (B,), dev)
-    if scaled:
-        k_scale = k_scale.to(torch.float32).contiguous()
-        v_scale = v_scale.to(torch.float32).contiguous()
-        if k_scale.shape != (P, page, Hkv) or v_scale.shape != (P, page, Hkv):
-            raise ValueError(f"scales must be [{P}, {page}, {Hkv}]")
-    out = torch.empty((B, Hq, D), dtype=q.dtype, device=dev)
+    out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
     scale = sm_scale if sm_scale is not None else D ** -0.5
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _entry()(_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale),
-                   _ptr(v_scale), _ptr(out), _ptr(table), _ptr(clen), B, Hq,
-                   Hkv, D, page, MP, _Q_CODE[q.dtype], 2 if scaled else 0,
-                   int(window), float(softcap), float(scale),
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _entry()(_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(a.k_scale),
+                   _ptr(a.v_scale), _ptr(out), _ptr(a.table), _ptr(a.clen),
+                   B, Hq, a.Hkv, D, a.page, a.MP, _Q_CODE[q.dtype],
+                   a.kv_code, int(window), float(softcap), float(scale),
                    ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"paged_decode_attention kernel launch failed: "
-                           f"CUDA error {err}")
+        raise build.KernelError(f"paged_decode_attention kernel launch "
+                                f"failed: CUDA error {err}")
     paged_decode_attention.launches += 1
     return out
 

@@ -108,6 +108,16 @@ def dequantize_pages(pages: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return pages.float() * scale.float()[..., None]
 
 
+def _gather_kv(k_pages, v_pages, page_table, k_scale, v_scale):
+    """Dense K and V of every table row (dequantized to f32 for int8)."""
+    k = gather_pages(k_pages, page_table)
+    v = gather_pages(v_pages, page_table)
+    if k_scale is not None:
+        k = dequantize_pages(k, gather_pages(k_scale, page_table))
+        v = dequantize_pages(v, gather_pages(v_scale, page_table))
+    return k, v
+
+
 def paged_decode_attention(
     q: torch.Tensor,                  # [B, Hq, D]
     k_pages: torch.Tensor,            # [P, page, Hkv, D]
@@ -123,10 +133,30 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """Gather the pages into a dense cache, then dense decode (int8 pools
     are dequantized first; the kernel folds the same scales in)."""
-    k = gather_pages(k_pages, page_table)
-    v = gather_pages(v_pages, page_table)
-    if k_scale is not None:
-        k = dequantize_pages(k, gather_pages(k_scale, page_table))
-        v = dequantize_pages(v, gather_pages(v_scale, page_table))
+    k, v = _gather_kv(k_pages, v_pages, page_table, k_scale, v_scale)
     return decode_attention(q, k, v, cache_len, softcap=softcap,
                             window=window, sm_scale=sm_scale)
+
+
+def paged_verify_attention(
+    q: torch.Tensor,                  # [B, K1, Hq, D] the K1 newest tokens
+    k_pages: torch.Tensor,            # [P, page, Hkv, D]
+    v_pages: torch.Tensor,            # [P, page, Hkv, Dv]
+    page_table: torch.Tensor,         # [B, MP] int32
+    cache_len: torch.Tensor,          # [B] valid tokens (incl. all K1 new ones)
+    *,
+    softcap: float = 0.0,
+    window: int = 0,
+    sm_scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,   # [P, page, Hkv] f32 (int8)
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The speculative verify pass: gather (and dequantize) the pages, then
+    causal ``mha`` with query ``i`` at ``cache_len - K1 + i`` over keys
+    valid below ``cache_len``."""
+    k, v = _gather_kv(k_pages, v_pages, page_table, k_scale, v_scale)
+    K1 = q.shape[1]
+    clen = cache_len.long()
+    q_pos = clen[:, None] - K1 + torch.arange(K1, device=q.device)[None]
+    return mha(q, k, v, causal=True, window=window, softcap=softcap,
+               q_positions=q_pos, kv_valid_len=clen, sm_scale=sm_scale)

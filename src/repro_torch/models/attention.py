@@ -1,10 +1,13 @@
-"""Full attention over paged KV: the serving path of ``repro.models.attention``.
+"""Full attention: the serving path of ``repro.models.attention``.
 
 Layouts are the JAX package's: projections ``w_q [d, H, hd]``,
 ``w_k``/``w_v [d, Hkv, hd]``, ``w_o [H, hd, d]``; pools
-``[P, page, Hkv, D]`` per layer.  Pools are device tensors written in
-place (the JAX functions return a new pool and donate the old one; the
-effect is the same).  Page 0 of every pool is the allocator's trash page.
+``[P, page, Hkv, D]`` and dense caches ``[B, S, Hkv, D]`` per layer.
+Pools and caches are device tensors written in place (the JAX functions
+return a new pool or cache and donate the old one; the effect is the
+same).  Page 0 of every pool is the allocator's trash page.  The dense
+cache serves the speculative draft model; MLA and sliding-window
+attention are not ported.
 """
 from __future__ import annotations
 
@@ -54,6 +57,21 @@ def init_paged_pool(cfg: ModelConfig, num_pages: int, page_size: int,
     return pool
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device=None) -> Pool:
+    """Per-layer dense cache ``[batch, max_seq, Hkv, D]``, zero-filled.
+    Full attention only: the sliding-window ring of the JAX cache comes
+    with the SWA slice."""
+    if cfg.attn_type != "full" or cfg.sliding_window > 0:
+        raise NotImplementedError(f"dense caches need full attention, got "
+                                  f"{cfg.attn_type!r} (ROADMAP Queue A "
+                                  f"item 11)")
+    device = resolve_device(device)
+    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 # ---------------------------------------------------------------------------
 # projections
 # ---------------------------------------------------------------------------
@@ -82,17 +100,34 @@ def _out_proj(params, o, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# full-sequence attention (train / forward)
+# full-sequence attention (train / prefill)
 # ---------------------------------------------------------------------------
 
-def attend(params, x, cfg: ModelConfig, *, positions, causal: bool = True):
-    """[B, T, d] → [B, T, d] over the sequence itself (no cache)."""
+def attend(params, x, cfg: ModelConfig, *, positions, causal: bool = True,
+           cache: Optional[Pool] = None):
+    """[B, T, d] → [B, T, d] over the sequence itself; with ``cache`` (the
+    dense prefill) the sequence's KV is also written into it."""
     x = x.to(cfg.cdtype)
     q, k, v = _qkv(params, x, cfg, positions)
     o = ops.flash_attention(q, k, v, causal=causal, window=0,
                             softcap=cfg.attn_logit_softcap,
                             q_positions=positions, kv_positions=positions)
+    if cache is not None:
+        _fill_cache(cache, k, v, positions)
     return _out_proj(params, o, cfg)
+
+
+def _fill_cache(cache: Pool, k, v, positions):
+    """Write KV [B, T, H, D] into the dense cache at ``positions % S``, in
+    place.  With full attention the wrap is reached only by a free draft
+    slot whose stale length sits at ``max_seq`` (a request that filled
+    its cache in a speculative round): its masked rewrite lands on slot 0,
+    which the next request's prefill overwrites."""
+    S = cache["k"].shape[1]
+    slots = positions.long() % S                          # [B, T]
+    bidx = torch.arange(k.shape[0], device=k.device)[:, None]
+    cache["k"][bidx, slots] = k.to(cache["k"].dtype)
+    cache["v"][bidx, slots] = v.to(cache["v"].dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -170,4 +205,41 @@ def decode_step_paged(params, x, cfg: ModelConfig, pool: Pool, page_table,
         q[:, 0], pool["k"], pool["v"], page_table, cache_len + 1,
         softcap=cfg.attn_logit_softcap,
         k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"))
+    return _out_proj(params, o[:, None], cfg)
+
+
+def verify_step_paged(params, x, cfg: ModelConfig, pool: Pool, page_table,
+                      cache_len):
+    """Speculative verify: append the K1 new tokens' KV [B, K1, d] at
+    ``cache_len .. cache_len+K1-1`` through the table, then score every
+    position in one paged verify kernel with a causal intra-block mask.
+    The engine winds ``cache_len`` back past rejected tokens afterwards;
+    their KV stays behind as masked garbage."""
+    x = x.to(cfg.cdtype)
+    K1 = x.shape[1]
+    positions = cache_len[:, None] + torch.arange(
+        K1, device=x.device, dtype=cache_len.dtype)[None]
+    q, k, v = _qkv(params, x, cfg, positions)
+    _page_scatter(pool, k, v, page_table, positions, cache_len + K1)
+    o = ops.paged_verify_attention(
+        q, pool["k"], pool["v"], page_table, cache_len + K1,
+        softcap=cfg.attn_logit_softcap,
+        k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"))
+    return _out_proj(params, o, cfg)
+
+
+# ---------------------------------------------------------------------------
+# single-token decode over a dense cache
+# ---------------------------------------------------------------------------
+
+def decode_step(params, x, cfg: ModelConfig, cache: Pool, cache_len):
+    """Single-token decode: write the token's KV at ``cache_len`` (its ring
+    slot), then run the dense decode kernel over the valid slots."""
+    x = x.to(cfg.cdtype)
+    positions = cache_len[:, None]
+    q, k, v = _qkv(params, x, cfg, positions)
+    _fill_cache(cache, k, v, positions)
+    valid = torch.clamp(cache_len + 1, max=cache["k"].shape[1])
+    o = ops.decode_attention(q[:, 0], cache["k"], cache["v"], valid,
+                             softcap=cfg.attn_logit_softcap)
     return _out_proj(params, o[:, None], cfg)

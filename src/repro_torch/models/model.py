@@ -8,9 +8,14 @@
     logits = model.prefill_chunk(params, {"tokens": chunk}, pools, start,
                                  new_len, page_table=row)      # [B, V]
     logits = model.decode_paged(params, tokens, pools, table, cache_len)
+    logits = model.verify_paged(params, block, pools, table, cache_len)
+    caches = model.init_caches(batch, max_seq)                 # dense
+    logits, cache_len = model.prefill(params, {"tokens": toks}, caches,
+                                      last_index)
+    logits = model.decode(params, tokens, caches, cache_len)
 
 Params are nested dicts of tensors with the JAX leaf names and stacked
-``[L, ...]`` block leaves.  Pools update in place.
+``[L, ...]`` block leaves.  Pools and caches update in place.
 """
 from __future__ import annotations
 
@@ -109,6 +114,54 @@ class Model:
         x = transformer.forward_stack(
             params["stack"], x, cfg, positions=None, mode="decode",
             caches=caches, cache_len=cache_len, page_table=page_table)
+        logits = apply_lm_head(params["embed"], params.get("head"), x, cfg)
+        return logits[:, 0]
+
+    def verify_paged(self, params: Params, tokens: torch.Tensor,
+                     caches: Params, page_table: torch.Tensor,
+                     cache_len: torch.Tensor):
+        """Speculative verify step: tokens [B, K1] (the last committed
+        token and the draft's proposals) → logits [B, K1, V].  All K1
+        tokens' KV is appended at ``cache_len .. cache_len+K1-1``; the
+        caller winds ``cache_len`` back past a rejected suffix."""
+        cfg = self.cfg
+        x = apply_embedding(params["embed"], tokens, cfg)
+        x = transformer.forward_stack(
+            params["stack"], x, cfg, positions=None, mode="verify",
+            caches=caches, cache_len=cache_len, page_table=page_table)
+        return apply_lm_head(params["embed"], params.get("head"), x, cfg)
+
+    def init_caches(self, batch: int, max_seq: int,
+                    dtype=torch.bfloat16) -> Params:
+        """Dense caches ``[L, batch, S, Hkv, D]`` (the draft's slot cache)."""
+        return transformer.init_cache_tree(self.cfg, batch, max_seq, dtype,
+                                           self.device)
+
+    def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
+                caches: Params, last_index: torch.Tensor):
+        """Fill dense caches with a right-padded prompt [B, T] from
+        position 0; ``last_index`` [B] is the position of each row's last
+        real token.  Returns (its logits [B, V], cache_len [B])."""
+        cfg = self.cfg
+        x = apply_embedding(params["embed"], batch["tokens"], cfg)
+        B, T = x.shape[:2]
+        x = transformer.forward_stack(params["stack"], x, cfg,
+                                      positions=self._positions(B, T),
+                                      mode="prefill", caches=caches)
+        last = x[torch.arange(B, device=x.device), last_index.long()]
+        logits = apply_lm_head(params["embed"], params.get("head"),
+                               last[:, None], cfg)
+        return logits[:, 0], last_index + 1
+
+    def decode(self, params: Params, tokens: torch.Tensor, caches: Params,
+               cache_len: torch.Tensor):
+        """One decode step over dense caches: tokens [B] → logits [B, V];
+        the new token's KV is written at ``cache_len``."""
+        cfg = self.cfg
+        x = apply_embedding(params["embed"], tokens[:, None], cfg)
+        x = transformer.forward_stack(
+            params["stack"], x, cfg, positions=None, mode="decode",
+            caches=caches, cache_len=cache_len)
         logits = apply_lm_head(params["embed"], params.get("head"), x, cfg)
         return logits[:, 0]
 

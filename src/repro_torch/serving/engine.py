@@ -10,12 +10,21 @@ eviction, then preemption of a strictly-lower-QoS request, else a stall).
 The engine is caller-driven (``step``/``run_until_drained``/a handle's
 ``result``) or runs a background loop (``start``/``stop``/``drain``).
 
+With a draft model (``draft_cfg``) each decode tick is speculative: the
+draft proposes k tokens per row, the target verifies all k+1 positions in
+one paged pass and commits the accepted prefix plus its own correction
+token, so greedy output is the same as without the draft.  A failing
+draft turns speculation off, as in the JAX engine, except when a kernel
+failed to build or launch (``KernelError``): that fails the batch, so a
+broken kernel never hides behind the plain tick.  ``kv_dtype="int8"``
+stores the pages as int8 with per-token scales.
+
 Where the JAX engine jits each step with buffer donation, this one runs
 eagerly and updates the pools, page table and lengths in place; the
 tensors live on the engine's device (``cuda`` unless ``device="cpu"``).
-Ported: the paged, full-attention, non-speculative path.  Speculative
-decoding, int8 pools in the engine, the dense slot families and
-``EngineExecutor`` raise ``NotImplementedError`` naming their ROADMAP item.
+Ported: the paged, full-attention path, speculative or not, with pages in
+the compute dtype or int8.  The dense slot families and ``EngineExecutor``
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -32,10 +41,13 @@ import torch
 
 from repro_torch.core.telemetry import DispatchSample, DispatchStats, percentile
 from repro_torch.device import resolve_device
+from repro_torch.kernels.build import KernelError
+from repro_torch.kernels.paged_verify_attention import MAX_K1
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import build_model, cast_params, to_device
 from repro_torch.serving.kv_cache import PagedKVCache, autotune_page_size
 from repro_torch.serving.prefix import PrefixRadixIndex
+from repro_torch.serving.spec_decode import DraftSpeculator
 
 # page-growth preemption order: a dry pool preempts strictly-lower-rank
 # requests only; preemption requeues, it never drops
@@ -66,6 +78,9 @@ class Request:
     future: Optional["Future[Request]"] = None
     shared_nodes: List[Any] = dataclasses.field(default_factory=list)
     kv_shared_tokens: int = 0
+    # speculative decoding: acceptance-rate EMA driving this request's
+    # preferred draft length (0.5 = neutral prior)
+    spec_ema: float = 0.5
 
 
 def slo_slack(req: Request, now: float) -> float:
@@ -118,15 +133,11 @@ class ServingEngine:
                  prefix_sharing: bool = True,
                  kv_dtype: str = "auto",
                  draft_cfg: Optional[ModelConfig] = None,
-                 draft_params: Optional[Dict] = None):
-        if draft_cfg is not None or draft_params is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP Queue A "
-                "item 8)")
-        if kv_dtype != "auto":
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r}: int8 pools in the engine come with "
-                "the speculation slice (ROADMAP Queue A item 8)")
+                 draft_params: Optional[Dict] = None,
+                 spec_k_max: int = 4):
+        if kv_dtype not in ("auto", "int8"):
+            raise ValueError(f"kv_dtype must be 'auto' (the compute dtype) "
+                             f"or 'int8', got {kv_dtype!r}")
         if paged is False:
             raise NotImplementedError(
                 "the dense slot data plane is not ported yet (ROADMAP "
@@ -143,7 +154,8 @@ class ServingEngine:
         self.max_slots = max_slots
         self.max_seq = max_seq
         self.buckets = _buckets(max_seq)
-        self.kv_dtype = cfg.cdtype
+        # int8 pages carry per-token f32 scales, dequantized in the kernels
+        self.kv_dtype = cfg.cdtype if kv_dtype == "auto" else torch.int8
         if page_size == "auto":
             page_size = autotune_page_size(cfg, dtype=self.kv_dtype)
         self.kv = PagedKVCache(cfg, max_slots, max_seq, page_size=page_size,
@@ -190,6 +202,27 @@ class ServingEngine:
         self._thread: Optional[threading.Thread] = None
         self._running = False
 
+        # ---- speculative decoding --------------------------------------
+        self.spec_k_max = int(spec_k_max)
+        self._draft: Optional[DraftSpeculator] = None
+        self._spec_disabled_reason: Optional[str] = None
+        self.spec_proposed = 0        # draft tokens offered to the target
+        self.spec_accepted = 0        # draft tokens the target kept
+        self.spec_rounds = 0          # verify launches
+        self.draft_ticks = 0          # draft propose launches
+        if draft_cfg is not None:
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab_size} != target vocab "
+                    f"{cfg.vocab_size}: the models must share a tokenizer")
+            if not 1 <= self.spec_k_max < MAX_K1:
+                raise ValueError(f"spec_k_max must be in [1, {MAX_K1 - 1}] "
+                                 f"(the verify kernel takes at most {MAX_K1}"
+                                 f" query tokens), got {spec_k_max}")
+            self._draft = DraftSpeculator(draft_cfg, max_slots, max_seq,
+                                          params=draft_params, seed=seed + 1,
+                                          device=self.device)
+
     # ------------------------------------------------------------ steps
     def _chunk(self, tokens, table_row, start, new_len):
         """One prefill chunk straight into the request's pages → logits."""
@@ -210,6 +243,29 @@ class ServingEngine:
             new_len = torch.where(active, cache_len + 1, cache_len)
         return nxt, new_len
 
+    def _verify(self, page_table, tokens_blk, cache_len, last_tokens,
+                active):
+        """Target-verify one speculative block → (tgt, acc, nxt, new_len).
+
+        ``tokens_blk`` [B, K1=k+1] is ``[last, d1..dk]`` per row; their KV
+        lands at ``cache_len..cache_len+k``.  ``acc`` counts the leading
+        drafts that match the target's greedy choice, ``nxt`` is the
+        target's token at the first disagreement (the plain greedy
+        continuation when every draft matched), and the new length winds
+        back past the rejected suffix."""
+        with torch.no_grad():
+            logits = self.model.verify_paged(self._run_params, tokens_blk,
+                                             self.kv.pools, page_table,
+                                             cache_len)
+            tgt = torch.argmax(logits, dim=-1).to(torch.int32)    # [B, K1]
+            match = (tgt[:, :-1] == tokens_blk[:, 1:]).to(torch.int32)
+            acc = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
+            acc = torch.where(active, acc, 0)
+            new_len = torch.where(active, cache_len + 1 + acc, cache_len)
+            nxt = torch.gather(tgt, 1, acc[:, None].long())[:, 0]
+            nxt = torch.where(active, nxt, last_tokens)
+        return tgt, acc, nxt, new_len
+
     def _i32(self, values) -> torch.Tensor:
         return torch.as_tensor(np.asarray(values, np.int32),
                                device=self.device)
@@ -221,12 +277,15 @@ class ServingEngine:
     # ------------------------------------------------------------- warmup
     def warmup(self) -> "ServingEngine":
         """Run every chunk bucket and the decode step once before traffic
-        (first CUDA launches, kernel builds, library handles).
+        (first CUDA launches, kernel builds, library handles); with a
+        draft also every speculative depth's propose and verify and every
+        draft prefill bucket.
 
         State-neutral: chunks run against an all-zero table row with
         ``new_len = 0`` (every token is masked padding, every write lands
-        on the trash page) and decode runs with an all-inactive mask.
-        Idempotent."""
+        on the trash page), decode, propose and verify run with an
+        all-inactive mask, and the draft lengths go back to 0 after the
+        prefills wrote slot 0's scratch.  Idempotent."""
         with self._lock:
             if self._warm:
                 return self
@@ -243,6 +302,17 @@ class ServingEngine:
             self.last_tokens, self.kv.cache_len = self._decode(
                 self.kv.page_table, self.last_tokens, self.kv.cache_len,
                 inactive)
+            if self._draft is not None:
+                for kk in range(1, self.spec_k_max + 1):
+                    drafts = self._draft.propose(self.last_tokens, inactive,
+                                                 kk)
+                    blk = torch.cat([self.last_tokens[:, None], drafts], 1)
+                    _, _, self.last_tokens, self.kv.cache_len = self._verify(
+                        self.kv.page_table, blk, self.kv.cache_len,
+                        self.last_tokens, inactive)
+                for b in self.buckets:
+                    self._draft.prefill(np.zeros((b,), np.int32), 0)
+                self._draft.kv.cache_len.zero_()
             self._sync()
             self.warmup_s = time.monotonic() - t0
             self._warm = True
@@ -508,6 +578,19 @@ class ServingEngine:
         # ---- prompt complete: publish the row and enter decode ----------
         self.kv.install(req.slot, req.table_row, plen)
         self.last_tokens[req.slot] = first
+        if self._draft is not None and req.max_new_tokens > 1:
+            # mirror the prompt into the draft's slot so the first
+            # speculative tick starts in sync; a draft failure turns
+            # speculation off and never fails the request, unless a
+            # kernel failed to build or launch
+            try:
+                self._draft.prefill(req.prompt, req.slot)
+            except KernelError as e:
+                self._fail_all(e)
+                return real
+            except Exception as e:  # noqa: BLE001 — the draft's cache is
+                # its own; the target's pools are untouched
+                self._disable_spec(f"draft prefill: {e}")
         req.generated.append(first)
         now = time.monotonic()
         req.first_token_at = now
@@ -577,11 +660,13 @@ class ServingEngine:
         self._requeue(victim)
         return victim
 
-    def _grow_decode_pages(self, dec: List[Request]) -> set:
-        """Give each decoding row about to write past its last page one
-        more page: free list, then radix eviction, then preemption of a
-        lower-QoS request; a row that still has none stalls this tick.
-        Returns the stalled rids."""
+    def _grow_decode_pages(self, dec: List[Request], span: int = 1) -> set:
+        """Give each decoding row about to write past its last page the
+        pages it needs: free list, then radix eviction, then preemption of
+        a lower-QoS request; a row that still lacks one stalls this tick.
+        ``span`` is how many consecutive KV positions the tick writes: 1
+        for plain decode, k+1 for a speculative tick, which can cross more
+        than one page boundary.  Returns the stalled rids."""
         stalled = set()
         order = sorted(dec, key=lambda r: (-_QOS_RANK.get(r.qos, 1),
                                            r.admitted_at or 0.0))
@@ -592,7 +677,8 @@ class ServingEngine:
             pos = len(req.prompt) + len(req.generated) - 1
             if pos >= self.max_seq:
                 continue
-            need = pos // self.kv.page_size + 1
+            last = min(pos + span - 1, self.max_seq - 1)
+            need = last // self.kv.page_size + 1
             ok = True
             while len(self.kv.slot_pages[req.slot]) < need:
                 if self.kv.append_page(req.slot) is not None:
@@ -625,12 +711,124 @@ class ServingEngine:
                     stalled.discard(req.rid)
         return stalled
 
+    # -------------------------------------------------- speculative decode
+    def _disable_spec(self, reason: str):
+        self._draft = None
+        self._spec_disabled_reason = reason
+
+    def _spec_k(self, dec: List[Request]) -> int:
+        """Batch draft length for this tick: the min over rows of each
+        request's EMA-preferred k, clamped so the k+1 verify positions fit
+        under ``max_seq`` for every row.  < 1 → a normal tick."""
+        k = self.spec_k_max
+        for r in dec:
+            pos = len(r.prompt) + len(r.generated) - 1
+            room = self.max_seq - 1 - pos     # need pos + k <= max_seq - 1
+            pref = max(1, round(r.spec_ema * self.spec_k_max))
+            k = min(k, pref, room)
+        return k
+
+    def _spec_decode_tick(self, dec: List[Request],
+                          k: int) -> Optional[Tuple[int, int]]:
+        """One speculative tick: the draft proposes k tokens per decoding
+        row, the target verifies all k+1 positions in one paged pass, and
+        the accepted prefix plus the target's correction token commit.
+        Returns ``(rows, committed_tokens)``, or ``None`` when the draft
+        failed: speculation turns itself off and the caller serves the
+        batch with a normal tick.  A ``KernelError`` from the draft fails
+        the batch instead."""
+        stalled = self._grow_decode_pages(dec, span=k + 1)
+        dec = [r for r in dec if r.rid in self.active
+               and r.phase == "decode" and r.rid not in stalled]
+        if not dec:
+            return 0, 0
+        active_mask = np.zeros((self.max_slots,), bool)
+        for req in dec:
+            active_mask[req.slot] = True
+        active = torch.as_tensor(active_mask, device=self.device)
+        try:
+            drafts = self._draft.propose(self.last_tokens, active, k)
+            self.draft_ticks += 1
+        except KernelError as e:
+            # a kernel that fails to build or launch is a fault of the
+            # build or the card, which serving on without speculation
+            # would hide: fail the batch, as a failed verify does
+            self._fail_all(e)
+            return 0, 0
+        except Exception as e:  # noqa: BLE001 — the draft writes only its
+            # own cache; the target's pools are untouched, so serve on
+            # without speculation instead of failing the batch
+            self._disable_spec(f"draft propose: {e}")
+            return None
+        tokens_blk = torch.cat([self.last_tokens[:, None], drafts], dim=1)
+        try:
+            tgt, acc, nxt, new_len = self._verify(
+                self.kv.page_table, tokens_blk, self.kv.cache_len,
+                self.last_tokens, active)
+            self.kv.cache_len = new_len
+            self.last_tokens = nxt
+            self._draft.observe(new_len, active)
+            # ONE device sync per tick (not one per request)
+            tgt_np = tgt.cpu().numpy()
+            drafts_np = drafts.cpu().numpy()
+            accs = acc.cpu().numpy()
+            clens = new_len.cpu().numpy()
+        except Exception as e:  # noqa: BLE001 — verify writes the SHARED
+            # pools: the same blast radius as a failed decode
+            self._fail_all(e)
+            return 0, 0
+        now = time.monotonic()
+        committed_total = 0
+        finished = []
+        for req in dec:
+            a = int(accs[req.slot])
+            committed = [int(x) for x in drafts_np[req.slot, :a]]
+            committed.append(int(tgt_np[req.slot, a]))
+            self.spec_proposed += k
+            self.spec_accepted += a
+            req.spec_ema = 0.7 * req.spec_ema + 0.3 * (a / k)
+            for t in committed:
+                req.generated.append(t)
+                committed_total += 1
+                if (req.eos_token is not None and t == req.eos_token) or \
+                        len(req.generated) >= req.max_new_tokens:
+                    finished.append(req)
+                    break
+            else:
+                if int(clens[req.slot]) >= self.kv.max_seq - 1:
+                    finished.append(req)
+        self.spec_rounds += 1
+        self.dispatch_stats.set_extra("speculation", {
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
+            "acceptance_rate": self.spec_accepted / self.spec_proposed
+            if self.spec_proposed else 0.0,
+            "draft_ticks": self.draft_ticks,
+        })
+        for req in finished:
+            self._finish(req, now)
+        return len(dec), committed_total
+
     # ------------------------------------------------------- decode phase
     def _decode_tick(self) -> Tuple[int, int]:
-        """Advance the decode batch by one token; (rows, tokens)."""
+        """Advance the decode batch; (rows, tokens committed).  A
+        speculative tick commits up to k+1 tokens per row, a normal tick
+        exactly one."""
         dec = [r for r in self.active.values() if r.phase == "decode"]
         if not dec:
             return 0, 0
+        if self._draft is not None:
+            k = self._spec_k(dec)
+            if k >= 1:
+                out = self._spec_decode_tick(dec, k)
+                if out is not None:
+                    return out
+                # the draft failed mid-tick: growth may have requeued
+                # rows, so recompute the batch and serve it normally
+                dec = [r for r in self.active.values()
+                       if r.phase == "decode"]
+                if not dec:
+                    return 0, 0
         stalled = self._grow_decode_pages(dec)
         dec = [r for r in dec if r.rid in self.active
                and r.phase == "decode" and r.rid not in stalled]
@@ -750,7 +948,17 @@ class ServingEngine:
                 "decode_stalls": self.decode_stalls,
                 "kv_shared_pages_attached": sum(
                     self.kv.slot_shared.values()),
+                # speculative decoding (zeros while off or disabled)
+                "speculative": self._draft is not None,
+                "spec_proposed": self.spec_proposed,
+                "spec_accepted": self.spec_accepted,
+                "acceptance_rate": self.spec_accepted / self.spec_proposed
+                if self.spec_proposed else 0.0,
+                "spec_rounds": self.spec_rounds,
+                "draft_ticks": self.draft_ticks,
             }
+            if self._spec_disabled_reason:
+                out["spec_disabled_reason"] = self._spec_disabled_reason
             if self.prefix is not None:
                 for k, v in self.prefix.stats().items():
                     out[f"radix_{k}"] = v

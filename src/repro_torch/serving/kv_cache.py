@@ -1,4 +1,6 @@
-"""Paged KV cache manager: the port of ``repro.serving.kv_cache.PagedKVCache``.
+"""KV cache managers: the port of ``repro.serving.kv_cache``'s
+``PagedKVCache`` (the serving data plane) and ``SlotKVCache`` (the dense
+slot cache of the speculative draft model).
 
 Every layer holds a ``[num_pages, page_size, Hkv, D]`` pool (stacked
 ``[L, ...]``); each admitted request owns a page-table row mapping its
@@ -44,6 +46,32 @@ def autotune_page_size(cfg: ModelConfig, dtype=torch.bfloat16,
     bpt = max(kv_bytes_per_token(cfg, dtype), 1)
     return min((8 << i for i in range(5)),
                key=lambda ps: abs(ps * bpt - target_page_bytes))
+
+
+class SlotKVCache:
+    """Dense slot cache: one ``[L, max_slots, S, Hkv, D]`` tree whose batch
+    axis holds one sequence per slot (the speculative draft's cache, whose
+    slots mirror the engine's, so it allocates none of its own).  A batch-1
+    prefill cache is copied into a slot by ``insert``; decode advances all
+    slots together.  The JAX cache's byte accounting comes with the
+    control-plane slice that reads it (ROADMAP Queue A item 9)."""
+
+    def __init__(self, cfg: ModelConfig, max_slots: int, max_seq: int,
+                 dtype=torch.bfloat16, device=None):
+        self.cfg = cfg
+        self.max_slots = max_slots
+        self.max_seq = max_seq
+        self.device = resolve_device(device)
+        self.caches = transformer.init_cache_tree(cfg, max_slots, max_seq,
+                                                  dtype, self.device)
+        self.cache_len = torch.zeros((max_slots,), dtype=torch.int32,
+                                     device=self.device)
+
+    def insert(self, slot_caches, slot: int, length: int):
+        """Copy a batch-1 cache tree into ``slot`` and set its length."""
+        for name, big in self.caches["attn"].items():
+            big[:, slot] = slot_caches["attn"][name][:, 0]
+        self.cache_len[slot] = length
 
 
 class PagedKVCache:

@@ -258,10 +258,6 @@ def test_unported_branches_raise():
     from repro_torch.serving.engine import EngineExecutor
 
     jcfg, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ServingEngine(tcfg, device="cpu", draft_cfg=tcfg)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ServingEngine(tcfg, device="cpu", kv_dtype="int8")
     with pytest.raises(NotImplementedError, match="item 11"):
         ServingEngine(tcfg, device="cpu", paged=False)
     with pytest.raises(NotImplementedError, match="item 11"):

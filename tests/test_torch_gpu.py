@@ -36,6 +36,25 @@ PAGED_CASES = [
     (2, 8, 2, 32, 16, 6, 15, 0, 20.0),
     (2, 16, 2, 128, 8, 4, 12, 0, 0.0),
 ]
+# tests/test_spec_decode.py:35 (window 0), then a deepest-K1 windowed case;
+# test_torch_spec.py runs the same cases against JAX
+VERIFY_CASES = [
+    # B, K1, Hq, Hkv, D, page, MP, num_pages, softcap, window
+    (2, 3, 4, 2, 32, 16, 4, 11, 0.0, 0),
+    (1, 5, 8, 1, 64, 16, 8, 30, 0.0, 0),
+    (2, 1, 4, 4, 32, 32, 4, 9, 0.0, 0),
+    (2, 4, 8, 2, 32, 16, 6, 15, 20.0, 0),
+    (3, 8, 16, 2, 128, 8, 6, 20, 0.0, 24),
+]
+DECODE_CASES = [
+    # B, Hq, Hkv, D, S, window, softcap (S 100 and 70: not a multiple of
+    # the Pallas block_k of 32 nor of the CUDA kernel's 32-key tile)
+    (2, 4, 2, 32, 64, 0, 0.0),
+    (3, 8, 1, 64, 100, 0, 0.0),
+    (2, 8, 2, 32, 96, 40, 0.0),
+    (2, 4, 4, 32, 64, 0, 20.0),
+    (1, 16, 2, 128, 70, 16, 30.0),
+]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3.5e-2}
 
 
@@ -89,6 +108,76 @@ def test_paged_kernel_matches_plain(case, dtype, cuda):
     assert got.dtype == dtype and _rel(want, got) < TOL[dtype]
 
 
+def _pools(g, P, page, Hkv, D, dtype, int8, cuda):
+    from repro_torch.models.attention import _quantize
+
+    kf = torch.randn(P, page, Hkv, D, generator=g, device=cuda)
+    vf = torch.randn(P, page, Hkv, D, generator=g, device=cuda)
+    if not int8:
+        return kf.to(dtype), vf.to(dtype), {}
+    (kq, ks), (vq, vs) = _quantize(kf), _quantize(vf)
+    return kq, vq, dict(k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.parametrize("case", VERIFY_CASES)
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_kernel_matches_plain(case, int8, dtype, cuda):
+    B, K1, Hq, Hkv, D, page, MP, P, softcap, window = case
+    g = torch.Generator(device=cuda).manual_seed(K1 * 7 + MP)
+    q = torch.randn(B, K1, Hq, D, generator=g, device=cuda).to(dtype)
+    kp, vp, scales = _pools(g, P, page, Hkv, D, dtype, int8, cuda)
+    table = torch.randint(0, P, (B, MP), generator=g, device=cuda,
+                          dtype=torch.int32)
+    clen = torch.randint(K1, MP * page + 1, (B,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    kw = dict(window=window, softcap=softcap, **scales)
+    got = ops.paged_verify_attention(q, kp, vp, table, clen, **kw)
+    want = ref.paged_verify_attention(q, kp, vp, table, clen, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and _rel(want, got) < TOL[dtype]
+    if K1 == 1:                  # one verify token is one decode step
+        dec = ops.paged_decode_attention(q[:, 0], kp, vp, table, clen, **kw)
+        assert _rel(dec, got[:, 0]) < TOL[dtype]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain(case, dtype, cuda):
+    B, Hq, Hkv, D, S, window, softcap = case
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q = torch.randn(B, Hq, D, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, S, Hkv, D, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, S, Hkv, D, generator=g, device=cuda).to(dtype)
+    clen = torch.randint(1, S + 1, (B,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    kw = dict(window=window, softcap=softcap)
+    got = ops.decode_attention(q, k, v, clen, **kw)
+    want = ref.decode_attention(q, k, v, clen, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and _rel(want, got) < TOL[dtype]
+
+
+def test_verify_and_decode_ignore_stale_keys(cuda):
+    """Keys at or past ``cache_len`` hold huge values (a rejected
+    speculative suffix, a stale dense row): neither kernel loads them,
+    and ``cache_len = 0`` gives 0."""
+    q = torch.randn(2, 3, 8, 64, device=cuda)
+    kp = torch.randn(5, 16, 2, 64, device=cuda)
+    kp[2, 4:] = 1e30                       # row 1: positions 20..31
+    table = torch.tensor([[1, 2], [1, 2]], dtype=torch.int32, device=cuda)
+    clen = torch.tensor([3, 20], dtype=torch.int32, device=cuda)
+    got = ops.paged_verify_attention(q, kp, kp, table, clen)
+    want = ref.paged_verify_attention(q, kp, kp, table, clen)
+    k = torch.randn(2, 40, 2, 64, device=cuda)
+    k[:, 20:] = 1e30
+    dec = ops.decode_attention(q[:, 0], k, k, torch.tensor(
+        [0, 20], dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and _rel(want, got) < 2e-5
+    assert bool((dec[0] == 0).all()) and bool(torch.isfinite(dec).all())
+
+
 def test_empty_rows_give_zero(cuda):
     q = torch.randn(1, 16, 4, 64, device=cuda)
     k = torch.randn(1, 64, 2, 64, device=cuda)
@@ -127,3 +216,30 @@ def test_flash_kernel_lse(dtype, cuda):
     assert lse.dtype == torch.float32 and lse.shape == (B, T, Hq)
     assert torch.allclose(lse, want.transpose(1, 2), atol=1e-4, rtol=1e-5)
     assert _rel(ref.mha(q, k, k), out) < TOL[dtype]
+
+
+def test_draft_kernel_launch_failure_fails_the_batch(cuda, monkeypatch):
+    """A ``decode_attention`` launch that returns a CUDA error raises
+    ``KernelError`` from the wrapper, and the speculative engine fails
+    the batch rather than turning speculation off around it."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = dataclasses.replace(get_reduced_config("tinyllama-1.1b"),
+                              compute_dtype="float32")
+    eng = ServingEngine(cfg, draft_cfg=dataclasses.replace(cfg, num_layers=1),
+                        max_slots=2, max_seq=64, seed=1, device=cuda)
+    monkeypatch.setattr(da, "_fn", lambda *a: 1)    # cudaErrorInvalidValue
+    for p in (np.arange(7), np.arange(3, 15)):
+        eng.submit(p, max_new_tokens=6)
+    assert eng.run_until_drained() == []
+    st = eng.stats()
+    assert st["failed"] == 2 and st["speculative"]
+    assert "spec_disabled_reason" not in st
+    assert all("decode_attention kernel launch failed" in r.error
+               for r in eng.failed.values())

@@ -12,6 +12,12 @@ other three together.  The second wave's first prompt extends the first
 prompt's first 35 tokens, so its admission attaches two shared pages and
 copy-seeds a third from the radix tail (a mid-page COW).
 
+The same waves are served again speculatively, with a random 1-layer,
+1-head draft (seed 0, ``spec_k_max=3``), once over pages in the compute
+dtype (``spec_streams_auto``) and once over int8 pages
+(``spec_streams_int8``); the draft's config and parameters are stored
+beside the target's.
+
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_port_golden.py
 """
 from __future__ import annotations
@@ -28,6 +34,9 @@ PATH = os.path.join(os.path.dirname(__file__), "data",
 ENGINE = dict(max_slots=2, max_seq=64, page_size=16, prefill_chunk=16,
               prefill_budget=16)
 MAX_NEW = 8
+DRAFT = dict(num_layers=1, num_heads=1, num_kv_heads=1, d_ff=32)
+SPEC_K_MAX = 3
+WAVES = [0, 1, 1, 1]
 
 
 def _prompts():
@@ -39,26 +48,48 @@ def _prompts():
             rng.integers(0, 256, size=5)]
 
 
+def _serve(eng, prompts):
+    """Serve the waves; the greedy streams in submission order."""
+    for w in (0, 1):
+        for p, pw in zip(prompts, WAVES):
+            if pw == w:
+                eng.submit(p, max_new_tokens=MAX_NEW)
+        eng.run_until_drained()
+    assert eng.kv.cow_copies == 1, eng.kv.cow_copies
+    done = sorted(eng.completed.values(), key=lambda r: r.rid)
+    return np.array([r.generated for r in done], np.int32)
+
+
+def _flat_params(prefix: str, params) -> dict:
+    import jax
+
+    flat = jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(lambda a: np.asarray(a, np.float32), params))[0]
+    return {prefix + "/".join(k.key for k in path): leaf
+            for path, leaf in flat}
+
+
 def make() -> dict:
     """Regenerate the fixture's arrays with the JAX package."""
     import jax
     import jax.numpy as jnp
 
     from repro.configs import get_reduced_config
+    from repro.models.model import build_model
     from repro.serving.engine import ServingEngine
 
     cfg = dataclasses.replace(get_reduced_config("tinyllama-1.1b"),
                               compute_dtype="float32")
+    dcfg = dataclasses.replace(cfg, **DRAFT)
     eng = ServingEngine(cfg, seed=0, **ENGINE)
+    dparams = build_model(dcfg).init(jax.random.key(0))
     prompts = _prompts()
-    waves = [0, 1, 1, 1]
-    for w in (0, 1):
-        for p, pw in zip(prompts, waves):
-            if pw == w:
-                eng.submit(p, max_new_tokens=MAX_NEW)
-        eng.run_until_drained()
-    done = sorted(eng.completed.values(), key=lambda r: r.rid)
-    assert eng.kv.cow_copies == 1, eng.kv.cow_copies
+    streams = _serve(eng, prompts)
+    spec = {kv: _serve(ServingEngine(cfg, params=eng.params, **ENGINE,
+                                     kv_dtype=kv, draft_cfg=dcfg,
+                                     draft_params=dparams,
+                                     spec_k_max=SPEC_K_MAX), prompts)
+            for kv in ("auto", "int8")}
     first = [np.asarray(eng.model.forward(
         eng.params, {"tokens": jnp.asarray(p[None], jnp.int32)})[0])[0, -1]
         for p in prompts]
@@ -71,15 +102,17 @@ def make() -> dict:
         "engine": np.array(json.dumps(ENGINE, sort_keys=True)),
         "prompts": padded,
         "prompt_lens": lens,
-        "waves": np.array(waves, np.int32),
+        "waves": np.array(WAVES, np.int32),
         "max_new": np.array(MAX_NEW, np.int32),
-        "streams": np.array([r.generated for r in done], np.int32),
+        "streams": streams,
         "first_logits": np.stack(first).astype(np.float32),
+        "draft_config": np.array(json.dumps(dcfg.to_dict(), sort_keys=True)),
+        "spec_k_max": np.array(SPEC_K_MAX, np.int32),
+        "spec_streams_auto": spec["auto"],
+        "spec_streams_int8": spec["int8"],
     }
-    flat = jax.tree_util.tree_flatten_with_path(
-        jax.tree.map(lambda a: np.asarray(a, np.float32), eng.params))[0]
-    for path, leaf in flat:
-        out["params/" + "/".join(k.key for k in path)] = leaf
+    out.update(_flat_params("params/", eng.params))
+    out.update(_flat_params("draft_params/", dparams))
     return out
 
 
