@@ -11,12 +11,14 @@ continues:
 2. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (bf16 and fp32, window and softcap variants,
    int8 pools for the paged kernels, K1 of 1, 2 and 5 for the verify
-   kernel, which at K1 = 1 is also held against the paged decode kernel),
+   kernel, which at K1 = 1 is also held against the paged decode kernel)
+   and the backward kernels at the train step's (causal, non-causal,
+   window, softcap, an empty row, G 1 and 8, Tq < Tk, D 32/64/128),
    with CUDA-event times for the kernel, its plain version and a library
    yardstick (``F.scaled_dot_product_attention`` with an explicit mask
-   over the same dense or gathered KV; timed here only, never called by
-   the port), and the bound: bytes over 3.35 TB/s or operations over the
-   peak rate;
+   over the same dense or gathered KV, and its backward for the backward
+   kernels; timed here only, never called by the port), and the bound:
+   bytes over 3.35 TB/s or operations over the peak rate;
 3. serve: full-width tinyllama-1.1b (22 layers, bf16 compute, random
    weights from a seed) in ``ServingEngine``, 8 requests plus a 256-token
    shared-prefix pair, through the background loop; every request must
@@ -35,8 +37,23 @@ continues:
    and in int8 (a token may differ only at a top-2 margin <= 1e-3);
 5. golden: the JAX reference's token streams (``tests/data``), plain and
    speculative, reproduced by the port on the card in fp32;
-6. the kernels line (each kernel's launches from the path that runs it),
-   then the last line
+6. train: ``Trainer`` at full tinyllama-1.1b width (fp32 parameters and
+   AdamW moments, bf16 compute) on the bigram stream at B 8 x T 1024, 6
+   steps: every loss and grad norm finite, the parameters still after
+   step 1 (lr 0) and moved after step 2, the forward flash, dq and dk/dv
+   kernels each launched 22 x 6 times; median step time, tokens/s, peak
+   memory and a profiled step's device busy share and top kernels; an
+   async checkpoint restored into a fresh ``Trainer`` gives the same next
+   loss;
+7. train consistency: fp32 at full width, 2 layers, every gradient leaf of
+   ``Model.loss`` through the kernels against the plain path within 2e-4
+   relative; a reduced fp32 model trained 30 steps through the kernels
+   lowers its loss by more than 0.3;
+8. golden train: the JAX trainer's 5 fp32 steps from the fixture,
+   replayed through the kernels from its step-0 state: losses and grad
+   norms within 1e-4 relative, final parameters within 1e-4;
+9. the kernels line (each kernel's launches from the path that runs it:
+   per request for serving, per step for training), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -45,6 +62,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -289,6 +307,65 @@ def _sdpa_dense(torch, F, args, kw):
         q[:, :, None], kt, vt, attn_mask=mask[:, None, None])
 
 
+def _bwd_case(torch, gen, dtype, dims, causal=True, window=0, softcap=0.0,
+              valid=False, index_kv=False):
+    """Inputs of the backward kernels as the train step gives them:
+    q/k/v/do random, ``out`` and ``lse`` from the forward kernel, the
+    query positions the last Tq of Tk, the key positions explicit (the
+    train-mode forward passes them; ``index_kv`` leaves them None), with
+    ``valid`` batch row 0 sees no key and the others the first 3/4."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    dt = getattr(torch, dtype)
+    B, Tq, Tk, Hq, Hkv, D = dims
+    q = torch.randn(B, Tq, Hq, D, generator=gen, device="cuda").to(dt)
+    k = torch.randn(B, Tk, Hkv, D, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, Tk, Hkv, D, generator=gen, device="cuda").to(dt)
+    do = torch.randn(B, Tq, Hq, D, generator=gen, device="cuda").to(dt)
+    qp = np.arange(Tk - Tq, Tk)
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_positions=torch.tensor(qp, device="cuda",
+                                       dtype=torch.int32)[None].expand(B, Tq))
+    if not index_kv:
+        kw["kv_positions"] = torch.arange(
+            Tk, device="cuda", dtype=torch.int32)[None].expand(B, Tk)
+    vl = np.array([0] + [3 * Tk // 4] * (B - 1)) if valid else np.full(B, Tk)
+    if valid:
+        kw["kv_valid_len"] = torch.tensor(vl, device="cuda",
+                                          dtype=torch.int32)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    dsum = (do.float() * out.float()).sum(-1)
+    # what the data needs: the (query, key) pairs the masks keep
+    kp = np.arange(Tk)[None, :]
+    keep = np.ones((Tq, Tk), bool)
+    if causal:
+        keep &= kp <= qp[:, None]
+    if window:
+        keep &= qp[:, None] - kp < window
+    pairs = sum(int((keep & (kp < n)).sum()) for n in vl) * Hq
+    e = q.element_size()
+    qbytes, kbytes = B * Tq * Hq * D * e, B * Tk * Hkv * D * e
+    common = 2 * qbytes + 2 * kbytes + 8 * B * Tq * Hq + 4 * B * (Tq + Tk)
+    nbytes = {"dq": common + qbytes, "dkv": common + 2 * kbytes}
+    flops = {"dq": 3 * 2 * D * pairs, "dkv": 4 * 2 * D * pairs}
+    return (q, k, v, lse, do, dsum), kw, out, nbytes, flops
+
+
+def _sdpa_bwd(torch, F, q, k, v, do):
+    """Library yardstick: the backward of one causal
+    ``F.scaled_dot_product_attention`` over the same q, k and v, the KV
+    heads expanded to the query heads beforehand (untimed), by
+    ``torch.autograd.grad``.  It computes dq, dk and dv in one call."""
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.transpose(1, 2).repeat_interleave(G, dim=1).detach()
+              .requires_grad_() for x in (k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+
 def phase_kernels(torch, timer, card):
     import torch.nn.functional as F
 
@@ -307,12 +384,19 @@ def phase_kernels(torch, timer, card):
 
     def run(name, label, dtype, kernel, plain, args, kw, nbytes, flops,
             library, timed):
+        """Check ``kernel`` against ``plain`` (each returns a tensor or a
+        tuple of them, each held to the tolerance relative to its own
+        largest value) and, if ``timed``, time both and the library."""
         got = kernel(*args, **kw)
         want = plain(*args, **kw)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite")
-        err = rel_err(want, got)
-        abs_err = float((want.float() - got.float()).abs().max())
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        check(all(bool(torch.isfinite(x).all()) for x in got),
+              f"{name} {label}: non-finite")
+        err = max(rel_err(w, x) for w, x in zip(want, got))
+        abs_err = max(float((w.float() - x.float()).abs().max())
+                      for w, x in zip(want, got))
         print(f"[kernel] {name} {label} {dtype}: max_abs_err={abs_err:.3e} "
               f"rel_err={err:.3e} tol={TOL[dtype]:.1e}")
         check(err < TOL[dtype], f"{name} {label}: {err} >= {TOL[dtype]}")
@@ -421,6 +505,64 @@ def phase_kernels(torch, timer, card):
                 ref.decode_attention, args, kw, nb, fl,
                 _sdpa_dense(torch, F, args, kw),
                 timed and dtype == "bfloat16")
+    # the training path's backward kernels: timed at the train step's
+    # shape, checked in every variant the path and the JAX tests take
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq)
+
+    bwd_cases = [
+        # label, (B, Tq, Tk, Hq, Hkv, D), extra, timed
+        ("B8/T1024 train", (8, 1024, 1024, 32, 4, 64), {}, True),
+        ("B2/T256 causal", (2, 256, 256, 32, 4, 64), {}, False),
+        ("B2/T256 non-causal", (2, 256, 256, 32, 4, 64),
+         {"causal": False}, False),
+        ("B2/T256 window128", (2, 256, 256, 32, 4, 64), {"window": 128},
+         False),
+        ("B2/T256 softcap30", (2, 256, 256, 32, 4, 64), {"softcap": 30.0},
+         False),
+        ("B2/T256 valid(row 0 empty)", (2, 256, 256, 32, 4, 64),
+         {"valid": True}, False),
+        ("B2/T256 G1", (2, 256, 256, 4, 4, 64), {}, False),
+        ("B2/T256 G8 MQA", (2, 256, 256, 8, 1, 64), {}, False),
+        ("B2/Tq96/Tk256 chunk", (2, 96, 256, 32, 4, 64), {}, False),
+        ("B2/T200 D32", (2, 200, 200, 16, 4, 32), {}, False),
+        ("B2/T200 D128 softcap30", (2, 200, 200, 16, 2, 128),
+         {"softcap": 30.0}, False),
+        ("B2/T256 index positions", (2, 256, 256, 32, 4, 64),
+         {"index_kv": True, "valid": True}, False),
+    ]
+    for dtype in ("bfloat16", "float32"):
+        for label, dims, extra, timed in bwd_cases:
+            if timed and dtype == "float32":
+                continue               # the train step's backward is bf16
+            args, kw, out, nb, fl = _bwd_case(torch, gen, dtype, dims,
+                                              **extra)
+            library = _sdpa_bwd(torch, F, *args[:3], args[4]) \
+                if timed else None
+
+            def plain_dq(q, k, v, lse, do, dsum, out=out, **kw):
+                return ref.flash_attention_bwd(q, k, v, out, lse, do, **kw)[0]
+
+            def plain_dkv(q, k, v, lse, do, dsum, out=out, **kw):
+                return ref.flash_attention_bwd(q, k, v, out, lse, do,
+                                               **kw)[1:]
+
+            run("flash_attention_bwd_dq", label, dtype,
+                flash_attention_bwd_dq, plain_dq, args, kw, nb["dq"],
+                fl["dq"], library, timed)
+            run("flash_attention_bwd_dkv", label, dtype,
+                flash_attention_bwd_dkv, plain_dkv, args, kw, nb["dkv"],
+                fl["dkv"], library, timed)
+            dq = flash_attention_bwd_dq(*args, **kw)
+            dk, dv = flash_attention_bwd_dkv(*args, **kw)
+            check(all(float(x.abs().max()) > 0 for x in (dq, dk, dv)),
+                  f"flash_attention_bwd {label}: a gradient is all zero")
+            if extra.get("valid"):     # batch row 0 sees no key
+                check(all(bool((x[0] == 0).all()) for x in (dq, dk, dv)),
+                      f"flash_attention_bwd {label}: an empty row must "
+                      f"give zero gradients")
+            del args, out
+
     for name, res in results.items():
         by_dtype = worst[name]
         res["max_abs_err"] = max(w["max_abs_err"] for w in by_dtype.values())
@@ -868,6 +1010,292 @@ def phase_golden(torch):
     check(worst < 2e-4, f"golden logits {worst} >= 2e-4")
 
 
+def phase_golden_train(torch):
+    """The JAX training run of the fixture (fp32, 5 steps of
+    ``build_train_step``) replayed on the card through the kernels from
+    its step-0 parameters and AdamW state, restored by ``Trainer`` from a
+    checkpoint: each step's loss and grad norm within 1e-4 relative, the
+    final parameters within 1e-4."""
+    from repro_torch.checkpointing import checkpoint as ck
+    from repro_torch.data.tokens import make_lm_iterator
+    from repro_torch.launch import programs
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.weights import from_numpy_tree, unflatten
+    from repro_torch.optim import adamw, schedule
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import flatten_with_path
+
+    with np.load(os.path.join(ROOT, "tests", "data",
+                              "torch_port_golden.npz")) as f:
+        g = {k: f[k] for k in f.files if k.startswith("train_")}
+    cfg = ModelConfig.from_dict(json.loads(str(g["train_config"])))
+    setup = json.loads(str(g["train_setup"]))
+
+    def tree(prefix):
+        return from_numpy_tree(unflatten(
+            {k[len(prefix):]: v for k, v in g.items()
+             if k.startswith(prefix)}), cfg, "cuda")
+
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_golden_train")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ck.save(ckpt, 0, {"params": tree("train_params0/"), "opt": {
+        "step": torch.zeros((), dtype=torch.int32, device="cuda"),
+        "m": tree("train_opt0/m/"), "v": tree("train_opt0/v/")}},
+        {"step": 0})
+    tcfg = programs.TrainConfig(
+        adamw=adamw.AdamWConfig(**setup["adamw"]),
+        sched=schedule.ScheduleConfig(**setup["sched"]))
+    tr = Trainer(cfg, "cuda", tcfg, TrainerConfig(ckpt_dir=ckpt,
+                                                  ckpt_every=0))
+    tr.initialize(restore=True)
+    data = make_lm_iterator(cfg, setup["batch"], setup["seq"],
+                            seed=setup["seed"])
+    before = [fn.launches for fn, _ in _train_counters()]
+    ms = [tr.train_step(next(data)) for _ in range(setup["steps"])]
+    moved = [fn.launches - b for (fn, _), b in zip(_train_counters(), before)]
+    shutil.rmtree(ckpt, ignore_errors=True)
+    check(moved == [cfg.num_layers * setup["steps"]] * 3,
+          f"golden training did not run through the kernels: {moved}")
+    loss_err = max(abs(m["loss"] - w) / abs(w)
+                   for m, w in zip(ms, g["train_losses"]))
+    norm_err = max(abs(m["grad_norm"] - w) / abs(w)
+                   for m, w in zip(ms, g["train_grad_norms"]))
+    want = dict(flatten_with_path(tree("train_final/")))
+    param_err = max(float((p.detach() - want[path]).abs().max())
+                    for path, p in flatten_with_path(tr.params))
+    print(f"[golden-train] the JAX trainer's {setup['steps']} fp32 steps "
+          f"replayed on the card through the kernels: loss max rel err "
+          f"{loss_err:.3e}, grad norm {norm_err:.3e} (bound 1e-4), final "
+          f"params max abs err {param_err:.3e} (bound 1e-4)")
+    check(loss_err < 1e-4 and norm_err < 1e-4 and param_err < 1e-4,
+          "the golden training run does not replay")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: train full-width tinyllama
+# ---------------------------------------------------------------------------
+
+def _train_counters():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    return ((fa.flash_attention, "flash_attention"),
+            (fab.flash_attention_bwd_dq, "flash_attention_bwd_dq"),
+            (fab.flash_attention_bwd_dkv, "flash_attention_bwd_dkv"))
+
+
+def phase_train(torch):
+    """``Trainer`` at full tinyllama width on the card: fp32 parameters,
+    bf16 compute, fp32 AdamW moments, the bigram stream at B 8 x T 1024.
+    Six counted steps (the first at lr 0), one profiled step, then an
+    async checkpoint restored into a fresh ``Trainer``: one more step
+    from both gives the same loss."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import make_lm_iterator
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("tinyllama-1.1b")
+    B, T, steps = 8, 1024, 6
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    run_cfg = TrainerConfig(ckpt_dir=ckpt, ckpt_every=0, keep_ckpts=1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    tr = Trainer(cfg, "cuda", run_cfg=run_cfg).initialize(restore=False)
+    check(tr.tcfg.adamw.state_dtype == "float32"
+          and tr.cfg.compute_dtype == "bfloat16", "train config")
+    data = make_lm_iterator(cfg, B, T, seed=0)
+    batches = [next(data) for _ in range(steps + 2)]
+    print(f"[train] tinyllama-1.1b {cfg.num_layers}L d{cfg.d_model}, fp32 "
+          f"params + AdamW, bf16 compute, B {B} x T {T}: init "
+          f"{time.monotonic() - t0:.1f}s, "
+          f"{cfg.num_params() / 1e9:.3f}B params")
+
+    w0 = tr.params["stack"]["blocks"]["attn"]["w_q"][0].detach().clone()
+    counters = _train_counters()
+    for fn, _ in counters:
+        fn.launches = 0
+    hist = []
+    for i in range(steps):
+        m = tr.train_step(batches[i])
+        hist.append(m)
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+              f"step {i + 1}: loss {m['loss']} grad norm {m['grad_norm']}")
+        w = tr.params["stack"]["blocks"]["attn"]["w_q"][0]
+        if i == 0:
+            check(m["lr"] == 0.0 and bool(torch.equal(w, w0)),
+                  "step 1 trains at lr 0: the parameters must not move")
+        if i == 1:
+            check(not bool(torch.equal(w, w0)),
+                  "the parameters must move after step 2")
+    launches = {name: fn.launches for fn, name in counters}
+    L = cfg.num_layers
+    for name, n in launches.items():
+        check(n == L * steps, f"{name} launched {n} times, not {L} x "
+              f"{steps} steps")
+    secs = sorted(m["step_time_s"] for m in hist)
+    med = secs[len(secs) // 2]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train] {steps} steps: losses "
+          f"{[round(m['loss'], 4) for m in hist]}, grad norms "
+          f"{[round(m['grad_norm'], 3) for m in hist]}, lr "
+          f"{[m['lr'] for m in hist]}")
+    print(f"[train] step time median {med * 1e3:.1f} ms (all "
+          f"{[round(x * 1e3, 1) for x in (m['step_time_s'] for m in hist)]}"
+          f" ms), {B * T / med:.0f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated); launches "
+          f"{launches}")
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.train_step(batches[steps])
+        torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            by_kernel[ev.key] = (us / 1e3, ev.count)
+    busy = sum(ms for ms, _ in by_kernel.values())
+    print(f"[profile] train step (profiled): wall {wall_ms:.1f} ms, device "
+          f"busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}% of the profiled "
+          f"wall, {100 * busy / (med * 1e3):.1f}% of the unprofiled median "
+          f"step; {'measured' if by_kernel else 'no device time seen'})")
+    groups = {}
+    for name, (ms, n) in by_kernel.items():
+        group = ("attention kernels" if "flash_" in name else
+                 "GEMMs" if re.search(r"nvjet|gemm|cutlass|sm90_", name)
+                 else "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    print(f"[profile]   by group: " + ", ".join(
+        f"{g} {ms:.1f} ms ({100 * ms / busy:.1f}%)"
+        for g, ms in sorted(groups.items(), key=lambda x: -x[1])))
+    for name, (ms, n) in sorted(by_kernel.items(), key=lambda x: -x[1][0])[:12]:
+        print(f"[profile]   {ms:9.3f} ms {n:5d}x  {name[:90]}")
+
+    t0 = time.monotonic()
+    tr.maybe_checkpoint(force=True)        # host snapshot now, write behind
+    snap_s = time.monotonic() - t0
+    after = tr.train_step(batches[steps + 1])
+    t0 = time.monotonic()
+    tr.checkpointer.wait()
+    wait_s = time.monotonic() - t0
+    saved_step = tr.step - 1
+    del tr
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    tr2 = Trainer(cfg, "cuda", run_cfg=run_cfg).initialize(restore=True)
+    restore_s = time.monotonic() - t0
+    check(tr2.step == saved_step, f"restored step {tr2.step} != {saved_step}")
+    again = tr2.train_step(batches[steps + 1])
+    print(f"[train] async checkpoint at step {saved_step}: snapshot "
+          f"{snap_s:.1f}s, write finished {wait_s:.1f}s after the next "
+          f"step, restore {restore_s:.1f}s; the next step's loss "
+          f"{after['loss']:.6f} (kept trainer) vs {again['loss']:.6f} "
+          f"(restored)")
+    check(abs(after["loss"] - again["loss"]) <= 1e-6 * abs(after["loss"]),
+          "the restored trainer's next loss differs")
+    del tr2
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches, steps
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training consistency, fp32
+# ---------------------------------------------------------------------------
+
+def _integration_cfg():
+    """tests/test_train_integration.py:17's model and optimizer in fp32,
+    with head_dim 32 in place of 16 (the kernels take 32, 64 and 128)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import programs
+    from repro_torch.optim import adamw, schedule
+
+    cfg = dataclasses.replace(
+        get_reduced_config("tinyllama-1.1b", num_layers=2, d_model=64,
+                           head_dim=32, d_ff=128, vocab_size=128),
+        compute_dtype="float32")
+    return cfg, programs.TrainConfig(
+        adamw=adamw.AdamWConfig(lr=3e-3, grad_clip_norm=1.0),
+        sched=schedule.ScheduleConfig(warmup_steps=5, decay_steps=200))
+
+
+def phase_train_consistency(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import make_lm_iterator
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.model import Model
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import flatten_with_path
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), num_layers=2,
+                              compute_dtype="float32")
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(4))
+    flat = flatten_with_path(params)
+    for _, p in flat:
+        p.requires_grad_(True)
+    rng = np.random.default_rng(4)
+    batch = {k: torch.tensor(rng.integers(0, cfg.vocab_size, size=(2, 256)),
+                             device="cuda") for k in ("tokens", "labels")}
+    batch["labels"][:, :5] = -1
+
+    def grads():
+        loss, _ = model.loss(params, batch)
+        return float(loss.detach()), torch.autograd.grad(
+            loss, [p for _, p in flat])
+
+    counters = _train_counters()
+    before = [fn.launches for fn, _ in counters]
+    loss_k, g_k = grads()
+    moved = [fn.launches - b for (fn, _), b in zip(counters, before)]
+    check(moved == [2, 2, 2], f"2 layers must launch each kernel twice: "
+          f"{moved}")
+    plain = ops.flash_mha
+    ops.flash_mha = ref.mha                   # autograd through the plain
+    try:
+        loss_p, g_p = grads()
+    finally:
+        ops.flash_mha = plain
+    worst, where = 0.0, ""
+    for (path, _), a, b in zip(flat, g_k, g_p):
+        err = rel_err(b, a)
+        if err > worst:
+            worst, where = err, path
+        check(bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0,
+              f"gradient of {path} is zero or non-finite")
+    print(f"[train-consistency] fp32 full width, 2 layers, B 2 x T 256: "
+          f"loss {loss_k:.6f} (kernels) vs {loss_p:.6f} (plain); every "
+          f"gradient leaf within {worst:.3e} relative (worst {where}; "
+          f"bound 2e-4)")
+    check(worst < 2e-4, f"gradients through the kernels differ: {worst}")
+    del model, params, flat, g_k, g_p
+    torch.cuda.empty_cache()
+
+    cfg, tcfg = _integration_cfg()
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_train_small")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    tr = Trainer(cfg, "cuda", tcfg, TrainerConfig(ckpt_dir=ckpt,
+                                                  ckpt_every=0))
+    tr.initialize(restore=False)
+    hist = tr.fit(make_lm_iterator(cfg, 8, 32, seed=3), num_steps=30)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    first, last = np.mean(hist["loss"][:5]), np.mean(hist["loss"][-5:])
+    print(f"[train-consistency] reduced fp32 (2L d64 hd32 V128), 30 steps "
+          f"through the kernels: mean loss of the first 5 {first:.4f}, of "
+          f"the last 5 {last:.4f} (must drop by > 0.3)")
+    check(last < first - 0.3, f"loss did not decrease: {first} -> {last}")
+
+
 # ---------------------------------------------------------------------------
 
 KERNELS = {
@@ -883,10 +1311,19 @@ KERNELS = {
     "decode_attention": dict(
         route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:99"),
+    "flash_attention_bwd_dq": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention_bwd.py:198"),
+    "flash_attention_bwd_dkv": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention_bwd.py:228"),
 }
-# the path each kernel's launch count comes from
+# the path each kernel's launch count comes from, and that path's unit
 PATH_OF = {"flash_attention": "serve", "paged_decode_attention": "serve",
-           "paged_verify_attention": "spec", "decode_attention": "spec"}
+           "paged_verify_attention": "spec", "decode_attention": "spec",
+           "flash_attention_bwd_dq": "train",
+           "flash_attention_bwd_dkv": "train"}
+UNIT_OF = {"serve": "request", "spec": "request", "train": "step"}
 
 
 def main() -> int:
@@ -910,13 +1347,18 @@ def main() -> int:
     phase_consistency(torch)
     phase_spec_exactness(torch)
     phase_golden(torch)
+    paths["train"] = phase_train(torch)
+    phase_train_consistency(torch)
+    phase_golden_train(torch)
     line = []
     for name, meta in KERNELS.items():
         k = kernels[name]
-        launches, n_requests = paths[PATH_OF[name]]
+        path = PATH_OF[name]
+        launches, n_units = paths[path]
         line.append({"name": name, **meta, "launches": launches[name],
-                     "launches_per_request": launches[name] / n_requests,
-                     "path": PATH_OF[name],
+                     f"launches_per_{UNIT_OF[path]}":
+                         launches[name] / n_units,
+                     "path": path,
                      **{key: k[key] for key in (
                          "max_abs_err", "rel_err", "err_by_dtype", "ms",
                          "plain_ms", "bound_ms", "bound_by", "library_ms")},

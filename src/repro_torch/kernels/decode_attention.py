@@ -16,7 +16,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (_DTYPE_CODE, HEAD_DIMS,
-                                                 _aligned, _int32, _ptr)
+                                                 _aligned, _int32, _ptr,
+                                                 refuse_grad)
 
 _fn = None
 
@@ -44,7 +45,9 @@ def decode_attention(
     sm_scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors (raises on anything else).
-    The caches are in the dtype of ``q``, with values as wide as keys."""
+    The caches are in the dtype of ``q``, with values as wide as keys.
+    Forward-only: raises under grad mode for an input that needs one."""
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     dev = q.device
     if not q.is_cuda or any(t.device != dev
                             for t in (k_cache, v_cache, cache_len)):

@@ -44,6 +44,17 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """A forward-only kernel writes into a fresh tensor, which would cut
+    the autograd graph without a word: raise instead when grad mode is on
+    and an input needs a gradient."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise ValueError(f"{name} kernel is forward-only: call it under "
+                         f"torch.no_grad() or on inputs that need no "
+                         f"gradient")
+
+
 def _int32(t: Optional[torch.Tensor], shape, device) -> Optional[torch.Tensor]:
     if t is None:
         return None

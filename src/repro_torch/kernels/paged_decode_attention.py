@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, _aligned, _int32,
-                                                 _ptr)
+                                                 _ptr, refuse_grad)
 
 _Q_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
@@ -110,7 +110,10 @@ def paged_decode_attention(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors (raises on anything else).
-    Pools are in the dtype of ``q``, or int8 with both scale planes."""
+    Pools are in the dtype of ``q``, or int8 with both scale planes.
+    Forward-only: raises under grad mode for an input that needs one."""
+    refuse_grad("paged_decode_attention", q, k_pages, v_pages, k_scale,
+                v_scale)
     if q.dim() != 3:
         raise ValueError(f"q must be [B, Hq, D], got {tuple(q.shape)}")
     a = pool_args("paged_decode_attention", q, k_pages, v_pages, page_table,

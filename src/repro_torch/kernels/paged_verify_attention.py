@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import _aligned, _ptr
+from repro_torch.kernels.flash_attention import _aligned, _ptr, refuse_grad
 from repro_torch.kernels.paged_decode_attention import _Q_CODE, pool_args
 
 MAX_K1 = 8          # query tokens per sequence the kernel takes
@@ -49,7 +49,10 @@ def paged_verify_attention(
 ) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors (raises on anything else).
     Pools are in the dtype of ``q``, or int8 with both scale planes; K1 is
-    1 to ``MAX_K1``."""
+    1 to ``MAX_K1``.  Forward-only: raises under grad mode for an input
+    that needs one."""
+    refuse_grad("paged_verify_attention", q, k_pages, v_pages, k_scale,
+                v_scale)
     if q.dim() != 4:
         raise ValueError(f"q must be [B, K1, Hq, D], got {tuple(q.shape)}")
     B, K1, Hq, D = q.shape

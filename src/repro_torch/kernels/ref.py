@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the attention kernels, forward and backward.
 
 Counterparts of ``repro.kernels.ref``, with the same conventions:
 ``NEG_INF = -0.7 * f32max`` for masked logits, probabilities explicitly
@@ -15,6 +15,52 @@ import torch
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
 
+def _scores(q, k, v, causal, window, softcap, q_positions, kv_positions,
+            kv_valid_len, sm_scale):
+    """Grouped f32 operands and the logits of every (query, key) pair:
+    ``qs`` (q times the scale) ``[B,Hkv,G,Tq,D]``, ``kf``/``vf``
+    ``[B,Hkv,Tk,D]``, the soft-capped logits ``s`` and the mask
+    ``[B,Hkv,G,Tq,Tk]``, and the softcap derivative ``1 - tanh²`` (None
+    without a softcap)."""
+    B, Tq, Hq, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    groups = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else D ** -0.5
+    dev = q.device
+    if q_positions is None:
+        q_positions = torch.arange(Tq, device=dev)[None].expand(B, Tq)
+    if kv_positions is None:
+        kv_positions = torch.arange(Tk, device=dev)[None].expand(B, Tk)
+
+    qs = q.float() * scale
+    # [B, Hkv, G, Tq, D] x [B, Hkv, Tk, D] -> [B, Hkv, G, Tq, Tk]
+    qs = qs.reshape(B, Tq, Hkv, groups, D).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)
+    vf = v.float().permute(0, 2, 1, 3)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qs, kf)
+    dcap = None
+    if softcap > 0.0:
+        t = torch.tanh(s / softcap)
+        s, dcap = t * softcap, 1.0 - torch.square(t)
+
+    qp = q_positions[:, None, None, :, None].long()
+    kp = kv_positions[:, None, None, None, :].long()
+    mask = torch.ones_like(s, dtype=torch.bool)
+    if causal:
+        mask = mask & (kp <= qp)
+    if window > 0:
+        mask = mask & (qp - kp < window)
+    if kv_valid_len is not None:
+        mask = mask & (kp < kv_valid_len.long()[:, None, None, None, None])
+    return qs, kf, vf, s, dcap, mask
+
+
+def _ungroup(x: torch.Tensor) -> torch.Tensor:
+    """``[B, Hkv, G, T, D]`` → ``[B, T, Hkv·G, D]``."""
+    B, Hkv, G, T, D = x.shape
+    return x.permute(0, 3, 1, 2, 4).reshape(B, T, Hkv * G, D)
+
+
 def mha(
     q: torch.Tensor,                  # [B, Tq, Hq, D]
     k: torch.Tensor,                  # [B, Tk, Hkv, D]
@@ -27,41 +73,74 @@ def mha(
     kv_positions: Optional[torch.Tensor] = None,  # [B, Tk]
     kv_valid_len: Optional[torch.Tensor] = None,  # [B]
     sm_scale: Optional[float] = None,
-) -> torch.Tensor:
-    B, Tq, Hq, D = q.shape
-    Tk, Hkv = k.shape[1], k.shape[2]
-    groups = Hq // Hkv
-    scale = sm_scale if sm_scale is not None else D ** -0.5
-    dev = q.device
-    if q_positions is None:
-        q_positions = torch.arange(Tq, device=dev)[None].expand(B, Tq)
-    if kv_positions is None:
-        kv_positions = torch.arange(Tk, device=dev)[None].expand(B, Tk)
-
-    qf = q.float() * scale
-    # [B, Hkv, G, Tq, D] x [B, Hkv, Tk, D] -> [B, Hkv, G, Tq, Tk]
-    qf = qf.reshape(B, Tq, Hkv, groups, D).permute(0, 2, 3, 1, 4)
-    kf = k.float().permute(0, 2, 1, 3)
-    vf = v.float().permute(0, 2, 1, 3)
-    logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf)
-    if softcap > 0.0:
-        logits = torch.tanh(logits / softcap) * softcap
-
-    qp = q_positions[:, None, None, :, None].long()
-    kp = kv_positions[:, None, None, None, :].long()
-    mask = torch.ones_like(logits, dtype=torch.bool)
-    if causal:
-        mask = mask & (kp <= qp)
-    if window > 0:
-        mask = mask & (qp - kp < window)
-    if kv_valid_len is not None:
-        mask = mask & (kp < kv_valid_len.long()[:, None, None, None, None])
-    logits = torch.where(mask, logits, NEG_INF)
+    return_lse: bool = False,
+):
+    """``out [B,Tq,Hq,Dv]`` in q's dtype, and with ``return_lse`` the f32
+    log-sum-exp ``lse [B,Tq,Hq]`` of the masked logits as the Pallas
+    kernel gives it (``m + log l``, ``l = 0`` read as 1, so a row with no
+    valid key has ``lse = NEG_INF``)."""
+    B, Tq, Hq = q.shape[:3]
+    _, _, vf, s, _, mask = _scores(q, k, v, causal, window, softcap,
+                                   q_positions, kv_positions, kv_valid_len,
+                                   sm_scale)
+    logits = torch.where(mask, s, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     probs = torch.where(mask, probs, 0.0)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, vf)
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, Tq, Hq, vf.shape[-1])
-    return out.to(q.dtype)
+    out = _ungroup(out).to(q.dtype)
+    if not return_lse:
+        return out
+    m = logits.amax(dim=-1)
+    l = torch.where(mask, torch.exp(logits - m[..., None]), 0.0).sum(-1)
+    lse = m + torch.log(torch.where(l == 0.0, 1.0, l))
+    return out, lse.permute(0, 3, 1, 2).reshape(B, Tq, Hq)
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,                  # [B, Tq, Hq, D]
+    k: torch.Tensor,                  # [B, Tk, Hkv, D]
+    v: torch.Tensor,                  # [B, Tk, Hkv, Dv]
+    out: torch.Tensor,                # [B, Tq, Hq, Dv] the forward's output
+    lse: torch.Tensor,                # [B, Tq, Hq] f32, the forward's lse
+    do: torch.Tensor,                 # [B, Tq, Hq, Dv] the output's gradient
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    q_positions: Optional[torch.Tensor] = None,
+    kv_positions: Optional[torch.Tensor] = None,
+    kv_valid_len: Optional[torch.Tensor] = None,
+    sm_scale: Optional[float] = None,
+):
+    """``(dq, dk, dv)`` of flash attention, each in its input's dtype: the
+    plain version of the dq and dk/dv kernels (the Pallas ``_dq_kernel``
+    and ``_dkv_kernel``).  Probabilities are recomputed from the logits
+    and ``lse`` with the mask applied as a select (a row with no valid key
+    has ``lse = NEG_INF``), ``ds = p·(dp − rowsum(do·out))`` times the
+    softcap derivative, and dk/dv sum over the G query heads of a KV
+    head.  All products in f32."""
+    B, Tq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else D ** -0.5
+    qs, kf, vf, s, dcap, mask = _scores(q, k, v, causal, window, softcap,
+                                        q_positions, kv_positions,
+                                        kv_valid_len, sm_scale)
+
+    def grouped(x):                   # [B, Tq, Hq, ...] -> [B, Hkv, G, Tq, ...]
+        return x.float().reshape(B, Tq, Hkv, G, -1).permute(0, 2, 3, 1, 4)
+
+    dof = grouped(do)
+    dsum = (dof * grouped(out)).sum(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - grouped(lse[..., None])), 0.0)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vf)
+    ds = p * (dp - dsum)
+    if dcap is not None:
+        ds = ds * dcap
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bkhd", ds, qs)
+    dv = torch.einsum("bhgqk,bhgqd->bkhd", p, dof)
+    return _ungroup(dq).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention(

@@ -132,6 +132,29 @@ class ModelConfig:
     def pdtype(self) -> torch.dtype:
         return torch_dtype(self.param_dtype)
 
+    def num_params(self) -> int:
+        """Exact parameter count (the JAX ``num_params``), for the dense
+        family; the others come with their slices (ROADMAP Queue A
+        item 11)."""
+        if self.family != "dense" or self.encoder_only \
+                or self.attn_type == "mla" or self.frontend != "none":
+            raise NotImplementedError(
+                f"num_params of family {self.family!r} is not ported yet "
+                "(ROADMAP Queue A item 11)")
+        d, V, hd = self.d_model, self.vocab_size, self.head_dim_
+        n = V * d * (1 if self.tie_embeddings else 2)     # embed (+ head)
+        attn = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
+        attn += self.num_heads * hd * d
+        if self.attn_bias:
+            attn += (self.num_heads + 2 * self.num_kv_heads) * hd + d
+        if self.qk_norm:
+            attn += 2 * hd
+        mult = 3 if self.activation in ("swiglu", "geglu") else 2
+        norm = 2 * d if self.norm == "layernorm" else d
+        per_layer = attn + mult * d * self.d_ff + \
+            (1 if self.parallel_block else 2) * norm
+        return n + self.num_layers * per_layer + norm
+
     def kv_bytes_per_token(self, dtype_bytes: int = 2) -> int:
         """KV-cache bytes per token per layer-application (serving planner)."""
         if self.attn_type == "mla":

@@ -1,9 +1,13 @@
 """Shared layers: norms, rotary embeddings, MLP variants, initializers.
 
-Forward-only counterpart of ``repro.models.layers``.  ``init_*`` returns a
-nested dict of tensors with the JAX leaf names; apply functions take
-(params, inputs, cfg).  The numerics follow the JAX functions step by
-step, including where each product is rounded to the compute dtype.
+Counterpart of ``repro.models.layers``.  ``init_*`` returns a nested dict
+of tensors with the JAX leaf names; apply functions take (params, inputs,
+cfg).  The forward numerics follow the JAX functions step by step,
+including where each product is rounded to the compute dtype.  Gradients
+come from autograd: the JAX norm's custom VJP
+(``src/repro/models/layers.py:71``) is the same math, rounded to bf16 at
+other points in a bf16 backward; in fp32 the two agree
+(``tests/test_torch_train.py``).
 """
 from __future__ import annotations
 

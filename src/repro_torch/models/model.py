@@ -1,9 +1,10 @@
 """Top-level model API for the dense decoder: the port of
-``repro.models.model.Model`` on the serving path.
+``repro.models.model.Model`` on the serving and training paths.
 
     model = Model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     logits = model.forward(params, {"tokens": toks})           # [B, T, V]
+    loss, metrics = model.loss(params, {"tokens": toks, "labels": labels})
     pools = model.init_paged_caches(num_pages, page_size)
     logits = model.prefill_chunk(params, {"tokens": chunk}, pools, start,
                                  new_len, page_table=row)      # [B, V]
@@ -76,6 +77,28 @@ class Model:
         x = transformer.forward_stack(params["stack"], x, cfg,
                                       positions=positions, mode="train")
         return apply_lm_head(params["embed"], params.get("head"), x, cfg)
+
+    # ----------------------------------------------------------------- loss
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]):
+        """The train objective: mean next-token cross-entropy over labels
+        ``>= 0`` (a label below 0 has weight 0 and is read as 0), with
+        the log-sum-exp of the logits in f32 and the gold logit taken in
+        the logits' dtype (a gather, the same number as JAX's one-hot
+        contraction).  The dense family has no auxiliary loss.  Returns
+        ``(loss, metrics)`` with metrics ``loss``, ``ce``, ``aux`` and
+        ``tokens``."""
+        logits = self.forward(params, batch)
+        labels = batch["labels"].long()
+        weights = (labels >= 0).float()
+        targets = torch.clamp(labels, min=0)
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0].float()
+        nll = (lse - gold) * weights
+        tokens = weights.sum()
+        ce = nll.sum() / torch.clamp(tokens, min=1.0)
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        loss = ce + aux
+        return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": tokens}
 
     # -------------------------------------------------------------- serving
     def init_paged_caches(self, num_pages: int, page_size: int,

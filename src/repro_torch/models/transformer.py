@@ -36,11 +36,16 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def layer(tree, i: int):
-    """Layer ``i``'s slice of a stacked tree (views: writes go through)."""
+def unstack(tree) -> list:
+    """Every layer's slice of a stacked tree, by one ``unbind`` per leaf
+    (views: writes go through).  Under autograd its backward stacks the
+    layers' gradients once; indexing layer by layer would instead add a
+    full-size zero tensor per layer into each stacked leaf's gradient."""
     if isinstance(tree, dict):
-        return {k: layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        parts = {k: unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return tree.unbind(0)
 
 
 def init_stack(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -114,11 +119,10 @@ def forward_stack(params: Params, x, cfg: ModelConfig, *, positions,
         raise ValueError(f"mode {mode!r} needs caches")
     if mode == "verify" and page_table is None:
         raise ValueError("verify mode is paged only (speculative decoding)")
-    blocks = params["blocks"]
-    n = next(iter(blocks["norm1"].values())).shape[0]
-    for i in range(n):
-        cache = layer(caches["attn"], i) if mode != "train" else None
-        x = attn_block(layer(blocks, i), x, cfg, positions=positions,
+    blocks = unstack(params["blocks"])
+    pools = unstack(caches["attn"]) if mode != "train" else [None] * len(blocks)
+    for bp, cache in zip(blocks, pools, strict=True):
+        x = attn_block(bp, x, cfg, positions=positions,
                        mode=mode, cache=cache, cache_len=cache_len,
                        page_table=page_table)
     return apply_norm(params["final_norm"], x, cfg)

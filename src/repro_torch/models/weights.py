@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import unflatten as unflatten_paths
 
 
 def from_numpy_tree(tree: Dict[str, Any], cfg: ModelConfig,
@@ -39,24 +40,10 @@ def to_numpy_tree(params: Dict[str, Any]) -> Dict[str, Any]:
     return params.detach().float().cpu().numpy()
 
 
-def flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
-    """Nested dict → ``{"a/b/c": leaf}`` (the ``.npz`` fixture layout)."""
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(flatten(v, f"{prefix}{k}/"))
-        else:
-            out[f"{prefix}{k}"] = v
-    return out
-
-
 def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
-    """The inverse of ``flatten``."""
-    tree: Dict[str, Any] = {}
-    for path, v in flat.items():
-        *parents, leaf = path.split("/")
-        node = tree
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = v
-    return tree
+    """``{"a/b/c": leaf}`` (the ``.npz`` fixture's keys) → the nested
+    dict.  The keys are read as dict paths and rebuilt by ``tree``'s
+    walker, the one the checkpoints use."""
+    return unflatten_paths(
+        [("".join(f"[{k!r}]" for k in path.split("/")), v)
+         for path, v in flat.items()], {})

@@ -243,3 +243,174 @@ def test_draft_kernel_launch_failure_fails_the_batch(cuda, monkeypatch):
     assert "spec_disabled_reason" not in st
     assert all("decode_attention kernel launch failed" in r.error
                for r in eng.failed.values())
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward (the training path)
+# ---------------------------------------------------------------------------
+
+# B, Tq, Tk, Hq, Hkv, D, causal, window, softcap, valid: causal, non-causal,
+# window, softcap, a kv_valid_len of 0 for one row, G 1/2/8 (8 with Hkv 1
+# is MQA), ragged Tq != Tk, D 32/64/128; test_torch_train_kernels.py runs
+# the plain version of the same cases against JAX
+BWD_CASES = [
+    (2, 64, 64, 4, 2, 32, True, 0, 0.0, False),
+    (2, 64, 64, 4, 2, 32, False, 0, 0.0, False),
+    (2, 64, 64, 4, 2, 32, True, 16, 0.0, False),
+    (2, 64, 64, 4, 2, 32, True, 0, 12.0, False),
+    (2, 64, 64, 4, 2, 64, True, 0, 0.0, True),
+    (2, 64, 64, 8, 1, 64, True, 0, 0.0, False),
+    (1, 100, 100, 4, 4, 64, True, 0, 0.0, False),
+    (2, 48, 96, 4, 2, 32, True, 0, 0.0, False),
+    (2, 96, 40, 16, 2, 128, False, 0, 0.0, True),
+    (1, 70, 70, 32, 4, 64, True, 0, 30.0, False),
+]
+
+
+def _bwd_inputs(case, dtype, cuda, explicit=False):
+    B, Tq, Tk, Hq, Hkv, D, causal, window, softcap, valid = case
+    g = torch.Generator(device=cuda).manual_seed(Tq * 3 + Hq + D)
+    q = torch.randn(B, Tq, Hq, D, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, Tk, Hkv, D, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, Tk, Hkv, D, generator=g, device=cuda).to(dtype)
+    do = torch.randn(B, Tq, Hq, D, generator=g, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    if valid:                      # row 0 sees no key at all
+        kw["kv_valid_len"] = torch.tensor([0] + [Tk // 2] * (B - 1),
+                                          device=cuda, dtype=torch.int32)
+    if explicit:                   # a chunk at an offset over explicit keys
+        qpos = (Tk - Tq + torch.arange(Tq, device=cuda, dtype=torch.int32)
+                )[None].repeat(B, 1)
+        qpos[-1, :3] = -1          # the last row's first 3 queries see none
+        kw["q_positions"] = qpos
+        kw["kv_positions"] = torch.arange(
+            Tk, device=cuda, dtype=torch.int32)[None].expand(B, Tk)
+    return q, k, v, do, kw
+
+
+@pytest.mark.parametrize("explicit", [False, True])
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_match_plain(case, dtype, explicit, cuda):
+    """The dq and dk/dv kernels against ``ref.flash_attention_bwd`` on the
+    forward kernel's own ``out`` and ``lse``."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    if explicit and case[1] > case[2]:
+        pytest.skip("the explicit-position variant needs Tq <= Tk")
+    q, k, v, do, kw = _bwd_inputs(case, dtype, cuda, explicit)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    n_dq, n_dkv = (fab.flash_attention_bwd_dq.launches,
+                   fab.flash_attention_bwd_dkv.launches)
+    got = fab.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = ref.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fab.flash_attention_bwd_dq.launches == n_dq + 1
+    assert fab.flash_attention_bwd_dkv.launches == n_dkv + 1
+    for name, w, x in zip(("dq", "dk", "dv"), want, got):
+        assert x.dtype == dtype and x.shape == w.shape, name
+        assert bool(torch.isfinite(x).all()), name
+        assert float(w.abs().max()) > 0, name
+        assert _rel(w, x) < TOL[dtype], (name, _rel(w, x))
+    if "kv_valid_len" in kw:       # the empty row has no gradient at all
+        assert bool((got[0][0] == 0).all())
+    if explicit and case[6]:       # nor have causal queries that see none
+        assert bool((got[0][-1, :3] == 0).all())
+        assert bool((got[0][-1, 3:] != 0).any())
+
+
+@pytest.mark.parametrize("case", BWD_CASES[:6])
+def test_flash_mha_grads_match_autograd_of_plain(case, cuda):
+    """The autograd function on the card (forward kernel with lse, then
+    the two backward kernels) against autograd through ``ref.mha``."""
+    from repro_torch.kernels.flash_attention_bwd import flash_mha
+
+    q, k, v, _, kw = _bwd_inputs(case, torch.float32, cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(flash_mha(*leaves, **kw).cos().sum(), leaves)
+    leaves2 = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.mha(*leaves2, **kw).cos().sum(), leaves2)
+    torch.cuda.synchronize()
+    for w, x in zip(want, got):
+        assert _rel(w, x) < 2e-4
+
+
+def _small_train_model(cuda):
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(
+        get_reduced_config("tinyllama-1.1b", num_layers=2, d_model=128,
+                           num_heads=8, num_kv_heads=2, head_dim=32),
+        compute_dtype="float32")
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=g, device=cuda)
+    labels = torch.randint(0, cfg.vocab_size, (2, 40), generator=g,
+                           device=cuda)
+    labels[:, :3] = -1
+    return model, params, {"tokens": toks, "labels": labels}
+
+
+def _attn_grads(model, params, batch):
+    attn = params["stack"]["blocks"]["attn"]
+    leaves = [attn[n].requires_grad_() for n in ("w_q", "w_k", "w_v")]
+    loss, _ = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    return grads
+
+
+def test_model_loss_grads_reach_attention_weights(cuda, monkeypatch):
+    """The train-mode forward used to cut the graph at the CUDA flash
+    kernel: w_q, w_k and w_v got no gradient.  Through the kernels they
+    now get the plain path's gradients (fp32, within 2e-4)."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ops
+
+    model, params, batch = _small_train_model(cuda)
+    n_dq = fab.flash_attention_bwd_dq.launches
+    got = _attn_grads(model, params, batch)
+    torch.cuda.synchronize()
+    assert fab.flash_attention_bwd_dq.launches == n_dq + 2     # 2 layers
+    monkeypatch.setattr(ops, "flash_mha", ref.mha)             # plain path
+    want = _attn_grads(model, params, batch)
+    for w, x in zip(want, got):
+        assert float(x.abs().max()) > 0
+        assert _rel(w, x) < 2e-4
+
+
+def test_backward_kernel_launch_failure_raises(cuda, monkeypatch):
+    """A dq launch that returns a CUDA error raises ``KernelError`` out
+    of ``backward``; nothing falls back to the plain version."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    model, params, batch = _small_train_model(cuda)
+    fab._entry("flash_attention_bwd_dq")
+    monkeypatch.setitem(fab._fns, "flash_attention_bwd_dq", lambda *a: 1)
+    params["embed"]["embedding"].requires_grad_()
+    loss, _ = model.loss(params, batch)
+    with pytest.raises(build.KernelError, match="flash_attention_bwd_dq"):
+        loss.backward()
+
+
+def test_forward_only_kernels_refuse_grad_inputs(cuda):
+    q = torch.randn(2, 4, 32, device=cuda, requires_grad=True)
+    kp = torch.randn(3, 16, 2, 32, device=cuda)
+    table = torch.ones(2, 2, dtype=torch.int32, device=cuda)
+    clen = torch.full((2,), 5, dtype=torch.int32, device=cuda)
+    for call in (
+            lambda: ops.paged_decode_attention(q, kp, kp, table, clen),
+            lambda: ops.paged_verify_attention(q[:, None], kp, kp, table,
+                                               clen),
+            lambda: ops.decode_attention(q, kp[:2], kp[:2], clen)):
+        with pytest.raises(ValueError, match="forward-only"):
+            call()
+        with torch.no_grad():
+            assert bool(torch.isfinite(call()).all())

@@ -52,6 +52,7 @@ def test_port_runs_with_jax_unimportable(tmp_path):
         import numpy as np, torch
         torch.set_num_threads(1)
         import repro_torch.launch.serve
+        import repro_torch.launch.train
         import repro_torch.kernels.build
         from repro_torch.configs import get_reduced_config
         from repro_torch.serving.engine import ServingEngine
@@ -77,13 +78,14 @@ def test_entry_points_refuse_a_missing_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
     from repro_torch.configs import get_reduced_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models.attention import init_paged_pool
     from repro_torch.models.model import Model
     from repro_torch.models.transformer import init_paged_cache_tree
     from repro_torch.models.weights import from_numpy_tree
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.kv_cache import PagedKVCache
+    from repro_torch.train.trainer import Trainer
 
     cfg = get_reduced_config("tinyllama-1.1b")
     for make in (lambda: Model(cfg),
@@ -94,6 +96,9 @@ def test_entry_points_refuse_a_missing_gpu():
                  lambda: init_paged_cache_tree(cfg, 3, 16),
                  lambda: init_paged_pool(cfg, 3, 16),
                  lambda: from_numpy_tree({}, cfg),
-                 lambda: serve.main(["--reduced", "--requests", "1"])):
+                 lambda: serve.main(["--reduced", "--requests", "1"]),
+                 lambda: Trainer(cfg),
+                 lambda: Trainer(cfg, device="cuda"),
+                 lambda: train.main(["--reduced", "--steps", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

@@ -12,6 +12,14 @@ other three together.  The second wave's first prompt extends the first
 prompt's first 35 tokens, so its admission attaches two shared pages and
 copy-seeds a third from the radix tail (a mid-page COW).
 
+A JAX training run rides along (``train_*``): the model and optimizer of
+``tests/test_train_integration.py:17`` in fp32, with head_dim 32 in
+place of 16 (the CUDA kernels take head dims 32, 64 and 128), from its
+step-0 parameters and AdamW state, 5 steps of ``build_train_step`` on the
+seeded bigram stream, each step's loss and grad norm, and the final
+parameters.  ``chip_smoke.py`` replays it on the card through the
+kernels.
+
 The same waves are served again speculatively, with a random 1-layer,
 1-head draft (seed 0, ``spec_k_max=3``), once over pages in the compute
 dtype (``spec_streams_auto``) and once over int8 pages
@@ -37,6 +45,11 @@ MAX_NEW = 8
 DRAFT = dict(num_layers=1, num_heads=1, num_kv_heads=1, d_ff=32)
 SPEC_K_MAX = 3
 WAVES = [0, 1, 1, 1]
+TRAIN_MODEL = dict(num_layers=2, d_model=64, head_dim=32, d_ff=128,
+                   vocab_size=128)
+TRAIN = dict(batch=8, seq=32, seed=3, steps=5,
+             adamw=dict(lr=3e-3, grad_clip_norm=1.0),
+             sched=dict(warmup_steps=5, decay_steps=200))
 
 
 def _prompts():
@@ -67,6 +80,44 @@ def _flat_params(prefix: str, params) -> dict:
         jax.tree.map(lambda a: np.asarray(a, np.float32), params))[0]
     return {prefix + "/".join(k.key for k in path): leaf
             for path, leaf in flat}
+
+
+def _train() -> dict:
+    """The JAX training run of the module docstring."""
+    import jax
+
+    from repro.configs import get_reduced_config
+    from repro.data.tokens import make_lm_iterator
+    from repro.launch import programs
+    from repro.models.model import build_model
+    from repro.optim import adamw, schedule
+
+    cfg = dataclasses.replace(
+        get_reduced_config("tinyllama-1.1b", **TRAIN_MODEL),
+        compute_dtype="float32")
+    tcfg = programs.TrainConfig(
+        adamw=adamw.AdamWConfig(**TRAIN["adamw"]),
+        sched=schedule.ScheduleConfig(**TRAIN["sched"]))
+    params = build_model(cfg).init(jax.random.key(0))
+    opt = adamw.init_state(params, tcfg.adamw)
+    out = {"train_config": np.array(json.dumps(cfg.to_dict(),
+                                               sort_keys=True)),
+           "train_setup": np.array(json.dumps(TRAIN, sort_keys=True))}
+    out.update(_flat_params("train_params0/", params))
+    out.update(_flat_params("train_opt0/m/", opt["m"]))
+    out.update(_flat_params("train_opt0/v/", opt["v"]))
+    step = jax.jit(programs.build_train_step(cfg, tcfg))
+    data = make_lm_iterator(cfg, TRAIN["batch"], TRAIN["seq"],
+                            seed=TRAIN["seed"])
+    losses, norms = [], []
+    for _ in range(TRAIN["steps"]):
+        params, opt, m = step(params, opt, next(data))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    out["train_losses"] = np.array(losses, np.float32)
+    out["train_grad_norms"] = np.array(norms, np.float32)
+    out.update(_flat_params("train_final/", params))
+    return out
 
 
 def make() -> dict:
@@ -113,6 +164,7 @@ def make() -> dict:
     }
     out.update(_flat_params("params/", eng.params))
     out.update(_flat_params("draft_params/", dparams))
+    out.update(_train())
     return out
 
 
