@@ -11,14 +11,18 @@ continues:
 2. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (bf16 and fp32, window and softcap variants,
    int8 pools for the paged kernels, K1 of 1, 2 and 5 for the verify
-   kernel, which at K1 = 1 is also held against the paged decode kernel)
-   and the backward kernels at the train step's (causal, non-causal,
-   window, softcap, an empty row, G 1 and 8, Tq < Tk, D 32/64/128),
-   with CUDA-event times for the kernel, its plain version and a library
+   kernel, which at K1 = 1 is also held against the paged decode kernel),
+   the backward kernels at the train step's (causal, non-causal, window,
+   softcap, an empty row, G 1 and 8, Tq < Tk, D 32/64/128), the SSD scan
+   at the SSM prefill's (mamba2's 64-token chunk with the carried state,
+   a 511-token prompt, zamba2's H 64 N 64, groups 2, one token; final
+   state included) and RMSNorm at its rows and widths (up to 5120), with
+   CUDA-event times for the kernel, its plain version and a library
    yardstick (``F.scaled_dot_product_attention`` with an explicit mask
-   over the same dense or gathered KV, and its backward for the backward
-   kernels; timed here only, never called by the port), and the bound:
-   bytes over 3.35 TB/s or operations over the peak rate;
+   over the same dense or gathered KV, its backward for the backward
+   kernels, ``F.rms_norm`` for RMSNorm, none for the SSD scan; timed here
+   only, never called by the port), and the bound: bytes over 3.35 TB/s
+   or operations over the peak rate;
 3. serve: full-width tinyllama-1.1b (22 layers, bf16 compute, random
    weights from a seed) in ``ServingEngine``, 8 requests plus a 256-token
    shared-prefix pair, through the background loop; every request must
@@ -30,13 +34,24 @@ continues:
    verify kernel launched 22 x the verify rounds, the dense decode kernel
    by every draft step, the streams equal to the same traffic served
    without the draft, whose decode tokens/s is printed beside;
+3c. SSM serve: full-width mamba2-2.7b (64 layers) and zamba2-1.2b (38
+   Mamba2 layers, 6 shared-attention applications), bf16, random weights
+   from a seed, on the dense-slot plane with phase 3's traffic; every
+   request completes, and the launches are exact: the SSD scan layers x
+   chunks, RMSNorm norms x (chunks + decode steps), for zamba2 flash 6 x
+   chunks and the dense decode kernel 6 x decode steps; tokens/s, TTFT,
+   tick walls and a profiled decode tick;
 4. consistency: fp32 at full width, 2 layers: every decode step's logits
    against ``Model.forward`` over the same prefix, within 2e-4 relative;
+4c. SSM consistency: mamba2 (2 layers) and zamba2 (3) in fp32 at full
+   width: chunked against monolithic prefill (logits and SSM state) and
+   each decode step against ``Model.forward``, within 2e-4 relative;
 4b. speculative exactness: fp32 at full width, 2 random layers, the first
    as the draft: speculative streams equal plain ones with pages in fp32
    and in int8 (a token may differ only at a top-2 margin <= 1e-3);
-5. golden: the JAX reference's token streams (``tests/data``), plain and
-   speculative, reproduced by the port on the card in fp32;
+5. golden: the JAX reference's token streams (``tests/data``), plain,
+   speculative and dense-slot (reduced mamba2 and zamba2), reproduced by
+   the port on the card in fp32;
 6. train: ``Trainer`` at full tinyllama-1.1b width (fp32 parameters and
    AdamW moments, bf16 compute) on the bigram stream at B 8 x T 1024, 6
    steps: every loss and grad norm finite, the parameters still after
@@ -53,7 +68,8 @@ continues:
    replayed through the kernels from its step-0 state: losses and grad
    norms within 1e-4 relative, final parameters within 1e-4;
 9. the kernels line (each kernel's launches from the path that runs it:
-   per request for serving, per step for training), then the last line
+   per request for serving, per step for training; the SSD scan and
+   RMSNorm from mamba2's serve), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -366,6 +382,42 @@ def _sdpa_bwd(torch, F, q, k, v, do):
                                        retain_graph=True)
 
 
+def _ssd_case(torch, gen, dtype, T, H, P, N, G=1, chunk=256, init=True):
+    """A Mamba2 scan of one sequence (a serving prefill is batch 1): x, B,
+    C in ``dtype``, dt softplus'd and A negative in f32, an f32 initial
+    state when ``init`` (every serving chunk passes one)."""
+    dt = getattr(torch, dtype)
+    x = torch.randn(1, T, H, P, generator=gen, device="cuda").to(dt)
+    dtv = torch.nn.functional.softplus(
+        torch.randn(1, T, H, generator=gen, device="cuda") - 2)
+    A = -torch.exp(torch.randn(H, generator=gen, device="cuda"))
+    Bm = torch.randn(1, T, G, N, generator=gen, device="cuda").to(dt)
+    Cm = torch.randn(1, T, G, N, generator=gen, device="cuda").to(dt)
+    s0 = torch.randn(1, H, P, N, generator=gen, device="cuda") \
+        if init else None
+    kw = dict(chunk=chunk, initial_state=s0, return_final_state=True)
+    es = x.element_size()
+    nbytes = (2 * T * H * P * es + 4 * T * H + 4 * H + 2 * T * G * N * es
+              + (2 if init else 1) * H * P * N * 4)
+    # what the data needs, per head and chunk of r rows: the r(r+1)/2
+    # causal pairs (C·B over N, the decay, times dt·x over P), the state's
+    # read (C·S) and update (B·dt·x) over N·P per row
+    flops = 0
+    for c0 in range(0, T, chunk):
+        r = min(chunk, T - c0)
+        flops += H * (r * (r + 1) // 2 * (2 * N + 2 * P + 1)
+                      + r * 4 * N * P + 2 * N * P)
+    return (x, dtv, A, Bm, Cm), kw, nbytes, flops
+
+
+def _rms_case(torch, gen, dtype, rows, d):
+    dt = getattr(torch, dtype)
+    x = (torch.randn(rows, d, generator=gen, device="cuda") * 3).to(dt)
+    scale = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dt)
+    es = x.element_size()
+    return (x, scale), dict(eps=1e-5), (2 * rows + 1) * d * es, 4 * rows * d
+
+
 def phase_kernels(torch, timer, card):
     import torch.nn.functional as F
 
@@ -409,12 +461,13 @@ def phase_kernels(torch, timer, card):
             return
         ms = timer.ms(lambda: kernel(*args, **kw))
         plain_ms = timer.ms(lambda: plain(*args, **kw))
-        lib_ms = timer.ms(library)
+        lib_ms = timer.ms(library) if library is not None else None
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         bound = max(t_bytes, t_ops)
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"[kernel] {name} {label} {dtype}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+              f"{plain_ms:.4f} ms, library {lib}, bound "
               f"{bound:.5f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}"
               f": {nbytes} B, {flops} FLOP) on {card}")
         results[name] = dict(
@@ -562,6 +615,46 @@ def phase_kernels(torch, timer, card):
                       f"flash_attention_bwd {label}: an empty row must "
                       f"give zero gradients")
             del args, out
+
+    # the SSM serving path: the SSD scan of a prefill chunk (mamba2-2.7b:
+    # 80 heads, P 64, N 128, chunk 256; zamba2-1.2b: 64 heads, N 64) with
+    # the carried state, a whole 511-token prompt, groups 2, one token;
+    # no single PyTorch call computes it (library: none)
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    ssd_cases = [
+        # label, T, H, P, N, G, init, timed
+        ("mamba2 T64 chunk+state", 64, 80, 64, 128, 1, True, True),
+        ("mamba2 T511", 511, 80, 64, 128, 1, False, False),
+        ("mamba2 T511+state", 511, 80, 64, 128, 1, True, False),
+        ("zamba2 T64 H64 N64", 64, 64, 64, 64, 1, True, False),
+        ("T257 G2", 257, 80, 64, 128, 2, True, False),
+        ("T1", 1, 80, 64, 128, 1, True, False),
+    ]
+    for dtype in ("bfloat16", "float32"):
+        for label, T, H, P, N, G, init, timed in ssd_cases:
+            args, kw, nb, fl = _ssd_case(torch, gen, dtype, T, H, P, N, G,
+                                         init=init)
+            run("ssd_scan", label, dtype, ssd_scan, ref.ssd_scan, args, kw,
+                nb, fl, None, timed and dtype == "bfloat16")
+    # RMSNorm at the serving path's rows and widths: a 64-token chunk's
+    # gated out-norm over d_inner (timed), block norms, decode rows
+    rms_cases = [
+        ("64x5120 out-norm", 64, 5120, True),
+        ("64x2560 block", 64, 2560, False),
+        ("8x2560 decode", 8, 2560, False),
+        ("8x5120 decode out-norm", 8, 5120, False),
+        ("64x2048 zamba2", 64, 2048, False),
+        ("64x4096 zamba2 out-norm", 64, 4096, False),
+    ]
+    for dtype in ("bfloat16", "float32"):
+        for label, rows, d, timed in rms_cases:
+            args, kw, nb, fl = _rms_case(torch, gen, dtype, rows, d)
+            run("rmsnorm", label, dtype, rmsnorm, ref.rmsnorm, args, kw, nb,
+                fl, lambda a=args: F.rms_norm(a[0], (a[0].shape[-1],),
+                                              weight=a[1], eps=1e-5),
+                timed and dtype == "bfloat16")
 
     for name, res in results.items():
         by_dtype = worst[name]
@@ -833,6 +926,164 @@ def phase_spec_serve(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: serve full-width mamba2-2.7b and zamba2-1.2b on dense slots
+# ---------------------------------------------------------------------------
+
+def phase_ssm_serve(torch, arch: str):
+    """Phase 3's traffic (8 random prompts of 4-511 tokens, seed 0, and a
+    two-turn pair whose second turn extends the first, 32 new tokens each)
+    on the dense-slot plane: 8 slots, exact-length chunks of at most 64
+    tokens resuming each request's staging cache, random bf16 weights
+    from a seed.  Every kernel of the path launched exactly: the SSD scan
+    once per Mamba2 layer per chunk, RMSNorm once per norm per chunk and
+    decode step, and for the hybrid flash attention once per shared-block
+    application per chunk and the dense decode kernel once per
+    application per decode step.  Then a profiled decode tick."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config(arch)
+    n_attn = (cfg.num_layers // cfg.hybrid_attn_every
+              if cfg.family == "hybrid" else 0)
+    norms = 2 * cfg.num_layers + 2 * n_attn + 1
+    t0 = time.monotonic()
+    eng = ServingEngine(cfg, max_slots=8, max_seq=1024, prefill_chunk=64,
+                        seed=0, device="cuda")
+    eng.warmup()
+    check(not eng.paged, f"{arch} must serve on dense slots")
+    print(f"[{arch}] {cfg.num_layers}L d{cfg.d_model} ({cfg.family}, "
+          f"{n_attn} attention applications) bf16 on cuda, dense slots: "
+          f"init {time.monotonic() - t0 - eng.warmup_s:.1f}s, warmup "
+          f"{eng.warmup_s:.2f}s, params {cfg.num_params() / 1e9:.3f} B, "
+          f"slot tree {eng.kv.capacity_bytes() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(0)
+    lens = [int(rng.integers(4, 512)) for _ in range(8)]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
+    shared = rng.integers(0, cfg.vocab_size, size=256)
+    first_turn = np.concatenate([shared,
+                                 rng.integers(0, cfg.vocab_size, size=10)])
+    counters = ((ss, "ssd_scan"), (rn, "rmsnorm"), (fa, "flash_attention"),
+                (da, "decode_attention"))
+    for mod, fn in counters:              # count the traffic's launches only
+        getattr(mod, fn).launches = 0
+    t0 = time.monotonic()
+    with eng:
+        handles = [eng.submit(p, max_new_tokens=32) for p in prompts]
+        r1 = eng.submit(first_turn, max_new_tokens=32).result(timeout=600)
+        follow = np.concatenate([first_turn, np.asarray(r1.generated),
+                                 rng.integers(0, cfg.vocab_size, size=8)])
+        h2 = eng.submit(follow, max_new_tokens=32)
+        done = [h.result(timeout=600) for h in handles + [h2]] + [r1]
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {fn: getattr(mod, fn).launches for mod, fn in counters}
+    st = eng.stats()
+    check(not eng.failed and st["failed"] == 0,
+          f"failed requests: {[r.error for r in eng.failed.values()]}")
+    check(len(done) == 10 and all(len(r.generated) == 32 for r in done),
+          "every request must complete with 32 tokens")
+    chunks, steps = st["prefill_chunks"], st["decode_steps"]
+    check(chunks == sum(-(-len(r.prompt) // 64) for r in done),
+          f"{chunks} chunks: stateful chunks must be exact and <= 64")
+    want = {"ssd_scan": cfg.num_layers * chunks,
+            "rmsnorm": norms * (chunks + steps),
+            "flash_attention": n_attn * chunks,
+            "decode_attention": n_attn * steps}
+    check(launches == want, f"launches {launches} != {want} ({chunks} "
+          f"chunks, {steps} decode steps)")
+    check(launches["ssd_scan"] > 0 and launches["rmsnorm"] > 0,
+          "a kernel never ran on the main path")
+    toks = sum(len(r.generated) for r in done)
+    print(f"[{arch}] {len(done)} requests, {toks} tokens in {wall:.2f}s "
+          f"({toks / wall:.1f} tok/s); prompts {lens} + pair "
+          f"{len(first_turn)}/{len(follow)}")
+    print(f"[{arch}] ttft p50 {st['p50_ttft_s'] * 1e3:.1f} ms p95 "
+          f"{st['p95_ttft_s'] * 1e3:.1f} ms; decode tick p50 "
+          f"{st['p50_decode_tick_s'] * 1e3:.2f} ms p95 "
+          f"{st['p95_decode_tick_s'] * 1e3:.2f} ms; prefill tick p50 "
+          f"{st['p50_prefill_tick_s'] * 1e3:.2f} ms")
+    print(f"[{arch}] {chunks} chunks, {steps} decode steps, launches "
+          f"{launches} (exact)")
+    profile_decode(torch, eng, rng, label=f"{arch} decode")
+    del eng
+    torch.cuda.empty_cache()
+    return launches, len(done)
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the SSM families in fp32 at full width
+# ---------------------------------------------------------------------------
+
+def phase_ssm_consistency(torch):
+    """mamba2-2.7b (2 layers) and zamba2-1.2b (3 layers: one super-block
+    of 2 Mamba2 layers and the shared attention block, then 1 trailing
+    layer) at full width in fp32, random weights: the prompt's logits and
+    final SSM states from exact chunks of 64 against one monolithic
+    prefill, and every decode step's logits against ``Model.forward``
+    over the same prefix (the decode path runs the kernels' norms, the
+    forward the plain ones), within 2e-4 relative."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    for arch, over in (("mamba2-2.7b", dict(num_layers=2)),
+                       ("zamba2-1.2b", dict(num_layers=3,
+                                            hybrid_attn_every=2))):
+        cfg = dataclasses.replace(get_config(arch), compute_dtype="float32",
+                                  **over)
+        model = Model(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(1))
+        rng = np.random.default_rng(1)
+        worst = {"chunked": 0.0, "state": 0.0, "decode": 0.0}
+        flips, steps = 0, 8
+        with torch.no_grad():
+            for n in (40, 150):
+                seq = list(rng.integers(0, cfg.vocab_size, size=n))
+                toks = torch.tensor([seq], device="cuda")
+                mono = model.init_caches(1, 512, torch.float32)
+                want, _ = model.prefill(params, {"tokens": toks}, mono)
+                staging = model.init_caches(1, 512, torch.float32)
+                for c0 in range(0, n, 64):
+                    c1 = min(c0 + 64, n)
+                    lg = model.prefill_chunk(
+                        params, {"tokens": toks[:, c0:c1]}, staging,
+                        torch.tensor([c0], device="cuda"),
+                        torch.tensor([c1], device="cuda"))
+                worst["chunked"] = max(worst["chunked"], rel_err(want, lg))
+                key = "mamba" if cfg.family == "ssm" else "mamba_tail"
+                worst["state"] = max(worst["state"], rel_err(
+                    mono[key]["ssm"], staging[key]["ssm"]))
+                clen = torch.tensor([n], device="cuda", dtype=torch.int32)
+                nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+                for _ in range(steps):
+                    seq.append(int(nxt[0]))
+                    dec = model.decode(params, nxt, staging, clen)
+                    clen = clen + 1
+                    full = model.forward(params, {"tokens": torch.tensor(
+                        [seq], device="cuda")})[0, -1]
+                    worst["decode"] = max(worst["decode"],
+                                          rel_err(full, dec[0]))
+                    if int(torch.argmax(dec[0])) != int(torch.argmax(full)):
+                        top2 = torch.topk(full, 2).values
+                        check(float(top2[0] - top2[1]) <= 1e-3,
+                              "greedy token differs at a clear margin")
+                        flips += 1
+                    nxt = torch.argmax(dec, dim=-1).to(torch.int32)
+        print(f"[ssm-consistency] {arch} fp32 full width, "
+              f"{cfg.num_layers} layers, prompts 40/150 in chunks of 64, "
+              f"{steps} decode steps each: chunked vs monolithic logits "
+              f"{worst['chunked']:.3e}, SSM state {worst['state']:.3e}, "
+              f"decode vs forward {worst['decode']:.3e} (bound 2e-4), "
+              f"near-tie flips {flips}")
+        check(max(worst.values()) < 2e-4, f"{arch}: {worst} >= 2e-4")
+        del model, params
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 4b: speculative streams equal plain ones, fp32 full width
 # ---------------------------------------------------------------------------
 
@@ -1008,6 +1259,37 @@ def phase_golden(torch):
           f"speculative streams with pages in fp32 and int8; first-token "
           f"logits max rel err {worst:.3e} (bound 2e-4)")
     check(worst < 2e-4, f"golden logits {worst} >= 2e-4")
+
+    # the dense-slot plane: reduced mamba2 and zamba2 served by the JAX
+    # engine, all four prompts at once on two slots in exact chunks
+    skw = json.loads(str(g["stateful_engine"]))
+    for fam in ("ssm", "hybrid"):
+        scfg = ModelConfig.from_dict(json.loads(str(g[f"{fam}_config"])))
+        sparams = tree(f"{fam}_params/", scfg)
+        seng = ServingEngine(scfg, params=sparams, device="cuda", **skw)
+        for p, n in zip(g["prompts"], g["prompt_lens"]):
+            seng.submit(p[:n], max_new_tokens=int(g["max_new"]))
+        done = sorted(seng.run_until_drained(), key=lambda r: r.rid)
+        check(not seng.failed and not seng.paged,
+              f"golden {fam}: a request failed")
+        check([r.generated for r in done] == g[f"{fam}_streams"].tolist(),
+              f"golden {fam} streams differ:\n"
+              f"{[r.generated for r in done]}\n"
+              f"{g[f'{fam}_streams'].tolist()}")
+        worst = 0.0
+        with torch.no_grad():
+            for p, n, want in zip(g["prompts"], g["prompt_lens"],
+                                  g[f"{fam}_first_logits"]):
+                lg = seng.model.forward(seng.params, {"tokens": torch.tensor(
+                    p[None, :n].astype(np.int64), device="cuda")})[0, -1]
+                w = torch.tensor(want, device="cuda")
+                worst = max(worst, float((lg - w).abs().max()
+                                         / w.abs().max()))
+        print(f"[golden] {scfg.name} ({fam}, {scfg.num_layers}L "
+              f"d{scfg.d_model}): the JAX engine's {len(done)} dense-slot "
+              f"streams reproduced on the card (fp32); last-position "
+              f"logits max rel err {worst:.3e} (bound 2e-4)")
+        check(worst < 2e-4, f"golden {fam} logits {worst} >= 2e-4")
 
 
 def phase_golden_train(torch):
@@ -1317,13 +1599,21 @@ KERNELS = {
     "flash_attention_bwd_dkv": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention_bwd.py:228"),
+    "ssd_scan": dict(
+        route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:119"),
+    "rmsnorm": dict(
+        route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm.py:41"),
 }
 # the path each kernel's launch count comes from, and that path's unit
 PATH_OF = {"flash_attention": "serve", "paged_decode_attention": "serve",
            "paged_verify_attention": "spec", "decode_attention": "spec",
            "flash_attention_bwd_dq": "train",
-           "flash_attention_bwd_dkv": "train"}
-UNIT_OF = {"serve": "request", "spec": "request", "train": "step"}
+           "flash_attention_bwd_dkv": "train",
+           "ssd_scan": "mamba2", "rmsnorm": "mamba2"}
+UNIT_OF = {"serve": "request", "spec": "request", "train": "step",
+           "mamba2": "request"}
 
 
 def main() -> int:
@@ -1343,8 +1633,11 @@ def main() -> int:
     card = phase_device_and_build(torch)
     timer = Timer(torch)
     kernels = phase_kernels(torch, timer, card)
-    paths = {"serve": phase_serve(torch), "spec": phase_spec_serve(torch)}
+    paths = {"serve": phase_serve(torch), "spec": phase_spec_serve(torch),
+             "mamba2": phase_ssm_serve(torch, "mamba2-2.7b")}
+    phase_ssm_serve(torch, "zamba2-1.2b")
     phase_consistency(torch)
+    phase_ssm_consistency(torch)
     phase_spec_exactness(torch)
     phase_golden(torch)
     paths["train"] = phase_train(torch)

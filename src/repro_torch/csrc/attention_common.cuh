@@ -1,4 +1,6 @@
-// Helpers shared by the attention kernels of this directory: element
+// Helpers shared by the kernels of this directory (the SSD scan and
+// RMSNorm take the element conversions and the warp sum; the rest is the
+// attention kernels'): element
 // conversions, 16-byte vector loads, warp reductions, the masking
 // constant of the JAX kernels (`NEG_INF = -0.7 * f32max`), the logit
 // softcap, the online-softmax tile step and the K/V tile loader of the

@@ -4,7 +4,9 @@ plain PyTorch version in ``ref.py``.  There is no fallback between the
 two: a CUDA tensor never reaches a plain version.  Flash attention goes
 through its autograd function on both devices, so the train-mode forward
 carries gradients (through the backward kernels on the card); the decode
-kernels are forward-only."""
+kernels, the SSD scan and RMSNorm are forward-only.  The SSD decode step
+has no kernel (as in the JAX package) and runs plain ops on both
+devices."""
 from __future__ import annotations
 
 from typing import Optional
@@ -16,6 +18,8 @@ from repro_torch.kernels.paged_decode_attention import \
     paged_decode_attention as _pda
 from repro_torch.kernels.paged_verify_attention import \
     paged_verify_attention as _pva
+from repro_torch.kernels.rmsnorm import rmsnorm as _rms
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -66,3 +70,28 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, softcap: float = 0.0,
     if q.is_cuda:
         return _da(q, k_cache, v_cache, cache_len, **kw)
     return ref.decode_attention(q, k_cache, v_cache, cache_len, **kw)
+
+
+def ssd_scan(x, dt, A, B_, C, *, chunk: int = 64, initial_state=None,
+             return_final_state: bool = False):
+    """Mamba2 SSD chunk scan: x [B,T,H,P], dt [B,T,H] (softplus'd), A [H],
+    B/C [B,T,G,N] → y [B,T,H,P] (and the f32 state [B,H,P,N] after the
+    last token with ``return_final_state``)."""
+    kw = dict(chunk=chunk, initial_state=initial_state,
+              return_final_state=return_final_state)
+    if x.is_cuda:
+        return _ssd(x, dt, A, B_, C, **kw)
+    return ref.ssd_scan(x, dt, A, B_, C, **kw)
+
+
+def ssd_decode_step(x, dt, A, B_, C, state):
+    """One recurrent SSD step → (y [B,H,P], new state [B,H,P,N] f32)."""
+    return ref.ssd_decode_step(x, dt, A, B_, C, state)
+
+
+def rmsnorm(x, scale, *, eps: float = 1e-6):
+    """Row-wise ``x·rsqrt(mean x² + eps)·scale``, statistics in f32 and the
+    products in x's dtype."""
+    if x.is_cuda:
+        return _rms(x, scale, eps=eps)
+    return ref.rmsnorm(x, scale, eps)

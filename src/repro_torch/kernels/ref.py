@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the attention kernels, forward and backward.
+"""Plain PyTorch versions of the kernels: attention forward and
+backward, the Mamba2 SSD scan and its decode step, and RMSNorm.
 
 Counterparts of ``repro.kernels.ref``, with the same conventions:
 ``NEG_INF = -0.7 * f32max`` for masked logits, probabilities explicitly
@@ -239,3 +240,118 @@ def paged_verify_attention(
     q_pos = clen[:, None] - K1 + torch.arange(K1, device=q.device)[None]
     return mha(q, k, v, causal=True, window=window, softcap=softcap,
                q_positions=q_pos, kv_valid_len=clen, sm_scale=sm_scale)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD chunked scan
+# ---------------------------------------------------------------------------
+
+def ssd_scan(
+    x: torch.Tensor,                  # [B, T, H, P] inputs (gated, convolved)
+    dt: torch.Tensor,                 # [B, T, H] softplus'd timestep, > 0
+    A: torch.Tensor,                  # [H] negative
+    B_: torch.Tensor,                 # [B, T, G, N] input matrix
+    C: torch.Tensor,                  # [B, T, G, N] output matrix
+    *,
+    chunk: int = 64,
+    initial_state: Optional[torch.Tensor] = None,   # [B, H, P, N] f32
+    return_final_state: bool = False,
+):
+    """``y_t = C_t·h_t``, ``h_t = exp(A·dt_t)·h_{t-1} + dt_t·B_t x_tᵀ`` per
+    head, in the chunked state-space-dual form of ``repro.kernels.ref.
+    ssd_scan``: the tail is padded with ``dt = 0`` steps (decay 1, update
+    0: state-neutral), each chunk adds its intra-chunk ``(C·Bᵀ ∘ L) @
+    (dt·x)`` with ``L = exp(cum_i − cum_j)`` for ``j <= i`` (selected
+    before use, so the overflow above the diagonal never reaches a
+    product) and ``exp(cum)·C·S_in`` from the ``[N, P]`` state entering
+    it; the state crosses chunks in a scan.  Head ``h`` reads group
+    ``h // (H/G)`` of B and C.  Everything in f32; ``y`` in x's dtype,
+    the final state ``[B, H, P, N]`` in f32."""
+    Bb, T, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    T0 = T
+    pad = (-T) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        B_ = torch.nn.functional.pad(B_, (0, 0, 0, 0, 0, pad))
+        C = torch.nn.functional.pad(C, (0, 0, 0, 0, 0, pad))
+        T += pad
+    nC = T // chunk
+    rep = H // G
+
+    xc = x.float().reshape(Bb, nC, chunk, H, P)
+    dtc = dt.float().reshape(Bb, nC, chunk, H)
+    Bc = torch.repeat_interleave(B_.float(), rep, dim=2).reshape(
+        Bb, nC, chunk, H, N)
+    Cc = torch.repeat_interleave(C.float(), rep, dim=2).reshape(
+        Bb, nC, chunk, H, N)
+
+    cum = torch.cumsum(dtc * A.float(), dim=2)          # [B, nC, Q, H]
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=x.device).tril()[None, None, :, :, None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # [B,nC,i,j,H]
+    L = torch.exp(torch.where(causal, diff, float("-inf")))
+    dx = xc * dtc[..., None]
+    cb = torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc)
+    y = torch.einsum("bcijh,bcjhp->bcihp", cb * L, dx)
+
+    # each chunk's own contribution to the state, and its total decay
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)   # [B, nC, Q, H]
+    s_local = torch.einsum("bcjhn,bcjhp->bchnp",
+                           Bc * decay_to_end[..., None], dx)
+    chunk_decay = torch.exp(cum[:, :, -1, :])           # [B, nC, H]
+    if initial_state is None:
+        s = torch.zeros((Bb, H, N, P), dtype=torch.float32, device=x.device)
+    else:
+        s = initial_state.float().transpose(-1, -2)     # [B, H, N, P]
+    s_in = []
+    for c in range(nC):
+        s_in.append(s)
+        s = chunk_decay[:, c, :, None, None] * s + s_local[:, c]
+    s_in = torch.stack(s_in, dim=1)                     # [B, nC, H, N, P]
+    y = y + torch.exp(cum)[..., None] * torch.einsum(
+        "bcihn,bchnp->bcihp", Cc, s_in)
+    y = y.reshape(Bb, T, H, P)[:, :T0].to(x.dtype)
+    if return_final_state:
+        return y, s.transpose(-1, -2)                   # [B, H, P, N]
+    return y
+
+
+def ssd_decode_step(
+    x: torch.Tensor,                  # [B, H, P]
+    dt: torch.Tensor,                 # [B, H]
+    A: torch.Tensor,                  # [H]
+    B_: torch.Tensor,                 # [B, G, N]
+    C: torch.Tensor,                  # [B, G, N]
+    state: torch.Tensor,              # [B, H, P, N]
+):
+    """One recurrent step (decode) → ``(y [B, H, P] in x's dtype, new
+    state [B, H, P, N] f32)``.  No kernel: a handful of small products,
+    as in the JAX package (``repro/kernels/ops.py:150``)."""
+    rep = x.shape[1] // B_.shape[1]
+    Bf = torch.repeat_interleave(B_.float(), rep, dim=1)   # [B, H, N]
+    Cf = torch.repeat_interleave(C.float(), rep, dim=1)
+    dtf = dt.float()
+    decay = torch.exp(dtf * A.float()[None, :])            # [B, H]
+    upd = torch.einsum("bh,bhp,bhn->bhpn", dtf, x.float(), Bf)
+    new_state = decay[:, :, None, None] * state.float() + upd
+    y = torch.einsum("bhpn,bhn->bhp", new_state, Cf)
+    return y.to(x.dtype), new_state
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """The function of the Pallas kernel (``repro/kernels/rmsnorm.py:
+    19-24``): the mean of squares and its rsqrt in f32, then the products
+    in x's dtype, ``x * inv.to(dt) * scale.to(dt)``.  Not the JAX
+    ``ref.rmsnorm`` (``repro/kernels/ref.py:294``), which multiplies in f32
+    and rounds once: in bf16 the two differ by a rounding."""
+    dt = x.dtype
+    ms = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+    inv = torch.rsqrt(ms + eps)
+    return x * inv.to(dt) * scale.to(dt)

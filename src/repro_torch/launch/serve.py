@@ -5,7 +5,9 @@ plus ``--device``.  The JAX script deploys the engine through an
 ``EdgeSystem`` and a ``ServiceSpec``; that control plane is not ported yet
 (ROADMAP Queue A item 9), so this script builds the engine directly.
 Every prompt is submitted up front to the background engine loop, which
-overlaps one request's prefill chunks with the others' decode.
+overlaps one request's prefill chunks with the others' decode.  The
+engine picks its data plane: paged KV for the dense decoder, dense slots
+for ``mamba2-2.7b`` and ``zamba2-1.2b``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --reduced --requests 8
@@ -52,9 +54,9 @@ def main(argv=None) -> None:
     engine = ServingEngine(cfg, max_slots=args.slots, max_seq=args.max_seq,
                            device=args.device)
     engine.warmup()
-    print(f"warmup: decode + {len(engine.chunk_buckets)} chunk buckets "
-          f"in {engine.warmup_s:.2f}s "
-          f"(paged KV, chunk={engine.chunk_tokens}, "
+    plane = "paged KV" if engine.paged else "dense slots"
+    print(f"warmup: {engine.warmup_s:.2f}s ({plane}, "
+          f"chunk={engine.chunk_tokens}, "
           f"budget={engine.prefill_budget} tok/tick)")
 
     rng = np.random.default_rng(0)

@@ -6,8 +6,9 @@ Layouts are the JAX package's: projections ``w_q [d, H, hd]``,
 Pools and caches are device tensors written in place (the JAX functions
 return a new pool or cache and donate the old one; the effect is the
 same).  Page 0 of every pool is the allocator's trash page.  The dense
-cache serves the speculative draft model; MLA and sliding-window
-attention are not ported.
+cache serves the speculative draft model and the dense slot plane (with
+its staging cache for chunked prefill); MLA and sliding-window attention
+are not ported.
 """
 from __future__ import annotations
 
@@ -187,6 +188,24 @@ def prefill_chunk_paged(params, x, cfg: ModelConfig, pool: Pool, page_table,
         kd, vd = kd.to(dt), vd.to(dt)
     # key positions are the gathered indices (kv_positions=None)
     o = ops.flash_attention(q, kd, vd, causal=True, window=0,
+                            softcap=cfg.attn_logit_softcap,
+                            q_positions=positions, kv_valid_len=new_len)
+    return _out_proj(params, o, cfg)
+
+
+def prefill_chunk_dense(params, x, cfg: ModelConfig, cache: Pool, positions,
+                        new_len):
+    """One exact-length prefill chunk into a dense cache (the stateful
+    families' staging cache): write the chunk's KV at its positions, then
+    attend the chunk's queries over the cache prefix and the chunk, keys
+    valid below ``new_len``.  The key positions are the cache indices
+    (``kv_positions=None``), so the flash kernel stops its key loop at the
+    last key a query tile sees.  Returns out [B, T, d]; the cache is
+    updated."""
+    x = x.to(cfg.cdtype)
+    q, k, v = _qkv(params, x, cfg, positions)
+    _fill_cache(cache, k, v, positions)
+    o = ops.flash_attention(q, cache["k"], cache["v"], causal=True, window=0,
                             softcap=cfg.attn_logit_softcap,
                             q_positions=positions, kv_valid_len=new_len)
     return _out_proj(params, o, cfg)

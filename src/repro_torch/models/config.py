@@ -132,16 +132,28 @@ class ModelConfig:
     def pdtype(self) -> torch.dtype:
         return torch_dtype(self.param_dtype)
 
+    @property
+    def d_inner(self) -> int:
+        if self.ssm is None:
+            raise ValueError(f"{self.name} has no SSM block")
+        return self.ssm.expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm.head_dim
+
     def num_params(self) -> int:
-        """Exact parameter count (the JAX ``num_params``), for the dense
-        family; the others come with their slices (ROADMAP Queue A
-        item 11)."""
-        if self.family != "dense" or self.encoder_only \
-                or self.attn_type == "mla" or self.frontend != "none":
+        """Exact parameter count (the JAX ``num_params``), for the dense,
+        ssm and hybrid families; the others come with their slices
+        (ROADMAP Queue A item 11)."""
+        if self.family not in ("dense", "ssm", "hybrid") \
+                or self.encoder_only or self.attn_type == "mla" \
+                or self.frontend != "none":
             raise NotImplementedError(
                 f"num_params of family {self.family!r} is not ported yet "
                 "(ROADMAP Queue A item 11)")
-        d, V, hd = self.d_model, self.vocab_size, self.head_dim_
+        d, V, hd, L = self.d_model, self.vocab_size, self.head_dim_, \
+            self.num_layers
         n = V * d * (1 if self.tie_embeddings else 2)     # embed (+ head)
         attn = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
         attn += self.num_heads * hd * d
@@ -149,11 +161,21 @@ class ModelConfig:
             attn += (self.num_heads + 2 * self.num_kv_heads) * hd + d
         if self.qk_norm:
             attn += 2 * hd
-        mult = 3 if self.activation in ("swiglu", "geglu") else 2
+        mlp = (3 if self.activation in ("swiglu", "geglu") else 2) \
+            * d * self.d_ff
         norm = 2 * d if self.norm == "layernorm" else d
-        per_layer = attn + mult * d * self.d_ff + \
-            (1 if self.parallel_block else 2) * norm
-        return n + self.num_layers * per_layer + norm
+        if self.family == "dense":
+            per_layer = attn + mlp + (1 if self.parallel_block else 2) * norm
+            return n + L * per_layer + norm
+        s, di, H = self.ssm, self.d_inner, self.ssm_heads
+        conv_ch = di + 2 * s.n_groups * s.d_state
+        mamba = d * (2 * di + 2 * s.n_groups * s.d_state + H)   # in_proj
+        mamba += conv_ch * s.d_conv + conv_ch        # depthwise conv + bias
+        mamba += 3 * H + di + di * d      # a_log, d_skip, dt_bias; norm; out
+        n += L * (mamba + norm) + norm
+        if self.family == "hybrid":       # one shared attention+MLP block
+            n += attn + mlp + 2 * norm
+        return n
 
     def kv_bytes_per_token(self, dtype_bytes: int = 2) -> int:
         """KV-cache bytes per token per layer-application (serving planner)."""
@@ -217,15 +239,17 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for the architecture features this slice has not ported.
+    """Raise for the architecture features the port has not reached.
 
-    The paged, full-attention, dense decoder is ported; the rest waits on
-    the ROADMAP items named in each message."""
-    if cfg.family != "dense" or cfg.encoder_only:
+    Ported: the dense decoder and the hybrid with full attention, and the
+    attention-free SSM family (Mamba2); the rest waits on the ROADMAP
+    items named in each message."""
+    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.encoder_only:
         raise NotImplementedError(
-            f"family {cfg.family!r}: only the dense decoder is ported "
-            "(ROADMAP Queue A item 11)")
-    if cfg.attn_type != "full" or cfg.sliding_window > 0:
+            f"family {cfg.family!r}: only the dense decoder, ssm and "
+            "hybrid are ported (ROADMAP Queue A item 11)")
+    if cfg.family != "ssm" and (cfg.attn_type != "full"
+                                or cfg.sliding_window > 0):
         raise NotImplementedError(
             f"attn_type {cfg.attn_type!r} / sliding_window "
             f"{cfg.sliding_window}: only full attention is ported "

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ModelConfig
 
 
@@ -49,15 +50,23 @@ def init_norm(cfg: ModelConfig, device, dim: Optional[int] = None):
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     """f32 mean of squares and rsqrt, then the products in ``x.dtype``:
-    ``x * inv.to(dt) * scale.to(dt)`` (``layers.py:_rmsnorm_fwd``)."""
-    dt = x.dtype
-    ms = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
-    inv = torch.rsqrt(ms + eps)
-    return x * inv.to(dt) * scale.to(dt)
+    ``x * inv.to(dt) * scale.to(dt)`` (``layers.py:_rmsnorm_fwd``), the
+    plain version of the RMSNorm kernel, differentiable by autograd."""
+    return ref.rmsnorm(x, scale, eps)
 
 
-def apply_norm(p, x, cfg: ModelConfig):
-    return rms_norm(x, p["scale"], cfg.norm_eps)
+def rms_norm_simple(x, scale, eps: float = 1e-6, *, kernel: bool = False):
+    """Bare rmsnorm (the Mamba2 out-norm).  ``kernel`` sends it through
+    ``ops.rmsnorm``, the CUDA kernel on the card (forward only): the
+    serving path of the SSM families takes it, every training forward and
+    the dense family keep ``rms_norm``."""
+    if kernel:
+        return ops.rmsnorm(x, scale, eps=eps)
+    return rms_norm(x, scale, eps)
+
+
+def apply_norm(p, x, cfg: ModelConfig, *, kernel: bool = False):
+    return rms_norm_simple(x, p["scale"], cfg.norm_eps, kernel=kernel)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Top-level model API for the dense decoder: the port of
-``repro.models.model.Model`` on the serving and training paths.
+"""Top-level model API for the ported families (the dense decoder, ssm
+and hybrid): the port of ``repro.models.model.Model`` on the serving and
+training paths.
 
     model = Model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -8,6 +9,8 @@
     pools = model.init_paged_caches(num_pages, page_size)
     logits = model.prefill_chunk(params, {"tokens": chunk}, pools, start,
                                  new_len, page_table=row)      # [B, V]
+    logits = model.prefill_chunk(params, {"tokens": chunk}, staging,
+                                 start, new_len)  # dense, exact length
     logits = model.decode_paged(params, tokens, pools, table, cache_len)
     logits = model.verify_paged(params, block, pools, table, cache_len)
     caches = model.init_caches(batch, max_seq)                 # dense
@@ -16,7 +19,8 @@
     logits = model.decode(params, tokens, caches, cache_len)
 
 Params are nested dicts of tensors with the JAX leaf names and stacked
-``[L, ...]`` block leaves.  Pools and caches update in place.
+``[L, ...]`` block leaves.  Pools, caches and SSM states update in place.
+Paged pools and speculative verify are the dense family's only.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
+from repro_torch.models.mamba2 import F32_LEAVES
 from repro_torch.models.config import ModelConfig, check_ported
 from repro_torch.models.layers import (apply_embedding, apply_lm_head,
                                        init_embedding, init_lm_head)
@@ -34,11 +39,13 @@ Params = Dict[str, Any]
 
 
 def cast_params(params: Params, dtype: torch.dtype) -> Params:
-    """Every floating leaf in ``dtype``.  Every use of a weight casts it to
+    """Every floating leaf in ``dtype``, but the SSM leaves kept in f32
+    (``mamba2.F32_LEAVES``).  Every use of any other weight casts it to
     the compute dtype first (``w.to(cdtype)``), so casting the tree once
     gives the same numbers without a cast per call."""
     if isinstance(params, dict):
-        return {k: cast_params(v, dtype) for k, v in params.items()}
+        return {k: v if k in F32_LEAVES else cast_params(v, dtype)
+                for k, v in params.items()}
     return params.to(dtype) if params.is_floating_point() else params
 
 
@@ -109,18 +116,23 @@ class Model:
 
     def prefill_chunk(self, params: Params, batch: Dict[str, torch.Tensor],
                       caches: Params, start: torch.Tensor,
-                      new_len: torch.Tensor, page_table: torch.Tensor):
-        """Prefill ONE chunk ``batch["tokens"]`` [B, C] (right-padded to a
-        bucket) whose first token sits at ``start`` [B]; ``new_len`` [B] is
-        the valid prompt length after it.  The chunk's KV lands in the
-        pages of ``page_table``.  Returns last-valid-token logits [B, V]."""
+                      new_len: torch.Tensor,
+                      page_table: Optional[torch.Tensor] = None):
+        """Prefill ONE chunk ``batch["tokens"]`` [B, C] whose first token
+        sits at ``start`` [B]; ``new_len`` [B] is the valid prompt length
+        after it.  With ``page_table`` the chunk (right-padded to a bucket)
+        lands in the table's pages; without it the chunk is exact-length
+        and resumes a dense staging cache (attention over the cached
+        prefix; SSM layers resume their conv and SSM state).  Returns
+        last-valid-token logits [B, V]."""
         cfg = self.cfg
         x = apply_embedding(params["embed"], batch["tokens"], cfg)
         B, T = x.shape[:2]
         positions = self._positions(B, T, start)
         x = transformer.forward_stack(
             params["stack"], x, cfg, positions=positions, mode="prefill",
-            caches=caches, cache_len=new_len, page_table=page_table)
+            caches=caches, cache_len=new_len, page_table=page_table,
+            chunked=True)
         local_last = torch.clamp(new_len - start - 1, min=0).long()
         last = x[torch.arange(B, device=x.device), local_last]
         logits = apply_lm_head(params["embed"], params.get("head"),
@@ -156,21 +168,27 @@ class Model:
 
     def init_caches(self, batch: int, max_seq: int,
                     dtype=torch.bfloat16) -> Params:
-        """Dense caches ``[L, batch, S, Hkv, D]`` (the draft's slot cache)."""
+        """Dense caches (``transformer.init_cache_tree``): the draft's and
+        the dense slot plane's slot tree, and the staging cache."""
         return transformer.init_cache_tree(self.cfg, batch, max_seq, dtype,
                                            self.device)
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
-                caches: Params, last_index: torch.Tensor):
-        """Fill dense caches with a right-padded prompt [B, T] from
-        position 0; ``last_index`` [B] is the position of each row's last
-        real token.  Returns (its logits [B, V], cache_len [B])."""
+                caches: Params, last_index: Optional[torch.Tensor] = None):
+        """Fill dense caches with a prompt [B, T] from position 0.  With
+        ``last_index`` [B] (the position of each row's last real token)
+        the prompt is right-padded to a bucket, which only full attention
+        may be; without it every row is exact-length.  Returns (the last
+        token's logits [B, V], cache_len [B])."""
         cfg = self.cfg
         x = apply_embedding(params["embed"], batch["tokens"], cfg)
         B, T = x.shape[:2]
         x = transformer.forward_stack(params["stack"], x, cfg,
                                       positions=self._positions(B, T),
                                       mode="prefill", caches=caches)
+        if last_index is None:
+            last_index = torch.full((B,), T - 1, dtype=torch.int32,
+                                    device=x.device)
         last = x[torch.arange(B, device=x.device), last_index.long()]
         logits = apply_lm_head(params["embed"], params.get("head"),
                                last[:, None], cfg)

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.mamba2 import F32_LEAVES
 from repro_torch.tree import unflatten as unflatten_paths
 
 
@@ -22,15 +23,16 @@ def from_numpy_tree(tree: Dict[str, Any], cfg: ModelConfig,
                     device=None) -> Dict[str, Any]:
     dev = resolve_device(device)
 
-    def conv(a):
+    def conv(a, dtype):
         if isinstance(a, dict):
-            return {k: conv(v) for k, v in a.items()}
+            return {k: conv(v, torch.float32 if k in F32_LEAVES else dtype)
+                    for k, v in a.items()}
         a = np.asarray(a)
         if np.issubdtype(a.dtype, np.integer):
             return torch.tensor(a, device=dev)
-        return torch.tensor(a.astype(np.float32), device=dev).to(cfg.pdtype)
+        return torch.tensor(a.astype(np.float32), device=dev).to(dtype)
 
-    return conv(tree)
+    return conv(tree, cfg.pdtype)
 
 
 def to_numpy_tree(params: Dict[str, Any]) -> Dict[str, Any]:

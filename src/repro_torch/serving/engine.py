@@ -1,12 +1,24 @@
-"""Continuous-batching serving engine over paged KV: the paged path of
-``repro.serving.engine.ServingEngine``.
+"""Continuous-batching serving engine: ``repro.serving.engine.
+ServingEngine`` over its two data planes.
 
-Every tick admits queued requests while slots and pages last (attaching a
-radix-matched prefix by reference and copy-seeding a mid-page divergence),
-runs at most ``prefill_budget`` prompt tokens of pow2-bucketed chunks
-round-robin in SLO-slack order, then advances the whole decode batch by
-one token, growing pages on demand through the reclaim ladder (radix
-eviction, then preemption of a strictly-lower-QoS request, else a stall).
+Paged (the dense decoder, by default): every tick admits queued requests
+while slots and pages last (attaching a radix-matched prefix by reference
+and copy-seeding a mid-page divergence), runs at most ``prefill_budget``
+prompt tokens of pow2-bucketed chunks round-robin in SLO-slack order,
+then advances the whole decode batch by one token, growing pages on
+demand through the reclaim ladder (radix eviction, then preemption of a
+strictly-lower-QoS request, else a stall).
+
+Dense slots (the ssm and hybrid families, and the dense decoder with
+``paged=False``): a request claims a slot of a ``SlotKVCache``.  The
+stateful families prefill in exact-length chunks that resume a batch-1
+staging cache of their own (their SSM state must not see pad tokens); the
+dense decoder prefills the whole prompt at once, right-padded to a pow2
+bucket.  A finished prefill is copied into the slot, and decode advances
+every slot together (the states of idle slots move on stale tokens, and
+the next ``insert`` overwrites them).  A failed chunk wrote only its own
+staging cache, so it fails only its own request.
+
 The engine is caller-driven (``step``/``run_until_drained``/a handle's
 ``result``) or runs a background loop (``start``/``stop``/``drain``).
 
@@ -17,14 +29,17 @@ token, so greedy output is the same as without the draft.  A failing
 draft turns speculation off, as in the JAX engine, except when a kernel
 failed to build or launch (``KernelError``): that fails the batch, so a
 broken kernel never hides behind the plain tick.  ``kv_dtype="int8"``
-stores the pages as int8 with per-token scales.
+stores the pages as int8 with per-token scales.  Speculation and int8
+pages are the paged plane's only.
 
 Where the JAX engine jits each step with buffer donation, this one runs
-eagerly and updates the pools, page table and lengths in place; the
-tensors live on the engine's device (``cuda`` unless ``device="cpu"``).
-Ported: the paged, full-attention path, speculative or not, with pages in
-the compute dtype or int8.  The dense slot families and ``EngineExecutor``
-raise ``NotImplementedError`` naming their ROADMAP item.
+eagerly and updates the pools, slot caches, page table and lengths in
+place; the tensors live on the engine's device (``cuda`` unless
+``device="cpu"``).  The dense slot tree is in the compute dtype from the
+start (the JAX engine's starts in bf16 and takes the compute dtype at its
+first decode; ROADMAP Queue C).  MoE, sliding-window, MLA and encoder
+models and ``EngineExecutor`` raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -45,7 +60,8 @@ from repro_torch.kernels.build import KernelError
 from repro_torch.kernels.paged_verify_attention import MAX_K1
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import build_model, cast_params, to_device
-from repro_torch.serving.kv_cache import PagedKVCache, autotune_page_size
+from repro_torch.serving.kv_cache import (PagedKVCache, SlotKVCache,
+                                         autotune_page_size)
 from repro_torch.serving.prefix import PrefixRadixIndex
 from repro_torch.serving.spec_decode import DraftSpeculator
 
@@ -68,7 +84,8 @@ class Request:
     phase: str = "queued"              # queued | prefill | decode
     pos: int = 0                       # prompt tokens prefilled so far
     chunks: int = 0                    # prefill chunks executed
-    table_row: Any = None              # [1, MP] page-table row
+    table_row: Any = None              # [1, MP] page-table row (paged)
+    staging: Any = None                # batch-1 cache tree (dense slots)
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     error: Optional[str] = None
@@ -138,10 +155,6 @@ class ServingEngine:
         if kv_dtype not in ("auto", "int8"):
             raise ValueError(f"kv_dtype must be 'auto' (the compute dtype) "
                              f"or 'int8', got {kv_dtype!r}")
-        if paged is False:
-            raise NotImplementedError(
-                "the dense slot data plane is not ported yet (ROADMAP "
-                "Queue A item 11)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg, self.device)    # raises if unported
@@ -154,17 +167,33 @@ class ServingEngine:
         self.max_slots = max_slots
         self.max_seq = max_seq
         self.buckets = _buckets(max_seq)
-        # int8 pages carry per-token f32 scales, dequantized in the kernels
-        self.kv_dtype = cfg.cdtype if kv_dtype == "auto" else torch.int8
-        if page_size == "auto":
-            page_size = autotune_page_size(cfg, dtype=self.kv_dtype)
-        self.kv = PagedKVCache(cfg, max_slots, max_seq, page_size=page_size,
-                               num_pages=num_pages, dtype=self.kv_dtype,
-                               device=self.device)
 
-        # prefix sharing: radix index + COW accounting, under the lock
+        # data plane: paged pools for the dense decoder (the only
+        # paged-capable family the port has), dense slots otherwise
+        self.paged = cfg.family == "dense" and paged is not False
+        if self.paged:
+            # int8 pages carry per-token f32 scales, dequantized in the
+            # kernels
+            self.kv_dtype = cfg.cdtype if kv_dtype == "auto" else torch.int8
+            if page_size == "auto":
+                page_size = autotune_page_size(cfg, dtype=self.kv_dtype)
+            self.kv: Any = PagedKVCache(
+                cfg, max_slots, max_seq, page_size=page_size,
+                num_pages=num_pages, dtype=self.kv_dtype, device=self.device)
+        else:
+            if kv_dtype != "auto":
+                raise ValueError(
+                    "kv_dtype is a paged-data-plane knob; the dense slot "
+                    "cache serves in the compute dtype")
+            self.kv_dtype = cfg.cdtype
+            self.kv = SlotKVCache(cfg, max_slots, max_seq, dtype=cfg.cdtype,
+                                  device=self.device)
+
+        # prefix sharing (paged): radix index + COW accounting, under the
+        # lock
         self.prefix: Optional[PrefixRadixIndex] = (
-            PrefixRadixIndex(self.kv.page_size) if prefix_sharing else None)
+            PrefixRadixIndex(self.kv.page_size)
+            if self.paged and prefix_sharing else None)
         self.kv_prefix_hits = 0
         self.kv_prefix_misses = 0
         self.preemptions = 0
@@ -176,6 +205,10 @@ class ServingEngine:
             [self.buckets[0]])
         self.chunk_buckets = [b for b in self.buckets
                               if b <= self.chunk_tokens]
+        # stateful chunks are exact-length (an SSM state may not see pad
+        # tokens); the dense decoder on dense slots prefills whole prompts
+        self._chunkable_stateful = cfg.family in ("ssm", "hybrid")
+        self._chunkable = self.paged or self._chunkable_stateful
         self.prefill_budget = prefill_budget if prefill_budget is not None \
             else 2 * self.chunk_tokens
 
@@ -211,6 +244,10 @@ class ServingEngine:
         self.spec_rounds = 0          # verify launches
         self.draft_ticks = 0          # draft propose launches
         if draft_cfg is not None:
+            if not self.paged:
+                raise ValueError(
+                    "speculative decoding needs the paged data plane "
+                    f"(family={cfg.family!r}, paged={paged!r})")
             if draft_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError(
                     f"draft vocab {draft_cfg.vocab_size} != target vocab "
@@ -231,13 +268,37 @@ class ServingEngine:
                 self._run_params, {"tokens": tokens}, self.kv.pools, start,
                 new_len, page_table=table_row)
 
-    def _decode(self, page_table, tokens, cache_len, active):
-        """One decode step for every slot → (next tokens, new lengths);
-        inactive rows keep their token and length."""
+    def _chunk_stateful(self, staging, tokens, start, new_len):
+        """One exact-length chunk resuming a batch-1 staging cache →
+        logits."""
         with torch.no_grad():
-            logits = self.model.decode_paged(self._run_params, tokens,
-                                             self.kv.pools, page_table,
-                                             cache_len)
+            return self.model.prefill_chunk(
+                self._run_params, {"tokens": tokens}, staging, start,
+                new_len)
+
+    def _prefill(self, tokens, last_index):
+        """Monolithic prefill of a right-padded prompt into a fresh batch-1
+        cache (the dense decoder on dense slots) → (logits, cache)."""
+        staging = self.model.init_caches(1, self.max_seq, self.cfg.cdtype)
+        with torch.no_grad():
+            logits, _ = self.model.prefill(self._run_params,
+                                           {"tokens": tokens}, staging,
+                                           last_index)
+        return logits, staging
+
+    def _decode(self, tokens, cache_len, active, caches=None):
+        """One decode step for every slot of either plane (``caches``
+        defaults to the live pools or slot tree) → (next tokens, new
+        lengths); inactive rows keep their token and length."""
+        with torch.no_grad():
+            if self.paged:
+                logits = self.model.decode_paged(
+                    self._run_params, tokens, self.kv.pools,
+                    self.kv.page_table, cache_len)
+            else:
+                logits = self.model.decode(
+                    self._run_params, tokens,
+                    self.kv.caches if caches is None else caches, cache_len)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             nxt = torch.where(active, nxt, tokens)
             new_len = torch.where(active, cache_len + 1, cache_len)
@@ -276,32 +337,53 @@ class ServingEngine:
 
     # ------------------------------------------------------------- warmup
     def warmup(self) -> "ServingEngine":
-        """Run every chunk bucket and the decode step once before traffic
-        (first CUDA launches, kernel builds, library handles); with a
-        draft also every speculative depth's propose and verify and every
-        draft prefill bucket.
+        """Run the decode step and the prefill shapes once before traffic
+        (first CUDA launches, kernel builds, library handles): every chunk
+        bucket on the paged plane, with a draft also every speculative
+        depth's propose and verify and every draft prefill bucket; one
+        chunk or every prompt bucket on dense slots.
 
-        State-neutral: chunks run against an all-zero table row with
+        State-neutral: paged chunks run against an all-zero table row with
         ``new_len = 0`` (every token is masked padding, every write lands
         on the trash page), decode, propose and verify run with an
         all-inactive mask, and the draft lengths go back to 0 after the
-        prefills wrote slot 0's scratch.  Idempotent."""
+        prefills wrote slot 0's scratch.  On dense slots the chunks and the
+        decode step run on scratch caches of the same shapes, so the slot
+        tree is not touched.  Idempotent."""
         with self._lock:
             if self._warm:
                 return self
             t0 = time.monotonic()
             zero1 = self._i32([0])
-            row = torch.zeros((1, self.kv.pages_per_slot), dtype=torch.int32,
-                              device=self.device)
-            for b in self.chunk_buckets:
-                self._chunk(torch.zeros((1, b), dtype=torch.int32,
-                                        device=self.device),
-                            row[:, :self._kv_span_pages(b)], zero1, zero1)
             inactive = torch.zeros((self.max_slots,), dtype=torch.bool,
                                    device=self.device)
-            self.last_tokens, self.kv.cache_len = self._decode(
-                self.kv.page_table, self.last_tokens, self.kv.cache_len,
-                inactive)
+            if self.paged:
+                row = torch.zeros((1, self.kv.pages_per_slot),
+                                  dtype=torch.int32, device=self.device)
+                for b in self.chunk_buckets:
+                    self._chunk(torch.zeros((1, b), dtype=torch.int32,
+                                            device=self.device),
+                                row[:, :self._kv_span_pages(b)], zero1,
+                                zero1)
+                self.last_tokens, self.kv.cache_len = self._decode(
+                    self.last_tokens, self.kv.cache_len, inactive)
+            else:
+                def zeros(b):
+                    return torch.zeros((1, b), dtype=torch.int32,
+                                       device=self.device)
+
+                if self._chunkable_stateful:
+                    self._chunk_stateful(
+                        self.model.init_caches(1, self.max_seq,
+                                               self.cfg.cdtype),
+                        zeros(self.chunk_tokens), zero1, zero1)
+                else:
+                    for b in self.buckets:
+                        self._prefill(zeros(b), zero1)
+                self._decode(self.last_tokens, self.kv.cache_len, inactive,
+                             caches=self.model.init_caches(
+                                 self.max_slots, self.max_seq,
+                                 self.cfg.cdtype))
             if self._draft is not None:
                 for kk in range(1, self.spec_k_max + 1):
                     drafts = self._draft.propose(self.last_tokens, inactive,
@@ -461,6 +543,7 @@ class ServingEngine:
                 self.prefix.unpin(req.shared_nodes)
             req.shared_nodes = []
         req.table_row = None
+        req.staging = None
 
     # ---------------------------------------------------- prefix matching
     def _match_prefix(self, prompt: np.ndarray):
@@ -486,9 +569,11 @@ class ServingEngine:
 
     # ---------------------------------------------------------- admission
     def _admit(self):
-        """Move queued requests into prefill while slots and pages last,
+        """Move queued requests into prefill while slots (and pages) last,
         in SLO-slack order, stopping at the first that does not fit.
-        Admission reserves the prompt + one decode token (marginal pages)."""
+        Paged admission reserves the prompt + one decode token (marginal
+        pages); on dense slots a stateful request gets its staging
+        cache."""
         if len(self.queue) > 1:
             now = time.monotonic()
             self.queue.sort(key=lambda r: slo_slack(r, now))
@@ -502,6 +587,14 @@ class ServingEngine:
                 continue
             if not self.kv.free_slots:
                 break
+            if not self.paged:
+                self.queue.pop(0)
+                req.slot = self.kv.alloc()
+                if self._chunkable_stateful:
+                    req.staging = self.model.init_caches(1, self.max_seq,
+                                                         self.cfg.cdtype)
+                self._start_prefill(req)
+                continue
             pins, shared, cow_src, w = [], [], None, 0
             if self.prefix is not None:
                 pins, shared, cow_src, w = self._match_prefix(req.prompt)
@@ -529,16 +622,25 @@ class ServingEngine:
                 else:
                     self.kv_prefix_misses += 1
             self.queue.pop(0)
-            req.phase = "prefill"
-            req.pos = req.kv_shared_tokens     # resume after the shared part
-            req.admitted_at = time.monotonic()
-            self.active[req.rid] = req
+            self._start_prefill(req)
+
+    def _start_prefill(self, req: Request):
+        req.phase = "prefill"
+        req.pos = req.kv_shared_tokens         # resume after the shared part
+        req.admitted_at = time.monotonic()
+        self.active[req.rid] = req
 
     # ------------------------------------------------------ prefill phase
     def _chunk_plan(self, req: Request):
-        """(bucket, real): full chunks of ``chunk_tokens``, then the
-        smallest bucket covering the tail (right-padded)."""
+        """(bucket, real): paged, full chunks of ``chunk_tokens``, then the
+        smallest bucket covering the tail (right-padded); stateful, exact
+        chunks of at most ``chunk_tokens`` (no bucket); the dense decoder
+        on dense slots, the whole prompt."""
         remaining = len(req.prompt) - req.pos
+        if not self._chunkable:
+            return len(req.prompt), len(req.prompt)
+        if self._chunkable_stateful:
+            return None, min(self.chunk_tokens, remaining)
         if remaining >= self.chunk_tokens:
             return self.chunk_tokens, self.chunk_tokens
         return next(b for b in self.buckets if b >= remaining), remaining
@@ -550,33 +652,56 @@ class ServingEngine:
         return -(-span // self.kv.page_size)
 
     def _run_chunk(self, req: Request) -> int:
-        """Run one prefill chunk; returns the real prompt tokens it
-        processed.  On error every active request fails (the chunk wrote
-        the shared pools)."""
+        """Run one prefill chunk (or the whole prompt on dense slots when
+        the family cannot chunk); returns the real prompt tokens it
+        processed.  On error every active request fails on the paged plane
+        (the chunk wrote the shared pools); on dense slots only this one
+        (the chunk wrote its own staging cache)."""
         plen = len(req.prompt)
         bucket, real = self._chunk_plan(req)
         start = req.pos
         try:
-            padded = np.zeros((1, bucket), np.int32)
-            padded[0, :real] = req.prompt[start:start + real]
-            kv_pages = self._kv_span_pages(start + real)
-            logits = self._chunk(self._i32(padded),
-                                 req.table_row[:, :kv_pages],
-                                 self._i32([start]),
-                                 self._i32([start + real]))
+            if self.paged:
+                padded = np.zeros((1, bucket), np.int32)
+                padded[0, :real] = req.prompt[start:start + real]
+                kv_pages = self._kv_span_pages(start + real)
+                logits = self._chunk(self._i32(padded),
+                                     req.table_row[:, :kv_pages],
+                                     self._i32([start]),
+                                     self._i32([start + real]))
+            elif self._chunkable_stateful:
+                logits = self._chunk_stateful(
+                    req.staging,
+                    self._i32(req.prompt[None, start:start + real]),
+                    self._i32([start]), self._i32([start + real]))
+            else:
+                bucket = next(b for b in self.buckets if b >= plen)
+                padded = np.zeros((1, bucket), np.int32)
+                padded[0, :plen] = req.prompt
+                logits, req.staging = self._prefill(self._i32(padded),
+                                                    self._i32([plen - 1]))
             first = None
             if start + real >= plen:
                 first = int(torch.argmax(logits, dim=-1)[0])
         except Exception as e:  # noqa: BLE001 — surfaces via the futures
-            self._fail_all(e)
+            if self.paged:
+                self._fail_all(e)
+            else:
+                self._release(req)
+                del self.active[req.rid]
+                self._fail(req, e)
             return 0
         self.chunks_run += 1
         req.pos += real
         req.chunks += 1
         if first is None:
             return real
-        # ---- prompt complete: publish the row and enter decode ----------
-        self.kv.install(req.slot, req.table_row, plen)
+        # ---- prompt complete: publish the cache and enter decode --------
+        if self.paged:
+            self.kv.install(req.slot, req.table_row, plen)
+        else:
+            self.kv.insert(req.staging, req.slot, plen)
+            req.staging = None
         self.last_tokens[req.slot] = first
         if self._draft is not None and req.max_new_tokens > 1:
             # mirror the prompt into the draft's slot so the first
@@ -829,17 +954,18 @@ class ServingEngine:
                        if r.phase == "decode"]
                 if not dec:
                     return 0, 0
-        stalled = self._grow_decode_pages(dec)
-        dec = [r for r in dec if r.rid in self.active
-               and r.phase == "decode" and r.rid not in stalled]
-        if not dec:
-            return 0, 0
+        if self.paged:
+            stalled = self._grow_decode_pages(dec)
+            dec = [r for r in dec if r.rid in self.active
+                   and r.phase == "decode" and r.rid not in stalled]
+            if not dec:
+                return 0, 0
         active_mask = np.zeros((self.max_slots,), bool)
         for req in dec:
             active_mask[req.slot] = True
         try:
             tokens, new_len = self._decode(
-                self.kv.page_table, self.last_tokens, self.kv.cache_len,
+                self.last_tokens, self.kv.cache_len,
                 torch.as_tensor(active_mask, device=self.device))
             self.kv.cache_len = new_len
             self.last_tokens = tokens
@@ -848,7 +974,7 @@ class ServingEngine:
             toks = tokens.cpu().numpy()
             clens = new_len.cpu().numpy()
         except Exception as e:  # noqa: BLE001 — a decode error poisons the
-            # shared pools for every admitted request
+            # shared pools or slot tree for every admitted request
             self._fail_all(e)
             return 0, 0
         now = time.monotonic()
@@ -932,22 +1058,13 @@ class ServingEngine:
                 "queued": len(self.queue),
                 "failed": len(self.failed),
                 "slot_utilization": self.kv.utilization(),
-                "paged": True,
+                "paged": self.paged,
                 "device": str(self.device),
                 "kv_dtype": str(self.kv_dtype).replace("torch.", ""),
                 "kv_bytes_in_use": self.kv.bytes_in_use(),
                 "kv_capacity_bytes": self.kv.capacity_bytes(),
                 "kv_dense_equivalent_bytes":
                     self.kv.dense_equivalent_bytes(),
-                "pages_in_use": self.kv.pages_in_use(),
-                "page_utilization": self.kv.page_utilization(),
-                "cow_copies": self.kv.cow_copies,
-                "kv_prefix_hits": self.kv_prefix_hits,
-                "kv_prefix_misses": self.kv_prefix_misses,
-                "preemptions": self.preemptions,
-                "decode_stalls": self.decode_stalls,
-                "kv_shared_pages_attached": sum(
-                    self.kv.slot_shared.values()),
                 # speculative decoding (zeros while off or disabled)
                 "speculative": self._draft is not None,
                 "spec_proposed": self.spec_proposed,
@@ -959,6 +1076,18 @@ class ServingEngine:
             }
             if self._spec_disabled_reason:
                 out["spec_disabled_reason"] = self._spec_disabled_reason
+            if self.paged:
+                out.update({
+                    "pages_in_use": self.kv.pages_in_use(),
+                    "page_utilization": self.kv.page_utilization(),
+                    "cow_copies": self.kv.cow_copies,
+                    "kv_prefix_hits": self.kv_prefix_hits,
+                    "kv_prefix_misses": self.kv_prefix_misses,
+                    "preemptions": self.preemptions,
+                    "decode_stalls": self.decode_stalls,
+                    "kv_shared_pages_attached": sum(
+                        self.kv.slot_shared.values()),
+                })
             if self.prefix is not None:
                 for k, v in self.prefix.stats().items():
                     out[f"radix_{k}"] = v

@@ -1,6 +1,7 @@
 """KV cache managers: the port of ``repro.serving.kv_cache``'s
-``PagedKVCache`` (the serving data plane) and ``SlotKVCache`` (the dense
-slot cache of the speculative draft model).
+``PagedKVCache`` (the paged serving data plane) and ``SlotKVCache`` (the
+dense slot plane of the stateful families, and the speculative draft's
+cache).
 
 Every layer holds a ``[num_pages, page_size, Hkv, D]`` pool (stacked
 ``[L, ...]``); each admitted request owns a page-table row mapping its
@@ -24,6 +25,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import tree_map
 
 
 def _tree_bytes(tree) -> int:
@@ -49,12 +51,13 @@ def autotune_page_size(cfg: ModelConfig, dtype=torch.bfloat16,
 
 
 class SlotKVCache:
-    """Dense slot cache: one ``[L, max_slots, S, Hkv, D]`` tree whose batch
-    axis holds one sequence per slot (the speculative draft's cache, whose
-    slots mirror the engine's, so it allocates none of its own).  A batch-1
-    prefill cache is copied into a slot by ``insert``; decode advances all
-    slots together.  The JAX cache's byte accounting comes with the
-    control-plane slice that reads it (ROADMAP Queue A item 9)."""
+    """Dense slot cache: one cache tree (``transformer.init_cache_tree``)
+    whose batch axis holds one sequence per slot: attention KV and, for
+    the ssm and hybrid families, the conv and SSM states.  The dense slot
+    data plane of the engine claims slots with ``alloc``; the speculative
+    draft's slots mirror the engine's paged slots, so it allocates none of
+    its own.  A batch-1 cache tree (a prefill's staging cache) is copied
+    into a slot by ``insert``; decode advances all slots together."""
 
     def __init__(self, cfg: ModelConfig, max_slots: int, max_seq: int,
                  dtype=torch.bfloat16, device=None):
@@ -64,14 +67,48 @@ class SlotKVCache:
         self.device = resolve_device(device)
         self.caches = transformer.init_cache_tree(cfg, max_slots, max_seq,
                                                   dtype, self.device)
+        # each leaf's batch axis, from two shape-only trees of 1 and 2
+        # slots: the hybrid's leaves hold it at different depths
+        one, two = (transformer.init_cache_tree(cfg, n, max_seq, dtype,
+                                                "meta") for n in (1, 2))
+        self.batch_axes = tree_map(
+            lambda a, b: next(i for i, (m, n) in enumerate(zip(a.shape,
+                                                               b.shape))
+                              if m != n), one, two)
+        self.free_slots: List[int] = list(range(max_slots))
         self.cache_len = torch.zeros((max_slots,), dtype=torch.int32,
                                      device=self.device)
+        self._capacity_bytes = _tree_bytes(self.caches)
+
+    def alloc(self) -> Optional[int]:
+        return self.free_slots.pop(0) if self.free_slots else None
+
+    def free(self, slot: int):
+        assert 0 <= slot < self.max_slots
+        self.free_slots.append(slot)
 
     def insert(self, slot_caches, slot: int, length: int):
-        """Copy a batch-1 cache tree into ``slot`` and set its length."""
-        for name, big in self.caches["attn"].items():
-            big[:, slot] = slot_caches["attn"][name][:, 0]
+        """Copy a batch-1 cache tree into ``slot``, cast to the slot tree's
+        dtype, and set its length."""
+        tree_map(lambda big, small, axis: big.select(axis, slot).copy_(
+            small.select(axis, 0)), self.caches, slot_caches,
+            self.batch_axes)
         self.cache_len[slot] = length
+
+    def utilization(self) -> float:
+        return 1.0 - len(self.free_slots) / self.max_slots
+
+    # ----------------------------------------------------- byte accounting
+    def capacity_bytes(self) -> int:
+        return self._capacity_bytes
+
+    def bytes_in_use(self) -> int:
+        """A claimed slot commits its whole ``max_seq`` row."""
+        used = self.max_slots - len(self.free_slots)
+        return self._capacity_bytes * used // self.max_slots
+
+    def dense_equivalent_bytes(self) -> int:
+        return self._capacity_bytes
 
 
 class PagedKVCache:

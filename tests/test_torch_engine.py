@@ -258,8 +258,14 @@ def test_unported_branches_raise():
     from repro_torch.serving.engine import EngineExecutor
 
     jcfg, tcfg = _cfgs()
+    # paged=False serves on dense slots now (tests/test_torch_ssm.py);
+    # MoE, sliding-window, MLA and encoder models still raise
     with pytest.raises(NotImplementedError, match="item 11"):
-        ServingEngine(tcfg, device="cpu", paged=False)
+        ServingEngine(dataclasses.replace(tcfg, attn_type="mla"),
+                      device="cpu", paged=False)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ServingEngine(dataclasses.replace(tcfg, encoder_only=True),
+                      device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         ServingEngine(dataclasses.replace(tcfg, family="moe"), device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):

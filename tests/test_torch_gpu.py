@@ -55,6 +55,23 @@ DECODE_CASES = [
     (2, 4, 4, 32, 64, 0, 20.0),
     (1, 16, 2, 128, 70, 16, 30.0),
 ]
+# the SSD scan: T 1, 63, 64, 257 and 511 around the chunk (the kernel's
+# bounds mask stands in for the JAX padding), P 16/32/64, N 16/32/64/128,
+# groups 1 and 2, with and without an initial state; test_torch_ssm.py
+# runs the same cases against JAX
+SSD_CASES = [
+    # B, T, H, P, G, N, chunk, initial state
+    (1, 1, 4, 16, 1, 16, 16, True),
+    (2, 63, 4, 16, 2, 16, 16, False),
+    (1, 64, 4, 32, 1, 32, 64, True),
+    (1, 257, 4, 16, 2, 64, 64, True),
+    (1, 511, 2, 64, 1, 128, 256, True),
+    (2, 100, 8, 16, 2, 16, 16, False),
+]
+# RMSNorm rows x width: the models' widths (2048, 2560, 4096, 5120) and
+# the reduced ones
+RMSNORM_CASES = [(3, 128), (5, 256), (8, 2048), (7, 2560), (2, 4096),
+                 (64, 5120)]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3.5e-2}
 
 
@@ -414,3 +431,114 @@ def test_forward_only_kernels_refuse_grad_inputs(cuda):
             call()
         with torch.no_grad():
             assert bool(torch.isfinite(call()).all())
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan and RMSNorm (the SSM serving path)
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(case, dtype, device, seed=0):
+    B, T, H, P, G, N, chunk, init = case
+    g = torch.Generator(device=device).manual_seed(seed + T)
+    x = torch.randn(B, T, H, P, generator=g, device=device).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, T, H, generator=g, device=device)) * 0.5
+    A = -torch.exp(torch.randn(H, generator=g, device=device))
+    Bm = torch.randn(B, T, G, N, generator=g, device=device).to(dtype)
+    Cm = torch.randn(B, T, G, N, generator=g, device=device).to(dtype)
+    s0 = torch.randn(B, H, P, N, generator=g, device=device) if init \
+        else None
+    return (x, dt, A, Bm, Cm), dict(chunk=chunk, initial_state=s0,
+                                    return_final_state=True)
+
+
+@pytest.mark.parametrize("case", SSD_CASES + [
+    (1, 64, 80, 64, 1, 128, 256, True),     # mamba2-2.7b serving chunk
+    (1, 64, 64, 64, 1, 64, 256, True),      # zamba2-1.2b serving chunk
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain(case, dtype, cuda):
+    args, kw = _ssd_inputs(case, dtype, cuda)
+    y, s = ops.ssd_scan(*args, **kw)
+    wy, ws = ref.ssd_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and s.dtype == torch.float32
+    assert _rel(wy, y) < TOL[dtype] and _rel(ws, s) < TOL[dtype]
+
+
+@pytest.mark.parametrize("case", RMSNORM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain(case, dtype, cuda):
+    rows, d = case
+    g = torch.Generator(device=cuda).manual_seed(d)
+    x = (torch.randn(rows, d, generator=g, device=cuda) * 3).to(dtype)
+    scale = 1 + 0.1 * torch.randn(d, generator=g, device=cuda)
+    got = ops.rmsnorm(x, scale, eps=1e-5)
+    want = ref.rmsnorm(x, scale, 1e-5)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and _rel(want, got) < TOL[dtype]
+
+
+def test_ssm_kernels_refuse_grad_and_raise_on_a_failed_launch(
+        cuda, monkeypatch):
+    """Both kernels are forward-only, and a launch that returns a CUDA
+    error raises ``KernelError``: nothing falls back to the plain
+    version, and the engine fails the request with it."""
+    import numpy as np
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.serving.engine import ServingEngine
+
+    x = torch.randn(4, 64, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="forward-only"):
+        ops.rmsnorm(x, torch.ones(64, device=cuda))
+    args, kw = _ssd_inputs(SSD_CASES[0], torch.float32, cuda)
+    args[0].requires_grad_()
+    with pytest.raises(ValueError, match="forward-only"):
+        ops.ssd_scan(*args, **kw)
+    with torch.no_grad():
+        assert bool(torch.isfinite(ops.ssd_scan(*args, **kw)[0]).all())
+
+    ss._entry()
+    monkeypatch.setattr(ss, "_fn", lambda *a: 1)    # cudaErrorInvalidValue
+    with torch.no_grad(), pytest.raises(build.KernelError, match="ssd_scan"):
+        ops.ssd_scan(*args, **kw)
+    rn._entry()
+    monkeypatch.setattr(rn, "_fn", lambda *a: 1)
+    with pytest.raises(build.KernelError, match="rmsnorm"):
+        ops.rmsnorm(x.detach(), torch.ones(64, device=cuda))
+    eng = ServingEngine(get_reduced_config("mamba2-2.7b"), max_slots=2,
+                        max_seq=64, device=cuda)
+    eng.submit(np.arange(7), max_new_tokens=3)
+    assert eng.run_until_drained() == [] and len(eng.failed) == 1
+    assert "kernel launch failed" in next(iter(eng.failed.values())).error
+
+
+def test_ssm_engine_launches_the_kernels(cuda):
+    """Served reduced mamba2 and zamba2 go through the kernels: one SSD
+    scan per Mamba2 layer per chunk, one RMSNorm per norm per chunk and
+    decode step."""
+    import numpy as np
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.serving.engine import ServingEngine
+
+    for arch, norms in (("mamba2-2.7b", 2 * 2 + 1),
+                        ("zamba2-1.2b", 2 * 4 + 2 * 2 + 1)):
+        cfg = get_reduced_config(arch)
+        eng = ServingEngine(cfg, max_slots=2, max_seq=64, prefill_chunk=16,
+                            device=cuda)
+        ss.ssd_scan.launches = rn.rmsnorm.launches = 0
+        for n in (40, 5, 23):
+            eng.submit(np.arange(n) % 200, max_new_tokens=4)
+        eng.run_until_drained()
+        st = eng.stats()
+        assert st["failed"] == 0 and not st["paged"]
+        assert ss.ssd_scan.launches == cfg.num_layers * st["prefill_chunks"]
+        assert rn.rmsnorm.launches == norms * (st["prefill_chunks"]
+                                               + st["decode_steps"])

@@ -84,15 +84,21 @@ def test_entry_points_refuse_a_missing_gpu():
     from repro_torch.models.transformer import init_paged_cache_tree
     from repro_torch.models.weights import from_numpy_tree
     from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.kv_cache import PagedKVCache
+    from repro_torch.serving.kv_cache import PagedKVCache, SlotKVCache
     from repro_torch.train.trainer import Trainer
 
     cfg = get_reduced_config("tinyllama-1.1b")
+    ssm = get_reduced_config("mamba2-2.7b")
     for make in (lambda: Model(cfg),
                  lambda: Model(cfg, device="cuda"),
                  lambda: ServingEngine(cfg),
                  lambda: ServingEngine(cfg, device="cuda:0"),
                  lambda: PagedKVCache(cfg, max_slots=2, max_seq=64),
+                 lambda: SlotKVCache(ssm, max_slots=2, max_seq=64),
+                 lambda: ServingEngine(ssm),
+                 lambda: Model(get_reduced_config("zamba2-1.2b")),
+                 lambda: serve.main(["--arch", "mamba2-2.7b", "--reduced",
+                                     "--requests", "1"]),
                  lambda: init_paged_cache_tree(cfg, 3, 16),
                  lambda: init_paged_pool(cfg, 3, 16),
                  lambda: from_numpy_tree({}, cfg),

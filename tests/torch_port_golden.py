@@ -20,6 +20,14 @@ seeded bigram stream, each step's loss and grad norm, and the final
 parameters.  ``chip_smoke.py`` replays it on the card through the
 kernels.
 
+The dense-slot plane rides along too (``ssm_*``, ``hybrid_*``): the JAX
+engine's fp32 streams for reduced mamba2 and zamba2 at d_model 64
+(zamba2 with 2 attention heads, so head_dim 32, a width the CUDA
+attention kernels take), the four prompts served at once on two slots
+in exact-length chunks of 16, each prompt's last-position logits from
+JAX ``Model.forward``, and the parameters.  The JAX engine is warmed up
+first, so its slot tree is in fp32 before the first insert.
+
 The same waves are served again speculatively, with a random 1-layer,
 1-head draft (seed 0, ``spec_k_max=3``), once over pages in the compute
 dtype (``spec_streams_auto``) and once over int8 pages
@@ -45,6 +53,11 @@ MAX_NEW = 8
 DRAFT = dict(num_layers=1, num_heads=1, num_kv_heads=1, d_ff=32)
 SPEC_K_MAX = 3
 WAVES = [0, 1, 1, 1]
+STATEFUL = {"ssm": ("mamba2-2.7b", dict(d_model=64)),
+            "hybrid": ("zamba2-1.2b", dict(d_model=64, num_heads=2,
+                                           num_kv_heads=2, d_ff=128))}
+STATEFUL_ENGINE = dict(max_slots=2, max_seq=64, prefill_chunk=16,
+                       prefill_budget=32)
 TRAIN_MODEL = dict(num_layers=2, d_model=64, head_dim=32, d_ff=128,
                    vocab_size=128)
 TRAIN = dict(batch=8, seq=32, seed=3, steps=5,
@@ -120,6 +133,35 @@ def _train() -> dict:
     return out
 
 
+def _stateful() -> dict:
+    """The dense-slot streams of the module docstring."""
+    import jax.numpy as jnp
+
+    from repro.configs import get_reduced_config
+    from repro.serving.engine import ServingEngine
+
+    out = {"stateful_engine": np.array(json.dumps(STATEFUL_ENGINE,
+                                                  sort_keys=True))}
+    for fam, (arch, over) in STATEFUL.items():
+        cfg = dataclasses.replace(get_reduced_config(arch, **over),
+                                  compute_dtype="float32")
+        eng = ServingEngine(cfg, seed=0, **STATEFUL_ENGINE).warmup()
+        for p in _prompts():
+            eng.submit(p, max_new_tokens=MAX_NEW)
+        eng.run_until_drained()
+        done = sorted(eng.completed.values(), key=lambda r: r.rid)
+        out[f"{fam}_config"] = np.array(json.dumps(cfg.to_dict(),
+                                                   sort_keys=True))
+        out[f"{fam}_streams"] = np.array([r.generated for r in done],
+                                         np.int32)
+        out[f"{fam}_first_logits"] = np.stack([np.asarray(
+            eng.model.forward(eng.params, {"tokens": jnp.asarray(
+                p[None], jnp.int32)})[0])[0, -1]
+            for p in _prompts()]).astype(np.float32)
+        out.update(_flat_params(f"{fam}_params/", eng.params))
+    return out
+
+
 def make() -> dict:
     """Regenerate the fixture's arrays with the JAX package."""
     import jax
@@ -165,6 +207,7 @@ def make() -> dict:
     out.update(_flat_params("params/", eng.params))
     out.update(_flat_params("draft_params/", dparams))
     out.update(_train())
+    out.update(_stateful())
     return out
 
 
