@@ -13,7 +13,9 @@ continues:
    int8 pools for the paged kernels, K1 of 1, 2 and 5 for the verify
    kernel, which at K1 = 1 is also held against the paged decode kernel),
    the backward kernels at the train step's (causal, non-causal, window,
-   softcap, an empty row, G 1 and 8, Tq < Tk, D 32/64/128), the SSD scan
+   softcap, an empty row, G 1 and 8, Tq < Tk, D 32/64/128, packed
+   positions that restart mid-row, T 129; at the train shape the useful
+   TFLOP/s of each and the two against SDPA's one backward), the SSD scan
    at the SSM prefill's (mamba2's 64-token chunk with the carried state,
    a 511-token prompt, zamba2's H 64 N 64, groups 2, one token; final
    state included) and RMSNorm at its rows and widths (up to 5120), with
@@ -57,7 +59,8 @@ continues:
    steps: every loss and grad norm finite, the parameters still after
    step 1 (lr 0) and moved after step 2, the forward flash, dq and dk/dv
    kernels each launched 22 x 6 times; median step time, tokens/s, peak
-   memory and a profiled step's device busy share and top kernels; an
+   memory and a profiled step's device busy share and top kernels (the
+   bf16 backward's tensor-core kernels 22 times each); an
    async checkpoint restored into a fresh ``Trainer`` gives the same next
    loss;
 7. train consistency: fp32 at full width, 2 layers, every gradient leaf of
@@ -142,6 +145,24 @@ def rel_err(want, got) -> float:
 # phase 1: device and build
 # ---------------------------------------------------------------------------
 
+def _kernel_resources(log: str) -> list:
+    """`-Xptxas -v` per entry function: ("name<int template args>",
+    registers, spilled bytes), from the mangled name of each."""
+    out = []
+    for block in log.split("Compiling entry function")[1:]:
+        regs = re.search(r"Used (\d+) registers", block)
+        if not regs:
+            continue
+        m = re.search(r"\d+([a-z_]+_kernel)I(\w*?)EEv", block)
+        name = block.split()[0].strip("'")
+        if m:
+            args = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
+            name = f"{m.group(1)}<{args}>"
+        spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", block))
+        out.append((name, int(regs.group(1)), spill))
+    return out
+
+
 def phase_device_and_build(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -160,10 +181,12 @@ def phase_device_and_build(torch):
     print(f"[build] {sorted(logs)} for sm_90a in {secs:.1f}s "
           f"(into {os.path.relpath(build.BUILD_DIR, ROOT)})")
     for name, log in sorted(logs.items()):
-        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
-        spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill", log))
-        print(f"[build] {name}: {len(regs)} instantiations, registers "
-              f"<= {max(regs, default=0)}, spill bytes {spills}")
+        kernels = _kernel_resources(log)
+        print(f"[build] {name}: " + ", ".join(
+            f"{k} {r} regs" + (f", {b} B spilled" if b else "")
+            for k, r, b in kernels))
+        spilled = [k for k, _, b in kernels if "wgmma" in k and b]
+        check(not spilled, f"tensor-core kernels spill registers: {spilled}")
     return card
 
 
@@ -324,12 +347,13 @@ def _sdpa_dense(torch, F, args, kw):
 
 
 def _bwd_case(torch, gen, dtype, dims, causal=True, window=0, softcap=0.0,
-              valid=False, index_kv=False):
+              valid=False, index_kv=False, packed=False):
     """Inputs of the backward kernels as the train step gives them:
     q/k/v/do random, ``out`` and ``lse`` from the forward kernel, the
     query positions the last Tq of Tk, the key positions explicit (the
     train-mode forward passes them; ``index_kv`` leaves them None), with
-    ``valid`` batch row 0 sees no key and the others the first 3/4."""
+    ``valid`` batch row 0 sees no key and the others the first 3/4;
+    ``packed`` makes the positions two documents, 0..99 then 0..Tk-101."""
     from repro_torch.kernels.flash_attention import flash_attention
 
     dt = getattr(torch, dtype)
@@ -338,13 +362,19 @@ def _bwd_case(torch, gen, dtype, dims, causal=True, window=0, softcap=0.0,
     k = torch.randn(B, Tk, Hkv, D, generator=gen, device="cuda").to(dt)
     v = torch.randn(B, Tk, Hkv, D, generator=gen, device="cuda").to(dt)
     do = torch.randn(B, Tq, Hq, D, generator=gen, device="cuda").to(dt)
-    qp = np.arange(Tk - Tq, Tk)
+    kp = np.arange(Tk)
+    if packed:
+        kp = np.concatenate([np.arange(100), np.arange(Tk - 100)])
+    qp = kp[Tk - Tq:]
+
+    def positions(p, n):
+        return torch.tensor(p, device="cuda",
+                            dtype=torch.int32)[None].expand(B, n)
+
     kw = dict(causal=causal, window=window, softcap=softcap,
-              q_positions=torch.tensor(qp, device="cuda",
-                                       dtype=torch.int32)[None].expand(B, Tq))
+              q_positions=positions(qp, Tq))
     if not index_kv:
-        kw["kv_positions"] = torch.arange(
-            Tk, device="cuda", dtype=torch.int32)[None].expand(B, Tk)
+        kw["kv_positions"] = positions(kp, Tk)
     vl = np.array([0] + [3 * Tk // 4] * (B - 1)) if valid else np.full(B, Tk)
     if valid:
         kw["kv_valid_len"] = torch.tensor(vl, device="cuda",
@@ -352,19 +382,38 @@ def _bwd_case(torch, gen, dtype, dims, causal=True, window=0, softcap=0.0,
     out, lse = flash_attention(q, k, v, return_lse=True, **kw)
     dsum = (do.float() * out.float()).sum(-1)
     # what the data needs: the (query, key) pairs the masks keep
-    kp = np.arange(Tk)[None, :]
     keep = np.ones((Tq, Tk), bool)
     if causal:
-        keep &= kp <= qp[:, None]
+        keep &= kp[None, :] <= qp[:, None]
     if window:
-        keep &= qp[:, None] - kp < window
-    pairs = sum(int((keep & (kp < n)).sum()) for n in vl) * Hq
+        keep &= qp[:, None] - kp[None, :] < window
+    pairs = sum(int((keep & (kp[None, :] < n)).sum()) for n in vl) * Hq
     e = q.element_size()
     qbytes, kbytes = B * Tq * Hq * D * e, B * Tk * Hkv * D * e
     common = 2 * qbytes + 2 * kbytes + 8 * B * Tq * Hq + 4 * B * (Tq + Tk)
     nbytes = {"dq": common + qbytes, "dkv": common + 2 * kbytes}
     flops = {"dq": 3 * 2 * D * pairs, "dkv": 4 * 2 * D * pairs}
     return (q, k, v, lse, do, dsum), kw, out, nbytes, flops
+
+
+def _tile_share(qp, kp, G, causal, window):
+    """The share of (64-row, 64-key) tile pairs that hold a kept pair, for
+    one batch row, with the bf16 dq kernel's rows (64/G positions times
+    the G heads of a KV head): what tile skipping leaves to compute."""
+    per = max(64 // G, 1)
+    tiles = kept = 0
+    for t0 in range(0, len(qp), per):
+        q = qp[t0:t0 + per, None]
+        for k0 in range(0, len(kp), 64):
+            k = kp[None, k0:k0 + 64]
+            keep = np.ones((q.shape[0], k.shape[1]), bool)
+            if causal:
+                keep &= k <= q
+            if window:
+                keep &= q - k < window
+            tiles += 1
+            kept += bool(keep.any())
+    return kept / tiles
 
 
 def _sdpa_bwd(torch, F, q, k, v, do):
@@ -583,6 +632,13 @@ def phase_kernels(torch, timer, card):
          {"softcap": 30.0}, False),
         ("B2/T256 index positions", (2, 256, 256, 32, 4, 64),
          {"index_kv": True, "valid": True}, False),
+        ("B2/T256 packed positions", (2, 256, 256, 32, 4, 64),
+         {"packed": True}, False),
+        ("B2/T256 packed window64", (2, 256, 256, 32, 4, 64),
+         {"packed": True, "window": 64}, False),
+        ("B2/T129 ragged", (2, 129, 129, 32, 4, 64), {"valid": True},
+         False),
+        ("B1/T129 D128 G1", (1, 129, 129, 4, 4, 128), {}, False),
     ]
     for dtype in ("bfloat16", "float32"):
         for label, dims, extra, timed in bwd_cases:
@@ -614,6 +670,22 @@ def phase_kernels(torch, timer, card):
                 check(all(bool((x[0] == 0).all()) for x in (dq, dk, dv)),
                       f"flash_attention_bwd {label}: an empty row must "
                       f"give zero gradients")
+            if timed:
+                dq_r = results["flash_attention_bwd_dq"]
+                dkv_r = results["flash_attention_bwd_dkv"]
+                both = dq_r["ms"] + dkv_r["ms"]
+                qp = kw["q_positions"][0].cpu().numpy()
+                kp = kw["kv_positions"][0].cpu().numpy()
+                share = _tile_share(qp, kp, dims[3] // dims[4],
+                                    kw["causal"], kw["window"])
+                print(f"[kernel] flash_attention_bwd {label} {dtype}: "
+                      f"useful work dq {fl['dq'] / dq_r['ms'] / 1e9:.1f} "
+                      f"TFLOP/s, dk/dv "
+                      f"{fl['dkv'] / dkv_r['ms'] / 1e9:.1f} TFLOP/s "
+                      f"({100 * share:.1f}% of the 64 x 64 tiles hold a "
+                      f"kept pair); dq + dk/dv {both:.4f} ms against "
+                      f"SDPA's backward {dq_r['library_ms']:.4f} ms "
+                      f"({both / dq_r['library_ms']:.2f}x) on {card}")
             del args, out
 
     # the SSM serving path: the SSD scan of a prefill chunk (mamba2-2.7b:
@@ -1462,6 +1534,13 @@ def phase_train(torch):
         for g, ms in sorted(groups.items(), key=lambda x: -x[1])))
     for name, (ms, n) in sorted(by_kernel.items(), key=lambda x: -x[1][0])[:12]:
         print(f"[profile]   {ms:9.3f} ms {n:5d}x  {name[:90]}")
+    # the bf16 backward runs on the tensor-core kernels, once a layer
+    for kname in ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"):
+        ms = sum(t for name, (t, _) in by_kernel.items() if kname in name)
+        n = sum(c for name, (_, c) in by_kernel.items() if kname in name)
+        print(f"[profile]   {kname}: {ms:.3f} ms over {n} launches")
+        check(n == cfg.num_layers, f"the profiled step ran {kname} {n} "
+              f"times, not {cfg.num_layers}")
 
     t0 = time.monotonic()
     tr.maybe_checkpoint(force=True)        # host snapshot now, write behind

@@ -1,5 +1,6 @@
 // Flash attention backward for Hopper (sm_90a): the dq kernel and the
-// dk/dv kernel.
+// dk/dv kernel, in bf16 on the tensor cores (wgmma) and in fp32 on the
+// CUDA cores.
 //
 // Replaces the TPU kernels of `src/repro/kernels/flash_attention_bwd.py`:
 // `_dq_kernel` (launched at :198) and `_dkv_kernel` (launched at :228).
@@ -16,47 +17,151 @@
 // dv = pᵀ·do [B,Tk,Hkv,D], dk and dv summed over the G query heads of a
 // KV head.  Masks `kp <= qp` (causal), `qp − kp < window` and
 // `kp < kv_valid_len`, explicit int32 positions; ragged edges are bounds
-// masks, not padding.  Products and sums in f32, outputs in the input
-// dtype.
+// masks, not padding.  Sums in f32, outputs in the input dtype.
 //
 // What bounds it on an H100: at the training shape (B 8, T 1024, Hq 32,
 // Hkv 4, D 64, bf16, causal) the dq kernel does 3 products and the dk/dv
 // kernel 4 over the 134 M (query, key) pairs the causal mask keeps, 52
 // and 69 GFLOP, against about 150 MB of q, k, v, o, do, dq, dk and dv:
 // both are bound by operations (0.05 and 0.07 ms at the 989 TFLOP/s of
-// the bf16 tensor cores).  This first version runs its products in f32
-// on the CUDA cores (67 TFLOP/s at most) and, with explicit key
-// positions, as training passes them, computes every tile and masks:
-// tensor cores (mma.sync / wgmma), TMA and causal tile skipping are
-// later work.
+// the bf16 tensor cores).
 //
-// Layout.  The sequential grid axis of each TPU kernel becomes a loop
-// inside one block, so each sum stays in registers: no atomics, and the
-// same result from run to run.
-//  - dq: one block per (query tile, KV head [, head group], batch), rows
-//    laid out as in the forward kernel (`flash_attention.cu`): 32 rows,
-//    `32/G` consecutive positions times the G query heads of one KV head
-//    (more than 32 heads per KV head split over head groups).  The block
-//    loops over 32-key tiles; each warp owns 4 rows, each lane one key of
-//    the tile for s and do·vᵀ, then D/32 columns of dq for ds·k, with ds
-//    passed by shuffles.
-//  - dk/dv: one block per (32-key tile, KV head, batch).  Its query rows
-//    are (position, head) pairs `R = t·G + g` of the G heads of its KV
-//    head; it loops over them 32 at a time, which covers every query
-//    tile and, inside it, the G heads (the group sum the JAX grid does
-//    over n_q·G steps).  Each warp owns 4 keys, each lane one query row
-//    for s and do·vᵀ, then D/32 columns of dk and dv.
-// Tiles sit in shared memory row-major in f32 with rows padded to D + 1
-// words, so a lane reading its own row and a warp reading one row across
-// its lanes both hit 32 banks.  Global loads are 16 bytes a thread.
-// When the key positions are the key indices (kv_pos == nullptr) a block
-// skips key tiles (dq) or query rows (dk/dv) that it provably cannot see.
+// What the design does about it (bf16):
+//  - Tensor cores.  Every product is a `wgmma` of 64 rows: s and do·vᵀ
+//    (m64n64k16, both operands from shared memory), then dq += ds·k,
+//    dv += pᵀ·do and dk += dsᵀ·q (m64nDk16, the bf16-rounded p or ds
+//    straight from the f32 accumulator registers as the A operand, the
+//    tile in shared memory as an MN-major B).  The scale multiplies the
+//    f32 sums (s, and dq and dk at the end), never the bf16 operands.
+//  - Tile skipping from the positions themselves.  Before its loop a
+//    block reduces the least and largest position of the live rows and
+//    keys of every tile pair it will meet and classes each pair: skipped
+//    when no pair can be kept (`causal && kp_min > qp_max`,
+//    `qp_min − kp_max >= window`, `kp_min >= kv_valid_len`), computed
+//    without the per-element mask when every pair is kept and the tile
+//    has no ragged edge, else masked.  No host sync, and nothing assumes
+//    that positions are indices: at the train step's causal T 1024 about
+//    half the 64 x 64 tiles are computed.
+//  - K and V shared across the G heads.  A dq block's 64 rows are 64/G
+//    positions times the G heads of one KV head (the forward kernel's map),
+//    and a dk/dv block loops over all Tq·G rows of its KV head, so each
+//    K/V tile in shared memory serves every head that reads it, and the
+//    group sum stays in registers: no atomics, the same result from run
+//    to run.
+//  - Copies.  Tiles arrive by 16-byte `cp.async` into a two-stage ring in
+//    the 128-byte swizzled layout `wgmma` reads (64-byte at D 32), the
+//    next tile in flight while the current one is computed; rows outside
+//    the tensor are zero-filled, never read.
+//  - Little arithmetic between the products: p = 2^(s·scale·log2e −
+//    lse·log2e) is one FMA and one `ex2.approx`, the mask and softcap code
+//    only in the tiles that need them, and p is computed while do·vᵀ is
+//    still on the tensor cores (dk/dv: ds while pᵀ·do is).
+//  - Order.  The blocks that under a causal mask have the most tiles are
+//    launched first (dq: the last query tile; dk/dv: the first key tile),
+//    since the longest block bounds the kernel.
+// What holds it back now: latency.  Three dq or two dk/dv blocks of one
+// warpgroup fit an SM at D 64 (registers), and each runs its tile as a
+// chain (two products, the softmax, two more, two barriers), so the
+// tensor cores idle most of the time; the dk/dv block of the first key
+// tile walks every row tile and spans most of the kernel.  Left for later: a producer warp
+// with TMA and warp specialisation (the next tile's products under this
+// tile's softmax), a persistent grid balancing the causal triangle, and
+// dq fused into the dk/dv kernel with a deterministic reduction.
+//
+// Layout (bf16).  One warpgroup of 128 threads a block.
+//  - dq: one block per (64-row query tile, KV head [, head group],
+//    batch); rows `r` are position t0 + r / GB of head h·G + hg·GB + r % GB
+//    with GB = min(G, 64).  q and do are loaded once; the block loops over
+//    the 64-key tiles it does not skip.
+//  - dk/dv: one block per (64-key tile, KV head, batch), K and V loaded
+//    once; it loops over the query rows R = t·G + g of its KV head, 64 at
+//    a time, with their lse, dsum and positions.
+//
+// fp32 stays on the CUDA cores: a bf16 or TF32 product would miss the
+// 2e-5 tolerance of the fp32 checks and the golden training replay.
+// Those kernels (32-row tiles in shared memory padded to D + 1 words,
+// 16-byte loads) class their tiles the same way and skip the empty ones.
 
 #include "attention_common.cuh"
+
+#include <limits.h>
 
 namespace {
 
 using namespace attn;
+using bf16 = __nv_bfloat16;
+
+// ---------------------------------------------------------------------------
+// masks and tile classes (both dtypes)
+// ---------------------------------------------------------------------------
+
+struct Masks {
+  int causal, window, vlen;             // vlen < 0: no valid-length mask
+  __device__ __forceinline__ bool ok(int qp, int kp) const {
+    bool v = true;
+    if (causal) v = v && kp <= qp;
+    if (window > 0) v = v && qp - kp < window;
+    if (vlen >= 0) v = v && kp < vlen;
+    return v;
+  }
+};
+
+enum : int { kTileSkip = 0, kTileMasked = 1, kTileFull = 2 };
+static_assert(kFull == 0xffffffffu, "warp intrinsics take the full-warp mask");
+
+// The class of a tile pair from the least and largest positions of its
+// live query rows and live keys: kTileSkip when no pair can be kept, kTileFull
+// when every pair is (never with a ragged edge, whose dead rows or keys
+// need the mask), else kTileMasked.  Sound for any positions.
+__device__ __forceinline__ int tile_class(const Masks& mk, int qmin, int qmax,
+                                          int kmin, int kmax, bool ragged) {
+  const long long qn = qmin, qx = qmax, kn = kmin, kx = kmax;
+  if (qn > qx || kn > kx) return kTileSkip;            // no live row or key
+  if (mk.causal && kn > qx) return kTileSkip;
+  if (mk.window > 0 && qn - kx >= mk.window) return kTileSkip;
+  if (mk.vlen >= 0 && kn >= mk.vlen) return kTileSkip;
+  const bool all = !ragged && (!mk.causal || kx <= qn) &&
+                   (mk.window <= 0 || qx - kn < mk.window) &&
+                   (mk.vlen < 0 || kx < mk.vlen);
+  return all ? kTileFull : kTileMasked;
+}
+
+__device__ __forceinline__ void warp_minmax(int& mn, int& mx) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mn = min(mn, __shfl_xor_sync(kFull, mn, o));
+    mx = max(mx, __shfl_xor_sync(kFull, mx, o));
+  }
+}
+
+// The least and largest position over the live ones of n items (lane,
+// lane + 32, ... of one warp; every lane gets the result) and whether
+// all n are live.
+template <typename Live, typename Pos>
+__device__ __forceinline__ void live_bounds(int n, Live live, Pos pos,
+                                            int& mn, int& mx, bool& whole) {
+  const int lane = threadIdx.x % 32;
+  mn = INT_MAX;
+  mx = INT_MIN;
+  bool all = true;
+  for (int i = lane; i < n; i += 32) {
+    if (live(i)) {
+      const int p = pos(i);
+      mn = min(mn, p);
+      mx = max(mx, p);
+    } else {
+      all = false;
+    }
+  }
+  warp_minmax(mn, mx);
+  whole = __all_sync(kFull, all);
+}
+
+// ---------------------------------------------------------------------------
+// fp32: the CUDA cores
+// ---------------------------------------------------------------------------
+
+namespace f32 {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -71,19 +176,34 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (4 * kTile * kPad<D> + 4 * kTile);
 }
 
+// p and ds of one (query row, key) pair from its two products (s scaled,
+// q having been loaded times the scale).
+__device__ __forceinline__ void p_ds(float s_raw, float dp, float lse,
+                                     float dsum, bool ok, float softcap,
+                                     float& p, float& ds) {
+  float s = s_raw, dcap = 1.f;
+  if (softcap > 0.f) {
+    const float t = tanhf(s_raw / softcap);
+    s = t * softcap;
+    dcap = 1.f - t * t;
+  }
+  p = ok ? expf(s - lse) : 0.f;
+  ds = p * (dp - dsum) * dcap;
+}
+
 // Loads kTile rows of D values into shared memory (row-major, stride
 // D + 1, times `scale`), 16 bytes a thread: `src(r)` is row r's first
 // element, or nullptr for a row outside the tensor (stored as zeros).
-template <typename T, int D, typename Src>
+template <int D, typename Src>
 __device__ __forceinline__ void load_tile(float* dst, Src src, float scale) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int RV = D / VEC;           // loads per row
+  constexpr int RV = D / 4;             // loads per row
   for (int idx = threadIdx.x; idx < kTile * RV; idx += kThreads) {
-    const int r = idx / RV, c = (idx % RV) * VEC;
-    const T* p = src(r);
+    const int r = idx / RV, c = (idx % RV) * 4;
+    const float* p = src(r);
     const uint4 u = p ? load16(p + c) : make_uint4(0, 0, 0, 0);
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) dst[r * kPad<D> + c + e] = elem<T>(u, e) * scale;
+    for (int e = 0; e < 4; ++e)
+      dst[r * kPad<D> + c + e] = elem<float>(u, e) * scale;
   }
 }
 
@@ -131,44 +251,21 @@ __device__ __forceinline__ void acc_rows(const float (&w)[kPerWarp],
   }
 }
 
-struct Masks {
-  int causal, window, vlen;             // vlen < 0: no valid-length mask
-  __device__ __forceinline__ bool ok(int qp, int kp) const {
-    bool v = true;
-    if (causal) v = v && kp <= qp;
-    if (window > 0) v = v && qp - kp < window;
-    if (vlen >= 0) v = v && kp < vlen;
-    return v;
-  }
-};
-
-// p and ds of one (query row, key) pair from its two products.
-__device__ __forceinline__ void p_ds(float s_raw, float dp, float lse,
-                                     float dsum, bool ok, float softcap,
-                                     float& p, float& ds) {
-  float s = s_raw, dcap = 1.f;
-  if (softcap > 0.f) {
-    const float t = tanhf(s_raw / softcap);
-    s = t * softcap;
-    dcap = 1.f - t * t;
-  }
-  p = ok ? expf(s - lse) : 0.f;
-  ds = p * (dp - dsum) * dcap;
-}
-
-// ---------------------------------------------------------------------------
-// dq
-// ---------------------------------------------------------------------------
-
-template <typename T, int D>
+// dq: one block per (32-row query tile, KV head [, head group], batch),
+// rows laid out as in the forward kernel; it loops over the 32-key tiles
+// it does not skip.  Each warp owns 4 rows, each lane one key of the tile
+// for s and do·vᵀ, then D/32 columns of dq for ds·k, with ds passed by
+// shuffles.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ dsum,
                     const int* __restrict__ q_pos,
                     const int* __restrict__ kv_pos,
-                    const int* __restrict__ valid_len, T* __restrict__ dq,
+                    const int* __restrict__ valid_len, float* __restrict__ dq,
                     int Tq, int Tk, int Hq, int Hkv, int G, int GB,
                     int tq_per_block, int causal, int window, float softcap,
                     float sm_scale) {
@@ -197,9 +294,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto row_index = [&](int r) {   // index into [B, Tq, Hq]
     return ((size_t)b * Tq + t0 + r / GB) * Hq + h * G + hg * GB + r % GB;
   };
-  load_tile<T, D>(q_s, [&](int r) {
+  load_tile<D>(q_s, [&](int r) {
     return row_live(r) ? q + row_index(r) * D : nullptr; }, sm_scale);
-  load_tile<T, D>(do_s, [&](int r) {
+  load_tile<D>(do_s, [&](int r) {
     return row_live(r) ? dout + row_index(r) * D : nullptr; }, 1.f);
   for (int r = threadIdx.x; r < kTile; r += kThreads) {
     const bool live = row_live(r);
@@ -210,17 +307,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   const Masks mk{causal, window, valid_len ? valid_len[b] : -1};
-  int n_keys = Tk;
-  if (kv_pos == nullptr) {    // key position == key index: bound the loop
-    if (mk.vlen >= 0) n_keys = min(n_keys, mk.vlen);
-    if (causal) {
-      int mx = -1;
-      for (int r = 0; r < kTile; ++r)
-        if (row_live(r)) mx = max(mx, qp_s[r]);
-      n_keys = min(n_keys, mx + 1);
-    }
-    n_keys = max(n_keys, 0);
-  }
+  int qmin, qmax;
+  bool rows_whole;
+  live_bounds(kTile, row_live, [&](int r) { return qp_s[r]; }, qmin, qmax,
+              rows_whole);
 
   float acc[kPerWarp][C];
 #pragma unroll
@@ -228,29 +318,37 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int cc = 0; cc < C; ++cc) acc[i][cc] = 0.f;
 
-  auto key_row = [&](const T* base, int kj) -> const T* {
-    return kj < n_keys ? base + (((size_t)b * Tk + kj) * Hkv + h) * D
-                       : nullptr;
+  auto key_row = [&](const float* base, int kj) -> const float* {
+    return kj < Tk ? base + (((size_t)b * Tk + kj) * Hkv + h) * D : nullptr;
   };
-  for (int k0 = 0; k0 < n_keys; k0 += kTile) {
+  for (int k0 = 0; k0 < Tk; k0 += kTile) {
     __syncthreads();                           // previous tile consumed
-    load_tile<T, D>(k_s, [&](int j) { return key_row(k, k0 + j); }, 1.f);
-    load_tile<T, D>(v_s, [&](int j) { return key_row(v, k0 + j); }, 1.f);
     if (threadIdx.x < kTile) {
       const int kj = k0 + threadIdx.x;
       kp_s[threadIdx.x] =
-          kj < n_keys ? (kv_pos ? kv_pos[(size_t)b * Tk + kj] : kj) : 0;
+          kj < Tk ? (kv_pos ? kv_pos[(size_t)b * Tk + kj] : kj) : 0;
     }
+    __syncthreads();
+    int kmin, kmax;
+    bool keys_whole;
+    live_bounds(kTile, [&](int j) { return k0 + j < Tk; },
+                [&](int j) { return kp_s[j]; }, kmin, kmax, keys_whole);
+    const int cls = tile_class(mk, qmin, qmax, kmin, kmax,
+                               !(rows_whole && keys_whole));
+    if (cls == kTileSkip) continue;                // uniform over the block
+    load_tile<D>(k_s, [&](int j) { return key_row(k, k0 + j); }, 1.f);
+    load_tile<D>(v_s, [&](int j) { return key_row(v, k0 + j); }, 1.f);
     __syncthreads();
 
     float s[kPerWarp], dp[kPerWarp], ds[kPerWarp];
     two_dots<D>(q_s + warp * kPerWarp * kPad<D>, k_s,
                 do_s + warp * kPerWarp * kPad<D>, v_s, s, dp);
-    const bool key_live = k0 + lane < n_keys;
+    const bool key_live = k0 + lane < Tk;
 #pragma unroll
     for (int i = 0; i < kPerWarp; ++i) {
       const int r = warp * kPerWarp + i;
-      const bool ok = key_live && row_live(r) && mk.ok(qp_s[r], kp_s[lane]);
+      const bool ok = cls == kTileFull ||
+                      (key_live && row_live(r) && mk.ok(qp_s[r], kp_s[lane]));
       float p;
       p_ds(s[i], dp[i], lse_s[r], dsum_s[r], ok, softcap, p, ds[i]);
     }
@@ -263,26 +361,28 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!row_live(r)) continue;
 #pragma unroll
     for (int cc = 0; cc < C; ++cc)
-      store(dq + row_index(r) * D + cc * 32 + lane, acc[i][cc] * sm_scale);
+      dq[row_index(r) * D + cc * 32 + lane] = acc[i][cc] * sm_scale;
   }
 }
 
-// ---------------------------------------------------------------------------
-// dk / dv
-// ---------------------------------------------------------------------------
-
-template <typename T, int D>
+// dk/dv: one block per (32-key tile, KV head, batch).  Its query rows are
+// (position, head) pairs `R = t·G + g` of the G heads of its KV head; it
+// loops over them 32 at a time, skipping the row tiles that see none of
+// its keys.  Each warp owns 4 keys, each lane one query row for s and
+// do·vᵀ, then D/32 columns of dk and dv.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ dsum,
                      const int* __restrict__ q_pos,
                      const int* __restrict__ kv_pos,
-                     const int* __restrict__ valid_len, T* __restrict__ dk,
-                     T* __restrict__ dv, int Tq, int Tk, int Hq, int Hkv,
-                     int G, int causal, int window, float softcap,
-                     float sm_scale) {
+                     const int* __restrict__ valid_len,
+                     float* __restrict__ dk, float* __restrict__ dv, int Tq,
+                     int Tk, int Hq, int Hkv, int G, int causal, int window,
+                     float softcap, float sm_scale) {
   constexpr int C = D / 32;
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);   // [kTile][D+1]
@@ -303,19 +403,22 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto key_index = [&](int j) {   // row index into [B, Tk, Hkv]
     return ((size_t)b * Tk + k0 + j) * Hkv + h;
   };
-  load_tile<T, D>(k_s, [&](int j) {
+  load_tile<D>(k_s, [&](int j) {
     return key_live(j) ? k + key_index(j) * D : nullptr; }, 1.f);
-  load_tile<T, D>(v_s, [&](int j) {
+  load_tile<D>(v_s, [&](int j) {
     return key_live(j) ? v + key_index(j) * D : nullptr; }, 1.f);
   if (threadIdx.x < kTile) {
     const int kj = k0 + threadIdx.x;
     kp_s[threadIdx.x] =
         kj < Tk ? (kv_pos ? kv_pos[(size_t)b * Tk + kj] : kj) : 0;
   }
+  __syncthreads();
 
   const Masks mk{causal, window, valid_len ? valid_len[b] : -1};
-  // key position == key index: a tile past kv_valid_len is never seen
-  const bool tile_dead = kv_pos == nullptr && mk.vlen >= 0 && k0 >= mk.vlen;
+  int kmin, kmax;
+  bool keys_whole;
+  live_bounds(kTile, key_live, [&](int j) { return kp_s[j]; }, kmin, kmax,
+              keys_whole);
 
   float dk_acc[kPerWarp][C], dv_acc[kPerWarp][C];
 #pragma unroll
@@ -327,7 +430,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto q_index = [&](int R) {     // index into [B, Tq, Hq]
     return ((size_t)b * Tq + R / G) * Hq + h * G + R % G;
   };
-  for (int R0 = 0; R0 < n_rows && !tile_dead; R0 += kTile) {
+  for (int R0 = 0; R0 < n_rows; R0 += kTile) {
     __syncthreads();                           // previous rows consumed
     if (threadIdx.x < kTile) {
       const int R = R0 + threadIdx.x;
@@ -337,19 +440,17 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       qp_s[threadIdx.x] = live ? q_pos[(size_t)b * Tq + R / G] : 0;
     }
     __syncthreads();
-    if (kv_pos == nullptr) {   // skip rows that see none of these keys
-      bool sees = false;
-      if (threadIdx.x < kTile && R0 + threadIdx.x < n_rows) {
-        const int qp = qp_s[threadIdx.x];
-        const int last = min(k0 + kTile, Tk) - 1;
-        sees = (!causal || k0 <= qp) && (window <= 0 || qp - last < window);
-      }
-      if (!__syncthreads_or(sees)) continue;
-    }
-    load_tile<T, D>(q_s, [&](int r) {
+    int qmin, qmax;
+    bool rows_whole;
+    live_bounds(kTile, [&](int r) { return R0 + r < n_rows; },
+                [&](int r) { return qp_s[r]; }, qmin, qmax, rows_whole);
+    const int cls = tile_class(mk, qmin, qmax, kmin, kmax,
+                               !(rows_whole && keys_whole));
+    if (cls == kTileSkip) continue;                // uniform over the block
+    load_tile<D>(q_s, [&](int r) {
       return R0 + r < n_rows ? q + q_index(R0 + r) * D : nullptr; },
       sm_scale);
-    load_tile<T, D>(do_s, [&](int r) {
+    load_tile<D>(do_s, [&](int r) {
       return R0 + r < n_rows ? dout + q_index(R0 + r) * D : nullptr; }, 1.f);
     __syncthreads();
 
@@ -361,7 +462,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kPerWarp; ++i) {
       const int j = warp * kPerWarp + i;
-      const bool ok = row_live && key_live(j) && mk.ok(qp_s[lane], kp_s[j]);
+      const bool ok = cls == kTileFull ||
+                      (row_live && key_live(j) && mk.ok(qp_s[lane], kp_s[j]));
       p_ds(s[i], dp[i], lse_s[lane], dsum_s[lane], ok, softcap, p[i], ds[i]);
     }
     acc_rows<D>(p, do_s, dv_acc);
@@ -374,11 +476,785 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!key_live(j)) continue;
 #pragma unroll
     for (int cc = 0; cc < C; ++cc) {
-      store(dk + key_index(j) * D + cc * 32 + lane, dk_acc[i][cc]);
-      store(dv + key_index(j) * D + cc * 32 + lane, dv_acc[i][cc]);
+      dk[key_index(j) * D + cc * 32 + lane] = dk_acc[i][cc];
+      dv[key_index(j) * D + cc * 32 + lane] = dv_acc[i][cc];
     }
   }
 }
+
+}  // namespace f32
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int kT = 64;                  // rows (or keys) a tile: one wgmma M
+constexpr int kWG = 128;                // one warpgroup a block
+
+// A [64, D] bf16 tile in shared memory as wgmma reads it: D/W column
+// blocks of W = SW/2 elements, each [64 rows][SW bytes] with the 16-byte
+// chunks of row r XOR-swizzled by the row (SW = 128 bytes, or 64 at
+// D 32).  The tile starts 1024-byte aligned.  The same tile is a K-major
+// operand (its D columns are the reduction, as for s = q·kᵀ) and an
+// MN-major B (its 64 rows are the reduction, as for dq = ds·k).
+template <int D>
+struct Tile {
+  static constexpr int SW = D == 32 ? 64 : 128;
+  static constexpr int W = SW / 2;
+  static constexpr uint32_t BYTES = kT * D * 2;
+  static constexpr uint64_t SWIZZLE = SW == 128 ? 1 : 2;   // descriptor code
+  static constexpr uint32_t PHASE = SW / 16 - 1;           // row bits XORed
+
+  // byte offset of element (r, c), c a multiple of 8
+  static __device__ __forceinline__ uint32_t offset(int r, int c) {
+    const uint32_t o = (c / W) * (kT * SW) + r * SW + (c % W) * 2;
+    return o ^ (((o >> 7) & PHASE) << 4);
+  }
+  static __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                                  uint32_t sbo) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+           (uint64_t)(sbo >> 4) << 32 | SWIZZLE << 62;
+  }
+  // columns 16·ks .. 16·ks + 15 as the reduction (K-major): rows SW bytes
+  // apart, 8-row groups 8·SW apart
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int ks) {
+    const int c = ks * 16;
+    return desc(tile + (c / W) * (kT * SW) + (c % W) * 2, 16, 8 * SW);
+  }
+  // rows 16·ks .. 16·ks + 15 as the reduction and the D columns as N
+  // (MN-major): 8-row groups 8·SW apart, column blocks kT·SW apart
+  static __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int ks) {
+    return desc(tile + ks * 16 * SW, kT * SW, 8 * SW);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes from global to shared memory, asynchronously; with
+// `valid` false nothing is read and the bytes are zeroed.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// this thread's copies, now complete, made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Copies one [64, D] tile into the swizzled layout at `dst`: `src(r)` is
+// row r's first element, or nullptr for a row outside the tensor (zeroed;
+// `any` is a valid address that is not read).
+template <int D, typename Src>
+__device__ __forceinline__ void cp_tile(uint32_t dst, Src src,
+                                        const bf16* any) {
+  constexpr int CPR = D / 8;            // 16-byte chunks a row
+#pragma unroll
+  for (int it = 0; it < kT * CPR / kWG; ++it) {
+    const int idx = threadIdx.x + it * kWG;
+    const int r = idx / CPR, c = (idx % CPR) * 8;
+    const bf16* p = src(r);
+    cp_async16(dst + Tile<D>::offset(r, c), p ? p + c : any, p != nullptr);
+  }
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Pins registers that an in-flight wgmma reads or writes to this point of
+// the program, so the compiler neither reads an accumulator before the
+// wait nor reuses an A operand's register before it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+// d (+)= A·B, m64n64k16, A and B from shared memory (K-major both).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A·B, m64nNk16 with N = 32, 64 or 128 (the overload by d's size):
+// A from registers (bf16 pairs), B from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The m64n64 f32 accumulator `x` as the bf16 A operand of the four k16
+// steps over its 64 columns: register q of step ks holds the pair
+// x[8·ks + 2q], x[8·ks + 2q + 1] (the accumulator's and the A operand's
+// fragments share their row and column map).
+__device__ __forceinline__ void to_a(const float (&x)[32],
+                                     uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      a[ks][j] = pack_bf16(x[8 * ks + 2 * j], x[8 * ks + 2 * j + 1]);
+}
+
+// The accumulator map of a m64nN wgmma: element e = 4·j + 2·i + c of
+// thread t sits at row 16·(t / 32) + (t % 32) / 4 + 8·i and column
+// 8·j + 2·(t % 4) + c.
+__device__ __forceinline__ int acc_row(int i) {
+  return 16 * (threadIdx.x / 32) + (threadIdx.x % 32) / 4 + 8 * i;
+}
+__device__ __forceinline__ int acc_col(int j, int c) {
+  return 8 * j + 2 * (threadIdx.x % 4) + c;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x / d and x % d for x >= 0, by a shift and a mask when d is a power of
+// two (lg = log2 d, else -1)
+struct Div {
+  int d, lg;
+  __device__ __forceinline__ int div(int x) const {
+    return lg >= 0 ? x >> lg : x / d;
+  }
+  __device__ __forceinline__ int mod(int x) const {
+    return lg >= 0 ? x & (d - 1) : x % d;
+  }
+};
+
+// The softmax gradient of a 64 x 64 tile in the accumulator map, in
+// place.  `lse2(i, col)` and `dsum(i, col)` are lse·log2e and dsum of the
+// query row of element (acc_row(i), col), `ok(i, col)` whether the masks
+// keep the pair (read only when MASKED: the select comes before any use,
+// so a row with lse = NEG_INF gives exact zeros).
+//   p_tile:  s ← p = 2^(s·scale·log2e − lse·log2e)
+//   ds_tile: dp ← ds = p·(dp − dsum)
+//   capped:  both at once with the softcap, ds times 1 − tanh².
+template <bool MASKED, typename Lse, typename Ok>
+__device__ __forceinline__ void p_tile(float (&s)[32], float scale_log2,
+                                       Lse lse2, Ok ok) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * j + 2 * i + c, col = acc_col(j, c);
+        const float p = ex2(fmaf(s[e], scale_log2, -lse2(i, col)));
+        s[e] = !MASKED || ok(i, col) ? p : 0.f;
+      }
+}
+
+template <typename Dsum>
+__device__ __forceinline__ void ds_tile(const float (&p)[32],
+                                        float (&dp)[32], Dsum dsum) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * j + 2 * i + c;
+        dp[e] = p[e] * (dp[e] - dsum(i, acc_col(j, c)));
+      }
+}
+
+template <bool MASKED, typename Lse, typename Dsum, typename Ok>
+__device__ __forceinline__ void capped_tile(float (&s)[32], float (&dp)[32],
+                                            float scale, float softcap,
+                                            Lse lse2, Dsum dsum, Ok ok) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * j + 2 * i + c, col = acc_col(j, c);
+        const float t = tanhf(s[e] * scale / softcap);
+        float p = ex2(fmaf(t * softcap, kLog2e, -lse2(i, col)));
+        p = !MASKED || ok(i, col) ? p : 0.f;
+        s[e] = p;
+        dp[e] = p * (dp[e] - dsum(i, col)) * (1.f - t * t);
+      }
+}
+
+// The class of every tile on the side a block loops over (n_items items,
+// 64 a tile) against the block's own side [own_min, own_max]: a warp a
+// tile, 8 tiles' loads in flight at once.  `pos(i)` is item i's position;
+// ITEMS_ARE_KEYS says which side is which.  The caller syncs after.
+template <bool ITEMS_ARE_KEYS, typename Pos>
+__device__ __forceinline__ void plan_tiles(uint8_t* cls, int n_items, Pos pos,
+                                           int own_min, int own_max,
+                                           bool own_whole, const Masks& mk) {
+  constexpr int U = 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_tiles = (n_items + kT - 1) / kT;
+  for (int n0 = warp * U; n0 < n_tiles; n0 += (kWG / 32) * U) {
+    int p[U][2];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int i = (n0 + u) * kT + x * 32 + lane;
+        p[u][x] = i < n_items ? pos(i) : 0;
+      }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int n = n0 + u;
+      int mn = INT_MAX, mx = INT_MIN;
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+        if (n * kT + x * 32 + lane < n_items) {
+          mn = min(mn, p[u][x]);
+          mx = max(mx, p[u][x]);
+        }
+      warp_minmax(mn, mx);
+      if (lane == 0 && n < n_tiles) {
+        const bool ragged = !own_whole || (n + 1) * kT > n_items;
+        cls[n] = ITEMS_ARE_KEYS
+                     ? tile_class(mk, own_min, own_max, mn, mx, ragged)
+                     : tile_class(mk, mn, mx, own_min, own_max, ragged);
+      }
+    }
+  }
+}
+
+// Shared memory of each kernel, from a 1024-byte aligned base: six
+// [64, D] tiles (dq: q, do, then k and v of two stages; dk/dv: k, v,
+// then q and do of two stages), 2 x 3 x 64 words of per-row scalars, and
+// a class byte a tile.
+template <int D>
+size_t smem_bytes(int n_tiles) {
+  return 1024 + 6 * Tile<D>::BYTES + 6 * kT * sizeof(int) + n_tiles;
+}
+
+// The tiles a block does not skip, in order, through a two-stage ring of
+// asynchronous copies: `load(n, stage)` issues tile n's copies.  The
+// constructor issues the first tile; `wait` issues the next one into the
+// other stage (free since the last `next`) and returns the stage of tile
+// `n` once its copies are in, visible to wgmma, and every thread is past
+// the previous tile; `next` moves on once every thread is done with `n`.
+struct Ring {
+  const uint8_t* cls;
+  int n_tiles, n, ahead, st = 0;
+
+  // the first tile from x on that is not skipped (n_tiles if none)
+  __device__ __forceinline__ int seek(int x) const {
+    while (x < n_tiles && cls[x] == kTileSkip) ++x;
+    return x;
+  }
+  template <typename Load>
+  __device__ __forceinline__ Ring(const uint8_t* c, int nt, Load load)
+      : cls(c), n_tiles(nt) {
+    n = ahead = seek(0);
+    if (ahead < n_tiles) load(ahead, 0);
+    cp_commit();
+  }
+  __device__ __forceinline__ bool more() const { return n < n_tiles; }
+  template <typename Load>
+  __device__ __forceinline__ int wait(Load load) {
+    ahead = seek(min(ahead + 1, n_tiles));
+    if (ahead < n_tiles) load(ahead, st ^ 1);
+    cp_commit();
+    cp_wait<1>();
+    fence_async_smem();
+    __syncthreads();
+    return st;
+  }
+  __device__ __forceinline__ void next() {
+    __syncthreads();
+    n = seek(n + 1);
+    st ^= 1;
+  }
+};
+
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + (((a + 1023) & ~1023u) - a);
+}
+
+// dq: one block per (64-row query tile, KV head [, head group], batch),
+// the last query tile first (under a causal mask it has the most keys).
+template <int D>
+__global__ void __launch_bounds__(kWG)
+flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dsum,
+                          const int* __restrict__ q_pos,
+                          const int* __restrict__ kv_pos,
+                          const int* __restrict__ valid_len,
+                          bf16* __restrict__ dq, int Tq, int Tk, int Hq,
+                          int Hkv, int G, Div gb, int tq_per_block,
+                          int causal, int window, float softcap,
+                          float sm_scale) {
+  using L = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = aligned_smem(smem_raw);
+  const uint32_t q_s = smem_u32(sm), do_s = q_s + L::BYTES;
+  auto k_s = [&](int st) { return q_s + (2 + 2 * st) * L::BYTES; };
+  auto v_s = [&](int st) { return k_s(st) + L::BYTES; };
+  int* kp_s = reinterpret_cast<int*>(sm + 6 * L::BYTES);     // [2][64]
+  uint8_t* cls = sm + 6 * L::BYTES + 6 * kT * sizeof(int);   // [n_tiles]
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y % Hkv, hg = blockIdx.y / Hkv;
+  const int t0 = (gridDim.x - 1 - blockIdx.x) * tq_per_block;
+  const int nrows = tq_per_block * gb.d;
+  const int n_tiles = (Tk + kT - 1) / kT;
+
+  // row r: query position t0 + r / GB of head h * G + hg * GB + r % GB
+  auto row_live = [&](int r) {
+    return r < nrows && t0 + gb.div(r) < Tq && hg * gb.d + gb.mod(r) < G;
+  };
+  auto row_index = [&](int r) {   // index into [B, Tq, Hq]
+    return ((size_t)b * Tq + t0 + gb.div(r)) * Hq + h * G + hg * gb.d +
+           gb.mod(r);
+  };
+  auto row_pos = [&](int r) {
+    return q_pos[(size_t)b * Tq + t0 + gb.div(r)];
+  };
+  cp_tile<D>(q_s, [&](int r) {
+    return row_live(r) ? q + row_index(r) * D : nullptr; }, q);
+  cp_tile<D>(do_s, [&](int r) {
+    return row_live(r) ? dout + row_index(r) * D : nullptr; }, q);
+  cp_commit();
+
+  // this thread's two accumulator rows
+  float lse2_r[2], dsum_r[2];
+  int qp_r[2];
+  bool live_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = acc_row(i);
+    live_r[i] = row_live(r);
+    lse2_r[i] = live_r[i] ? lse[row_index(r)] * kLog2e : 0.f;
+    dsum_r[i] = live_r[i] ? dsum[row_index(r)] : 0.f;
+    qp_r[i] = live_r[i] ? row_pos(r) : 0;
+  }
+
+  const Masks mk{causal, window, valid_len ? valid_len[b] : -1};
+  int qmin, qmax;
+  bool rows_whole;
+  live_bounds(kT, row_live, row_pos, qmin, qmax, rows_whole);
+  auto key_pos = [&](int j) {
+    return kv_pos ? kv_pos[(size_t)b * Tk + j] : j;
+  };
+  plan_tiles<true>(cls, Tk, key_pos, qmin, qmax, rows_whole, mk);
+
+  auto load_keys = [&](int n, int st) {
+    const int k0 = n * kT;
+    auto rows = [&](const bf16* base) {
+      return [=](int j) -> const bf16* {
+        return k0 + j < Tk ? base + (((size_t)b * Tk + k0 + j) * Hkv + h) * D
+                           : nullptr;
+      };
+    };
+    cp_tile<D>(k_s(st), rows(k), k);
+    cp_tile<D>(v_s(st), rows(v), k);
+    if (threadIdx.x < kT) {
+      const int j = k0 + threadIdx.x;
+      int* dst = kp_s + st * kT + threadIdx.x;
+      if (kv_pos)
+        cp_async4(smem_u32(dst), kv_pos + (size_t)b * Tk + min(j, Tk - 1),
+                  j < Tk);
+      else
+        *dst = j;
+    }
+  };
+
+  const float scale_log2 = sm_scale * kLog2e;
+  auto lse2 = [&](int i, int) { return lse2_r[i]; };
+  auto dsum_of = [&](int i, int) { return dsum_r[i]; };
+  float acc[D / 2], s[32], dp[32];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+  __syncthreads();                              // the classes are written
+  Ring ring(cls, n_tiles, load_keys);
+  while (ring.more()) {
+    const int st = ring.wait(load_keys), n = ring.n;   // q and do are in too
+
+    // s = q·kᵀ and dp = do·vᵀ, [64 rows, 64 keys] each, as two groups
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss_n64(s, L::kmajor(q_s, ks), L::kmajor(k_s(st), ks), ks > 0);
+    wg_commit();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss_n64(dp, L::kmajor(do_s, ks), L::kmajor(v_s(st), ks), ks > 0);
+    wg_commit();
+
+    const int k0 = n * kT;
+    const int* kp = kp_s + st * kT;
+    auto ok = [&](int i, int col) {
+      return live_r[i] && k0 + col < Tk && mk.ok(qp_r[i], kp[col]);
+    };
+    const bool full = cls[n] == kTileFull;
+    if (softcap > 0.f) {
+      wg_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      if (full)
+        capped_tile<false>(s, dp, sm_scale, softcap, lse2, dsum_of, ok);
+      else
+        capped_tile<true>(s, dp, sm_scale, softcap, lse2, dsum_of, ok);
+    } else {                  // p while do·vᵀ is still on the tensor cores
+      wg_wait<1>();
+      fence_regs(s);
+      if (full)
+        p_tile<false>(s, scale_log2, lse2, ok);
+      else
+        p_tile<true>(s, scale_log2, lse2, ok);
+      wg_wait<0>();
+      fence_regs(dp);
+      ds_tile(s, dp, dsum_of);
+    }
+    uint32_t a[4][4];
+    to_a(dp, a);
+
+    // dq += ds·k: k's 64 rows are the reduction
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_rs(acc, a[ks], L::mnmajor(k_s(st), ks));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    fence_regs(a);
+    ring.next();
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!live_r[i]) continue;
+    bf16* out = dq + row_index(acc_row(i)) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + acc_col(j, 0)) =
+          pack_bf16(acc[4 * j + 2 * i] * sm_scale,
+                    acc[4 * j + 2 * i + 1] * sm_scale);
+  }
+}
+
+// dk/dv: one block per (KV head, batch, 64-key tile) over the Tq·G query
+// rows R = t·G + g of its KV head, the first key tiles first: under a
+// causal mask they have the most rows, and the longest block bounds the
+// kernel's time.
+template <int D>
+__global__ void __launch_bounds__(kWG)
+flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ dsum,
+                           const int* __restrict__ q_pos,
+                           const int* __restrict__ kv_pos,
+                           const int* __restrict__ valid_len,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int Tq, int Tk, int Hq, int Hkv, Div g,
+                           int causal, int window, float softcap,
+                           float sm_scale) {
+  using L = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = aligned_smem(smem_raw);
+  const uint32_t k_s = smem_u32(sm), v_s = k_s + L::BYTES;
+  auto q_s = [&](int st) { return k_s + (2 + 2 * st) * L::BYTES; };
+  auto do_s = [&](int st) { return q_s(st) + L::BYTES; };
+  float* lse_s = reinterpret_cast<float*>(sm + 6 * L::BYTES);   // [2][64]
+  float* dsum_s = lse_s + 2 * kT;                                // [2][64]
+  int* qp_s = reinterpret_cast<int*>(dsum_s + 2 * kT);           // [2][64]
+  uint8_t* cls = sm + 6 * L::BYTES + 6 * kT * sizeof(int);      // [n_tiles]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * kT;
+  const int n_rows = Tq * g.d;
+  const int n_tiles = (n_rows + kT - 1) / kT;
+
+  auto key_live = [&](int j) { return k0 + j < Tk; };
+  auto key_index = [&](int j) {   // row index into [B, Tk, Hkv]
+    return ((size_t)b * Tk + k0 + j) * Hkv + h;
+  };
+  auto key_pos = [&](int j) {
+    return kv_pos ? kv_pos[(size_t)b * Tk + k0 + j] : k0 + j;
+  };
+  cp_tile<D>(k_s, [&](int j) {
+    return key_live(j) ? k + key_index(j) * D : nullptr; }, k);
+  cp_tile<D>(v_s, [&](int j) {
+    return key_live(j) ? v + key_index(j) * D : nullptr; }, k);
+  cp_commit();
+
+  // this thread's two accumulator rows (keys)
+  int kp_r[2];
+  bool live_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    live_r[i] = key_live(acc_row(i));
+    kp_r[i] = live_r[i] ? key_pos(acc_row(i)) : 0;
+  }
+
+  const Masks mk{causal, window, valid_len ? valid_len[b] : -1};
+  int kmin, kmax;
+  bool keys_whole;
+  live_bounds(kT, key_live, key_pos, kmin, kmax, keys_whole);
+  // query row R = t * G + g: position t of head h * G + g
+  auto q_index = [&](int R) {     // index into [B, Tq, Hq]
+    return ((size_t)b * Tq + g.div(R)) * Hq + h * g.d + g.mod(R);
+  };
+  auto row_pos = [&](int R) { return q_pos[(size_t)b * Tq + g.div(R)]; };
+  plan_tiles<false>(cls, n_rows, row_pos, kmin, kmax, keys_whole, mk);
+
+  auto load_rows = [&](int n, int st) {
+    const int R0 = n * kT;
+    auto rows = [&](const bf16* base) {
+      return [=](int r) -> const bf16* {
+        return R0 + r < n_rows ? base + q_index(R0 + r) * D : nullptr;
+      };
+    };
+    cp_tile<D>(q_s(st), rows(q), q);
+    cp_tile<D>(do_s(st), rows(dout), q);
+    // lse, dsum and the position of each row: [3][2 stages][64] words
+    const uint32_t sc = smem_u32(lse_s);
+    for (int x = threadIdx.x; x < 3 * kT; x += kWG) {
+      const int which = x / kT, r = x % kT, R = R0 + r;
+      const bool live = R < n_rows;
+      const int Rc = live ? R : 0;
+      const void* src = which == 0   ? (const void*)(lse + q_index(Rc))
+                        : which == 1 ? (const void*)(dsum + q_index(Rc))
+                                     : (const void*)(q_pos + (size_t)b * Tq +
+                                                     g.div(Rc));
+      cp_async4(sc + ((which * 2 + st) * kT + r) * 4, src, live);
+    }
+  };
+
+  const float scale_log2 = sm_scale * kLog2e;
+  float dk_acc[D / 2], dv_acc[D / 2], s[32], dp[32];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+  __syncthreads();                              // the classes are written
+  Ring ring(cls, n_tiles, load_rows);
+  while (ring.more()) {
+    const int st = ring.wait(load_rows), n = ring.n;   // k and v are in too
+
+    // sᵀ = k·qᵀ and dpᵀ = v·doᵀ, [64 keys, 64 rows] each, as two groups
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss_n64(s, L::kmajor(k_s, ks), L::kmajor(q_s(st), ks), ks > 0);
+    wg_commit();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss_n64(dp, L::kmajor(v_s, ks), L::kmajor(do_s(st), ks), ks > 0);
+    wg_commit();
+
+    const int R0 = n * kT;
+    const float* lse_t = lse_s + st * kT;
+    const float* dsum_t = dsum_s + st * kT;
+    const int* qp_t = qp_s + st * kT;
+    auto lse2 = [&](int, int col) { return lse_t[col] * kLog2e; };
+    auto dsum_of = [&](int, int col) { return dsum_t[col]; };
+    auto ok = [&](int i, int col) {
+      return live_r[i] && R0 + col < n_rows && mk.ok(qp_t[col], kp_r[i]);
+    };
+    const bool full = cls[n] == kTileFull;
+    uint32_t a_p[4][4], a_ds[4][4];
+    // dv += pᵀ·do and dk += dsᵀ·q: the tile's 64 rows are the reduction
+    auto dv_mma = [&] {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_rs(dv_acc, a_p[ks], L::mnmajor(do_s(st), ks));
+    };
+    auto dk_mma = [&] {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_rs(dk_acc, a_ds[ks], L::mnmajor(q_s(st), ks));
+    };
+    if (softcap > 0.f) {
+      wg_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      if (full)
+        capped_tile<false>(s, dp, sm_scale, softcap, lse2, dsum_of, ok);
+      else
+        capped_tile<true>(s, dp, sm_scale, softcap, lse2, dsum_of, ok);
+      to_a(s, a_p);
+      to_a(dp, a_ds);
+      wg_fence();
+      dv_mma();
+      dk_mma();
+      wg_commit();
+    } else {    // p, then pᵀ·do on the tensor cores while ds is computed
+      wg_wait<1>();
+      fence_regs(s);
+      if (full)
+        p_tile<false>(s, scale_log2, lse2, ok);
+      else
+        p_tile<true>(s, scale_log2, lse2, ok);
+      to_a(s, a_p);
+      wg_fence();
+      dv_mma();
+      wg_commit();
+      wg_wait<1>();                             // dpᵀ is in
+      fence_regs(dp);
+      ds_tile(s, dp, dsum_of);
+      to_a(dp, a_ds);
+      wg_fence();
+      dk_mma();
+      wg_commit();
+    }
+    wg_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(a_p);
+    fence_regs(a_ds);
+    ring.next();
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!live_r[i]) continue;
+    const size_t row = key_index(acc_row(i)) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = acc_col(j, 0);
+      *reinterpret_cast<uint32_t*>(dk + row + col) =
+          pack_bf16(dk_acc[4 * j + 2 * i] * sm_scale,
+                    dk_acc[4 * j + 2 * i + 1] * sm_scale);
+      *reinterpret_cast<uint32_t*>(dv + row + col) =
+          pack_bf16(dv_acc[4 * j + 2 * i], dv_acc[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+}  // namespace wg
 
 // ---------------------------------------------------------------------------
 // launch
@@ -392,55 +1268,102 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-cudaError_t launch_dq(const Args& a) {
-  const int G = a.Hq / a.Hkv;
-  const int GB = G < kTile ? G : kTile;       // heads per block
-  const int n_groups = (G + GB - 1) / GB;
-  const int tq_per_block = kTile / GB;
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// dq blocks hold `tile` rows: `tile/GB` positions times GB heads of one
+// KV head, more than `tile` heads a KV head split over head groups
+struct RowMap {
+  int G, GB, n_groups, tq_per_block;
+  RowMap(const Args& a, int tile)
+      : G(a.Hq / a.Hkv), GB(G < tile ? G : tile),
+        n_groups((G + GB - 1) / GB), tq_per_block(tile / GB) {}
+  dim3 grid(const Args& a) const {
+    return dim3((a.Tq + tq_per_block - 1) / tq_per_block,
+                a.Hkv * n_groups, a.B);
+  }
+};
+
+#define BWD_COMMON_ARGS(T)                                                 \
+  static_cast<const T*>(a.q), static_cast<const T*>(a.k),                  \
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),           \
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum), \
+      static_cast<const int*>(a.q_pos), static_cast<const int*>(a.kv_pos), \
+      static_cast<const int*>(a.valid_len)
+
+template <int D>
+cudaError_t launch_dq_f32(const Args& a) {
+  const RowMap m(a, f32::kTile);
+  constexpr size_t smem = f32::smem_bytes<D>();
+  cudaError_t err = set_smem(f32::flash_bwd_dq_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Tq + tq_per_block - 1) / tq_per_block,
-                  a.Hkv * n_groups, a.B);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
-      static_cast<const int*>(a.q_pos), static_cast<const int*>(a.kv_pos),
-      static_cast<const int*>(a.valid_len), static_cast<T*>(a.dq), a.Tq,
-      a.Tk, a.Hq, a.Hkv, G, GB, tq_per_block, a.causal, a.window,
-      a.softcap, a.sm_scale);
+  f32::flash_bwd_dq_kernel<D><<<m.grid(a), f32::kThreads, smem, a.stream>>>(
+      BWD_COMMON_ARGS(float), static_cast<float*>(a.dq), a.Tq, a.Tk, a.Hq,
+      a.Hkv, m.G, m.GB, m.tq_per_block, a.causal, a.window, a.softcap,
+      a.sm_scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Args& a) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int D>
+cudaError_t launch_dkv_f32(const Args& a) {
+  constexpr size_t smem = f32::smem_bytes<D>();
+  cudaError_t err = set_smem(f32::flash_bwd_dkv_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Tk + kTile - 1) / kTile, a.Hkv, a.B);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
-      static_cast<const int*>(a.q_pos), static_cast<const int*>(a.kv_pos),
-      static_cast<const int*>(a.valid_len), static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.Tq, a.Tk, a.Hq, a.Hkv, a.Hq / a.Hkv,
+  const dim3 grid((a.Tk + f32::kTile - 1) / f32::kTile, a.Hkv, a.B);
+  f32::flash_bwd_dkv_kernel<D><<<grid, f32::kThreads, smem, a.stream>>>(
+      BWD_COMMON_ARGS(float), static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.Tq, a.Tk, a.Hq, a.Hkv, a.Hq / a.Hkv,
       a.causal, a.window, a.softcap, a.sm_scale);
   return cudaGetLastError();
 }
 
-template <typename T, bool DQ>
-cudaError_t by_dim(int D, const Args& a) {
-  switch (D) {
-    case 32: return DQ ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
-    case 64: return DQ ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
-    case 128: return DQ ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
+wg::Div divisor(int d) {
+  int lg = -1;
+  if ((d & (d - 1)) == 0)
+    for (lg = 0; (1 << lg) < d; ++lg) {}
+  return wg::Div{d, lg};
+}
+
+template <int D>
+cudaError_t launch_dq_bf16(const Args& a) {
+  const RowMap m(a, wg::kT);
+  const size_t smem = wg::smem_bytes<D>((a.Tk + wg::kT - 1) / wg::kT);
+  cudaError_t err = set_smem(wg::flash_bwd_dq_wgmma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  wg::flash_bwd_dq_wgmma_kernel<D><<<m.grid(a), wg::kWG, smem, a.stream>>>(
+      BWD_COMMON_ARGS(bf16), static_cast<bf16*>(a.dq), a.Tq, a.Tk, a.Hq,
+      a.Hkv, m.G, divisor(m.GB), m.tq_per_block, a.causal, a.window,
+      a.softcap, a.sm_scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_bf16(const Args& a) {
+  const int G = a.Hq / a.Hkv;
+  const long long n_rows = (long long)a.Tq * G;
+  if (n_rows > INT_MAX) return cudaErrorInvalidValue;
+  const size_t smem = wg::smem_bytes<D>((int)((n_rows + wg::kT - 1) / wg::kT));
+  cudaError_t err = set_smem(wg::flash_bwd_dkv_wgmma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.Hkv, a.B, (a.Tk + wg::kT - 1) / wg::kT);
+  wg::flash_bwd_dkv_wgmma_kernel<D><<<grid, wg::kWG, smem, a.stream>>>(
+      BWD_COMMON_ARGS(bf16), static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.Tq, a.Tk, a.Hq, a.Hkv, divisor(G),
+      a.causal, a.window, a.softcap, a.sm_scale);
+  return cudaGetLastError();
+}
+
+#undef BWD_COMMON_ARGS
+
+// bf16 takes the tensor-core kernels, fp32 the CUDA-core ones
+template <bool DQ, int D>
+cudaError_t launch(const Args& a, int dtype) {
+  switch (dtype) {
+    case 0: return DQ ? launch_dq_f32<D>(a) : launch_dkv_f32<D>(a);
+    case 1: return DQ ? launch_dq_bf16<D>(a) : launch_dkv_bf16<D>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -449,10 +1372,12 @@ template <bool DQ>
 int run(const Args& a, int D, int dtype) {
   if (a.Hkv <= 0 || a.Hq % a.Hkv != 0) return (int)cudaErrorInvalidValue;
   if (a.B == 0 || a.Tq == 0 || a.Tk == 0) return (int)cudaSuccess;
-  cudaError_t err = dtype == 0   ? by_dim<float, DQ>(D, a)
-                    : dtype == 1 ? by_dim<__nv_bfloat16, DQ>(D, a)
-                                 : cudaErrorInvalidValue;
-  return (int)err;
+  switch (D) {
+    case 32: return (int)launch<DQ, 32>(a, dtype);
+    case 64: return (int)launch<DQ, 64>(a, dtype);
+    case 128: return (int)launch<DQ, 128>(a, dtype);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

@@ -3,7 +3,8 @@ and ``flash_mha``, the autograd function of flash attention.
 
 Replaces ``repro.kernels.flash_attention_bwd`` (the Pallas TPU kernels
 ``_dq_kernel`` and ``_dkv_kernel`` and the ``flash_mha`` custom_vjp).  The
-kernels live in ``csrc/flash_attention_bwd.cu``; its header says what
+kernels live in ``csrc/flash_attention_bwd.cu`` (bf16 on the tensor
+cores with ``wgmma``, fp32 on the CUDA cores); its header says what
 bounds them on the card and how they are laid out.  Each wrapper checks
 its inputs, allocates its outputs with ``torch.empty``, launches on
 PyTorch's current stream and counts its launch.  The plain version of

@@ -269,7 +269,11 @@ def test_draft_kernel_launch_failure_fails_the_batch(cuda, monkeypatch):
 # B, Tq, Tk, Hq, Hkv, D, causal, window, softcap, valid: causal, non-causal,
 # window, softcap, a kv_valid_len of 0 for one row, G 1/2/8 (8 with Hkv 1
 # is MQA), ragged Tq != Tk, D 32/64/128; test_torch_train_kernels.py runs
-# the plain version of the same cases against JAX
+# the plain version of the first ten against JAX.  Then T 63, 65 and 129
+# around the bf16 kernels' 64-row tile, D 32 and D 128 at G 8 and G 1,
+# G 128, more heads a KV head than a dq block's 64 rows hold, G 12,
+# whose dq blocks hold 60 rows and whose row map divides by a number
+# that is no power of two, and G 96, whose second head group is partial.
 BWD_CASES = [
     (2, 64, 64, 4, 2, 32, True, 0, 0.0, False),
     (2, 64, 64, 4, 2, 32, False, 0, 0.0, False),
@@ -281,10 +285,27 @@ BWD_CASES = [
     (2, 48, 96, 4, 2, 32, True, 0, 0.0, False),
     (2, 96, 40, 16, 2, 128, False, 0, 0.0, True),
     (1, 70, 70, 32, 4, 64, True, 0, 30.0, False),
+    (2, 63, 63, 16, 2, 64, True, 0, 0.0, False),
+    (2, 65, 65, 16, 2, 64, True, 24, 0.0, True),
+    (1, 129, 129, 8, 1, 64, True, 0, 0.0, False),
+    (2, 96, 96, 16, 2, 32, True, 0, 0.0, False),
+    (2, 80, 80, 2, 2, 32, True, 0, 20.0, False),
+    (1, 130, 130, 16, 2, 128, True, 0, 0.0, False),
+    (2, 65, 65, 2, 2, 128, True, 0, 0.0, True),
+    (1, 40, 40, 128, 1, 32, True, 0, 0.0, False),
+    (2, 70, 70, 24, 2, 64, True, 0, 0.0, True),
+    (1, 70, 70, 96, 1, 64, True, 0, 0.0, False),
+    (1, 70, 70, 96, 1, 128, False, 0, 0.0, False),
 ]
 
 
-def _bwd_inputs(case, dtype, cuda, explicit=False):
+def _bwd_inputs(case, dtype, cuda, positions=None):
+    """Inputs of the backward kernels.  ``positions``: None leaves them
+    implicit; "offset" puts the queries at the last Tq of Tk explicit
+    keys, with the last row's first 3 queries padding (-1); "packed"
+    makes them two documents, 0..99 then 0..Tk-101; "reversed" runs them
+    backwards.  The last two keep each tile's least and largest position
+    away from the indices."""
     B, Tq, Tk, Hq, Hkv, D, causal, window, softcap, valid = case
     g = torch.Generator(device=cuda).manual_seed(Tq * 3 + Hq + D)
     q = torch.randn(B, Tq, Hq, D, generator=g, device=cuda).to(dtype)
@@ -295,28 +316,44 @@ def _bwd_inputs(case, dtype, cuda, explicit=False):
     if valid:                      # row 0 sees no key at all
         kw["kv_valid_len"] = torch.tensor([0] + [Tk // 2] * (B - 1),
                                           device=cuda, dtype=torch.int32)
-    if explicit:                   # a chunk at an offset over explicit keys
+    if positions == "offset":      # a chunk at an offset over explicit keys
         qpos = (Tk - Tq + torch.arange(Tq, device=cuda, dtype=torch.int32)
                 )[None].repeat(B, 1)
         qpos[-1, :3] = -1          # the last row's first 3 queries see none
         kw["q_positions"] = qpos
         kw["kv_positions"] = torch.arange(
             Tk, device=cuda, dtype=torch.int32)[None].expand(B, Tk)
+    elif positions is not None:
+        if positions == "packed":
+            pos = torch.cat([torch.arange(100), torch.arange(Tk - 100)])
+        else:
+            pos = torch.arange(Tk - 1, -1, -1)
+        pos = pos.to(device=cuda, dtype=torch.int32)[None].expand(B, Tk)
+        kw["q_positions"] = kw["kv_positions"] = pos
     return q, k, v, do, kw
 
 
-@pytest.mark.parametrize("explicit", [False, True])
-@pytest.mark.parametrize("case", BWD_CASES)
+# each case with implicit and with offset positions (Tq <= Tk), then
+# packed and reversed positions over one row of 256 (causal; Hq, Hkv, D,
+# window and softcap vary)
+BWD_RUNS = [(c, p) for c in BWD_CASES for p in (None, "offset")
+            if p is None or c[1] <= c[2]] + [
+    ((2, 256, 256, 32, 4, 64, True, 0, 0.0, False), "packed"),
+    ((2, 256, 256, 16, 2, 128, True, 48, 0.0, False), "packed"),
+    ((2, 256, 256, 32, 4, 64, True, 0, 0.0, False), "reversed"),
+    ((2, 256, 256, 8, 8, 32, True, 40, 12.0, False), "reversed"),
+]
+
+
+@pytest.mark.parametrize("case, positions", BWD_RUNS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_bwd_kernels_match_plain(case, dtype, explicit, cuda):
+def test_flash_bwd_kernels_match_plain(case, dtype, positions, cuda):
     """The dq and dk/dv kernels against ``ref.flash_attention_bwd`` on the
     forward kernel's own ``out`` and ``lse``."""
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels.flash_attention import flash_attention
 
-    if explicit and case[1] > case[2]:
-        pytest.skip("the explicit-position variant needs Tq <= Tk")
-    q, k, v, do, kw = _bwd_inputs(case, dtype, cuda, explicit)
+    q, k, v, do, kw = _bwd_inputs(case, dtype, cuda, positions)
     out, lse = flash_attention(q, k, v, return_lse=True, **kw)
     n_dq, n_dkv = (fab.flash_attention_bwd_dq.launches,
                    fab.flash_attention_bwd_dkv.launches)
@@ -329,12 +366,29 @@ def test_flash_bwd_kernels_match_plain(case, dtype, explicit, cuda):
         assert x.dtype == dtype and x.shape == w.shape, name
         assert bool(torch.isfinite(x).all()), name
         assert float(w.abs().max()) > 0, name
-        assert _rel(w, x) < TOL[dtype], (name, _rel(w, x))
+        assert _rel(w, x) < TOL[dtype], (name, positions, _rel(w, x))
     if "kv_valid_len" in kw:       # the empty row has no gradient at all
         assert bool((got[0][0] == 0).all())
-    if explicit and case[6]:       # nor have causal queries that see none
-        assert bool((got[0][-1, :3] == 0).all())
+    if positions == "offset" and case[6]:   # nor have causal queries that
+        assert bool((got[0][-1, :3] == 0).all())        # see none
         assert bool((got[0][-1, 3:] != 0).any())
+
+
+@pytest.mark.parametrize("case", [BWD_CASES[4], BWD_CASES[12],
+                                  BWD_CASES[15]])
+def test_flash_bwd_kernels_bf16_repeat_bit_equal(case, cuda):
+    """No atomics: two bf16 runs give the same dq, dk and dv, bit for
+    bit."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v, do, kw = _bwd_inputs(case, torch.bfloat16, cuda, "offset")
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    first = fab.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = fab.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first, again):
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.parametrize("case", BWD_CASES[:6])
