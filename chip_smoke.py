@@ -12,17 +12,21 @@ continues:
    the serving path's shapes (bf16 and fp32, window and softcap variants,
    int8 pools for the paged kernels, K1 of 1, 2 and 5 for the verify
    kernel, which at K1 = 1 is also held against the paged decode kernel),
-   the backward kernels at the train step's (causal, non-causal, window,
-   softcap, an empty row, G 1 and 8, Tq < Tk, D 32/64/128, packed
-   positions that restart mid-row, T 129; at the train shape the useful
-   TFLOP/s of each and the two against SDPA's one backward), the SSD scan
+   the forward (with lse, as the train step runs it) and the backward
+   kernels at the train step's (causal, non-causal, window, softcap, an
+   empty row, G 1, 8, 12 and 96, Tq < Tk, D 32/64/128, packed positions
+   that restart mid-row, T 129; at the train shape the share of 64 x 64
+   tiles computed, the useful TFLOP/s of each, the forward against one
+   causal SDPA forward and the two backward kernels against SDPA's one
+   backward), the SSD scan
    at the SSM prefill's (mamba2's 64-token chunk with the carried state,
    a 511-token prompt, zamba2's H 64 N 64, groups 2, one token; final
    state included) and RMSNorm at its rows and widths (up to 5120), with
    CUDA-event times for the kernel, its plain version and a library
    yardstick (``F.scaled_dot_product_attention`` with an explicit mask
-   over the same dense or gathered KV, its backward for the backward
-   kernels, ``F.rms_norm`` for RMSNorm, none for the SSD scan; timed here
+   over the same dense or gathered KV, causal at the train shape, its
+   backward for the backward kernels, ``F.rms_norm`` for RMSNorm, none
+   for the SSD scan; timed here
    only, never called by the port), and the bound: bytes over 3.35 TB/s
    or operations over the peak rate;
 3. serve: full-width tinyllama-1.1b (22 layers, bf16 compute, random
@@ -60,7 +64,7 @@ continues:
    step 1 (lr 0) and moved after step 2, the forward flash, dq and dk/dv
    kernels each launched 22 x 6 times; median step time, tokens/s, peak
    memory and a profiled step's device busy share and top kernels (the
-   bf16 backward's tensor-core kernels 22 times each); an
+   bf16 forward's and backward's tensor-core kernels 22 times each); an
    async checkpoint restored into a fresh ``Trainer`` gives the same next
    loss;
 7. train consistency: fp32 at full width, 2 layers, every gradient leaf of
@@ -72,7 +76,8 @@ continues:
    norms within 1e-4 relative, final parameters within 1e-4;
 9. the kernels line (each kernel's launches from the path that runs it:
    per request for serving, per step for training; the SSD scan and
-   RMSNorm from mamba2's serve), then the last line
+   RMSNorm from mamba2's serve; flash attention's times at the serving
+   chunk, and as ``train_*`` at the train shape), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -391,8 +396,11 @@ def _bwd_case(torch, gen, dtype, dims, causal=True, window=0, softcap=0.0,
     e = q.element_size()
     qbytes, kbytes = B * Tq * Hq * D * e, B * Tk * Hkv * D * e
     common = 2 * qbytes + 2 * kbytes + 8 * B * Tq * Hq + 4 * B * (Tq + Tk)
-    nbytes = {"dq": common + qbytes, "dkv": common + 2 * kbytes}
-    flops = {"dq": 3 * 2 * D * pairs, "dkv": 4 * 2 * D * pairs}
+    nbytes = {"dq": common + qbytes, "dkv": common + 2 * kbytes,
+              "fwd": 2 * qbytes + 2 * kbytes + 4 * B * Tq * Hq
+              + 4 * B * (Tq + Tk)}
+    flops = {"dq": 3 * 2 * D * pairs, "dkv": 4 * 2 * D * pairs,
+             "fwd": 2 * 2 * D * pairs}
     return (q, k, v, lse, do, dsum), kw, out, nbytes, flops
 
 
@@ -414,6 +422,16 @@ def _tile_share(qp, kp, G, causal, window):
             tiles += 1
             kept += bool(keep.any())
     return kept / tiles
+
+
+def _sdpa_causal(torch, F, q, k, v):
+    """Library yardstick of the forward at the train shape: one causal
+    ``F.scaled_dot_product_attention`` over the same q, k and v, the KV
+    heads expanded to the query heads beforehand (untimed)."""
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt, vt = (x.transpose(1, 2).repeat_interleave(G, dim=1) for x in (k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
 
 def _sdpa_bwd(torch, F, q, k, v, do):
@@ -483,11 +501,33 @@ def phase_kernels(torch, timer, card):
     # the worst error of each kernel over all its checks, per dtype
     worst = {}
 
+    # the forward's f32 lse, held as tests/test_torch_gpu.py holds it:
+    # absolute, since an empty row's NEG_INF would swamp a relative error
+    lse_atol, lse_rtol = 1e-4, 1e-5
+    worst_lse = {}
+
+    def check_lse(label, dtype, got, want):
+        """Rows with a kept key within lse_atol + lse_rtol·|want| of the
+        plain version's ``lse``, rows with none exactly NEG_INF."""
+        torch.cuda.synchronize()
+        empty = want == ref.NEG_INF
+        diff = (got - want)[~empty].abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        print(f"[kernel] flash_attention {label} lse {dtype}: "
+              f"max_abs_err={err:.3e} (limit {lse_atol:.0e} + "
+              f"{lse_rtol:.0e}·|lse|), {int(empty.sum())} empty rows")
+        check(bool((got[empty] == ref.NEG_INF).all()),
+              f"flash_attention {label}: an empty row's lse is not NEG_INF")
+        check(bool((diff <= lse_atol + lse_rtol * want[~empty].abs()).all()),
+              f"flash_attention {label}: lse off by {err}")
+        worst_lse[dtype] = max(worst_lse.get(dtype, 0.0), err)
+
     def run(name, label, dtype, kernel, plain, args, kw, nbytes, flops,
-            library, timed):
+            library, timed, key=None):
         """Check ``kernel`` against ``plain`` (each returns a tensor or a
         tuple of them, each held to the tolerance relative to its own
-        largest value) and, if ``timed``, time both and the library."""
+        largest value) and, if ``timed``, time both and the library (the
+        times go under ``key``, by default the kernel's name)."""
         got = kernel(*args, **kw)
         want = plain(*args, **kw)
         torch.cuda.synchronize()
@@ -519,7 +559,7 @@ def phase_kernels(torch, timer, card):
               f"{plain_ms:.4f} ms, library {lib}, bound "
               f"{bound:.5f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}"
               f": {nbytes} B, {flops} FLOP) on {card}")
-        results[name] = dict(
+        results[key or name] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             shape=label, dtype=dtype)
@@ -639,6 +679,8 @@ def phase_kernels(torch, timer, card):
         ("B2/T129 ragged", (2, 129, 129, 32, 4, 64), {"valid": True},
          False),
         ("B1/T129 D128 G1", (1, 129, 129, 4, 4, 128), {}, False),
+        ("B2/T256 G12", (2, 256, 256, 24, 2, 64), {"valid": True}, False),
+        ("B1/T200 G96 D128", (1, 200, 200, 96, 1, 128), {}, False),
     ]
     for dtype in ("bfloat16", "float32"):
         for label, dims, extra, timed in bwd_cases:
@@ -656,6 +698,23 @@ def phase_kernels(torch, timer, card):
                 return ref.flash_attention_bwd(q, k, v, out, lse, do,
                                                **kw)[1:]
 
+            def fwd(q, k, v, lse, do, dsum, **kw):
+                return flash_attention(q, k, v, return_lse=True, **kw)[0]
+
+            def plain_fwd(q, k, v, lse, do, dsum, **kw):
+                return ref.mha(q, k, v, return_lse=True, **kw)[0]
+
+            # the forward as the train step runs it (both compute lse),
+            # timed at the train shape beside one causal SDPA forward;
+            # `out` is compared here, the lse (args[3], from _bwd_case)
+            # on its own
+            run("flash_attention", f"{label} (train forward)", dtype, fwd,
+                plain_fwd, args, kw, nb["fwd"], fl["fwd"],
+                _sdpa_causal(torch, F, *args[:3]) if timed else None,
+                timed, key="flash_attention@train")
+            check_lse(f"{label} (train forward)", dtype, args[3],
+                      ref.mha(*args[:3], return_lse=True, **kw)[1])
+
             run("flash_attention_bwd_dq", label, dtype,
                 flash_attention_bwd_dq, plain_dq, args, kw, nb["dq"],
                 fl["dq"], library, timed)
@@ -670,14 +729,27 @@ def phase_kernels(torch, timer, card):
                 check(all(bool((x[0] == 0).all()) for x in (dq, dk, dv)),
                       f"flash_attention_bwd {label}: an empty row must "
                       f"give zero gradients")
+                check(bool((out[0] == 0).all())
+                      and bool((args[3][0] == ref.NEG_INF).all()),
+                      f"flash_attention {label}: a row with no key must "
+                      f"give 0 and lse NEG_INF")
             if timed:
                 dq_r = results["flash_attention_bwd_dq"]
                 dkv_r = results["flash_attention_bwd_dkv"]
+                fwd_r = results["flash_attention@train"]
                 both = dq_r["ms"] + dkv_r["ms"]
                 qp = kw["q_positions"][0].cpu().numpy()
                 kp = kw["kv_positions"][0].cpu().numpy()
                 share = _tile_share(qp, kp, dims[3] // dims[4],
                                     kw["causal"], kw["window"])
+                fwd_r["tile_share"] = share
+                print(f"[kernel] flash_attention {label} {dtype}: useful "
+                      f"work {fl['fwd'] / fwd_r['ms'] / 1e9:.1f} TFLOP/s "
+                      f"({100 * share:.1f}% of the 64 x 64 tiles hold a "
+                      f"kept pair); {fwd_r['ms']:.4f} ms against one "
+                      f"causal SDPA forward {fwd_r['library_ms']:.4f} ms "
+                      f"({fwd_r['ms'] / fwd_r['library_ms']:.2f}x) on "
+                      f"{card}")
                 print(f"[kernel] flash_attention_bwd {label} {dtype}: "
                       f"useful work dq {fl['dq'] / dq_r['ms'] / 1e9:.1f} "
                       f"TFLOP/s, dk/dv "
@@ -729,10 +801,13 @@ def phase_kernels(torch, timer, card):
                 timed and dtype == "bfloat16")
 
     for name, res in results.items():
-        by_dtype = worst[name]
+        by_dtype = worst[name.split("@")[0]]
         res["max_abs_err"] = max(w["max_abs_err"] for w in by_dtype.values())
         res["rel_err"] = max(w["rel_err"] for w in by_dtype.values())
         res["err_by_dtype"] = by_dtype
+        if name.split("@")[0] == "flash_attention":
+            res["lse_max_abs_err"] = worst_lse
+    print(f"[kernel] flash_attention lse worst max_abs_err {worst_lse}")
     return results
 
 
@@ -1534,8 +1609,9 @@ def phase_train(torch):
         for g, ms in sorted(groups.items(), key=lambda x: -x[1])))
     for name, (ms, n) in sorted(by_kernel.items(), key=lambda x: -x[1][0])[:12]:
         print(f"[profile]   {ms:9.3f} ms {n:5d}x  {name[:90]}")
-    # the bf16 backward runs on the tensor-core kernels, once a layer
-    for kname in ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"):
+    # bf16 attention runs on the tensor-core kernels, once a layer each
+    for kname in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                  "flash_bwd_dkv_wgmma_kernel"):
         ms = sum(t for name, (t, _) in by_kernel.items() if kname in name)
         n = sum(c for name, (_, c) in by_kernel.items() if kname in name)
         print(f"[profile]   {kname}: {ms:.3f} ms over {n} launches")
@@ -1734,7 +1810,13 @@ def main() -> int:
                      **{key: k[key] for key in (
                          "max_abs_err", "rel_err", "err_by_dtype", "ms",
                          "plain_ms", "bound_ms", "bound_by", "library_ms")},
-                     "timed_shape": k["shape"], "timed_dtype": k["dtype"]})
+                     "timed_shape": k["shape"], "timed_dtype": k["dtype"],
+                     **({"lse_max_abs_err": k["lse_max_abs_err"]}
+                        if "lse_max_abs_err" in k else {}),
+                     **({f"train_{key}": kernels[f"{name}@train"][key]
+                         for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "shape", "tile_share")}
+                        if f"{name}@train" in kernels else {})})
     print(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s "
           f"on {card}")
     print(json.dumps({"kernels": line}))

@@ -16,6 +16,8 @@
 // the valid KV bytes over 3.35 TB/s.  As with the paged decode kernel, the
 // draft's small batch (8 sequences x 4 KV heads = 32 blocks) keeps this
 // first version far from that floor.
+// What holds it back now: latency, for that reason; a split of the key
+// range with a log-sum-exp combine would fill the card.
 //
 // Design.  The paged decode kernel's block with a dense row map: one block
 // of 4 warps per (KV head, sequence, group of 8 query heads) loops over

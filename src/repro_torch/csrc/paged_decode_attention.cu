@@ -18,8 +18,10 @@
 // At the serving path's small batch (8 sequences x 4 KV heads = 32 blocks)
 // this first version cannot reach that floor: too few blocks are in flight
 // to keep the memory system busy, each walking its keys one tile at a
-// time.  Splitting the key range over several blocks with a log-sum-exp
-// combine is the later fix.
+// time.
+// What holds it back now: latency, for that reason, and products in f32
+// on the CUDA cores.  Splitting the key range over several blocks with a
+// log-sum-exp combine is the later fix.
 //
 // Design.  One block of 4 warps per (KV head, sequence, group of 8 query
 // heads) holds the query rows that share the KV head.  The block copies its

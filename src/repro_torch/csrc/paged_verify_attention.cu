@@ -20,6 +20,8 @@
 // 3.35 TB/s.  This first version, like the paged decode kernel it grows
 // from, cannot reach that floor at the serving batch: too few blocks, each
 // walking its keys one tile at a time.
+// What holds it back now: latency, for that reason, and the K1 reads of
+// the KV a pass that the row split below makes (see Design).
 //
 // Design.  The paged decode kernel's block, applied to the R = K1·G query
 // rows of one (sequence, KV head).  Rows are laid out as the JAX wrapper

@@ -11,8 +11,9 @@
 //
 // What bounds it on an H100: bytes.  It reads each row once (the second
 // pass finds the row in L1/L2) and writes it once, 2 FLOP-ish per byte;
-// the floor is 2·rows·d·sizeof(x) over 3.35 TB/s.  At the decode shapes
-// (8 rows) the launch, not the bytes, is its time.
+// the floor is 2·rows·d·sizeof(x) over 3.35 TB/s.
+// What holds it back now: at the decode shapes (8 rows) the launch, not
+// the bytes, is its time; the cure is fusing it into its neighbours.
 //
 // Design.  One block of 256 threads per row: each thread sums the squares
 // of a strided share of the row in f32, a warp-shuffle and shared-memory

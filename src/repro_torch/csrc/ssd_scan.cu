@@ -20,6 +20,8 @@
 // runs them as f32 FMAs from shared memory, one block per (head,
 // sequence), so the FMA issue rate of 80 SMs is what it meets (PERF.md
 // has its time against that bound).
+// What holds it back now: those f32 FMAs and the idle SMs; tensor-core
+// products and a split over P are for later.
 //
 // Design.  The TPU kernel's sequential chunk axis (grid (B·H, nC),
 // `ssd_scan.py:111`) becomes a loop inside one block of 256 threads per

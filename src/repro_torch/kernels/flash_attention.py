@@ -79,11 +79,14 @@ def flash_attention(
     sm_scale: Optional[float] = None,
     return_lse: bool = False,
 ):
-    """Launch the CUDA kernel on CUDA tensors (raises on anything else).
+    """Launch the CUDA kernel on CUDA tensors (raises on anything else):
+    bf16 on the tensor cores, fp32 on the CUDA cores.
 
-    ``kv_positions=None`` means the key positions are the key indices;
-    the kernel then stops its key loop at the last key a block can see.
-    Returns ``out [B,Tq,Hq,D]`` (and ``lse [B,Tq,Hq]`` f32 if asked)."""
+    ``kv_positions=None`` means the key positions are the key indices.
+    Either way the kernel skips the key tiles whose positions no query of
+    a block can see, and with index positions it reads no key at or past
+    ``kv_valid_len``.  Returns ``out [B,Tq,Hq,D]`` (and ``lse [B,Tq,Hq]``
+    f32 if asked)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention kernel needs q, k, v on one "
                          "CUDA device")

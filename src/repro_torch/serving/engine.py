@@ -146,12 +146,19 @@ class ServingEngine:
                  paged: Optional[bool] = None, page_size=16,
                  num_pages: Optional[int] = None,
                  prefill_chunk: int = 64,
-                 prefill_budget: Optional[int] = None,
+                 prefill_budget=None,
                  prefix_sharing: bool = True,
                  kv_dtype: str = "auto",
                  draft_cfg: Optional[ModelConfig] = None,
                  draft_params: Optional[Dict] = None,
                  spec_k_max: int = 4):
+        budget_auto = isinstance(prefill_budget, str) and \
+            prefill_budget == "auto"
+        if not (prefill_budget is None or budget_auto or (
+                isinstance(prefill_budget, (int, np.integer))
+                and not isinstance(prefill_budget, bool))):
+            raise ValueError(f"prefill_budget must be an int, None or "
+                             f"'auto', got {prefill_budget!r}")
         if kv_dtype not in ("auto", "int8"):
             raise ValueError(f"kv_dtype must be 'auto' (the compute dtype) "
                              f"or 'int8', got {kv_dtype!r}")
@@ -209,8 +216,12 @@ class ServingEngine:
         # tokens); the dense decoder on dense slots prefills whole prompts
         self._chunkable_stateful = cfg.family in ("ssm", "hybrid")
         self._chunkable = self.paged or self._chunkable_stateful
-        self.prefill_budget = prefill_budget if prefill_budget is not None \
-            else 2 * self.chunk_tokens
+        # "auto" starts from the provisional 2 chunks; on the paged plane
+        # warmup() refines it from timed chunk and decode walls
+        self._budget_auto = budget_auto
+        self.prefill_budget = 2 * self.chunk_tokens \
+            if prefill_budget is None or self._budget_auto \
+            else int(prefill_budget)
 
         self.queue: List[Request] = []
         self.active: Dict[int, Request] = {}
@@ -349,7 +360,9 @@ class ServingEngine:
         all-inactive mask, and the draft lengths go back to 0 after the
         prefills wrote slot 0's scratch.  On dense slots the chunks and the
         decode step run on scratch caches of the same shapes, so the slot
-        tree is not touched.  Idempotent."""
+        tree is not touched.  With ``prefill_budget="auto"`` on the paged
+        plane it then sets the budget from timed runs
+        (``_autotune_budget``).  Idempotent."""
         with self._lock:
             if self._warm:
                 return self
@@ -396,9 +409,44 @@ class ServingEngine:
                     self._draft.prefill(np.zeros((b,), np.int32), 0)
                 self._draft.kv.cache_len.zero_()
             self._sync()
+            if self._budget_auto and self.paged:
+                self._autotune_budget()
             self.warmup_s = time.monotonic() - t0
             self._warm = True
         return self
+
+    def _autotune_budget(self):
+        """Refine ``prefill_budget`` from timed walls (the first launches
+        are behind us): as many chunk-tokens a tick as keep the prefill
+        phase within about 4 decode steps' wall, clamped to [1, 8] chunks,
+        so decode latency stays flat without starving prompt streaming.
+        The minimum of two runs of one ``chunk_tokens`` chunk and of one
+        decode step, each synchronised on both sides (a launch on the
+        card returns before the device is done), and state-neutral as
+        the warmup's runs are: an all-zero table row with ``new_len = 0``
+        and an all-inactive decode."""
+        b = self.chunk_tokens
+        row = torch.zeros((1, self._kv_span_pages(b)), dtype=torch.int32,
+                          device=self.device)
+        tokens = torch.zeros((1, b), dtype=torch.int32, device=self.device)
+        zero1 = self._i32([0])
+        inactive = torch.zeros((self.max_slots,), dtype=torch.bool,
+                               device=self.device)
+        chunk_wall = decode_wall = float("inf")
+        for _ in range(2):                       # min of 2: absorb jitter
+            self._sync()
+            t = time.monotonic()
+            self._chunk(tokens, row, zero1, zero1)
+            self._sync()
+            chunk_wall = min(chunk_wall, time.monotonic() - t)
+            t = time.monotonic()
+            self.last_tokens, self.kv.cache_len = self._decode(
+                self.last_tokens, self.kv.cache_len, inactive)
+            self._sync()
+            decode_wall = min(decode_wall, time.monotonic() - t)
+        chunks = max(1, min(8, round(4 * decode_wall / max(chunk_wall,
+                                                           1e-9))))
+        self.prefill_budget = chunks * b
 
     # ------------------------------------------------------- loop lifecycle
     @property

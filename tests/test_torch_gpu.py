@@ -27,6 +27,13 @@ FLASH_CASES = [
     (2, 64, 64, 4, 2, 32, False, 0, 0.0, False),
     (2, 48, 96, 4, 2, 32, True, 0, 0.0, False),
     (1, 32, 32, 2, 2, 128, True, 0, 0.0, False),
+    # G 12 (60-row bf16 blocks), G 96 at D 64 and D 128 (a partial second
+    # head group), G 1 at T 129 (ragged around the 64-row tile), softcap 30
+    (1, 70, 70, 24, 2, 64, True, 0, 0.0, True),
+    (1, 40, 40, 96, 1, 64, True, 0, 0.0, False),
+    (1, 40, 40, 96, 1, 128, False, 0, 0.0, False),
+    (1, 129, 129, 2, 2, 128, True, 0, 0.0, True),
+    (2, 129, 129, 8, 2, 32, True, 0, 30.0, False),
 ]
 PAGED_CASES = [
     # B, Hq, Hkv, D, page, MP, num_pages, window, softcap
@@ -214,13 +221,15 @@ def test_unsupported_head_dim_raises(cuda):
         ops.flash_attention(q, q, q)
 
 
+@pytest.mark.parametrize("shape", [(2, 40, 8, 2, 64), (1, 129, 24, 2, 128),
+                                   (2, 100, 4, 4, 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_lse(dtype, cuda):
+def test_flash_kernel_lse(dtype, shape, cuda):
     """The optional log-sum-exp output: logsumexp of the scaled, masked
-    logits per (position, head), f32."""
+    logits per (position, head), f32; the same as the plain version's."""
     from repro_torch.kernels.flash_attention import flash_attention
 
-    B, T, Hq, Hkv, D = 2, 40, 8, 2, 64
+    B, T, Hq, Hkv, D = shape
     g = torch.Generator(device=cuda).manual_seed(7)
     q = torch.randn(B, T, Hq, D, generator=g, device=cuda).to(dtype)
     k = torch.randn(B, T, Hkv, D, generator=g, device=cuda).to(dtype)
@@ -232,7 +241,9 @@ def test_flash_kernel_lse(dtype, cuda):
     torch.cuda.synchronize()
     assert lse.dtype == torch.float32 and lse.shape == (B, T, Hq)
     assert torch.allclose(lse, want.transpose(1, 2), atol=1e-4, rtol=1e-5)
-    assert _rel(ref.mha(q, k, k), out) < TOL[dtype]
+    plain, plain_lse = ref.mha(q, k, k, return_lse=True)
+    assert _rel(plain, out) < TOL[dtype]
+    assert torch.allclose(lse, plain_lse, atol=1e-4, rtol=1e-5)
 
 
 def test_draft_kernel_launch_failure_fails_the_batch(cuda, monkeypatch):
@@ -301,8 +312,9 @@ BWD_CASES = [
 
 def _bwd_inputs(case, dtype, cuda, positions=None):
     """Inputs of the backward kernels.  ``positions``: None leaves them
-    implicit; "offset" puts the queries at the last Tq of Tk explicit
-    keys, with the last row's first 3 queries padding (-1); "packed"
+    implicit; "index" makes them explicit and equal to the indices, the
+    queries at the last Tq of Tk keys; "offset" does the same with the
+    last row's first 3 queries padding (-1); "packed"
     makes them two documents, 0..99 then 0..Tk-101; "reversed" runs them
     backwards.  The last two keep each tile's least and largest position
     away from the indices."""
@@ -316,10 +328,11 @@ def _bwd_inputs(case, dtype, cuda, positions=None):
     if valid:                      # row 0 sees no key at all
         kw["kv_valid_len"] = torch.tensor([0] + [Tk // 2] * (B - 1),
                                           device=cuda, dtype=torch.int32)
-    if positions == "offset":      # a chunk at an offset over explicit keys
+    if positions in ("index", "offset"):   # a chunk over explicit keys
         qpos = (Tk - Tq + torch.arange(Tq, device=cuda, dtype=torch.int32)
                 )[None].repeat(B, 1)
-        qpos[-1, :3] = -1          # the last row's first 3 queries see none
+        if positions == "offset":  # the last row's first 3 queries see none
+            qpos[-1, :3] = -1
         kw["q_positions"] = qpos
         kw["kv_positions"] = torch.arange(
             Tk, device=cuda, dtype=torch.int32)[None].expand(B, Tk)
@@ -389,6 +402,90 @@ def test_flash_bwd_kernels_bf16_repeat_bit_equal(case, cuda):
     torch.cuda.synchronize()
     for name, x, y in zip(("dq", "dk", "dv"), first, again):
         assert torch.equal(x, y), name
+
+
+# The forward kernel with positions: every backward run above, then
+# explicit index positions, packed positions alone and with window 64,
+# G 12, G 96 at D 64 and D 128, G 1, T 129, D 32 and D 128, a row that
+# sees no key, a B 2 x T 1024 causal case and softcap 30.
+FWD_RUNS = BWD_RUNS + [
+    ((2, 256, 256, 32, 4, 64, True, 0, 0.0, False), "index"),
+    ((2, 256, 256, 32, 4, 64, True, 64, 0.0, False), "packed"),
+    ((2, 70, 70, 24, 2, 64, True, 0, 0.0, True), "offset"),
+    ((1, 70, 70, 96, 1, 64, True, 0, 0.0, False), "index"),
+    ((1, 70, 70, 96, 1, 128, False, 0, 0.0, False), "index"),
+    ((2, 129, 129, 4, 4, 128, True, 0, 0.0, True), "index"),
+    ((2, 129, 129, 32, 4, 64, True, 0, 0.0, True), "offset"),
+    ((2, 200, 200, 16, 4, 32, True, 0, 0.0, False), "index"),
+    ((2, 96, 256, 32, 4, 64, True, 0, 0.0, True), "index"),
+    ((2, 1024, 1024, 32, 4, 64, True, 0, 0.0, False), "index"),
+    ((2, 1024, 1024, 32, 4, 64, True, 0, 0.0, False), None),
+    ((2, 256, 256, 32, 4, 64, True, 0, 30.0, False), "index"),
+]
+
+
+@pytest.mark.parametrize("case, positions", FWD_RUNS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_positions_match_plain(case, dtype, positions, cuda):
+    """The forward kernel's ``out`` and ``lse`` against ``ref.mha``: a row
+    that sees no key gives an output of exactly 0 and ``lse = NEG_INF``."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v, _, kw = _bwd_inputs(case, dtype, cuda, positions)
+    n = flash_attention.launches
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    want, want_lse = ref.mha(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n + 1
+    assert out.dtype == dtype and out.shape == want.shape
+    assert bool(torch.isfinite(out).all())
+    assert _rel(want, out) < TOL[dtype], (positions, _rel(want, out))
+    assert lse.dtype == torch.float32 and lse.shape == want_lse.shape
+    assert torch.allclose(lse, want_lse, atol=1e-4, rtol=1e-5)
+    empty = want_lse == ref.NEG_INF                # rows with no kept key
+    assert bool((lse[empty] == ref.NEG_INF).all())
+    assert bool((out[empty] == 0).all())
+    if "kv_valid_len" in kw:                       # batch row 0 sees none
+        assert bool(empty[0].all())
+
+
+@pytest.mark.parametrize("case, positions", [FWD_RUNS[-1], FWD_RUNS[-6],
+                                             BWD_RUNS[-1]])
+def test_flash_kernel_bf16_repeat_bit_equal(case, positions, cuda):
+    """Two bf16 forward runs give the same output and ``lse``, bit for
+    bit."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v, _, kw = _bwd_inputs(case, torch.bfloat16, cuda, positions)
+    first = flash_attention(q, k, v, return_lse=True, **kw)
+    again = flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_no_key_past_the_valid_length(dtype, cuda):
+    """With index positions the kernel loads no key at or past
+    ``kv_valid_len`` (a serving chunk's gathered span ends in stale
+    pages): NaN written there leaves the output as the plain version
+    gives it on the keys as they were."""
+    B, Tq, Tk, Hq, Hkv, D = 2, 64, 320, 32, 4, 64
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn(B, Tq, Hq, D, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, Tk, Hkv, D, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, Tk, Hkv, D, generator=g, device=cuda).to(dtype)
+    valid = torch.tensor([200, 131], device=cuda, dtype=torch.int32)
+    kw = dict(q_positions=(136 + torch.arange(Tq, device=cuda))[None]
+              .expand(B, Tq), kv_valid_len=valid)
+    want = ref.mha(q, k, v, **kw)
+    for b, n in enumerate(valid.tolist()):
+        k[b, n:] = float("nan")
+        v[b, n:] = float("nan")
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _rel(want, got) < TOL[dtype]
 
 
 @pytest.mark.parametrize("case", BWD_CASES[:6])
