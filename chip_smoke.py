@@ -7,7 +7,10 @@ continues:
 
 1. device and build: the card's name and power limit, the CUDA kernels
    built with nvcc from ``src/repro_torch/csrc`` (one process per source,
-   all at once), TF32 off for matmuls and cuDNN;
+   all at once; registers and spills of each kernel, and no tensor-core
+   kernel may spill), the tensor-core instructions of every kernel counted
+   in its SASS (the bf16 SSD scan's must have some, the fp32 scan's none),
+   TF32 off for matmuls and cuDNN;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (bf16 and fp32, window and softcap variants,
    int8 pools for the paged kernels, K1 of 1, 2 and 5 for the verify
@@ -19,16 +22,21 @@ continues:
    tiles computed, the useful TFLOP/s of each, the forward against one
    causal SDPA forward and the two backward kernels against SDPA's one
    backward), the SSD scan
-   at the SSM prefill's (mamba2's 64-token chunk with the carried state,
-   a 511-token prompt, zamba2's H 64 N 64, groups 2, one token; final
-   state included) and RMSNorm at its rows and widths (up to 5120), with
+   at the SSM prefill's (mamba2's 64-token chunk with the carried state
+   and zamba2's H 64 N 64, both timed, a 511-token prompt whole, 511 and
+   4096 tokens as 64-token calls that carry the state, groups 2, one
+   token; final state included) and
+   RMSNorm at its rows and widths (a 64 x 5120 chunk and the 8-row
+   decode shapes timed, one row, widths that are not whole 16-byte
+   vectors, a misaligned row view), with
    CUDA-event times for the kernel, its plain version and a library
    yardstick (``F.scaled_dot_product_attention`` with an explicit mask
    over the same dense or gathered KV, causal at the train shape, its
    backward for the backward kernels, ``F.rms_norm`` for RMSNorm, none
    for the SSD scan; timed here
-   only, never called by the port), and the bound: bytes over 3.35 TB/s
-   or operations over the peak rate;
+   only, never called by the port), the bound: bytes over 3.35 TB/s
+   or operations over the peak rate, and the floor that event timing puts
+   under any launch (an empty kernel timed the same way);
 3. serve: full-width tinyllama-1.1b (22 layers, bf16 compute, random
    weights from a seed) in ``ServingEngine``, 8 requests plus a 256-token
    shared-prefix pair, through the background loop; every request must
@@ -46,7 +54,8 @@ continues:
    request completes, and the launches are exact: the SSD scan layers x
    chunks, RMSNorm norms x (chunks + decode steps), for zamba2 flash 6 x
    chunks and the dense decode kernel 6 x decode steps; tokens/s, TTFT,
-   tick walls and a profiled decode tick;
+   tick walls, a profiled decode tick and a profiled prefill tick (a lone
+   512-token prompt), each with the SSD scan's and RMSNorm's device time;
 4. consistency: fp32 at full width, 2 layers: every decode step's logits
    against ``Model.forward`` over the same prefix, within 2e-4 relative;
 4c. SSM consistency: mamba2 (2 layers) and zamba2 (3) in fp32 at full
@@ -77,7 +86,9 @@ continues:
 9. the kernels line (each kernel's launches from the path that runs it:
    per request for serving, per step for training; the SSD scan and
    RMSNorm from mamba2's serve; flash attention's times at the serving
-   chunk, and as ``train_*`` at the train shape), then the last line
+   chunk, and as ``train_*`` at the train shape; other timed shapes under
+   ``also_timed``, the launch floor, the stitched scans' final-state
+   errors), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -150,22 +161,48 @@ def rel_err(want, got) -> float:
 # phase 1: device and build
 # ---------------------------------------------------------------------------
 
+def _demangle(sym: str) -> str:
+    """``name<int and bool template args>`` of a mangled kernel symbol."""
+    for m in re.finditer(r"[0-9]+(?=[A-Za-z_])", sym):
+        for i in range(len(m.group())):      # a hash's digits may lead
+            name = sym[m.end():m.end() + int(m.group()[i:])]
+            if name.endswith("_kernel"):
+                rest = sym[m.end() + len(name):]
+                args = re.findall(r"L[ib](\d+)E", rest.split("EEv")[0])
+                return f"{name}<{','.join(args)}>"
+    return sym
+
+
 def _kernel_resources(log: str) -> list:
-    """`-Xptxas -v` per entry function: ("name<int template args>",
-    registers, spilled bytes), from the mangled name of each."""
+    """`-Xptxas -v` per entry function: ("name<template args>", registers,
+    spilled bytes)."""
     out = []
     for block in log.split("Compiling entry function")[1:]:
         regs = re.search(r"Used (\d+) registers", block)
         if not regs:
             continue
-        m = re.search(r"\d+([a-z_]+_kernel)I(\w*?)EEv", block)
-        name = block.split()[0].strip("'")
-        if m:
-            args = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
-            name = f"{m.group(1)}<{args}>"
+        name = _demangle(block.split()[0].strip("'"))
         spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", block))
         out.append((name, int(regs.group(1)), spill))
     return out
+
+
+def _tensor_core_ops(build, name: str) -> dict:
+    """The `HMMA`/`HGMMA` instructions of each kernel of a built library,
+    from `cuobjdump -sass` (instances that print alike are summed)."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build._target(name))],
+                          capture_output=True, text=True, timeout=120)
+    check(sass.returncode == 0, f"cuobjdump: {sass.stderr.strip()[-300:]}")
+    counts, cur = {}, None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = _demangle(m.group(1))
+            counts.setdefault(cur, 0)
+        elif cur and re.search(r"\bH(G)?MMA\b", line):
+            counts[cur] += 1
+    return counts
 
 
 def phase_device_and_build(torch):
@@ -185,13 +222,29 @@ def phase_device_and_build(torch):
     secs = time.monotonic() - t0
     print(f"[build] {sorted(logs)} for sm_90a in {secs:.1f}s "
           f"(into {os.path.relpath(build.BUILD_DIR, ROOT)})")
+    # a tensor-core kernel (one with HMMA/HGMMA in its SASS, or a wgmma
+    # kernel) keeps its accumulators in registers: no spill
+    tc_ops = {}
     for name, log in sorted(logs.items()):
         kernels = _kernel_resources(log)
         print(f"[build] {name}: " + ", ".join(
             f"{k} {r} regs" + (f", {b} B spilled" if b else "")
             for k, r, b in kernels))
-        spilled = [k for k, _, b in kernels if "wgmma" in k and b]
+        ops = tc_ops[name] = _tensor_core_ops(build, name)
+        print(f"[build] {name} tensor-core instructions (HMMA/HGMMA, "
+              f"cuobjdump -sass): " + ", ".join(
+                  f"{k} {v}" for k, v in sorted(ops.items())))
+        spilled = [k for k, _, b in kernels
+                   if b and ("wgmma" in k or ops.get(k, 0) > 0)]
         check(not spilled, f"tensor-core kernels spill registers: {spilled}")
+    # the bf16 SSD scan's products run on the tensor cores, the fp32
+    # scan's on the CUDA cores (no TF32)
+    ops = tc_ops["ssd_scan"]
+    tc = [v for k, v in ops.items() if k.startswith("ssd_scan_tc_kernel")]
+    f32 = [v for k, v in ops.items() if k.startswith("ssd_scan_f32_kernel")]
+    check(tc and all(tc) and f32 and not any(f32),
+          f"ssd_scan: bf16 kernels without or fp32 kernels with tensor-core "
+          f"instructions: {ops}")
     return card
 
 
@@ -477,9 +530,29 @@ def _ssd_case(torch, gen, dtype, T, H, P, N, G=1, chunk=256, init=True):
     return (x, dtv, A, Bm, Cm), kw, nbytes, flops
 
 
-def _rms_case(torch, gen, dtype, rows, d):
+def _ssd_stitched(scan, args, kw, step: int = 64):
+    """The scan of all of ``args``' tokens as calls of at most ``step``
+    tokens, each passing its final state on to the next (a serving
+    prefill's chunks): y of all tokens and the last state."""
+    import torch
+
+    x, dt, A, Bm, Cm = args
+    s, ys = kw["initial_state"], []
+    for c0 in range(0, x.shape[1], step):
+        c1 = min(c0 + step, x.shape[1])
+        y, s = scan(x[:, c0:c1], dt[:, c0:c1], A, Bm[:, c0:c1],
+                    Cm[:, c0:c1], chunk=kw["chunk"], initial_state=s,
+                    return_final_state=True)
+        ys.append(y)
+    return torch.cat(ys, dim=1), s
+
+
+def _rms_case(torch, gen, dtype, rows, d, misaligned=False):
+    """x [rows, d] and scale; with ``misaligned`` x is a contiguous view
+    that starts one element past a 16-byte boundary."""
     dt = getattr(torch, dtype)
-    x = (torch.randn(rows, d, generator=gen, device="cuda") * 3).to(dt)
+    x = (torch.randn(rows * d + 1, generator=gen, device="cuda") * 3).to(dt)
+    x = x[1:].view(rows, d) if misaligned else x[:-1].view(rows, d)
     scale = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dt)
     es = x.element_size()
     return (x, scale), dict(eps=1e-5), (2 * rows + 1) * d * es, 4 * rows * d
@@ -500,6 +573,7 @@ def phase_kernels(torch, timer, card):
     results = {}
     # the worst error of each kernel over all its checks, per dtype
     worst = {}
+    state_err = {}
 
     # the forward's f32 lse, held as tests/test_torch_gpu.py holds it:
     # absolute, since an empty row's NEG_INF would swamp a relative error
@@ -761,46 +835,86 @@ def phase_kernels(torch, timer, card):
             del args, out
 
     # the SSM serving path: the SSD scan of a prefill chunk (mamba2-2.7b:
-    # 80 heads, P 64, N 128, chunk 256; zamba2-1.2b: 64 heads, N 64) with
-    # the carried state, a whole 511-token prompt, groups 2, one token;
-    # no single PyTorch call computes it (library: none)
+    # 80 heads, P 64, N 128, chunk 256, timed; zamba2-1.2b: 64 heads, N 64,
+    # timed) with the carried state, a whole 511-token prompt, groups 2,
+    # one token, long prompts as 64-token calls; no single PyTorch call
+    # computes it (library: none)
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.ssd_scan import ssd_scan
 
     ssd_cases = [
-        # label, T, H, P, N, G, init, timed
-        ("mamba2 T64 chunk+state", 64, 80, 64, 128, 1, True, True),
-        ("mamba2 T511", 511, 80, 64, 128, 1, False, False),
-        ("mamba2 T511+state", 511, 80, 64, 128, 1, True, False),
-        ("zamba2 T64 H64 N64", 64, 64, 64, 64, 1, True, False),
-        ("T257 G2", 257, 80, 64, 128, 2, True, False),
-        ("T1", 1, 80, 64, 128, 1, True, False),
+        # label, T, H, P, N, G, init, timed under
+        ("mamba2 T64 chunk+state", 64, 80, 64, 128, 1, True, "ssd_scan"),
+        ("mamba2 T511", 511, 80, 64, 128, 1, False, None),
+        ("mamba2 T511+state", 511, 80, 64, 128, 1, True, None),
+        ("zamba2 T64 H64 N64", 64, 64, 64, 64, 1, True, "ssd_scan@zamba2"),
+        ("T257 G2", 257, 80, 64, 128, 2, True, None),
+        ("T1", 1, 80, 64, 128, 1, True, None),
     ]
     for dtype in ("bfloat16", "float32"):
-        for label, T, H, P, N, G, init, timed in ssd_cases:
+        for label, T, H, P, N, G, init, key in ssd_cases:
             args, kw, nb, fl = _ssd_case(torch, gen, dtype, T, H, P, N, G,
                                          init=init)
             run("ssd_scan", label, dtype, ssd_scan, ref.ssd_scan, args, kw,
-                nb, fl, None, timed and dtype == "bfloat16")
+                nb, fl, None, key is not None and dtype == "bfloat16", key)
+        # prompts of 511 and 4096 tokens fed as calls of at most 64 tokens
+        # (8 and 64 calls), each passing on the state (as serving does),
+        # against one plain call: does the state's error grow with length?
+        # The 4096-token prompt's state is also read after 512, 1024 and
+        # 2048 tokens, and once more with A / 100 (a state that remembers
+        # thousands of tokens)
+        for T, slow in ((511, False), (4096, False), (4096, True)):
+            args, kw, _, _ = _ssd_case(torch, gen, dtype, T, 80, 64, 128)
+            if slow:
+                args = args[:2] + (args[2] / 100,) + args[3:]
+            tag = f"mamba2 T{T}" + (" A/100" if slow else "")
+            run("ssd_scan", f"{tag} as {-(-T // 64)} calls of 64", dtype,
+                lambda *a, **k: _ssd_stitched(ssd_scan, a, k), ref.ssd_scan,
+                args, kw, 0, 0, None, False)
+            errs = state_err.setdefault(dtype, {}).setdefault(tag, {})
+            for n in (T,) if T < 4096 else (512, 1024, 2048, 4096):
+                pre = tuple(a if a.dim() == 1 else a[:, :n] for a in args)
+                got = _ssd_stitched(ssd_scan, pre, kw)[1]
+                errs[n] = rel_err(ref.ssd_scan(*pre, **kw)[1], got)
+            del args, kw, pre, got
+    results["ssd_scan"]["stitched_state_rel_err"] = state_err
+    print(f"[kernel] ssd_scan final state over 64-token calls, rel_err by "
+          f"tokens: {state_err}")
+
     # RMSNorm at the serving path's rows and widths: a 64-token chunk's
-    # gated out-norm over d_inner (timed), block norms, decode rows
+    # gated out-norm over d_inner and the decode rows (each timed), block
+    # norms, one row, widths that are not whole 16-byte vectors, a row view
+    # that starts off a 16-byte boundary
     rms_cases = [
-        ("64x5120 out-norm", 64, 5120, True),
-        ("64x2560 block", 64, 2560, False),
-        ("8x2560 decode", 8, 2560, False),
-        ("8x5120 decode out-norm", 8, 5120, False),
-        ("64x2048 zamba2", 64, 2048, False),
-        ("64x4096 zamba2 out-norm", 64, 4096, False),
+        # label, rows, d, timed under, misaligned view
+        ("64x5120 out-norm", 64, 5120, "rmsnorm", False),
+        ("64x2560 block", 64, 2560, None, False),
+        ("8x2560 decode", 8, 2560, "rmsnorm@8x2560", False),
+        ("8x5120 decode out-norm", 8, 5120, "rmsnorm@8x5120", False),
+        ("1x5120 row", 1, 5120, None, False),
+        ("64x2048 zamba2", 64, 2048, None, False),
+        ("64x4096 zamba2 out-norm", 64, 4096, None, False),
+        ("3x100 elements", 3, 100, None, False),
+        ("8x2560 misaligned view", 8, 2560, None, True),
     ]
     for dtype in ("bfloat16", "float32"):
-        for label, rows, d, timed in rms_cases:
-            args, kw, nb, fl = _rms_case(torch, gen, dtype, rows, d)
+        for label, rows, d, key, off in rms_cases:
+            args, kw, nb, fl = _rms_case(torch, gen, dtype, rows, d, off)
             run("rmsnorm", label, dtype, rmsnorm, ref.rmsnorm, args, kw, nb,
                 fl, lambda a=args: F.rms_norm(a[0], (a[0].shape[-1],),
                                               weight=a[1], eps=1e-5),
-                timed and dtype == "bfloat16")
+                key is not None and dtype == "bfloat16", key)
+
+    # the floor that event timing puts under a launch: an empty kernel
+    # (one thread that returns at once) timed the same way
+    floor_ms = timer.ms(lambda: torch.cuda._sleep(0))
+    print(f"[kernel] launch floor (empty kernel, events, L2 flushed): "
+          f"{floor_ms:.4f} ms on {card}")
+    results["launch_floor_ms"] = floor_ms
 
     for name, res in results.items():
+        if name == "launch_floor_ms":
+            continue
         by_dtype = worst[name.split("@")[0]]
         res["max_abs_err"] = max(w["max_abs_err"] for w in by_dtype.values())
         res["rel_err"] = max(w["rel_err"] for w in by_dtype.values())
@@ -918,6 +1032,18 @@ def profile_decode(torch, eng, rng, steps: int = 10, label: str = "decode",
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
+    by_kernel = _device_ms(prof, steps)
+    eng.run_until_drained()
+    busy = sum(by_kernel.values())
+    print(f"[profile] {label} tick, 8 rows: host wall {wall_ms:.2f} ms for "
+          f"{toks:.1f} tokens ({wall_ms / toks:.2f} ms/token), device busy "
+          f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}% of the wall; "
+          f"{'measured' if by_kernel else 'no device time seen'})")
+    _print_kernels(by_kernel, busy)
+
+
+def _device_ms(prof, ticks: int = 1) -> dict:
+    """Device time per tick of each kernel in a ``torch.profiler`` run."""
     by_kernel = {}
     for ev in prof.key_averages():
         if not str(ev.device_type).endswith("CUDA"):
@@ -926,15 +1052,53 @@ def profile_decode(torch, eng, rng, steps: int = 10, label: str = "decode",
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
         if us > 0:
-            by_kernel[ev.key] = us / 1e3 / steps
+            by_kernel[ev.key] = us / 1e3 / ticks
+    return by_kernel
+
+
+def _print_kernels(by_kernel: dict, busy: float, top: int = 8,
+                   shares=("ssd_scan", "rmsnorm")) -> None:
+    """The top kernels of a tick, then the hand-written SSM kernels' time
+    by name and their share of the device busy time."""
+    for name, ms in sorted(by_kernel.items(), key=lambda x: -x[1])[:top]:
+        print(f"[profile]   {ms:.4f} ms/tick  {name[:90]}")
+    for part in shares:
+        ms = sum(v for k, v in by_kernel.items() if part in k)
+        if ms:
+            print(f"[profile]   {part} kernels {ms:.4f} ms/tick "
+                  f"({100 * ms / busy:.1f}% of the device busy time)")
+
+
+def profile_prefill(torch, eng, rng, label: str):
+    """Where a prefill tick's time goes: one 512-token prompt alone (no
+    decoding row), so each tick runs the prefill budget's chunks of it.
+    The first tick settles; the host wall of the second, then the device
+    time of the third by kernel from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.submit(rng.integers(0, eng.cfg.vocab_size, size=512),
+               max_new_tokens=1)
+    eng.step()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    eng.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    tick = eng._tick_log[-1]              # (prefill s, decode s, prefill
+    check(tick[2] > 0 and tick[3] == 0,   # tokens, decode rows, tokens)
+          f"{label}: the profiled tick is not a prefill tick: {tick}")
     eng.run_until_drained()
+    by_kernel = _device_ms(prof)
     busy = sum(by_kernel.values())
-    print(f"[profile] {label} tick, 8 rows: host wall {wall_ms:.2f} ms for "
-          f"{toks:.1f} tokens ({wall_ms / toks:.2f} ms/token), device busy "
+    print(f"[profile] {label} prefill tick, {tick[2]} tokens in chunks of "
+          f"{eng.chunk_tokens}: host wall {wall_ms:.2f} ms, device busy "
           f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}% of the wall; "
           f"{'measured' if by_kernel else 'no device time seen'})")
-    for name, ms in sorted(by_kernel.items(), key=lambda x: -x[1])[:8]:
-        print(f"[profile]   {ms:.4f} ms/tick  {name[:90]}")
+    _print_kernels(by_kernel, busy)
 
 
 # ---------------------------------------------------------------------------
@@ -1156,6 +1320,7 @@ def phase_ssm_serve(torch, arch: str):
     print(f"[{arch}] {chunks} chunks, {steps} decode steps, launches "
           f"{launches} (exact)")
     profile_decode(torch, eng, rng, label=f"{arch} decode")
+    profile_prefill(torch, eng, rng, arch)
     del eng
     torch.cuda.empty_cache()
     return launches, len(done)
@@ -1816,7 +1981,17 @@ def main() -> int:
                      **({f"train_{key}": kernels[f"{name}@train"][key]
                          for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms", "shape", "tile_share")}
-                        if f"{name}@train" in kernels else {})})
+                        if f"{name}@train" in kernels else {}),
+                     "also_timed": [
+                         {key: kernels[k][key] for key in (
+                             "shape", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms")}
+                         for k in sorted(kernels)
+                         if k.startswith(f"{name}@") and k != f"{name}@train"],
+                     **({"stitched_state_rel_err":
+                         k["stitched_state_rel_err"]}
+                        if "stitched_state_rel_err" in k else {}),
+                     "launch_floor_ms": kernels["launch_floor_ms"]})
     print(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s "
           f"on {card}")
     print(json.dumps({"kernels": line}))

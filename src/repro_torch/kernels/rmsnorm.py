@@ -45,11 +45,13 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
         raise ValueError(f"scale {tuple(scale.shape)} does not match x "
                          f"{tuple(x.shape)}")
     d = x.shape[-1]
+    # a contiguous but misaligned view goes as it is: the kernel then
+    # reads by element instead of 16-byte vectors
     x = x.contiguous()
     scale = scale.to(x.dtype).contiguous()
     out = torch.empty_like(x)
     rows = x.numel() // d if d else 0
-    if rows == 0:
+    if rows == 0:                       # no rows: nothing to launch
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _entry()(_ptr(x), _ptr(scale), _ptr(out), rows, d, float(eps),

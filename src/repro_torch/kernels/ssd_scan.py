@@ -2,10 +2,9 @@
 
 Replaces ``repro.kernels.ssd_scan.ssd_scan`` (the Pallas TPU kernel).  The
 kernel lives in ``csrc/ssd_scan.cu``; its header says what bounds it on
-the card and how it is laid out.  This wrapper checks the inputs,
-allocates the outputs with ``torch.empty``, launches on PyTorch's current
-stream and counts the launch.  The plain version is ``kernels.ref.
-ssd_scan``.
+the card and how it is laid out.  This wrapper checks the inputs, allocates
+the outputs with ``torch.empty``, launches on PyTorch's current stream and
+counts the launch.  The plain version is ``kernels.ref.ssd_scan``.
 """
 from __future__ import annotations
 
@@ -15,11 +14,13 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import _DTYPE_CODE, _ptr, refuse_grad
+from repro_torch.kernels.flash_attention import (_DTYPE_CODE, _aligned, _ptr,
+                                                 refuse_grad)
 
 HEAD_DIMS = (16, 32, 64)              # P
 STATE_DIMS = (16, 32, 64, 128)        # N
 MAX_CHUNK = 1024                      # Q: its dt and cum sit in shared memory
+P_SLICE = 16                          # P rows a block takes (csrc PB)
 _fn = None
 
 
@@ -85,8 +86,9 @@ def ssd_scan(
             tuple(initial_state.shape) != (Bb, H, P, N):
         raise ValueError(f"initial state {tuple(initial_state.shape)} is "
                          f"not {(Bb, H, P, N)}")
-    x, dt, A, B_, C = (t.contiguous() for t in (x, dt, A, B_, C))
-    s0 = initial_state.contiguous() if initial_state is not None else None
+    x, B_, C = (_aligned(t) for t in (x, B_, C))
+    dt, A = dt.contiguous(), A.contiguous()
+    s0 = _aligned(initial_state) if initial_state is not None else None
     y = torch.empty_like(x)
     s_fin = torch.empty((Bb, H, P, N), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -4,10 +4,11 @@ This file imports no JAX, so it runs on the GPU machine, which has none:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 
-Without a GPU every test skips (the kernels cannot run on the CPU; their
-plain versions are held against JAX in ``test_torch_kernels.py``).  Cases
-are the JAX suite's kernel shapes; tolerances 2e-5 (fp32) and 3.5e-2
-(bf16) relative to the largest output."""
+Without a GPU every kernel test skips (the kernels cannot run on the
+CPU; their plain versions are held against JAX in
+``test_torch_kernels.py``).  Cases are the JAX suite's kernel shapes;
+tolerances 2e-5 (fp32) and 3.5e-2 (bf16) relative to the largest
+output."""
 import pytest
 import torch
 
@@ -62,10 +63,11 @@ DECODE_CASES = [
     (2, 4, 4, 32, 64, 0, 20.0),
     (1, 16, 2, 128, 70, 16, 30.0),
 ]
-# the SSD scan: T 1, 63, 64, 257 and 511 around the chunk (the kernel's
-# bounds mask stands in for the JAX padding), P 16/32/64, N 16/32/64/128,
-# groups 1 and 2, with and without an initial state; test_torch_ssm.py
-# runs the same cases against JAX
+# the SSD scan: T 1, 63, 64, 100, 257 and 511 around the chunk and the
+# kernel's 64-row tiles (its bounds mask stands in for the JAX padding),
+# chunk 100 (a partial second tile), P 16/32/64, N 16/32/64/128, groups 1
+# and 2, batch 2 with a carried state, with and without an initial state;
+# test_torch_ssm.py runs the same cases against JAX
 SSD_CASES = [
     # B, T, H, P, G, N, chunk, initial state
     (1, 1, 4, 16, 1, 16, 16, True),
@@ -74,11 +76,16 @@ SSD_CASES = [
     (1, 257, 4, 16, 2, 64, 64, True),
     (1, 511, 2, 64, 1, 128, 256, True),
     (2, 100, 8, 16, 2, 16, 16, False),
+    (2, 100, 4, 32, 2, 32, 100, True),
+    (1, 257, 4, 64, 2, 128, 100, True),
 ]
 # RMSNorm rows x width: the models' widths (2048, 2560, 4096, 5120) and
-# the reduced ones
+# the reduced ones; mamba2's decode rows (8 x 2560, 8 x 5120) and one row;
+# d 100 (200 bytes in bf16, 400 in f32) and 1000 are not whole 16-byte
+# vectors in bf16
 RMSNORM_CASES = [(3, 128), (5, 256), (8, 2048), (7, 2560), (2, 4096),
-                 (64, 5120)]
+                 (64, 5120), (8, 2560), (8, 5120), (1, 5120), (3, 100),
+                 (2, 1000)]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3.5e-2}
 
 
@@ -617,6 +624,55 @@ def test_ssd_scan_kernel_matches_plain(case, dtype, cuda):
     assert _rel(wy, y) < TOL[dtype] and _rel(ws, s) < TOL[dtype]
 
 
+# every P the kernel takes: 1, 2 or 4 P-slices of 16 a head (a cluster
+# of 1-8 blocks over two heads), rows 100 (a partial tile), chunk 64
+@pytest.mark.parametrize("P", [16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_every_slice_width(P, dtype, cuda):
+    args, kw = _ssd_inputs((2, 100, 4, P, 2, 64, 64, True), dtype, cuda)
+    y, s = ops.ssd_scan(*args, **kw)
+    wy, ws = ref.ssd_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert _rel(wy, y) < TOL[dtype] and _rel(ws, s) < TOL[dtype]
+
+
+def test_ssd_scan_slice_width_fills_the_card():
+    """A batch-1 serving chunk of mamba2 (80 heads) or zamba2 (64) runs
+    one block per P-slice of 16 of each head: more blocks than the
+    card's 132 SMs."""
+    from repro_torch.kernels.ssd_scan import HEAD_DIMS, P_SLICE
+
+    assert P_SLICE == 16 and all(P % P_SLICE == 0 for P in HEAD_DIMS)
+    for H in (80, 64):
+        assert 1 * H * 64 // P_SLICE > 132
+
+
+@pytest.mark.parametrize("T,a_scale", [(511, 1.0), (4096, 1.0),
+                                       (4096, 0.01)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_carries_the_state_over_calls(T, a_scale, dtype,
+                                                      cuda):
+    """A prompt of 511 or 4096 tokens fed as calls of at most 64 tokens
+    (8 or 64 calls), each passing on the state (as serving does), against
+    one plain call; also with A / 100, a state that remembers thousands
+    of tokens."""
+    args, kw = _ssd_inputs((1, T, 8, 64, 1, 128, 256, True), dtype, cuda)
+    x, dt, A, Bm, Cm = args
+    A = A * a_scale
+    args = (x, dt, A, Bm, Cm)
+    wy, ws = ref.ssd_scan(*args, **kw)
+    s, ys = kw["initial_state"], []
+    for c0 in range(0, T, 64):
+        c1 = min(c0 + 64, T)
+        y, s = ops.ssd_scan(x[:, c0:c1], dt[:, c0:c1], A, Bm[:, c0:c1],
+                            Cm[:, c0:c1], chunk=256, initial_state=s,
+                            return_final_state=True)
+        ys.append(y)
+    torch.cuda.synchronize()
+    assert _rel(wy, torch.cat(ys, dim=1)) < TOL[dtype]
+    assert _rel(ws, s) < TOL[dtype]
+
+
 @pytest.mark.parametrize("case", RMSNORM_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain(case, dtype, cuda):
@@ -628,6 +684,22 @@ def test_rmsnorm_kernel_matches_plain(case, dtype, cuda):
     want = ref.rmsnorm(x, scale, 1e-5)
     torch.cuda.synchronize()
     assert got.dtype == dtype and _rel(want, got) < TOL[dtype]
+
+
+@pytest.mark.parametrize("rows,d", [(8, 2560), (3, 5120), (64, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_misaligned_rows(rows, d, dtype, cuda):
+    """Rows of a contiguous view that starts one element past a 16-byte
+    boundary: read by element, the same result."""
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    flat = (torch.randn(rows * d + 1, generator=g, device=cuda) * 3).to(dtype)
+    x = flat[1:].view(rows, d)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    scale = 1 + 0.1 * torch.randn(d, generator=g, device=cuda)
+    got = ops.rmsnorm(x, scale, eps=1e-5)
+    want = ref.rmsnorm(x, scale, 1e-5)
+    torch.cuda.synchronize()
+    assert _rel(want, got) < TOL[dtype]
 
 
 def test_ssm_kernels_refuse_grad_and_raise_on_a_failed_launch(
