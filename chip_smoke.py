@@ -9,12 +9,16 @@ continues:
    built with nvcc from ``src/repro_torch/csrc`` (one process per source,
    all at once; registers and spills of each kernel, and no tensor-core
    kernel may spill), the tensor-core instructions of every kernel counted
-   in its SASS (the bf16 SSD scan's must have some, the fp32 scan's none),
+   in its SASS (the bf16 SSD scan's must have some, the fp32 scan's none;
+   so must every bf16 instance of the paged kernels, and no fp32 one),
    TF32 off for matmuls and cuDNN;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (bf16 and fp32, window and softcap variants,
    int8 pools for the paged kernels, K1 of 1, 2 and 5 for the verify
-   kernel, which at K1 = 1 is also held against the paged decode kernel),
+   kernel, which at K1 = 1 is also held against the paged decode kernel;
+   both paged kernels timed at B 8 over 64 table entries, at B 1 with one
+   543-token sequence and at B 8 over 256 entries with lengths 1024-4095,
+   and the two designs of their split combine timed in turns there),
    the forward (with lse, as the train step runs it) and the backward
    kernels at the train step's (causal, non-causal, window, softcap, an
    empty row, G 1, 8, 12 and 96, Tq < Tk, D 32/64/128, packed positions
@@ -88,7 +92,7 @@ continues:
    RMSNorm from mamba2's serve; flash attention's times at the serving
    chunk, and as ``train_*`` at the train shape; other timed shapes under
    ``also_timed``, the launch floor, the stitched scans' final-state
-   errors), then the last line
+   errors, the paged split designs' times), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -187,22 +191,38 @@ def _kernel_resources(log: str) -> list:
     return out
 
 
-def _tensor_core_ops(build, name: str) -> dict:
+def _tensor_core_ops(build, name: str, full: bool = False) -> dict:
     """The `HMMA`/`HGMMA` instructions of each kernel of a built library,
-    from `cuobjdump -sass` (instances that print alike are summed)."""
-    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(build._target(name))],
+    from `cuobjdump -sass` (instances that print alike are summed; with
+    ``full``, by each instance's whole demangled name, types included)."""
+    bindir = os.path.dirname(build._nvcc())
+    sass = subprocess.run([os.path.join(bindir, "cuobjdump"), "-sass",
+                           str(build._target(name))],
                           capture_output=True, text=True, timeout=120)
     check(sass.returncode == 0, f"cuobjdump: {sass.stderr.strip()[-300:]}")
     counts, cur = {}, None
     for line in sass.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = _demangle(m.group(1))
+            cur = m.group(1) if full else _demangle(m.group(1))
             counts.setdefault(cur, 0)
         elif cur and re.search(r"\bH(G)?MMA\b", line):
             counts[cur] += 1
+    if full:
+        filt = os.path.join(bindir, "cu++filt")
+        out = subprocess.run([filt if os.path.exists(filt) else "c++filt",
+                              *counts], capture_output=True, text=True,
+                             timeout=60)
+        names = out.stdout.splitlines()
+        check(out.returncode == 0 and len(names) == len(counts),
+              f"demangling {name}'s kernels: {out.stderr.strip()[-300:]}")
+        counts = dict(zip(names, counts.values()))
     return counts
+
+
+def _template_args(kernel: str) -> list:
+    """``a, b, c`` of a demangled ``name<a, b, c>(...)``."""
+    return kernel.split("<", 1)[1].rsplit(">(", 1)[0].split(", ")
 
 
 def phase_device_and_build(torch):
@@ -245,6 +265,20 @@ def phase_device_and_build(torch):
     check(tc and all(tc) and f32 and not any(f32),
           f"ssd_scan: bf16 kernels without or fp32 kernels with tensor-core "
           f"instructions: {ops}")
+    # the paged kernels' instances (the q dtype is their second template
+    # argument): HMMA in every bf16 one, none in an fp32 one
+    for name in ("paged_decode_attention", "paged_verify_attention"):
+        inst = {k: v for k, v in _tensor_core_ops(build, name, True).items()
+                if "paged_attention_kernel<" in k}
+        bf = [v for k, v in inst.items()
+              if _template_args(k)[1] == "__nv_bfloat16"]
+        f32 = [v for k, v in inst.items() if _template_args(k)[1] == "float"]
+        print(f"[build] {name}: HMMA in {len(bf)} bf16 instances "
+              f"({min(bf) if bf else 0}-{max(bf) if bf else 0} each), in "
+              f"{sum(1 for v in f32 if v)} of {len(f32)} fp32 instances")
+        check(bf and all(bf) and f32 and not any(f32),
+              f"{name}: bf16 instances without or fp32 instances with "
+              f"tensor-core instructions: {inst}")
     return card
 
 
@@ -300,15 +334,16 @@ def _sdpa_flash(torch, F, q, k, v, kw):
 
 
 def _paged_case(torch, gen, dtype, int8=False, window=0, softcap=0.0,
-                K1=0):
+                K1=0, B=8, MP=64, lens=(36, 544)):
     """A decode tick of the serving path: B 8, Hq 32, Hkv 4, D 64, page
     16, 64 table entries (max_seq 1024), pages scattered over the pool,
-    lengths 36-543.  ``K1 > 0`` makes it a verify pass: K1 query tokens
-    per sequence, the last K1 of its length."""
+    lengths 36-543 (``B``, ``MP`` and the lengths' range ``lens`` change
+    them).  ``K1 > 0`` makes it a verify pass: K1 query tokens per
+    sequence, the last K1 of its length."""
     from repro_torch.models.attention import _quantize
 
     dt = getattr(torch, dtype)
-    B, Hq, Hkv, D, page, MP = 8, 32, 4, 64, 16, 64
+    Hq, Hkv, D, page = 32, 4, 64, 16
     P = B * MP + 1
     qshape = (B, K1, Hq, D) if K1 else (B, Hq, D)
     q = torch.randn(*qshape, generator=gen, device="cuda").to(dt)
@@ -316,7 +351,7 @@ def _paged_case(torch, gen, dtype, int8=False, window=0, softcap=0.0,
     vf = torch.randn(P, page, Hkv, D, generator=gen, device="cuda")
     perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
     table = perm[:B * MP].reshape(B, MP).to(torch.int32)
-    clen = torch.randint(36, 544, (B,), generator=gen, device="cuda",
+    clen = torch.randint(*lens, (B,), generator=gen, device="cuda",
                          dtype=torch.int32)
     kw = dict(window=window, softcap=softcap)
     if int8:
@@ -662,24 +697,36 @@ def phase_kernels(torch, timer, card):
                 check(bool((out == 0).all()),
                       "flash_attention: a fully masked chunk must give 0")
 
+    # the paged kernels: timed at the serving shape, at B 1 with one
+    # 543-token sequence and at B 8 over MP 256 (max_seq 4096) with lengths
+    # 1024-4095 (keys: where the times go)
+    long = {"MP": 256, "lens": (1024, 4096)}
+    one = {"B": 1, "lens": (543, 544)}
     paged_cases = [
-        ("B8/MP64 decode", {}, True),
-        ("B8/MP64 window256", {"window": 256}, False),
-        ("B8/MP64 softcap30", {"softcap": 30.0}, False),
-        ("B8/MP64 int8", {"int8": True}, False),
-        ("B8/MP64 int8+softcap30", {"int8": True, "softcap": 30.0}, False),
+        ("B8/MP64 decode", {}, "paged_decode_attention"),
+        ("B1/MP64 one 543-token sequence", one, "paged_decode_attention@B1"),
+        ("B8/MP256 lengths 1024-4095", long, "paged_decode_attention@MP256"),
+        ("B8/MP64 window256", {"window": 256}, None),
+        ("B8/MP64 softcap30", {"softcap": 30.0}, None),
+        ("B8/MP64 int8", {"int8": True}, None),
+        ("B8/MP64 int8+softcap30", {"int8": True, "softcap": 30.0}, None),
     ]
     for dtype in ("bfloat16", "float32"):
-        for label, extra, timed in paged_cases:
+        for label, extra, key in paged_cases:
             args, kw, nb, fl = _paged_case(torch, gen, dtype, **extra)
             run("paged_decode_attention", label, dtype,
                 paged_decode_attention, ref.paged_decode_attention, args,
                 kw, nb, fl, _sdpa_paged(torch, F, args, kw),
-                timed and dtype == "bfloat16")
+                key is not None and dtype == "bfloat16", key)
 
     # the target's verify pass; K1 = 5 is spec_k_max 4, the serving shape
-    verify_cases = [("B8/MP64 K1=5 verify", {"K1": 5}, True)] + [
-        (f"B8/MP64 K1={k1} {name}", dict(extra, K1=k1), False)
+    verify_cases = [
+        ("B8/MP64 K1=5 verify", {"K1": 5}, "paged_verify_attention"),
+        ("B1/MP64 K1=5 one 543-token sequence", dict(one, K1=5),
+         "paged_verify_attention@B1"),
+        ("B8/MP256 K1=5 lengths 1024-4095", dict(long, K1=5),
+         "paged_verify_attention@MP256")] + [
+        (f"B8/MP64 K1={k1} {name}", dict(extra, K1=k1), None)
         for k1 in (1, 2, 5)
         for name, extra in (("window256", {"window": 256}),
                             ("softcap30", {"softcap": 30.0}),
@@ -687,12 +734,12 @@ def phase_kernels(torch, timer, card):
                             ("int8+softcap30",
                              {"int8": True, "softcap": 30.0}))]
     for dtype in ("bfloat16", "float32"):
-        for label, extra, timed in verify_cases:
+        for label, extra, key in verify_cases:
             args, kw, nb, fl = _paged_case(torch, gen, dtype, **extra)
             run("paged_verify_attention", label, dtype,
                 paged_verify_attention, ref.paged_verify_attention, args,
                 kw, nb, fl, _sdpa_paged(torch, F, args, kw),
-                timed and dtype == "bfloat16")
+                key is not None and dtype == "bfloat16", key)
             if extra["K1"] == 1:        # one verify token is one decode step
                 q, *rest = args
                 got = paged_verify_attention(*args, **kw)[:, 0]
@@ -702,6 +749,40 @@ def phase_kernels(torch, timer, card):
                 print(f"[kernel] paged_verify_attention {label} {dtype}: "
                       f"vs the paged decode kernel rel_err={err:.3e}")
                 check(err < TOL[dtype], f"verify K1=1 vs paged decode {err}")
+
+    # the split combine's two designs, in turns (a, b, b, a) at the timed
+    # shapes: (a) a cluster of 8 blocks (16 when the clusters of 16 fit
+    # the card in one wave) over each (sequence, KV head), combined through
+    # distributed shared memory; (b) splits of 64 keys, combined by the
+    # last block to finish through an f32 workspace and an atomic counter
+    from repro_torch.kernels import paged_decode_attention as pda_mod
+
+    designs = []
+    for label, extra in (("decode B8/MP64", {}), ("verify B8/MP64 K1=5",
+                                                  {"K1": 5}),
+                         ("decode B1", one), ("verify B1 K1=5",
+                                              dict(one, K1=5)),
+                         ("decode B8/MP256", long),
+                         ("verify B8/MP256 K1=5", dict(long, K1=5))):
+        args, kw, _, _ = _paged_case(torch, gen, "bfloat16", **extra)
+        kern = paged_verify_attention if "K1" in extra \
+            else paged_decode_attention
+        plain = (ref.paged_verify_attention if "K1" in extra
+                 else ref.paged_decode_attention)(*args, **kw)
+        times, errs = {"a": [], "b": []}, {}
+        for design in ("a", "b", "b", "a"):
+            pda_mod.SPLIT = 0 if design == "a" else 64
+            errs[design] = rel_err(plain, kern(*args, **kw))
+            times[design].append(timer.ms(lambda: kern(*args, **kw)))
+        pda_mod.SPLIT = 0
+        check(max(errs.values()) < TOL["bfloat16"], f"design {label} {errs}")
+        designs.append(dict(shape=label, a_ms=times["a"], b_ms=times["b"],
+                            rel_err=errs))
+        print(f"[kernel] paged split designs {label} bfloat16: (a) clusters "
+              f"{times['a'][0]:.4f}/{times['a'][1]:.4f} ms, (b) 64-key "
+              f"splits {times['b'][0]:.4f}/{times['b'][1]:.4f} ms, rel_err "
+              f"{errs['a']:.2e}/{errs['b']:.2e} on {card}")
+    results["paged_split_designs"] = designs
 
     # the draft's dense decode steps: S 1024 is max_seq; 1000 is not a
     # multiple of the 32-key tile
@@ -913,7 +994,7 @@ def phase_kernels(torch, timer, card):
     results["launch_floor_ms"] = floor_ms
 
     for name, res in results.items():
-        if name == "launch_floor_ms":
+        if name in ("launch_floor_ms", "paged_split_designs"):
             continue
         by_dtype = worst[name.split("@")[0]]
         res["max_abs_err"] = max(w["max_abs_err"] for w in by_dtype.values())
@@ -1057,9 +1138,11 @@ def _device_ms(prof, ticks: int = 1) -> dict:
 
 
 def _print_kernels(by_kernel: dict, busy: float, top: int = 8,
-                   shares=("ssd_scan", "rmsnorm")) -> None:
-    """The top kernels of a tick, then the hand-written SSM kernels' time
-    by name and their share of the device busy time."""
+                   shares=("ssd_scan", "rmsnorm", "paged_decode",
+                           "paged_verify")) -> None:
+    """The top kernels of a tick, then the hand-written SSM and paged
+    attention kernels' time by name and their share of the device busy
+    time."""
     for name, ms in sorted(by_kernel.items(), key=lambda x: -x[1])[:top]:
         print(f"[profile]   {ms:.4f} ms/tick  {name[:90]}")
     for part in shares:
@@ -1991,6 +2074,8 @@ def main() -> int:
                      **({"stitched_state_rel_err":
                          k["stitched_state_rel_err"]}
                         if "stitched_state_rel_err" in k else {}),
+                     **({"split_designs": kernels["paged_split_designs"]}
+                        if name == "paged_decode_attention" else {}),
                      "launch_floor_ms": kernels["launch_floor_ms"]})
     print(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s "
           f"on {card}")

@@ -43,6 +43,13 @@ PAGED_CASES = [
     (1, 4, 4, 32, 32, 4, 9, 48, 0.0),
     (2, 8, 2, 32, 16, 6, 15, 0, 20.0),
     (2, 16, 2, 128, 8, 4, 12, 0, 0.0),
+    # the serving heads over MP·page 1024 with a window that crosses the
+    # blocks' shares of the keys; G 1 at B 1 over MP·page 4096; G 16 at D
+    # 128 over 4096; G 8 at D 32
+    (8, 32, 4, 64, 16, 64, 520, 100, 0.0),
+    (1, 8, 8, 64, 16, 256, 300, 0, 0.0),
+    (2, 32, 2, 128, 16, 256, 520, 0, 30.0),
+    (8, 8, 1, 32, 16, 64, 520, 0, 0.0),
 ]
 # tests/test_spec_decode.py:35 (window 0), then a deepest-K1 windowed case;
 # test_torch_spec.py runs the same cases against JAX
@@ -53,6 +60,13 @@ VERIFY_CASES = [
     (2, 1, 4, 4, 32, 32, 4, 9, 0.0, 0),
     (2, 4, 8, 2, 32, 16, 6, 15, 20.0, 0),
     (3, 8, 16, 2, 128, 8, 6, 20, 0.0, 24),
+    # G 16 with K1 8 and G 32 with K1 4 (R = 128: two groups of 64 rows);
+    # the serving shape (K1 5, G 8) with a window across the blocks'
+    # shares; G 1 over MP·page 4096 at B 1
+    (2, 8, 32, 2, 64, 16, 64, 130, 0.0, 0),
+    (2, 4, 64, 2, 32, 16, 16, 40, 30.0, 0),
+    (8, 5, 32, 4, 64, 16, 64, 520, 0.0, 100),
+    (1, 8, 8, 8, 64, 16, 256, 260, 0.0, 0),
 ]
 DECODE_CASES = [
     # B, Hq, Hkv, D, S, window, softcap (S 100 and 70: not a multiple of
@@ -137,6 +151,113 @@ def test_paged_kernel_matches_plain(case, dtype, cuda):
     want = ref.paged_decode_attention(q, kp, vp, table, clen, **kw)
     torch.cuda.synchronize()
     assert got.dtype == dtype and _rel(want, got) < TOL[dtype]
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_int8_matches_plain(case, dtype, cuda):
+    """The paged decode kernel over int8 pools with their scales."""
+    B, Hq, Hkv, D, page, MP, P, window, softcap = case
+    g = torch.Generator(device=cuda).manual_seed(MP + 1)
+    q = torch.randn(B, Hq, D, generator=g, device=cuda).to(dtype)
+    kp, vp, scales = _pools(g, P, page, Hkv, D, dtype, True, cuda)
+    table = torch.randint(0, P, (B, MP), generator=g, device=cuda,
+                          dtype=torch.int32)
+    clen = torch.randint(1, MP * page + 1, (B,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    kw = dict(window=window, softcap=softcap, **scales)
+    got = ops.paged_decode_attention(q, kp, vp, table, clen, **kw)
+    want = ref.paged_decode_attention(q, kp, vp, table, clen, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and _rel(want, got) < TOL[dtype]
+
+
+# Lengths at the edges of the paged kernels' splits: a tile is 64 keys and
+# a cluster of 8 (16 at a small batch) blocks shares a (sequence, KV
+# head)'s keys in multiples of 16, so 512 keys are one tile a block at 8;
+# then MP·page itself, and a length of 0 beside the long rows
+EDGE_LENGTHS = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 511, 512, 513]
+
+
+def _edge_case(g, lengths, mp_page, K1, dtype, int8, cuda, Hq=16, Hkv=2,
+               D=64, page=16):
+    B, MP = len(lengths), mp_page // page
+    P = B * MP + 1
+    shape = (B, K1, Hq, D) if K1 else (B, Hq, D)
+    q = torch.randn(*shape, generator=g, device=cuda).to(dtype)
+    kp, vp, scales = _pools(g, P, page, Hkv, D, dtype, int8, cuda)
+    table = (torch.randperm(P - 1, generator=g, device=cuda) + 1)[
+        :B * MP].reshape(B, MP).to(torch.int32)
+    clen = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    return q, kp, vp, table, clen, scales
+
+
+@pytest.mark.parametrize("mp_page", [1024, 4096])
+@pytest.mark.parametrize("K1", [0, 5])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernels_at_split_edges(mp_page, K1, int8, dtype, cuda):
+    """Decode (K1 0) and verify (K1 5) at B 16: lengths around the tile
+    and the blocks' shares, mp_page - 1 and mp_page, and one row of 0
+    (which gives 0 in decode, and in verify for every query token)."""
+    g = torch.Generator(device=cuda).manual_seed(mp_page + K1)
+    lengths = EDGE_LENGTHS + [mp_page - 1, mp_page, 0]
+    q, kp, vp, table, clen, kw = _edge_case(g, lengths, mp_page, K1, dtype,
+                                            int8, cuda)
+    if K1:
+        got = ops.paged_verify_attention(q, kp, vp, table, clen, **kw)
+        want = ref.paged_verify_attention(q, kp, vp, table, clen, **kw)
+    else:
+        got = ops.paged_decode_attention(q, kp, vp, table, clen, **kw)
+        want = ref.paged_decode_attention(q, kp, vp, table, clen, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _rel(want, got) < TOL[dtype]
+    assert bool((got[-1] == 0).all())
+
+
+@pytest.mark.parametrize("length", [1, 64, 65, 543, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernels_one_sequence(length, dtype, cuda):
+    """B 1 (clusters of 16 blocks): decode, and verify at K1 8, over
+    MP·page 4096."""
+    g = torch.Generator(device=cuda).manual_seed(length)
+    for K1, kern, plain in ((0, ops.paged_decode_attention,
+                             ref.paged_decode_attention),
+                            (8, ops.paged_verify_attention,
+                             ref.paged_verify_attention)):
+        q, kp, vp, table, clen, kw = _edge_case(g, [length], 4096, K1, dtype,
+                                                False, cuda, Hq=8, Hkv=1)
+        got = kern(q, kp, vp, table, clen, **kw)
+        want = plain(q, kp, vp, table, clen, **kw)
+        torch.cuda.synchronize()
+        assert _rel(want, got) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernels_ignore_stale_keys_at_a_share_end(dtype, cuda):
+    """Every key at or past ``cache_len`` holds 1e30, in the page that
+    also holds a block's last valid keys (lengths 200 and 75 end inside a
+    16-key page and inside a block's share of 32 or 16 keys): decode and
+    verify stay finite and equal to the plain versions, which mask them."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    lengths, page, mp_page = [200, 75], 16, 512
+    for K1 in (0, 3):
+        q, kp, vp, table, clen, kw = _edge_case(g, lengths, mp_page, K1,
+                                                dtype, False, cuda)
+        for b, n in enumerate(lengths):
+            for pos in range(n, mp_page):
+                kp[table[b, pos // page], pos % page] = 1e30
+                vp[table[b, pos // page], pos % page] = 1e30
+        if K1:
+            got = ops.paged_verify_attention(q, kp, vp, table, clen)
+            want = ref.paged_verify_attention(q, kp, vp, table, clen)
+        else:
+            got = ops.paged_decode_attention(q, kp, vp, table, clen)
+            want = ref.paged_decode_attention(q, kp, vp, table, clen)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        assert _rel(want, got) < TOL[dtype]
 
 
 def _pools(g, P, page, Hkv, D, dtype, int8, cuda):
