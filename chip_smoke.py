@@ -17,8 +17,7 @@ continues:
    int8 pools for the paged kernels, K1 of 1, 2 and 5 for the verify
    kernel, which at K1 = 1 is also held against the paged decode kernel;
    both paged kernels timed at B 8 over 64 table entries, at B 1 with one
-   543-token sequence and at B 8 over 256 entries with lengths 1024-4095,
-   and the two designs of their split combine timed in turns there),
+   543-token sequence and at B 8 over 256 entries with lengths 1024-4095),
    the forward (with lse, as the train step runs it) and the backward
    kernels at the train step's (causal, non-causal, window, softcap, an
    empty row, G 1, 8, 12 and 96, Tq < Tk, D 32/64/128, packed positions
@@ -92,7 +91,7 @@ continues:
    RMSNorm from mamba2's serve; flash attention's times at the serving
    chunk, and as ``train_*`` at the train shape; other timed shapes under
    ``also_timed``, the launch floor, the stitched scans' final-state
-   errors, the paged split designs' times), then the last line
+   errors), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -699,7 +698,7 @@ def phase_kernels(torch, timer, card):
 
     # the paged kernels: timed at the serving shape, at B 1 with one
     # 543-token sequence and at B 8 over MP 256 (max_seq 4096) with lengths
-    # 1024-4095 (keys: where the times go)
+    # 1024-4095 (the third field: the key the times go under)
     long = {"MP": 256, "lens": (1024, 4096)}
     one = {"B": 1, "lens": (543, 544)}
     paged_cases = [
@@ -749,40 +748,6 @@ def phase_kernels(torch, timer, card):
                 print(f"[kernel] paged_verify_attention {label} {dtype}: "
                       f"vs the paged decode kernel rel_err={err:.3e}")
                 check(err < TOL[dtype], f"verify K1=1 vs paged decode {err}")
-
-    # the split combine's two designs, in turns (a, b, b, a) at the timed
-    # shapes: (a) a cluster of 8 blocks (16 when the clusters of 16 fit
-    # the card in one wave) over each (sequence, KV head), combined through
-    # distributed shared memory; (b) splits of 64 keys, combined by the
-    # last block to finish through an f32 workspace and an atomic counter
-    from repro_torch.kernels import paged_decode_attention as pda_mod
-
-    designs = []
-    for label, extra in (("decode B8/MP64", {}), ("verify B8/MP64 K1=5",
-                                                  {"K1": 5}),
-                         ("decode B1", one), ("verify B1 K1=5",
-                                              dict(one, K1=5)),
-                         ("decode B8/MP256", long),
-                         ("verify B8/MP256 K1=5", dict(long, K1=5))):
-        args, kw, _, _ = _paged_case(torch, gen, "bfloat16", **extra)
-        kern = paged_verify_attention if "K1" in extra \
-            else paged_decode_attention
-        plain = (ref.paged_verify_attention if "K1" in extra
-                 else ref.paged_decode_attention)(*args, **kw)
-        times, errs = {"a": [], "b": []}, {}
-        for design in ("a", "b", "b", "a"):
-            pda_mod.SPLIT = 0 if design == "a" else 64
-            errs[design] = rel_err(plain, kern(*args, **kw))
-            times[design].append(timer.ms(lambda: kern(*args, **kw)))
-        pda_mod.SPLIT = 0
-        check(max(errs.values()) < TOL["bfloat16"], f"design {label} {errs}")
-        designs.append(dict(shape=label, a_ms=times["a"], b_ms=times["b"],
-                            rel_err=errs))
-        print(f"[kernel] paged split designs {label} bfloat16: (a) clusters "
-              f"{times['a'][0]:.4f}/{times['a'][1]:.4f} ms, (b) 64-key "
-              f"splits {times['b'][0]:.4f}/{times['b'][1]:.4f} ms, rel_err "
-              f"{errs['a']:.2e}/{errs['b']:.2e} on {card}")
-    results["paged_split_designs"] = designs
 
     # the draft's dense decode steps: S 1024 is max_seq; 1000 is not a
     # multiple of the 32-key tile
@@ -994,7 +959,7 @@ def phase_kernels(torch, timer, card):
     results["launch_floor_ms"] = floor_ms
 
     for name, res in results.items():
-        if name in ("launch_floor_ms", "paged_split_designs"):
+        if name == "launch_floor_ms":
             continue
         by_dtype = worst[name.split("@")[0]]
         res["max_abs_err"] = max(w["max_abs_err"] for w in by_dtype.values())
@@ -2074,8 +2039,6 @@ def main() -> int:
                      **({"stitched_state_rel_err":
                          k["stitched_state_rel_err"]}
                         if "stitched_state_rel_err" in k else {}),
-                     **({"split_designs": kernels["paged_split_designs"]}
-                        if name == "paged_decode_attention" else {}),
                      "launch_floor_ms": kernels["launch_floor_ms"]})
     print(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s "
           f"on {card}")

@@ -25,13 +25,12 @@
 //
 // What holds it back now: latency.  A block walks a chain of dependent
 // steps, each a round trip to memory or a barrier: the cache length (with
-// q and the page-table row beside it), its keys, 1-4 tiles of products,
+// q beside it), its page-table slice, its keys, 1-4 tiles of products,
 // the partials' exchange, one cluster barrier that waits for the slowest
-// block, and the combine.  At B 8 / MP 64 that chain is about 8 µs of the
-// 12 µs an event-timed call takes.  Only long caches (lengths in the
-// thousands) make the key loop itself the larger part, and there a verify
-// pass's products (40 rows on 4 warps, one warp taking two row tiles)
-// bound it before the bytes do.
+// block, and the combine; then the launch itself.  Only long caches
+// (lengths in the thousands) make the key loop the larger part, and there
+// a verify pass's products (40 rows on 4 warps, one warp taking two row
+// tiles) bound it before the bytes do.
 //
 // Design.
 // - The split: the visible key range [first, n_keys) of each (sequence,
@@ -54,10 +53,10 @@
 //   remote store, so no store reaches a block that has not started.
 // - The block: 4 warps, all R rows of its row group (up to 64), so the KV
 //   of a (sequence, KV head) is read once a call for every K1·G row.  It
-//   asks for the cache length, q and (up to 1024 entries) the whole
-//   page-table row at once.  K and V come into shared memory in their own
-//   dtype by 16-byte cp.async, 64 keys a tile, in a ring of 3 stages (2 in
-//   fp32), each key finding its page through the table.  Keys at or past
+//   asks for q and the cache length at once, then for its slice of the
+//   page table.  K and V come into shared memory in their own dtype by
+//   16-byte cp.async, 64 keys a tile, in a ring of 3 stages (2 in fp32),
+//   each key finding its page through the table.  Keys at or past
 //   the block's end are not loaded but zero-filled, and masked, so stale
 //   rows never reach a product.  int8 tiles widen to the compute dtype in
 //   shared memory (exactly: an int8 value fits bf16's 8 significant bits).
@@ -74,10 +73,9 @@
 //   computed by f32 FMAs on the CUDA cores (no TF32; the 2e-5 tolerance
 //   and the fp32 golden streams need it), with the one warp layout that
 //   takes any row count past 8.
-// - For one measurement, `split` > 0 selects the design this one was
-//   measured against: splits of that many keys at fixed places, combined
-//   by the last block to finish through an f32 workspace and an atomic
-//   counter (`PERF.md` §6, PR 18).
+// - Measured against (`PERF.md` §6): splits of 64 keys at fixed
+//   places combined by the last block to finish through an f32 workspace
+//   and an atomic counter, 1.4-2.9x slower at every timed shape.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -101,42 +99,34 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kKeys = 64;        // keys a tile
 constexpr int kMaxRows = 64;     // query rows a block (a row group)
-constexpr int kFullTable = 1024; // a table row this long is copied whole
 
 // Byte offsets of a block's shared memory.  TC is the compute dtype (the
 // q dtype), TKV the pools'.  The ring holds NS stages of K and V tiles in
-// the pools' dtype; for int8 they widen into one compute tile each.  Once
-// the key loop is done, the warps' partials and the block's merged
-// partial take the ring's place.  Compute rows are padded by 16 bytes, so
-// the 8 rows an ldmatrix reads start in different bank groups.
+// the pools' dtype; for int8 they widen into one compute tile each.  The
+// block's slice of the page table follows, then the inbox that the
+// cluster's warps write their partials of this block's rows into.  Compute
+// rows are padded by 16 bytes, so the 8 rows an ldmatrix reads start in
+// different bank groups.
 template <typename TC, typename TKV, int D>
 struct Layout {
   static constexpr bool kScaled = sizeof(TKV) == 1;
   static constexpr int NS = sizeof(TC) == 2 ? 3 : 2;
   static constexpr int CS = D + 16 / (int)sizeof(TC);     // compute stride
   static constexpr int RS = kScaled ? D : CS;             // ring stride
-  static constexpr int PS = D + 4;                        // warp partials
   static constexpr size_t Q = 0;
   static constexpr size_t RING = Q + (size_t)kMaxRows * CS * sizeof(TC);
   static constexpr size_t TILE = (size_t)kKeys * RS * sizeof(TKV);
   static constexpr size_t CONV = RING + NS * 2 * TILE;
   static constexpr size_t SC =
       CONV + (kScaled ? 2 * (size_t)kKeys * CS * sizeof(TC) : 0);
-  static constexpr size_t LOOP_END = SC + (kScaled ? NS * 2 * kKeys * 4 : 0);
-  static constexpr size_t BML = RING;                     // [64] (m, l)
-  static constexpr size_t BACC = BML + kMaxRows * 2 * 4;  // [64][D]
-  static constexpr size_t PML = BACC + (size_t)kMaxRows * D * 4;
-  static constexpr size_t PACC = PML + kMaxRows * 2 * 4;  // [64][PS]
-  // (PML: [64] (m, l) of the warps' partials, then the row (M, L) of the
-  // split combine)
-  static constexpr size_t PART_END = PACC + (size_t)kMaxRows * PS * 4;
-  static constexpr size_t TAB =
-      ((LOOP_END > PART_END ? LOOP_END : PART_END) + 15) / 16 * 16;
-  // then the combine's weights: [n][Rb] float2 for n partials
-  static __host__ __device__ size_t W(int tab) {
+  static constexpr size_t TAB = SC + (kScaled ? NS * 2 * kKeys * 4 : 0);
+  // [cl·KW sources][rows a block owns][D + 2]: acc, then m and l
+  static __host__ __device__ size_t INBOX(int tab) {
     return (TAB + 4 * (size_t)tab + 15) / 16 * 16;
   }
-  static size_t bytes(int tab, size_t extra) { return W(tab) + extra; }
+  static size_t bytes(int tab, int sources, int rows) {
+    return INBOX(tab) + 4 * (size_t)sources * rows * (D + 2);
+  }
 };
 
 struct Params {
@@ -144,11 +134,8 @@ struct Params {
   const float *ks, *vs;            // int8 pools only
   void* o;
   const int *table, *clen;
-  float* ws;                       // [B,Hkv,RG,n_split][Rp][2 + D]
-  int* cnt;                        // [B,Hkv,RG], zero between calls
-  int K1, Hq, Hkv, G, R, Rp, RG, page, MP, window, split, n_split;
+  int K1, Hq, Hkv, G, R, RG, page, MP, window;
   int tab;                         // table entries a block copies, at most
-  int tab_full;                    // 1: the whole row (tab = MP), at the start
   float softcap, sm_scale;
 };
 
@@ -236,7 +223,8 @@ struct Products<bf16, D, NTW> {
       uint32_t a[4];
       ldsm4(a, smem_u32(row + 16 * ks));
 #pragma unroll
-      for (int j = 0; j < NTW; ++j) mma_bf16(s[j], a, qf[j][ks][0], qf[j][ks][1]);
+      for (int j = 0; j < NTW; ++j)
+        mma_bf16(s[j], a, qf[j][ks][0], qf[j][ks][1]);
     }
   }
 
@@ -335,42 +323,6 @@ struct Products<float, D, NTW> {
   }
 };
 
-// Combines n partials (m, l, acc) of a block's Rb rows by the log-sum-exp
-// rule: `ml(i, r)` gives partial i's (m, l) of row r and `part(i, r, d)`
-// its acc.  First every (m, l) into w_s [n][Rb], then each row's M = max
-// m_i, the weights e^(m_i − M) in place of m_i and L = Σ l_i·e^(m_i − M)
-// into rml_s [Rb], so that the sums A = Σ e^(m_i − M)·acc_i read their
-// partials with no chain between the reads; `out(r, d, A, (M, L))` takes
-// elements e0, e0 + step, ... of Rb·D.  An empty partial (m = NEG_INF,
-// l = 0, acc = 0) adds nothing, and a row that only has empty ones gets
-// L = 0.
-template <int D, typename ML, typename Part, typename Out>
-__device__ __forceinline__ void combine(int n, int Rb, float2* w_s,
-                                        float2* rml_s, int e0, int step,
-                                        ML ml, Part part, Out out) {
-  for (int i = threadIdx.x; i < n * Rb; i += kThreads)
-    w_s[i] = ml(i / Rb, i % Rb);
-  __syncthreads();
-  for (int r = threadIdx.x; r < Rb; r += kThreads) {
-    float M = kNegInf, L = 0.f;
-    for (int i = 0; i < n; ++i) M = fmaxf(M, w_s[i * Rb + r].x);
-    for (int i = 0; i < n; ++i) {
-      float2& v = w_s[i * Rb + r];
-      v.x = ex2(v.x - M);
-      L = fmaf(v.y, v.x, L);
-    }
-    rml_s[r] = make_float2(M, L);
-  }
-  __syncthreads();
-  for (int e = e0; e < Rb * D; e += step) {
-    const int r = e / D, d = e % D;
-    float A = 0.f;
-#pragma unroll 8
-    for (int i = 0; i < n; ++i) A = fmaf(w_s[i * Rb + r].x, part(i, r, d), A);
-    out(r, d, A, rml_s[r]);
-  }
-}
-
 // widens a stage's int8 K and V tiles into the compute tiles
 template <typename TC, int D>
 __device__ __forceinline__ void widen(const int8_t* k8, const int8_t* v8,
@@ -379,7 +331,8 @@ __device__ __forceinline__ void widen(const int8_t* k8, const int8_t* v8,
   for (int i = threadIdx.x; i < 2 * kKeys * CPR; i += kThreads) {
     const int t = i / (kKeys * CPR), j = i % (kKeys * CPR);
     const int key = j / CPR, c = (j % CPR) * 16;
-    const uint4 u = *reinterpret_cast<const uint4*>((t ? v8 : k8) + key * D + c);
+    const uint4 u =
+        *reinterpret_cast<const uint4*>((t ? v8 : k8) + key * D + c);
     const int8_t* x = reinterpret_cast<const int8_t*>(&u);
     TC* dst = (t ? vc : kc) + key * CS + c;
     if constexpr (sizeof(TC) == 2) {
@@ -397,20 +350,19 @@ __device__ __forceinline__ void widen(const int8_t* k8, const int8_t* v8,
   }
 }
 
-// One block per (split, KV head and row group, sequence): grid
-// (n_split, Hkv·RG, B).  NTW row tiles of 8 a warp.  `Kind` names the
-// entry point (`paged_decode`, `paged_verify`) in profiles; nothing else.
-template <typename Kind, typename TC, typename TKV, int D, int NTW, int KW,
-          bool CLUSTER>
+// One block per (share, KV head and row group, sequence): grid (cl,
+// Hkv·RG, B) in clusters of (cl, 1, 1).  NTW row tiles of 8 a warp, KW key
+// slices a tile.  `Kind` names the entry point (`paged_decode`,
+// `paged_verify`) in profiles; nothing else.
+template <typename Kind, typename TC, typename TKV, int D, int NTW, int KW>
 __global__ void __launch_bounds__(kThreads,
                                   sizeof(TC) == 2 && D <= 64 ? 3 : 2)
     paged_attention_kernel(
     const Params p) {
   using L = Layout<TC, TKV, D>;
   constexpr bool SCALED = L::kScaled;
-  constexpr int NS = L::NS, CS = L::CS, RS = L::RS, PS = L::PS, MD = D / 16;
+  constexpr int NS = L::NS, CS = L::CS, RS = L::RS, MD = D / 16;
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ int s_last;
   TC* q_s = reinterpret_cast<TC*>(smem + L::Q);
   int* tab_s = reinterpret_cast<int*>(smem + L::TAB);
   const TC* q = static_cast<const TC*>(p.q);
@@ -428,58 +380,34 @@ __global__ void __launch_bounds__(kThreads,
     return ((size_t)b * p.K1 + rr / p.G) * p.Hq + h * p.G + rr % p.G;
   };
 
+  // this block has started (the combine writes into the others' shared
+  // memory); q comes in while the length does
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   const int valid = __ldg(p.clen + b);
   constexpr int QV = 16 / (int)sizeof(TC), QC = D / QV;
-  auto issue_q = [&]() {
-    for (int i = tid; i < kMaxRows * QC; i += kThreads) {
-      const int r = i / QC, c = (i % QC) * QV;
-      const bool ok = r < Rb;
-      cp_async16(smem_u32(q_s + r * CS + c), ok ? q + q_row(r) * D + c : q,
-                 ok);
-    }
-    cp_commit();
-  };
-  if constexpr (CLUSTER) {
-    // this block has started (the combine writes into the others' shared
-    // memory); q and, when it fits, the whole table row come in while the
-    // length does
-    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-    issue_q();
-    if (p.tab_full)
-      for (int i = tid; i < p.MP; i += kThreads)
-        tab_s[i] = p.table[(size_t)b * p.MP + i];
+  for (int i = tid; i < kMaxRows * QC; i += kThreads) {
+    const int r = i / QC, c = (i % QC) * QV;
+    const bool ok = r < Rb;
+    cp_async16(smem_u32(q_s + r * CS + c), ok ? q + q_row(r) * D + c : q, ok);
   }
+  cp_commit();
 
-  // the keys some row of this block sees, and this split's share of them
+  // the keys some row of this block sees, and this block's share of them:
+  // the cluster is the grid's x
   const int base = valid - p.K1;                   // qpos of token 0
   const int n_keys = max(0, min(min(valid, p.MP * p.page),
                                 base + (r_lo + Rb - 1) / p.G + 1));
   const int first = p.window > 0 ? max(0, base + r_lo / p.G - p.window + 1)
                                  : 0;
-  int lo, hi, s0 = 0, n_parts = 1;
-  if constexpr (CLUSTER) {       // the cluster is the grid's x: even shares
-    const int share =
-        ((max(0, n_keys - first) + gridDim.x - 1) / gridDim.x + 15) / 16 * 16;
-    lo = first + (int)blockIdx.x * share;
-    hi = min(n_keys, lo + share);
-  } else {                       // splits of p.split keys at fixed places
-    s0 = first / p.split;
-    n_parts = n_keys > first ? (n_keys - 1) / p.split - s0 + 1 : 0;
-    if (n_parts == 0 && blockIdx.x == 0) {         // no row sees a key
-      for (int i = tid; i < Rb * D; i += kThreads)
-        store(o + q_row(i / D) * D + i % D, 0.f);
-    }
-    if ((int)blockIdx.x < s0 || (int)blockIdx.x >= s0 + n_parts) return;
-    lo = max(first, (int)blockIdx.x * p.split);
-    hi = min(n_keys, ((int)blockIdx.x + 1) * p.split);
-    issue_q();
-  }
-  const int pg0 = p.tab_full ? 0 : lo / p.page;
-  if (!p.tab_full) {
-    const int npg = hi > lo ? (hi - 1) / p.page - pg0 + 1 : 0;
-    for (int i = tid; i < npg; i += kThreads)
-      tab_s[i] = p.table[(size_t)b * p.MP + pg0 + i];
-  }
+  const int share =
+      ((max(0, n_keys - first) + gridDim.x - 1) / gridDim.x + 15) / 16 * 16;
+  const int lo = first + (int)blockIdx.x * share;
+  const int hi = min(n_keys, lo + share);
+  // the table entries of this share
+  const int pg0 = lo / p.page;
+  const int npg = hi > lo ? (hi - 1) / p.page - pg0 + 1 : 0;
+  for (int i = tid; i < npg; i += kThreads)
+    tab_s[i] = p.table[(size_t)b * p.MP + pg0 + i];
   __syncthreads();
   // (pool row, KV head) of the key at `pos`
   auto row_of = [&](int pos) {
@@ -629,8 +557,7 @@ __global__ void __launch_bounds__(kThreads,
     }
   }
 
-  // each warp's partial into shared memory (over the ring), then the
-  // block's: the warps' key slices merged
+  // each row's l, summed over the 8 lanes that hold its keys
 #pragma unroll
   for (int j = 0; j < NTW; ++j)
 #pragma unroll
@@ -638,122 +565,53 @@ __global__ void __launch_bounds__(kThreads,
 #pragma unroll
       for (int off = 4; off < 32; off <<= 1)
         l[j][c] += __shfl_xor_sync(kFull, l[j][c], off);
-  if constexpr (CLUSTER) {
-    // every warp's partial straight into the inbox of the block that owns
-    // the row (row r: block r % cl), then one cluster barrier, and each
-    // block combines its own rows from its own shared memory
-    namespace cg = cooperative_groups;
-    cg::cluster_group cluster = cg::this_cluster();
-    const int cl = (int)gridDim.x, rank = (int)blockIdx.x;
-    const int rpo = (Rb + cl - 1) / cl, src = rank * KW + ks;
-    float* inbox = reinterpret_cast<float*>(smem + L::W(p.tab));
-    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int j = 0; j < NTW; ++j) {
-      if (rt[j] >= NT) continue;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int r = 8 * rt[j] + 2 * (lane % 4) + c;
-        if (r >= Rb) continue;
-        float* dst = cluster.map_shared_rank(inbox, r % cl) +
-                     (src * rpo + r / cl) * (D + 2);
-        if (lane < 4) {
-          dst[D] = m[j][c];
-          dst[D + 1] = l[j][c];
-        }
-#pragma unroll
-        for (int md = 0; md < MD; ++md)
-#pragma unroll
-          for (int dh = 0; dh < 2; ++dh)
-            dst[16 * md + lane / 4 + 8 * dh] = acc[md][j][2 * dh + c];
-      }
-    }
-    cluster.sync();
-    const int ns = cl * KW, pstride = rpo * (D + 2);
-    for (int e = tid; e < rpo * D; e += kThreads) {
-      const int lr = e / D, d = e % D, r = rank + cl * lr;
-      if (r >= Rb) break;
-      const float* in = inbox + lr * (D + 2);
-      float M = kNegInf, Ls = 0.f, A = 0.f;
-#pragma unroll 8
-      for (int sp = 0; sp < ns; ++sp) M = fmaxf(M, in[sp * pstride + D]);
-#pragma unroll 8
-      for (int sp = 0; sp < ns; ++sp) {
-        const float* part = in + sp * pstride;
-        const float w = ex2(part[D] - M);
-        Ls = fmaf(part[D + 1], w, Ls);
-        A = fmaf(part[d], w, A);
-      }
-      store(o + q_row(r) * D + d, Ls == 0.f ? 0.f : A / Ls);
-    }
-    return;
-  }
-  cp_wait<0>();
-  __syncthreads();
-  const int Rt = 8 * NT;
-  float2* pml = reinterpret_cast<float2*>(smem + L::PML);
-  float* pacc = reinterpret_cast<float*>(smem + L::PACC);
-  float2* bml = reinterpret_cast<float2*>(smem + L::BML);
-  float* bacc = reinterpret_cast<float*>(smem + L::BACC);
-  float2* w_s = reinterpret_cast<float2*>(smem + L::W(p.tab));
+  // every warp's partial straight into the inbox of the block that owns
+  // the row (row r: block r % cl), then one cluster barrier, and each
+  // block combines its own rows from its own shared memory
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = (int)gridDim.x, rank = (int)blockIdx.x;
+  const int rpo = (Rb + cl - 1) / cl, src = rank * KW + ks;
+  float* inbox = reinterpret_cast<float*>(smem + L::INBOX(p.tab));
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 #pragma unroll
   for (int j = 0; j < NTW; ++j) {
     if (rt[j] >= NT) continue;
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
-      const int pr = ks * Rt + 8 * rt[j] + 2 * (lane % 4) + c;
-      if (lane < 4) pml[pr] = make_float2(m[j][c], l[j][c]);
+      const int r = 8 * rt[j] + 2 * (lane % 4) + c;
+      if (r >= Rb) continue;
+      float* dst = cluster.map_shared_rank(inbox, r % cl) +
+                   (src * rpo + r / cl) * (D + 2);
+      if (lane < 4) {
+        dst[D] = m[j][c];
+        dst[D + 1] = l[j][c];
+      }
 #pragma unroll
       for (int md = 0; md < MD; ++md)
 #pragma unroll
         for (int dh = 0; dh < 2; ++dh)
-          pacc[pr * PS + 16 * md + lane / 4 + 8 * dh] = acc[md][j][2 * dh + c];
+          dst[16 * md + lane / 4 + 8 * dh] = acc[md][j][2 * dh + c];
     }
   }
-  __syncthreads();
-  combine<D>(
-      KW, Rb, w_s, bml, tid, kThreads,
-      [&](int w, int r) { return pml[w * Rt + r]; },
-      [&](int w, int r, int d) { return pacc[(w * Rt + r) * PS + d]; },
-      [&](int r, int d, float A, float2) { bacc[r * D + d] = A; });
-  __syncthreads();
-  float2* rml_s = pml;                             // free again
-
-  if (n_parts == 1) {                              // the only split
-    for (int i = tid; i < Rb * D; i += kThreads) {
-      const float Ls = bml[i / D].y;
-      store(o + q_row(i / D) * D + i % D, Ls == 0.f ? 0.f : bacc[i] / Ls);
+  cluster.sync();
+  const int ns = cl * KW, pstride = rpo * (D + 2);
+  for (int e = tid; e < rpo * D; e += kThreads) {
+    const int lr = e / D, d = e % D, r = rank + cl * lr;
+    if (r >= Rb) break;
+    const float* in = inbox + lr * (D + 2);
+    float M = kNegInf, Ls = 0.f, A = 0.f;
+#pragma unroll 8
+    for (int sp = 0; sp < ns; ++sp) M = fmaxf(M, in[sp * pstride + D]);
+#pragma unroll 8
+    for (int sp = 0; sp < ns; ++sp) {
+      const float* part = in + sp * pstride;
+      const float w = ex2(part[D] - M);
+      Ls = fmaf(part[D + 1], w, Ls);
+      A = fmaf(part[d], w, A);
     }
-    return;
+    store(o + q_row(r) * D + d, Ls == 0.f ? 0.f : A / Ls);
   }
-  // the split's partial into the workspace; the last split of this
-  // (sequence, KV head, row group) to arrive combines them all
-  const size_t group = ((size_t)b * p.Hkv + h) * p.RG + rg;
-  const size_t slot = (size_t)p.Rp * (2 + D);
-  float* ws = p.ws + group * p.n_split * slot;
-  float* mine = ws + (int)blockIdx.x * slot;
-  for (int i = tid; i < Rb * D; i += kThreads) mine[2 * p.Rp + i] = bacc[i];
-  for (int i = tid; i < Rb; i += kThreads)
-    reinterpret_cast<float2*>(mine)[i] = bml[i];
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) s_last = atomicAdd(p.cnt + group, 1) == n_parts - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  const float* ws0 = ws + s0 * slot;
-  combine<D>(
-      n_parts, Rb, w_s, rml_s, tid, kThreads,
-      [&](int i, int r) {
-        return __ldcg(reinterpret_cast<const float2*>(ws0 + i * slot) + r);
-      },
-      [&](int i, int r, int d) {
-        return __ldcg(ws0 + i * slot + 2 * p.Rp + r * D + d);
-      },
-      [&](int r, int d, float A, float2 ml) {
-        store(o + q_row(r) * D + d, ml.y == 0.f ? 0.f : A / ml.y);
-      });
-  if (tid == 0) p.cnt[group] = 0;                  // ready for the next call
 }
 
 // ---------------------------------------------------------------------------
@@ -764,8 +622,7 @@ struct Call {
   const void *q, *kp, *vp, *ks, *vs;
   void* o;
   const void *table, *clen;
-  void *ws, *cnt;
-  int B, K1, Hq, Hkv, D, page, MP, q_dtype, kv_dtype, window, split;
+  int B, K1, Hq, Hkv, D, page, MP, q_dtype, kv_dtype, window;
   float softcap, sm_scale;
   cudaStream_t stream;
 };
@@ -776,8 +633,6 @@ inline int table_slice(int MP, int keys, int page) {
   return n < MP ? n : MP;
 }
 
-inline int rows_per_block(int R) { return R < kMaxRows ? R : kMaxRows; }
-
 // The cluster: 16 blocks a (sequence, KV head, row group) when the
 // clusters of 16 fit the card's 132 SMs in one wave, else 8.
 inline int cluster_size(int groups) { return groups * 16 <= 132 ? 16 : 8; }
@@ -785,53 +640,42 @@ inline int cluster_size(int groups) { return groups * 16 <= 132 ? 16 : 8; }
 template <typename Kind, typename TC, typename TKV, int D, int NTW, int KW>
 cudaError_t launch(const Call& c, Params p) {
   using L = Layout<TC, TKV, D>;
-  if (c.split <= 0) {            // (a) a cluster of -split blocks (0: auto)
-    const int cl = c.split < 0 ? -c.split : cluster_size(c.B * c.Hkv * p.RG);
-    const int share = ((c.MP * c.page + cl - 1) / cl + 15) / 16 * 16;
-    p.tab_full = c.MP <= kFullTable;
-    p.tab = p.tab_full ? c.MP : table_slice(c.MP, share, c.page);
-    const int rpo = (p.Rp + cl - 1) / cl;
-    const size_t smem = L::bytes(p.tab, 4 * (size_t)cl * KW * rpo * (D + 2));
-    auto kernel = paged_attention_kernel<Kind, TC, TKV, D, NTW, KW, true>;
-    cudaError_t err = flash::set_smem(kernel, smem);
-    if (err == cudaSuccess && cl > 8)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(cl, c.Hkv * p.RG, c.B);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = c.stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cl;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, kernel, p);
-    return err != cudaSuccess ? err : cudaGetLastError();
-  }
-  p.tab = table_slice(c.MP, p.split, c.page);
-  const size_t smem =
-      L::bytes(p.tab, 8 * (size_t)(p.n_split * p.Rp > 64 ? p.n_split * p.Rp : 64));
-  auto kernel = paged_attention_kernel<Kind, TC, TKV, D, NTW, KW, false>;
+  const int cl = cluster_size(c.B * c.Hkv * p.RG);
+  const int share = ((c.MP * c.page + cl - 1) / cl + 15) / 16 * 16;
+  const int rows = p.R < kMaxRows ? p.R : kMaxRows;
+  p.tab = table_slice(c.MP, share, c.page);
+  const size_t smem = L::bytes(p.tab, cl * KW, (rows + cl - 1) / cl);
+  auto kernel = paged_attention_kernel<Kind, TC, TKV, D, NTW, KW>;
   cudaError_t err = flash::set_smem(kernel, smem);
+  if (err == cudaSuccess && cl > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(p.n_split, c.Hkv * p.RG, c.B), kThreads, smem, c.stream>>>(p);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, c.Hkv * p.RG, c.B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = c.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // How a block's warps share its rows: up to 8 rows one row tile a warp and
 // the keys split 4 ways; more rows two tiles a warp, the keys split 4, 2 or
-// 1 ways so that the 4 warps cover every row tile.
+// 1 ways so that the 4 warps cover every row tile (fp32: only the last).
 template <typename Kind, typename TC, typename TKV, int D>
 cudaError_t by_rows(const Call& c, const Params& p) {
-  if (p.Rp <= 8) return launch<Kind, TC, TKV, D, 1, 4>(c, p);
-  if constexpr (sizeof(TC) == 2) {   // fp32 takes the one general layout
-    if (p.Rp <= 16) return launch<Kind, TC, TKV, D, 2, 4>(c, p);
-    if (p.Rp <= 32) return launch<Kind, TC, TKV, D, 2, 2>(c, p);
+  if (p.R <= 8) return launch<Kind, TC, TKV, D, 1, 4>(c, p);
+  if constexpr (sizeof(TC) == 2) {
+    if (p.R <= 16) return launch<Kind, TC, TKV, D, 2, 4>(c, p);
+    if (p.R <= 32) return launch<Kind, TC, TKV, D, 2, 2>(c, p);
   }
   return launch<Kind, TC, TKV, D, 2, 1>(c, p);
 }
@@ -857,8 +701,7 @@ cudaError_t by_dim(const Call& c, const Params& p) {
 template <typename Kind>
 int run(const Call& c) {
   if (c.Hkv <= 0 || c.Hq % c.Hkv != 0 || c.page <= 0 || c.MP <= 0 ||
-      c.K1 < 1 ||
-      (c.split > 0 && (c.ws == nullptr || c.cnt == nullptr)) || c.split < -16)
+      c.K1 < 1)
     return (int)cudaErrorInvalidValue;
   if (c.kv_dtype == 2 && (c.ks == nullptr || c.vs == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -872,20 +715,15 @@ int run(const Call& c) {
   p.o = c.o;
   p.table = static_cast<const int*>(c.table);
   p.clen = static_cast<const int*>(c.clen);
-  p.ws = static_cast<float*>(c.ws);
-  p.cnt = static_cast<int*>(c.cnt);
   p.K1 = c.K1;
   p.Hq = c.Hq;
   p.Hkv = c.Hkv;
   p.G = c.Hq / c.Hkv;
   p.R = c.K1 * p.G;
-  p.Rp = rows_per_block(p.R);
   p.RG = (p.R + kMaxRows - 1) / kMaxRows;
   p.page = c.page;
   p.MP = c.MP;
   p.window = c.window;
-  p.split = c.split;
-  p.n_split = c.split > 0 ? (c.MP * c.page + c.split - 1) / c.split : 0;
   p.softcap = c.softcap;
   p.sm_scale = c.sm_scale;
   cudaError_t err = c.q_dtype == 0   ? by_dim<Kind, float>(c, p)

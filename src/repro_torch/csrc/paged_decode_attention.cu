@@ -30,20 +30,16 @@ struct paged_decode;  // names the kernel in profiles
 // Plain C entry point, loaded with ctypes.  q_dtype: 0 = float32,
 // 1 = bfloat16; kv_dtype: 0 = the q dtype, 2 = int8 (k_scale and v_scale
 // [P,page,Hkv] f32 then required).  page_table [B,MP] and cache_len [B] are
-// int32.  `split` 0: clusters of 8 or 16 blocks, < 0: a cluster of -split
-// blocks; > 0 (for measurement): splits of that many keys, with `ws` an f32
-// workspace of B·Hkv·ceil(G/64)·ceil(MP·page/split)·min(G,64)·(D+2)
-// floats and `cnt` B·Hkv·ceil(G/64) int32 counters that are zero between
-// calls (each call leaves them so).  All tensors contiguous, the pools
-// 16-byte aligned.  Returns cudaGetLastError() after the launch.
+// int32.  All tensors contiguous, the pools 16-byte aligned.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int paged_decode_attention_fwd(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, void* o, const void* page_table,
-    const void* cache_len, void* ws, void* cnt, int B, int Hq, int Hkv, int D,
+    const void* cache_len, int B, int Hq, int Hkv, int D,
     int page, int MP, int q_dtype, int kv_dtype, int window, float softcap,
-    float sm_scale, int split, void* stream) {
+    float sm_scale, void* stream) {
   return paged::run<paged_decode>(
-      {q, k_pages, v_pages, k_scale, v_scale, o, page_table, cache_len, ws,
-       cnt, B, 1, Hq, Hkv, D, page, MP, q_dtype, kv_dtype, window, split,
-       softcap, sm_scale, static_cast<cudaStream_t>(stream)});
+      {q, k_pages, v_pages, k_scale, v_scale, o, page_table, cache_len, B, 1,
+       Hq, Hkv, D, page, MP, q_dtype, kv_dtype, window, softcap, sm_scale,
+       static_cast<cudaStream_t>(stream)});
 }

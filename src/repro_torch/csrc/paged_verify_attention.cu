@@ -35,17 +35,16 @@ constexpr int kMaxK1 = 8;                      // spec_k_max <= 7
 }
 
 // Plain C entry point, loaded with ctypes.  q [B,K1,Hq,D] with 1 <= K1 <= 8;
-// the other arguments as for `paged_decode_attention_fwd`, with R = K1·G
-// query rows of a KV head in place of G in the workspace's size.
+// the other arguments as for `paged_decode_attention_fwd`.
 extern "C" int paged_verify_attention_fwd(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, void* o, const void* page_table,
-    const void* cache_len, void* ws, void* cnt, int B, int K1, int Hq,
+    const void* cache_len, int B, int K1, int Hq,
     int Hkv, int D, int page, int MP, int q_dtype, int kv_dtype, int window,
-    float softcap, float sm_scale, int split, void* stream) {
+    float softcap, float sm_scale, void* stream) {
   if (K1 > kMaxK1) return (int)cudaErrorInvalidValue;
   return paged::run<paged_verify>(
-      {q, k_pages, v_pages, k_scale, v_scale, o, page_table, cache_len, ws,
-       cnt, B, K1, Hq, Hkv, D, page, MP, q_dtype, kv_dtype, window, split,
-       softcap, sm_scale, static_cast<cudaStream_t>(stream)});
+      {q, k_pages, v_pages, k_scale, v_scale, o, page_table, cache_len, B, K1,
+       Hq, Hkv, D, page, MP, q_dtype, kv_dtype, window, softcap, sm_scale,
+       static_cast<cudaStream_t>(stream)});
 }

@@ -7,11 +7,9 @@ Replaces ``repro.kernels.paged_decode_attention.paged_decode_attention``
 card and how it is laid out.  This wrapper checks the inputs, allocates
 the output with ``torch.empty``, launches on PyTorch's current stream and
 counts the launch.  The kernel shares each sequence's keys over a cluster
-of blocks and combines their partials in the same launch.  ``SPLIT`` > 0
-selects, for one measurement, the design it was measured against: splits
-of that many keys combined through an f32 workspace and a counter per
-(sequence, KV head) that ``scratch`` allocates once per device, stream
-and shape.  The plain version is ``kernels.ref.paged_decode_attention``.
+of blocks and combines their partials in the same launch, through
+distributed shared memory: no workspace.  The plain version is
+``kernels.ref.paged_decode_attention``.
 """
 from __future__ import annotations
 
@@ -25,11 +23,7 @@ from repro_torch.kernels.flash_attention import (HEAD_DIMS, _aligned, _int32,
                                                  _ptr, refuse_grad)
 
 _Q_CODE = {torch.float32: 0, torch.bfloat16: 1}
-SPLIT = 0           # 0: clusters of 8 or 16 blocks; < 0: of -SPLIT; > 0:
-#                     splits of SPLIT keys through a workspace
-MAX_ROWS = 64       # query rows a block: more take more row groups
 _fn = None
-_scratch = {}
 
 
 def _entry():
@@ -37,8 +31,8 @@ def _entry():
     if _fn is None:
         f = build.load("paged_decode_attention").paged_decode_attention_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                      i, ctypes.c_float, ctypes.c_float, i, p]
+        f.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+                      ctypes.c_float, ctypes.c_float, p]
         f.restype = i
         _fn = f
     return _fn
@@ -105,26 +99,6 @@ def pool_args(name: str, q, k_pages, v_pages, page_table, cache_len,
                     2 if scaled else 0, Hkv, page, MP)
 
 
-def scratch(q: torch.Tensor, a: PoolArgs, R: int, D: int):
-    """The split combine's f32 workspace (one partial of ``min(R, 64)``
-    rows for each split of each (sequence, KV head, row group)) and its
-    int32 counters, zeroed once: each launch leaves them zero.  Kept per
-    device, stream and shape, so calls on one stream reuse them and never
-    allocate."""
-    if SPLIT <= 0:
-        return None, None
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    groups = q.shape[0] * a.Hkv * -(-R // MAX_ROWS)
-    n_split = -(-a.MP * a.page // SPLIT)
-    key = (q.device, stream, groups, n_split, min(R, MAX_ROWS), D)
-    if key not in _scratch:
-        _scratch[key] = (
-            torch.empty(groups * n_split * min(R, MAX_ROWS) * (D + 2),
-                        dtype=torch.float32, device=q.device),
-            torch.zeros(groups, dtype=torch.int32, device=q.device))
-    return _scratch[key]
-
-
 def paged_decode_attention(
     q: torch.Tensor,                  # [B, Hq, D]
     k_pages: torch.Tensor,            # [P, page, Hkv, D]
@@ -151,13 +125,12 @@ def paged_decode_attention(
     q = _aligned(q)
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
     scale = sm_scale if sm_scale is not None else D ** -0.5
-    ws, cnt = scratch(q, a, Hq // a.Hkv, D)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry()(_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(a.k_scale),
                    _ptr(a.v_scale), _ptr(out), _ptr(a.table), _ptr(a.clen),
-                   _ptr(ws), _ptr(cnt), B, Hq, a.Hkv, D, a.page, a.MP,
-                   _Q_CODE[q.dtype], a.kv_code, int(window), float(softcap),
-                   float(scale), SPLIT, ctypes.c_void_p(stream))
+                   B, Hq, a.Hkv, D, a.page, a.MP, _Q_CODE[q.dtype],
+                   a.kv_code, int(window), float(softcap), float(scale),
+                   ctypes.c_void_p(stream))
     if err != 0:
         raise build.KernelError(f"paged_decode_attention kernel launch "
                                 f"failed: CUDA error {err}")

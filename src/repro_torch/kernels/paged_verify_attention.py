@@ -6,8 +6,7 @@ Replaces ``repro.kernels.paged_verify_attention.paged_verify_attention``
 ``csrc/paged_verify_attention.cu`` for all ``K1·G`` query rows of a KV
 head; its header says what bounds it on the card and how it is laid out.
 This wrapper checks the inputs, allocates the output with ``torch.empty``,
-launches on PyTorch's current stream with the decode wrapper's workspace
-(``paged_decode_attention.scratch``) and counts the launch.  The plain
+launches on PyTorch's current stream and counts the launch.  The plain
 version is ``kernels.ref.paged_verify_attention``.
 """
 from __future__ import annotations
@@ -19,9 +18,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import _aligned, _ptr, refuse_grad
-from repro_torch.kernels import paged_decode_attention as pda
-from repro_torch.kernels.paged_decode_attention import (_Q_CODE, pool_args,
-                                                        scratch)
+from repro_torch.kernels.paged_decode_attention import _Q_CODE, pool_args
 
 MAX_K1 = 8          # query tokens per sequence the kernel takes
 _fn = None
@@ -32,8 +29,8 @@ def _entry():
     if _fn is None:
         f = build.load("paged_verify_attention").paged_verify_attention_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                      i, i, ctypes.c_float, ctypes.c_float, i, p]
+        f.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
+                      ctypes.c_float, ctypes.c_float, p]
         f.restype = i
         _fn = f
     return _fn
@@ -69,13 +66,12 @@ def paged_verify_attention(
     q = _aligned(q)
     out = torch.empty((B, K1, Hq, D), dtype=q.dtype, device=q.device)
     scale = sm_scale if sm_scale is not None else D ** -0.5
-    ws, cnt = scratch(q, a, K1 * (Hq // a.Hkv), D)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry()(_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(a.k_scale),
                    _ptr(a.v_scale), _ptr(out), _ptr(a.table), _ptr(a.clen),
-                   _ptr(ws), _ptr(cnt), B, K1, Hq, a.Hkv, D, a.page, a.MP,
-                   _Q_CODE[q.dtype], a.kv_code, int(window), float(softcap),
-                   float(scale), pda.SPLIT, ctypes.c_void_p(stream))
+                   B, K1, Hq, a.Hkv, D, a.page, a.MP, _Q_CODE[q.dtype],
+                   a.kv_code, int(window), float(softcap), float(scale),
+                   ctypes.c_void_p(stream))
     if err != 0:
         raise build.KernelError(f"paged_verify_attention kernel launch "
                                 f"failed: CUDA error {err}")
