@@ -17,7 +17,9 @@ continues:
    int8 pools for the paged kernels, K1 of 1, 2 and 5 for the verify
    kernel, which at K1 = 1 is also held against the paged decode kernel;
    both paged kernels timed at B 8 over 64 table entries, at B 1 with one
-   543-token sequence and at B 8 over 256 entries with lengths 1024-4095),
+   543-token sequence and at B 8 over 256 entries with lengths 1024-4095;
+   the dense decode kernel timed at the draft's G 8 and at zamba2's G 1,
+   and checked with lengths of 0, of S and past S),
    the forward (with lse, as the train step runs it) and the backward
    kernels at the train step's (causal, non-causal, window, softcap, an
    empty row, G 1, 8, 12 and 96, Tq < Tk, D 32/64/128, packed positions
@@ -86,9 +88,10 @@ continues:
 8. golden train: the JAX trainer's 5 fp32 steps from the fixture,
    replayed through the kernels from its step-0 state: losses and grad
    norms within 1e-4 relative, final parameters within 1e-4;
-9. the kernels line (each kernel's launches from the path that runs it:
+9. the kernels line (each kernel's launches from the paths that run it:
    per request for serving, per step for training; the SSD scan and
-   RMSNorm from mamba2's serve; flash attention's times at the serving
+   RMSNorm from mamba2's serve, the dense decode kernel from the
+   speculative and zamba2's serves; flash attention's times at the serving
    chunk, and as ``train_*`` at the train shape; other timed shapes under
    ``also_timed``, the launch floor, the stitched scans' final-state
    errors), then the last line
@@ -401,23 +404,26 @@ def _sdpa_paged(torch, F, args, kw):
         qt, kt, vt, attn_mask=mask[:, None])
 
 
-def _dense_case(torch, gen, dtype, S, D=64, window=0, softcap=0.0,
-                full=False):
-    """A draft decode step of the serving path: B 8, Hq 32, Hkv 4 over a
-    dense [B, S, Hkv, D] cache, valid lengths 36-543 (one row at S with
-    ``full``)."""
+def _dense_case(torch, gen, dtype, S, D=64, window=0, softcap=0.0, B=8,
+                Hq=32, Hkv=4, fix=None):
+    """A decode step of a dense [B, S, Hkv, D] cache: the draft's (B 8, Hq
+    32, Hkv 4) by default, zamba2's shared attention at Hq = Hkv = 32;
+    valid lengths 36-543, with ``fix`` setting some rows' lengths (S: a
+    full row; past S: clamped to S; 0: an empty row)."""
     dt = getattr(torch, dtype)
-    B, Hq, Hkv = 8, 32, 4
     q = torch.randn(B, Hq, D, generator=gen, device="cuda").to(dt)
     k = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dt)
     v = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dt)
     clen = torch.randint(36, 544, (B,), generator=gen, device="cuda",
                          dtype=torch.int32)
-    if full:
-        clen[0] = S
+    for row, n in (fix or {}).items():
+        clen[row] = n
     kw = dict(window=window, softcap=softcap)
-    n = np.minimum(clen.long().cpu().numpy(), S)
-    toks = int(np.minimum(n, window).sum() if window else n.sum())
+    # what the data needs: the keys in [cache_len - window, min(cache_len,
+    # S)) of each row, read once
+    c = clen.long().cpu().numpy()
+    lo = np.maximum(c - window, 0) if window else 0
+    toks = int(np.maximum(np.minimum(c, S) - lo, 0).sum())
     e = q.element_size()
     nbytes = 2 * q.numel() * e + 2 * toks * Hkv * D * e + 4 * B
     flops = 4 * D * toks * Hq
@@ -749,24 +755,44 @@ def phase_kernels(torch, timer, card):
                       f"vs the paged decode kernel rel_err={err:.3e}")
                 check(err < TOL[dtype], f"verify K1=1 vs paged decode {err}")
 
-    # the draft's dense decode steps: S 1024 is max_seq; 1000 is not a
-    # multiple of the 32-key tile
+    # the dense decode kernel at the two shapes the serving paths run it
+    # at, both timed: the draft's decode steps (G 8) and zamba2's shared
+    # attention (Hq = Hkv = 32, G 1); S 1024 is max_seq, 1000 is not a
+    # multiple of a key tile; then lengths that cross the blocks' shares
+    # of the key range (the third field: the key the times go under; the
+    # fourth: rows that must give exactly 0)
+    g1 = {"Hq": 32, "Hkv": 32}
     dense_cases = [
-        ("B8/S1024 decode", 1024, {}, True),
-        ("B8/S1024 window256", 1024, {"window": 256}, False),
-        ("B8/S1024 softcap30", 1024, {"softcap": 30.0}, False),
-        ("B8/S1000 full row", 1000, {"full": True}, False),
+        ("B8/S1024 decode", 1024, {}, "decode_attention", ()),
+        ("B8/Hkv32 G1 zamba2", 1024, g1, "decode_attention@zamba2", ()),
+        ("B8/S1024 window256", 1024, {"window": 256}, None, ()),
+        ("B8/S1024 softcap30", 1024, {"softcap": 30.0}, None, ()),
+        ("B8/S1000 full row", 1000, {"fix": {0: 1000}}, None, ()),
         ("B8/S1000 D32 window100+softcap30", 1000,
-         {"D": 32, "window": 100, "softcap": 30.0, "full": True}, False),
-        ("B8/S1024 D32", 1024, {"D": 32}, False),
+         {"D": 32, "window": 100, "softcap": 30.0, "fix": {0: 1000}}, None,
+         ()),
+        ("B8/S1024 D32", 1024, {"D": 32}, None, ()),
+        ("B1/S1000 one full row", 1000, {"B": 1, "fix": {0: 1000}}, None,
+         ()),
+        ("B8/Hkv32 G1 window100", 1024, dict(g1, window=100), None, ()),
+        ("B8/S1024 cache_len past S (clamped), window300", 1024,
+         {"window": 300, "fix": {0: 1100, 1: 1500}}, None, (1,)),
+        ("B8/S1024 a cache_len 0 row", 1024, {"fix": {2: 0}}, None, (2,)),
+        ("B8/Hkv32 G1 cache_len 0 and past S", 1024,
+         dict(g1, fix={3: 0, 4: 2000}), None, (3,)),
     ]
     for dtype in ("bfloat16", "float32"):
-        for label, S, extra, timed in dense_cases:
+        for label, S, extra, key, empty in dense_cases:
             args, kw, nb, fl = _dense_case(torch, gen, dtype, S, **extra)
             run("decode_attention", label, dtype, decode_attention,
                 ref.decode_attention, args, kw, nb, fl,
                 _sdpa_dense(torch, F, args, kw),
-                timed and dtype == "bfloat16")
+                key is not None and dtype == "bfloat16", key)
+            if empty:
+                out = decode_attention(*args, **kw)
+                check(bool((out[list(empty)] == 0).all()),
+                      f"decode_attention {label}: a row with no valid key "
+                      f"must give exactly 0")
     # the training path's backward kernels: timed at the train step's
     # shape, checked in every variant the path and the JAX tests take
     from repro_torch.kernels.flash_attention_bwd import (
@@ -1078,18 +1104,20 @@ def profile_decode(torch, eng, rng, steps: int = 10, label: str = "decode",
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
-    by_kernel = _device_ms(prof, steps)
+    counts = {}
+    by_kernel = _device_ms(prof, steps, counts)
     eng.run_until_drained()
     busy = sum(by_kernel.values())
     print(f"[profile] {label} tick, 8 rows: host wall {wall_ms:.2f} ms for "
           f"{toks:.1f} tokens ({wall_ms / toks:.2f} ms/token), device busy "
           f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}% of the wall; "
           f"{'measured' if by_kernel else 'no device time seen'})")
-    _print_kernels(by_kernel, busy)
+    _print_kernels(by_kernel, busy, counts)
 
 
-def _device_ms(prof, ticks: int = 1) -> dict:
-    """Device time per tick of each kernel in a ``torch.profiler`` run."""
+def _device_ms(prof, ticks: int = 1, counts: dict = None) -> dict:
+    """Device time per tick of each kernel in a ``torch.profiler`` run
+    (and, into ``counts``, its launches per tick)."""
     by_kernel = {}
     for ev in prof.key_averages():
         if not str(ev.device_type).endswith("CUDA"):
@@ -1099,22 +1127,32 @@ def _device_ms(prof, ticks: int = 1) -> dict:
             us = getattr(ev, "self_cuda_time_total", 0.0)
         if us > 0:
             by_kernel[ev.key] = us / 1e3 / ticks
+            if counts is not None:
+                counts[ev.key] = ev.count / ticks
     return by_kernel
 
 
-def _print_kernels(by_kernel: dict, busy: float, top: int = 8,
-                   shares=("ssd_scan", "rmsnorm", "paged_decode",
-                           "paged_verify")) -> None:
-    """The top kernels of a tick, then the hand-written SSM and paged
-    attention kernels' time by name and their share of the device busy
-    time."""
+# the hand-written kernels' share of a profiled tick, by a part of their
+# names: the SSM kernels, the paged kernels' instances and the dense
+# decode kernel
+SHARES = ("ssd_scan", "rmsnorm", "paged_decode", "paged_verify",
+          "decode_kernel")
+
+
+def _print_kernels(by_kernel: dict, busy: float, counts: dict,
+                   top: int = 8) -> None:
+    """The top kernels of a tick, then the hand-written SSM and attention
+    kernels' time and launches per tick by name and their share of the
+    device busy time."""
     for name, ms in sorted(by_kernel.items(), key=lambda x: -x[1])[:top]:
         print(f"[profile]   {ms:.4f} ms/tick  {name[:90]}")
-    for part in shares:
+    for part in SHARES:
         ms = sum(v for k, v in by_kernel.items() if part in k)
+        n = sum(v for k, v in counts.items() if part in k)
         if ms:
-            print(f"[profile]   {part} kernels {ms:.4f} ms/tick "
-                  f"({100 * ms / busy:.1f}% of the device busy time)")
+            print(f"[profile]   {part} kernels {ms:.4f} ms/tick, {n:.1f} "
+                  f"launches/tick ({ms / n:.4f} ms each; {100 * ms / busy:.1f}"
+                  f"% of the device busy time)")
 
 
 def profile_prefill(torch, eng, rng, label: str):
@@ -1140,13 +1178,14 @@ def profile_prefill(torch, eng, rng, label: str):
     check(tick[2] > 0 and tick[3] == 0,   # tokens, decode rows, tokens)
           f"{label}: the profiled tick is not a prefill tick: {tick}")
     eng.run_until_drained()
-    by_kernel = _device_ms(prof)
+    counts = {}
+    by_kernel = _device_ms(prof, 1, counts)
     busy = sum(by_kernel.values())
     print(f"[profile] {label} prefill tick, {tick[2]} tokens in chunks of "
           f"{eng.chunk_tokens}: host wall {wall_ms:.2f} ms, device busy "
           f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}% of the wall; "
           f"{'measured' if by_kernel else 'no device time seen'})")
-    _print_kernels(by_kernel, busy)
+    _print_kernels(by_kernel, busy, counts)
 
 
 # ---------------------------------------------------------------------------
@@ -1974,14 +2013,16 @@ KERNELS = {
         route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm.py:41"),
 }
-# the path each kernel's launch count comes from, and that path's unit
-PATH_OF = {"flash_attention": "serve", "paged_decode_attention": "serve",
-           "paged_verify_attention": "spec", "decode_attention": "spec",
-           "flash_attention_bwd_dq": "train",
-           "flash_attention_bwd_dkv": "train",
-           "ssd_scan": "mamba2", "rmsnorm": "mamba2"}
+# the paths each kernel's launch count comes from, and each path's unit
+PATH_OF = {"flash_attention": ("serve",),
+           "paged_decode_attention": ("serve",),
+           "paged_verify_attention": ("spec",),
+           "decode_attention": ("spec", "zamba2"),
+           "flash_attention_bwd_dq": ("train",),
+           "flash_attention_bwd_dkv": ("train",),
+           "ssd_scan": ("mamba2",), "rmsnorm": ("mamba2",)}
 UNIT_OF = {"serve": "request", "spec": "request", "train": "step",
-           "mamba2": "request"}
+           "mamba2": "request", "zamba2": "request"}
 
 
 def main() -> int:
@@ -2002,8 +2043,8 @@ def main() -> int:
     timer = Timer(torch)
     kernels = phase_kernels(torch, timer, card)
     paths = {"serve": phase_serve(torch), "spec": phase_spec_serve(torch),
-             "mamba2": phase_ssm_serve(torch, "mamba2-2.7b")}
-    phase_ssm_serve(torch, "zamba2-1.2b")
+             "mamba2": phase_ssm_serve(torch, "mamba2-2.7b"),
+             "zamba2": phase_ssm_serve(torch, "zamba2-1.2b")}
     phase_consistency(torch)
     phase_ssm_consistency(torch)
     phase_spec_exactness(torch)
@@ -2014,12 +2055,14 @@ def main() -> int:
     line = []
     for name, meta in KERNELS.items():
         k = kernels[name]
-        path = PATH_OF[name]
-        launches, n_units = paths[path]
-        line.append({"name": name, **meta, "launches": launches[name],
-                     f"launches_per_{UNIT_OF[path]}":
-                         launches[name] / n_units,
-                     "path": path,
+        by_path = {}
+        for path in PATH_OF[name]:
+            launches, n_units = paths[path]
+            by_path[path] = {"launches": launches[name],
+                             f"per_{UNIT_OF[path]}": launches[name] / n_units}
+        line.append({"name": name, **meta,
+                     "launches": sum(v["launches"] for v in by_path.values()),
+                     "launches_by_path": by_path,
                      **{key: k[key] for key in (
                          "max_abs_err", "rel_err", "err_by_dtype", "ms",
                          "plain_ms", "bound_ms", "bound_by", "library_ms")},

@@ -76,6 +76,27 @@ DECODE_CASES = [
     (2, 8, 2, 32, 96, 40, 0.0),
     (2, 4, 4, 32, 64, 0, 20.0),
     (1, 16, 2, 128, 70, 16, 30.0),
+    # G 1 (zamba2's shared attention), G 1 with a window, and B 1 with one
+    # 122-token row (on the CPU: neither a multiple of 16 nor of 64)
+    (2, 8, 8, 64, 100, 0, 0.0),
+    (2, 4, 4, 32, 96, 40, 0.0),
+    (1, 8, 1, 64, 123, 0, 0.0),
+]
+# the card only: the serving shapes (the draft's G 8 and zamba2's G 1 over
+# S 1024) with lengths that cross the blocks' shares of the key range,
+# lengths of S, past S (clamped to S) and 0 (exactly 0), and windows
+# across the shares
+DECODE_GPU_CASES = [
+    # B, Hq, Hkv, D, S, window, softcap, lengths (None: random 36-543)
+    (8, 32, 32, 64, 1024, 0, 0.0, None),
+    (8, 32, 4, 64, 1024, 0, 0.0, None),
+    (8, 32, 32, 64, 1024, 100, 0.0, None),
+    (8, 32, 4, 64, 1024, 300, 30.0, None),
+    (6, 32, 4, 64, 1024, 0, 0.0, [1024, 1100, 5000, 0, 1, 65]),
+    (6, 32, 32, 64, 1024, 300, 0.0, [1024, 1100, 1400, 0, 301, 700]),
+    (3, 8, 8, 64, 512, 0, 0.0, [0, 200, 512]),
+    (1, 32, 32, 64, 1000, 0, 0.0, [1000]),
+    (1, 8, 1, 128, 4096, 1000, 0.0, [4001]),
 ]
 # the SSD scan: T 1, 63, 64, 100, 257 and 511 around the chunk and the
 # kernel's 64-row tiles (its bounds mask stands in for the JAX padding),
@@ -308,6 +329,66 @@ def test_decode_kernel_matches_plain(case, dtype, cuda):
     want = ref.decode_attention(q, k, v, clen, **kw)
     torch.cuda.synchronize()
     assert got.dtype == dtype and _rel(want, got) < TOL[dtype]
+
+
+def _dense_inputs(g, B, Hq, Hkv, D, S, lengths, dtype, cuda):
+    q = torch.randn(B, Hq, D, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, S, Hkv, D, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, S, Hkv, D, generator=g, device=cuda).to(dtype)
+    clen = torch.randint(36, 544, (B,), generator=g, device=cuda,
+                         dtype=torch.int32) if lengths is None else \
+        torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    return q, k, v, clen
+
+
+@pytest.mark.parametrize("case", DECODE_GPU_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_serving_shapes(case, dtype, cuda):
+    """Rows whose keys (after the window) are none give exactly 0."""
+    B, Hq, Hkv, D, S, window, softcap, lengths = case
+    g = torch.Generator(device=cuda).manual_seed(S + Hkv + window)
+    q, k, v, clen = _dense_inputs(g, B, Hq, Hkv, D, S, lengths, dtype, cuda)
+    kw = dict(window=window, softcap=softcap)
+    got = ops.decode_attention(q, k, v, clen, **kw)
+    want = ref.decode_attention(q, k, v, clen, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert got.dtype == dtype and _rel(want, got) < TOL[dtype]
+    c = clen.long()
+    empty = (torch.clamp(c, max=S) <= (c - window if window else 0)) \
+        | (c == 0)
+    assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_every_head_dim(D, G, dtype, cuda):
+    g = torch.Generator(device=cuda).manual_seed(D + G)
+    q, k, v, clen = _dense_inputs(g, 4, 4 * G, 4, D, 1024, None, dtype,
+                                  cuda)
+    got = ops.decode_attention(q, k, v, clen)
+    want = ref.decode_attention(q, k, v, clen)
+    torch.cuda.synchronize()
+    assert _rel(want, got) < TOL[dtype]
+
+
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_equals_paged_over_one_page(G, dtype, cuda):
+    """A dense cache [B, S, Hkv, D] is a page pool of B pages of S keys
+    with the identity table: the dense kernel agrees with the paged decode
+    kernel on it within the tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(G)
+    B, S = 8, 1024
+    q, k, v, clen = _dense_inputs(g, B, 4 * G, 4, 64, S, None, dtype, cuda)
+    table = torch.arange(B, dtype=torch.int32, device=cuda)[:, None]
+    for window in (0, 300):
+        dense = ops.decode_attention(q, k, v, clen, window=window)
+        paged = ops.paged_decode_attention(q, k, v, table, clen,
+                                           window=window)
+        torch.cuda.synchronize()
+        assert _rel(paged, dense) < TOL[dtype]
 
 
 def test_verify_and_decode_ignore_stale_keys(cuda):
