@@ -10,7 +10,8 @@ continues:
    all at once; registers and spills of each kernel, and no tensor-core
    kernel may spill), the tensor-core instructions of every kernel counted
    in its SASS (the bf16 SSD scan's must have some, the fp32 scan's none;
-   so must every bf16 instance of the paged kernels, and no fp32 one),
+   so must every bf16 instance of the paged and dense decode attention
+   kernels, and no fp32 one),
    TF32 off for matmuls and cuDNN;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (bf16 and fp32, window and softcap variants,
@@ -19,7 +20,8 @@ continues:
    both paged kernels timed at B 8 over 64 table entries, at B 1 with one
    543-token sequence and at B 8 over 256 entries with lengths 1024-4095;
    the dense decode kernel timed at the draft's G 8 and at zamba2's G 1,
-   and checked with lengths of 0, of S and past S),
+   also with each cluster size of 1-16 blocks in turns, and checked with
+   lengths of 0, of S and past S),
    the forward (with lse, as the train step runs it) and the backward
    kernels at the train step's (causal, non-causal, window, softcap, an
    empty row, G 1, 8, 12 and 96, Tq < Tk, D 32/64/128, packed positions
@@ -267,9 +269,11 @@ def phase_device_and_build(torch):
     check(tc and all(tc) and f32 and not any(f32),
           f"ssd_scan: bf16 kernels without or fp32 kernels with tensor-core "
           f"instructions: {ops}")
-    # the paged kernels' instances (the q dtype is their second template
-    # argument): HMMA in every bf16 one, none in an fp32 one
-    for name in ("paged_decode_attention", "paged_verify_attention"):
+    # the instances of the paged kernels and of the dense decode kernel
+    # (the q dtype is their second template argument): HMMA in every bf16
+    # one, none in an fp32 one
+    for name in ("paged_decode_attention", "paged_verify_attention",
+                 "decode_attention"):
         inst = {k: v for k, v in _tensor_core_ops(build, name, True).items()
                 if "paged_attention_kernel<" in k}
         bf = [v for k, v in inst.items()
@@ -602,7 +606,8 @@ def phase_kernels(torch, timer, card):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_cluster)
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_decode_attention import \
         paged_decode_attention
@@ -793,6 +798,39 @@ def phase_kernels(torch, timer, card):
                 check(bool((out[list(empty)] == 0).all()),
                       f"decode_attention {label}: a row with no valid key "
                       f"must give exactly 0")
+    # the dense kernel's cluster size at both timed shapes: each size of
+    # 1-16 blocks a (sequence, KV head) checked against the plain version
+    # and timed in turns (1, 2, 4, 8, 16, 16, 8, 4, 2, 1); the kernel's own
+    # choice is the size whose fp32 output (where the order of the partial
+    # sums shows) equals the default launch's bit for bit
+    sizes = (1, 2, 4, 8, 16)
+    sweep = {}
+    for label, S, extra, key, _ in dense_cases:
+        if key is None:
+            continue
+        args, kw, _, _ = _dense_case(torch, gen, "bfloat16", S, **extra)
+        want = ref.decode_attention(*args, **kw)
+        f32 = [x.float() if x.is_floating_point() else x for x in args]
+        default = decode_attention(*f32, **kw)
+        times, picked = {c: [] for c in sizes}, []
+        for c in sizes:
+            got = decode_attention_cluster(*args, c, **kw)
+            torch.cuda.synchronize()
+            err = rel_err(want, got)
+            check(err < TOL["bfloat16"],
+                  f"decode_attention {label} cluster {c}: {err}")
+            if torch.equal(decode_attention_cluster(*f32, c, **kw), default):
+                picked.append(c)
+        for c in sizes + sizes[::-1]:
+            times[c].append(timer.ms(
+                lambda c=c: decode_attention_cluster(*args, c, **kw)))
+        check(len(picked) == 1, f"decode_attention {label}: the default "
+              f"launch equals the cluster sizes {picked}")
+        sweep[label] = dict(picked=picked[0], ms=times)
+        print(f"[kernel] decode_attention {label} bfloat16 by cluster size "
+              f"(ms, in turns): " + ", ".join(
+                  f"{c}: {t[0]:.4f}/{t[1]:.4f}" for c, t in times.items())
+              + f"; the kernel picks {picked[0]} on {card}")
     # the training path's backward kernels: timed at the train step's
     # shape, checked in every variant the path and the JAX tests take
     from repro_torch.kernels.flash_attention_bwd import (
@@ -950,6 +988,7 @@ def phase_kernels(torch, timer, card):
                 errs[n] = rel_err(ref.ssd_scan(*pre, **kw)[1], got)
             del args, kw, pre, got
     results["ssd_scan"]["stitched_state_rel_err"] = state_err
+    results["decode_attention"]["cluster_sweep"] = sweep
     print(f"[kernel] ssd_scan final state over 64-token calls, rel_err by "
           f"tokens: {state_err}")
 
@@ -1136,7 +1175,7 @@ def _device_ms(prof, ticks: int = 1, counts: dict = None) -> dict:
 # names: the SSM kernels, the paged kernels' instances and the dense
 # decode kernel
 SHARES = ("ssd_scan", "rmsnorm", "paged_decode", "paged_verify",
-          "decode_kernel")
+          "dense_decode")
 
 
 def _print_kernels(by_kernel: dict, busy: float, counts: dict,
@@ -1998,7 +2037,8 @@ KERNELS = {
         route="cuda", source="src/repro_torch/csrc/paged_verify_attention.cu",
         replaces="src/repro/kernels/paged_verify_attention.py:154"),
     "decode_attention": dict(
-        route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
+        route="cuda", source="src/repro_torch/csrc/paged_attention.cuh",
+        entry="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:99"),
     "flash_attention_bwd_dq": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -2079,9 +2119,9 @@ def main() -> int:
                              "bound_by", "library_ms")}
                          for k in sorted(kernels)
                          if k.startswith(f"{name}@") and k != f"{name}@train"],
-                     **({"stitched_state_rel_err":
-                         k["stitched_state_rel_err"]}
-                        if "stitched_state_rel_err" in k else {}),
+                     **({key: k[key] for key in (
+                         "stitched_state_rel_err", "cluster_sweep")
+                         if key in k}),
                      "launch_floor_ms": kernels["launch_floor_ms"]})
     print(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s "
           f"on {card}")

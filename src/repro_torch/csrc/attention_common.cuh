@@ -3,8 +3,7 @@
 // attention kernels'): element
 // conversions, 16-byte vector loads, warp reductions, the masking
 // constant of the JAX kernels (`NEG_INF = -0.7 * f32max`), the logit
-// softcap, the online-softmax tile step and the K/V tile loader of the
-// decode-style kernels (16-byte loads one tile ahead, int8 scales).
+// softcap and the online-softmax tile step.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -122,72 +121,5 @@ __device__ __forceinline__ void softmax_pv_tile(
     }
   }
 }
-
-// Brings 32-key tiles of K and V (and, with SCALED, their per-token int8
-// scales) from device memory into shared memory for a block of THREADS
-// threads.  `fetch` issues a tile's 16-byte loads into registers, `stash`
-// writes them to shared memory (K transposed, kT_s[d * 32 + key]; V
-// row-major), so a caller fetches the next tile before computing the
-// current one and the loads overlap the arithmetic.  `row(pos)` gives the
-// (token, KV head) row of key `pos`: its K/V values start at row * D and
-// its scale sits at row.  Keys at or past `n_keys` are not loaded but
-// zeroed, so stale rows (a rejected speculative suffix, the trash page)
-// never reach shared memory.  K is spread key-fastest over the threads
-// (its transposed store hits 32 banks), V chunk-fastest.
-template <typename TKV, int D, int THREADS, bool SCALED>
-struct KVTileLoader {
-  static constexpr int VEC = 16 / sizeof(TKV);   // elements per 16-byte load
-  static constexpr int RV = D / VEC;             // loads per key row
-  static constexpr int TV = kBK * RV;            // loads per tile (K or V)
-  static constexpr int NV = (TV + THREADS - 1) / THREADS;
-  uint4 kreg[NV], vreg[NV];
-  float ksreg = 0.f, vsreg = 0.f;
-
-  template <typename Row>
-  __device__ __forceinline__ void fetch(const TKV* __restrict__ k,
-                                        const TKV* __restrict__ v,
-                                        const float* __restrict__ ks,
-                                        const float* __restrict__ vs, int k0,
-                                        int n_keys, Row row) {
-#pragma unroll
-    for (int n = 0; n < NV; ++n) {
-      const int idx = threadIdx.x + n * THREADS;
-      const int kpos = k0 + idx % kBK, vpos = k0 + idx / RV;
-      kreg[n] = vreg[n] = make_uint4(0, 0, 0, 0);
-      if (idx < TV && kpos < n_keys)
-        kreg[n] = load16(k + row(kpos) * D + (idx / kBK) * VEC);
-      if (idx < TV && vpos < n_keys)
-        vreg[n] = load16(v + row(vpos) * D + (idx % RV) * VEC);
-    }
-    if (SCALED && threadIdx.x < kBK) {
-      const int pos = k0 + threadIdx.x;
-      ksreg = vsreg = 0.f;
-      if (pos < n_keys) {
-        ksreg = ks[row(pos)];
-        vsreg = vs[row(pos)];
-      }
-    }
-  }
-
-  __device__ __forceinline__ void stash(float* kT_s, float* v_s, float* ks_s,
-                                        float* vs_s) const {
-#pragma unroll
-    for (int n = 0; n < NV; ++n) {
-      const int idx = threadIdx.x + n * THREADS;
-      if (idx >= TV) continue;
-      const int kc = (idx / kBK) * VEC, kj = idx % kBK;
-      const int vj = idx / RV, vc = (idx % RV) * VEC;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        kT_s[(kc + e) * kBK + kj] = elem<TKV>(kreg[n], e);
-        v_s[vj * D + vc + e] = elem<TKV>(vreg[n], e);
-      }
-    }
-    if (SCALED && threadIdx.x < kBK) {
-      ks_s[threadIdx.x] = ksreg;
-      vs_s[threadIdx.x] = vsreg;
-    }
-  }
-};
 
 }  // namespace attn

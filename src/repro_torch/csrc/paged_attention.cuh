@@ -1,7 +1,11 @@
-// The kernel of paged decode and paged verify attention, for Hopper
-// (sm_90a).  `paged_decode_attention.cu` and `paged_verify_attention.cu`
-// each instantiate it behind their own C entry point; decode is verify
-// with one query token (K1 = 1).
+// The kernel of paged decode, paged verify and dense decode attention,
+// for Hopper (sm_90a).  `paged_decode_attention.cu`,
+// `paged_verify_attention.cu` and `decode_attention.cu` each instantiate
+// it behind their own C entry point; decode is verify with one query token
+// (K1 = 1), and a dense cache [B,S,Hkv,D] is a pool of B pages of S keys
+// read through the identity table, which the `dense_decode` kind computes
+// in place of a table slice (its key at `pos` of sequence b sits at row
+// (b·S + pos)·Hkv + h).
 //
 // Function.  The R = K1·G query rows of one (sequence, KV head), laid out
 // as the JAX wrapper lays them out (row r = i·G + g is query token i of
@@ -35,10 +39,13 @@
 // Design.
 // - The split: the visible key range [first, n_keys) of each (sequence,
 //   KV head, group of 64 query rows) is shared by a thread-block cluster
-//   of 8 blocks (16 when the clusters of 16 fit the card's 132 SMs in one
-//   wave: B·Hkv·row groups <= 8), in even shares of a multiple of 16
-//   keys.  At the serving shape (B 8, Hkv 4, lengths 36-543) that is 256
-//   blocks of 1-2 tiles each.
+//   of cl blocks in even shares of a multiple of 16 keys.  The paged
+//   kinds take 8 (16 when the clusters of 16 fit the card's 132 SMs in
+//   one wave: B·Hkv·row groups <= 8); at the serving shape (B 8, Hkv 4,
+//   lengths 36-543) that is 256 blocks of 1-2 tiles each.  The dense kind
+//   sizes cl to the grid (`dense_cluster`), down to one block a
+//   (sequence, KV head), which takes no cluster at all: its warps' partials
+//   meet in its own shared memory after one block barrier.
 // - The combine happens in the same launch, through distributed shared
 //   memory: every warp writes its rows' (m, l, acc) straight into the
 //   shared memory of the block that owns the row (row r: block r % cl),
@@ -53,12 +60,12 @@
 //   remote store, so no store reaches a block that has not started.
 // - The block: 4 warps, all R rows of its row group (up to 64), so the KV
 //   of a (sequence, KV head) is read once a call for every K1·G row.  It
-//   asks for q and the cache length at once, then for its slice of the
-//   page table.  K and V come into shared memory in their own dtype by
-//   16-byte cp.async, 64 keys a tile, in a ring of 3 stages (2 in fp32),
-//   each key finding its page through the table.  Keys at or past
-//   the block's end are not loaded but zero-filled, and masked, so stale
-//   rows never reach a product.  int8 tiles widen to the compute dtype in
+//   asks for q and the cache length at once, then (paged kinds) for its
+//   slice of the page table.  K and V come into shared memory in their own
+//   dtype by 16-byte cp.async, 64 keys a tile, in a ring of 3 stages (2 in
+//   fp32), each key finding its page through the table (or its dense row).
+//   Keys at or past the block's end are not loaded but zero-filled, and
+//   masked, so stale rows never reach a product.  int8 tiles widen to the compute dtype in
 //   shared memory (exactly: an int8 value fits bf16's 8 significant bits).
 // - Warps split a tile's keys 4 ways (up to 16 rows: one or two n8 row
 //   tiles a warp), or 2 or 1 ways with the rows split over the rest (KW
@@ -82,6 +89,12 @@
 
 #include "flash_common.cuh"
 
+// The entry points' kinds: each names its kernel in profiles, and
+// `kDense` selects the dense row map in place of the page table.
+struct paged_decode { static constexpr bool kDense = false; };
+struct paged_verify { static constexpr bool kDense = false; };
+struct dense_decode { static constexpr bool kDense = true; };
+
 namespace paged {
 namespace {
 
@@ -103,8 +116,9 @@ constexpr int kMaxRows = 64;     // query rows a block (a row group)
 // Byte offsets of a block's shared memory.  TC is the compute dtype (the
 // q dtype), TKV the pools'.  The ring holds NS stages of K and V tiles in
 // the pools' dtype; for int8 they widen into one compute tile each.  The
-// block's slice of the page table follows, then the inbox that the
-// cluster's warps write their partials of this block's rows into.  Compute
+// block's slice of the page table follows (none for a dense cache), then
+// the inbox that the cluster's warps write their partials of this block's
+// rows into.  Compute
 // rows are padded by 16 bytes, so the 8 rows an ldmatrix reads start in
 // different bank groups.
 template <typename TC, typename TKV, int D>
@@ -137,7 +151,7 @@ struct Params {
   int K1, Hq, Hkv, G, R, RG, page, MP, window;
   int tab;                         // table entries a block copies, at most
   float softcap, sm_scale;
-};
+};  // a dense cache: page = S, MP = 1, no table
 
 // ---------------------------------------------------------------------------
 // a warp's products over 16 keys: Sᵀ = K·qᵀ into s[j][e], Oᵀ += Vᵀ·Pᵀ into
@@ -351,16 +365,17 @@ __device__ __forceinline__ void widen(const int8_t* k8, const int8_t* v8,
 }
 
 // One block per (share, KV head and row group, sequence): grid (cl,
-// Hkv·RG, B) in clusters of (cl, 1, 1).  NTW row tiles of 8 a warp, KW key
-// slices a tile.  `Kind` names the entry point (`paged_decode`,
-// `paged_verify`) in profiles; nothing else.
+// Hkv·RG, B) in clusters of (cl, 1, 1), or no cluster when cl is 1.  NTW
+// row tiles of 8 a warp, KW key slices a tile.  `Kind` names the entry
+// point (`paged_decode`, `paged_verify`, `dense_decode`) in profiles and
+// picks the row map.
 template <typename Kind, typename TC, typename TKV, int D, int NTW, int KW>
 __global__ void __launch_bounds__(kThreads,
                                   sizeof(TC) == 2 && D <= 64 ? 3 : 2)
     paged_attention_kernel(
     const Params p) {
   using L = Layout<TC, TKV, D>;
-  constexpr bool SCALED = L::kScaled;
+  constexpr bool SCALED = L::kScaled, DENSE = Kind::kDense;
   constexpr int NS = L::NS, CS = L::CS, RS = L::RS, MD = D / 16;
   extern __shared__ __align__(16) uint8_t smem[];
   TC* q_s = reinterpret_cast<TC*>(smem + L::Q);
@@ -382,7 +397,11 @@ __global__ void __launch_bounds__(kThreads,
 
   // this block has started (the combine writes into the others' shared
   // memory); q comes in while the length does
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  // (a paged kind always runs in clusters)
+  const int cl = (int)gridDim.x, rank = (int)blockIdx.x;
+  const bool clustered = !DENSE || cl > 1;
+  if (clustered)
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   const int valid = __ldg(p.clen + b);
   constexpr int QV = 16 / (int)sizeof(TC), QC = D / QV;
   for (int i = tid; i < kMaxRows * QC; i += kThreads) {
@@ -401,19 +420,25 @@ __global__ void __launch_bounds__(kThreads,
                                  : 0;
   const int share =
       ((max(0, n_keys - first) + gridDim.x - 1) / gridDim.x + 15) / 16 * 16;
-  const int lo = first + (int)blockIdx.x * share;
+  const int lo = first + rank * share;
   const int hi = min(n_keys, lo + share);
-  // the table entries of this share
+  // the table entries of this share (a dense cache needs none)
   const int pg0 = lo / p.page;
-  const int npg = hi > lo ? (hi - 1) / p.page - pg0 + 1 : 0;
-  for (int i = tid; i < npg; i += kThreads)
-    tab_s[i] = p.table[(size_t)b * p.MP + pg0 + i];
-  __syncthreads();
-  // (pool row, KV head) of the key at `pos`
-  auto row_of = [&](int pos) {
-    const int pi = pos / p.page;
-    return ((size_t)tab_s[pi - pg0] * p.page + (pos - pi * p.page)) * p.Hkv +
-           h;
+  if constexpr (!DENSE) {
+    const int npg = hi > lo ? (hi - 1) / p.page - pg0 + 1 : 0;
+    for (int i = tid; i < npg; i += kThreads)
+      tab_s[i] = p.table[(size_t)b * p.MP + pg0 + i];
+    __syncthreads();
+  }
+  // (pool row, KV head) of the key at `pos`: page b of a dense cache
+  auto row_of = [&](int pos) -> size_t {
+    if constexpr (DENSE) {
+      return ((size_t)b * p.page + pos) * p.Hkv + h;
+    } else {
+      const int pi = pos / p.page;
+      return ((size_t)tab_s[pi - pg0] * p.page + (pos - pi * p.page)) *
+                 p.Hkv + h;
+    }
   };
   auto ring = [&](int st, int t) {
     return reinterpret_cast<TKV*>(smem + L::RING + (2 * st + t) * L::TILE);
@@ -567,13 +592,13 @@ __global__ void __launch_bounds__(kThreads,
         l[j][c] += __shfl_xor_sync(kFull, l[j][c], off);
   // every warp's partial straight into the inbox of the block that owns
   // the row (row r: block r % cl), then one cluster barrier, and each
-  // block combines its own rows from its own shared memory
+  // block combines its own rows from its own shared memory (with no
+  // cluster, the block's own inbox and a block barrier)
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
-  const int cl = (int)gridDim.x, rank = (int)blockIdx.x;
   const int rpo = (Rb + cl - 1) / cl, src = rank * KW + ks;
   float* inbox = reinterpret_cast<float*>(smem + L::INBOX(p.tab));
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (clustered) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 #pragma unroll
   for (int j = 0; j < NTW; ++j) {
     if (rt[j] >= NT) continue;
@@ -581,8 +606,9 @@ __global__ void __launch_bounds__(kThreads,
     for (int c = 0; c < 2; ++c) {
       const int r = 8 * rt[j] + 2 * (lane % 4) + c;
       if (r >= Rb) continue;
-      float* dst = cluster.map_shared_rank(inbox, r % cl) +
-                   (src * rpo + r / cl) * (D + 2);
+      float* dst =
+          (clustered ? cluster.map_shared_rank(inbox, r % cl) : inbox) +
+          (src * rpo + r / cl) * (D + 2);
       if (lane < 4) {
         dst[D] = m[j][c];
         dst[D + 1] = l[j][c];
@@ -594,7 +620,10 @@ __global__ void __launch_bounds__(kThreads,
           dst[16 * md + lane / 4 + 8 * dh] = acc[md][j][2 * dh + c];
     }
   }
-  cluster.sync();
+  if (clustered)
+    cluster.sync();
+  else
+    __syncthreads();
   const int ns = cl * KW, pstride = rpo * (D + 2);
   for (int e = tid; e < rpo * D; e += kThreads) {
     const int lr = e / D, d = e % D, r = rank + cl * lr;
@@ -624,6 +653,7 @@ struct Call {
   const void *table, *clen;
   int B, K1, Hq, Hkv, D, page, MP, q_dtype, kv_dtype, window;
   float softcap, sm_scale;
+  int cluster;                     // blocks a cluster; 0: the kind's rule
   cudaStream_t stream;
 };
 
@@ -633,17 +663,30 @@ inline int table_slice(int MP, int keys, int page) {
   return n < MP ? n : MP;
 }
 
-// The cluster: 16 blocks a (sequence, KV head, row group) when the
-// clusters of 16 fit the card's 132 SMs in one wave, else 8.
+// The paged kinds' cluster: 16 blocks a (sequence, KV head, row group)
+// when the clusters of 16 fit the card's 132 SMs in one wave, else 8.
 inline int cluster_size(int groups) { return groups * 16 <= 132 ? 16 : 8; }
+
+// The dense kind's cluster: the most blocks a (sequence, KV head, row
+// group), up to 16, that keep the grid within one block an SM (the draft's
+// 32 groups: 4; zamba2's 256: 1, no cluster).  Measured against 1-16 at
+// both (`PERF.md` §6).
+inline int dense_cluster(int groups) {
+  int cl = 16;
+  while (cl > 1 && groups * cl > 132) cl /= 2;
+  return cl;
+}
 
 template <typename Kind, typename TC, typename TKV, int D, int NTW, int KW>
 cudaError_t launch(const Call& c, Params p) {
   using L = Layout<TC, TKV, D>;
-  const int cl = cluster_size(c.B * c.Hkv * p.RG);
+  const int groups = c.B * c.Hkv * p.RG;
+  const int cl = c.cluster > 0      ? c.cluster
+                 : Kind::kDense     ? dense_cluster(groups)
+                                    : cluster_size(groups);
   const int share = ((c.MP * c.page + cl - 1) / cl + 15) / 16 * 16;
   const int rows = p.R < kMaxRows ? p.R : kMaxRows;
-  p.tab = table_slice(c.MP, share, c.page);
+  p.tab = Kind::kDense ? 0 : table_slice(c.MP, share, c.page);
   const size_t smem = L::bytes(p.tab, cl * KW, (rows + cl - 1) / cl);
   auto kernel = paged_attention_kernel<Kind, TC, TKV, D, NTW, KW>;
   cudaError_t err = flash::set_smem(kernel, smem);
@@ -662,7 +705,7 @@ cudaError_t launch(const Call& c, Params p) {
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = cl > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, kernel, p);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
@@ -683,7 +726,8 @@ cudaError_t by_rows(const Call& c, const Params& p) {
 template <typename Kind, typename TC, int D>
 cudaError_t by_kv(const Call& c, const Params& p) {
   if (c.kv_dtype == 0) return by_rows<Kind, TC, TC, D>(c, p);
-  if (c.kv_dtype == 2) return by_rows<Kind, TC, int8_t, D>(c, p);
+  if constexpr (!Kind::kDense)     // a dense cache is in the q dtype
+    if (c.kv_dtype == 2) return by_rows<Kind, TC, int8_t, D>(c, p);
   return cudaErrorInvalidValue;
 }
 
@@ -701,7 +745,8 @@ cudaError_t by_dim(const Call& c, const Params& p) {
 template <typename Kind>
 int run(const Call& c) {
   if (c.Hkv <= 0 || c.Hq % c.Hkv != 0 || c.page <= 0 || c.MP <= 0 ||
-      c.K1 < 1)
+      c.K1 < 1 || c.cluster < 0 || c.cluster > 16 ||
+      (c.cluster & (c.cluster - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   if (c.kv_dtype == 2 && (c.ks == nullptr || c.vs == nullptr))
     return (int)cudaErrorInvalidValue;

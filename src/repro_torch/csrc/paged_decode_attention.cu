@@ -25,8 +25,6 @@
 
 #include "paged_attention.cuh"
 
-struct paged_decode;  // names the kernel in profiles
-
 // Plain C entry point, loaded with ctypes.  q_dtype: 0 = float32,
 // 1 = bfloat16; kv_dtype: 0 = the q dtype, 2 = int8 (k_scale and v_scale
 // [P,page,Hkv] f32 then required).  page_table [B,MP] and cache_len [B] are
@@ -41,5 +39,5 @@ extern "C" int paged_decode_attention_fwd(
   return paged::run<paged_decode>(
       {q, k_pages, v_pages, k_scale, v_scale, o, page_table, cache_len, B, 1,
        Hq, Hkv, D, page, MP, q_dtype, kv_dtype, window, softcap, sm_scale,
-       static_cast<cudaStream_t>(stream)});
+       0, static_cast<cudaStream_t>(stream)});
 }
