@@ -805,11 +805,10 @@ def phase_kernels(torch, timer, card):
     # sums shows) equals the default launch's bit for bit
     sizes = (1, 2, 4, 8, 16)
     sweep = {}
-    sgen = torch.Generator(device="cuda").manual_seed(1)
     for label, S, extra, key, _ in dense_cases:
         if key is None:
             continue
-        args, kw, _, _ = _dense_case(torch, sgen, "bfloat16", S, **extra)
+        args, kw, _, _ = _dense_case(torch, gen, "bfloat16", S, **extra)
         want = ref.decode_attention(*args, **kw)
         f32 = [x.float() if x.is_floating_point() else x for x in args]
         default = decode_attention(*f32, **kw)
@@ -832,40 +831,6 @@ def phase_kernels(torch, timer, card):
               f"(ms, in turns): " + ", ".join(
                   f"{c}: {t[0]:.4f}/{t[1]:.4f}" for c, t in times.items())
               + f"; the kernel picks {picked[0]} on {card}")
-    # several KV heads a block at zamba2's G 1 (each row seeing its own
-    # head's keys among the block's (position, head) pairs): (heads,
-    # cluster) pairs checked in both dtypes, with a window and with
-    # lengths of 0 and past S, and timed in turns against one head a block
-    combos = ((1, 1), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4), (8, 4), (8, 8))
-    heads_sweep = {}
-    for label, S, extra, key, empty in dense_cases:
-        if not label.startswith("B8/Hkv32 G1"):
-            continue
-        for dtype in ("bfloat16", "float32"):
-            args, kw, _, _ = _dense_case(torch, sgen, dtype, S, **extra)
-            want = ref.decode_attention(*args, **kw)
-            for hb, c in combos:
-                got = decode_attention_cluster(*args, c, heads=hb, **kw)
-                torch.cuda.synchronize()
-                err = rel_err(want, got)
-                check(err < TOL[dtype], f"decode_attention {label} {dtype} "
-                      f"heads {hb} cluster {c}: {err}")
-                check(bool((got[list(empty)] == 0).all()),
-                      f"decode_attention {label} heads {hb}: a row with no "
-                      f"valid key must give exactly 0")
-            if key is None or dtype != "bfloat16":
-                continue
-            times = {hc: [] for hc in combos}
-            for hb, c in combos + combos[::-1]:
-                times[(hb, c)].append(timer.ms(
-                    lambda hb=hb, c=c: decode_attention_cluster(
-                        *args, c, heads=hb, **kw)))
-            heads_sweep[label] = {f"{hb}x{c}": t
-                                  for (hb, c), t in times.items()}
-            print(f"[kernel] decode_attention {label} bfloat16 by KV heads "
-                  f"x cluster size (ms, in turns): " + ", ".join(
-                      f"{hb}x{c}: {t[0]:.4f}/{t[1]:.4f}"
-                      for (hb, c), t in times.items()) + f" on {card}")
     # the training path's backward kernels: timed at the train step's
     # shape, checked in every variant the path and the JAX tests take
     from repro_torch.kernels.flash_attention_bwd import (
@@ -1024,7 +989,6 @@ def phase_kernels(torch, timer, card):
             del args, kw, pre, got
     results["ssd_scan"]["stitched_state_rel_err"] = state_err
     results["decode_attention"]["cluster_sweep"] = sweep
-    results["decode_attention"]["heads_sweep"] = heads_sweep
     print(f"[kernel] ssd_scan final state over 64-token calls, rel_err by "
           f"tokens: {state_err}")
 
@@ -2156,8 +2120,7 @@ def main() -> int:
                          for k in sorted(kernels)
                          if k.startswith(f"{name}@") and k != f"{name}@train"],
                      **({key: k[key] for key in (
-                         "stitched_state_rel_err", "cluster_sweep",
-                         "heads_sweep")
+                         "stitched_state_rel_err", "cluster_sweep")
                          if key in k}),
                      "launch_floor_ms": kernels["launch_floor_ms"]})
     print(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s "

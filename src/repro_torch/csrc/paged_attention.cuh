@@ -368,19 +368,14 @@ __device__ __forceinline__ void widen(const int8_t* k8, const int8_t* v8,
 // Hkv·RG, B) in clusters of (cl, 1, 1), or no cluster when cl is 1.  NTW
 // row tiles of 8 a warp, KW key slices a tile.  `Kind` names the entry
 // point (`paged_decode`, `paged_verify`, `dense_decode`) in profiles and
-// picks the row map.  A dense block may hold HB consecutive KV heads (of
-// one query row each at G 1): it walks the (position, head) pairs of its
-// positions, pair k being position k / HB of head h + k % HB, which are
-// contiguous rows of the cache, and a row sees its own head's pairs only.
-template <typename Kind, typename TC, typename TKV, int D, int NTW, int KW,
-          int HB = 1>
+// picks the row map.
+template <typename Kind, typename TC, typename TKV, int D, int NTW, int KW>
 __global__ void __launch_bounds__(kThreads,
                                   sizeof(TC) == 2 && D <= 64 ? 3 : 2)
     paged_attention_kernel(
     const Params p) {
   using L = Layout<TC, TKV, D>;
   constexpr bool SCALED = L::kScaled, DENSE = Kind::kDense;
-  static_assert(HB == 1 || DENSE, "several heads a block: dense caches only");
   constexpr int NS = L::NS, CS = L::CS, RS = L::RS, MD = D / 16;
   extern __shared__ __align__(16) uint8_t smem[];
   TC* q_s = reinterpret_cast<TC*>(smem + L::Q);
@@ -391,19 +386,13 @@ __global__ void __launch_bounds__(kThreads,
   TC* o = static_cast<TC*>(p.o);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int b = blockIdx.z, h = blockIdx.y / p.RG * HB;
-  const int rg = blockIdx.y % p.RG;
+  const int b = blockIdx.z, h = blockIdx.y / p.RG, rg = blockIdx.y % p.RG;
   const int r_lo = rg * kMaxRows, Rb = min(kMaxRows, p.R - r_lo);
-  // block row r is row rr = r_lo + r of (b, h): query token tok(rr) = rr /
-  // G of head h·G + rr % G; a dense cache has one token, so its rows are
-  // the query heads from h·G on (of KV head h + rr / G)
-  auto tok = [&](int rr) { return DENSE ? 0 : rr / p.G; };
-  auto q_row = [&](int r) -> size_t {
+  // block row r is row r_lo + r of (b, h): query token (r_lo + r) / G of
+  // head h·G + (r_lo + r) % G
+  auto q_row = [&](int r) {
     const int rr = r_lo + r;
-    if constexpr (DENSE)
-      return (size_t)b * p.Hq + h * p.G + rr;
-    else
-      return ((size_t)b * p.K1 + rr / p.G) * p.Hq + h * p.G + rr % p.G;
+    return ((size_t)b * p.K1 + rr / p.G) * p.Hq + h * p.G + rr % p.G;
   };
 
   // this block has started (the combine writes into the others' shared
@@ -426,8 +415,8 @@ __global__ void __launch_bounds__(kThreads,
   // the cluster is the grid's x
   const int base = valid - p.K1;                   // qpos of token 0
   const int n_keys = max(0, min(min(valid, p.MP * p.page),
-                                base + tok(r_lo + Rb - 1) + 1));
-  const int first = p.window > 0 ? max(0, base + tok(r_lo) - p.window + 1)
+                                base + (r_lo + Rb - 1) / p.G + 1));
+  const int first = p.window > 0 ? max(0, base + r_lo / p.G - p.window + 1)
                                  : 0;
   const int share =
       ((max(0, n_keys - first) + gridDim.x - 1) / gridDim.x + 15) / 16 * 16;
@@ -441,13 +430,10 @@ __global__ void __launch_bounds__(kThreads,
       tab_s[i] = p.table[(size_t)b * p.MP + pg0 + i];
     __syncthreads();
   }
-  // the pairs [klo, khi) of this share (keys when HB is 1)
-  const int klo = lo * HB, khi = hi * HB;
-  // (pool row, KV head) of the key at `pos`: page b of a dense cache, whose
-  // pair `pos` is position pos / HB of head h + pos % HB
+  // (pool row, KV head) of the key at `pos`: page b of a dense cache
   auto row_of = [&](int pos) -> size_t {
     if constexpr (DENSE) {
-      return ((size_t)b * p.page + pos / HB) * p.Hkv + h + pos % HB;
+      return ((size_t)b * p.page + pos) * p.Hkv + h;
     } else {
       const int pi = pos / p.page;
       return ((size_t)tab_s[pi - pg0] * p.page + (pos - pi * p.page)) *
@@ -460,19 +446,19 @@ __global__ void __launch_bounds__(kThreads,
   float* sc_s = reinterpret_cast<float*>(smem + L::SC);   // [NS][2][kKeys]
   auto load = [&](int n, int st) {
     constexpr int VEC = 16 / (int)sizeof(TKV), CPR = D / VEC;
-    const int k0 = klo + n * kKeys;
+    const int k0 = lo + n * kKeys;
     TKV* kd = ring(st, 0);
     TKV* vd = ring(st, 1);
     for (int i = tid; i < kKeys * CPR; i += kThreads) {
       const int key = i / CPR, c = (i % CPR) * VEC, pos = k0 + key;
-      const bool ok = pos < khi;
+      const bool ok = pos < hi;
       const size_t off = ok ? row_of(pos) * D + c : 0;
       cp_async16(smem_u32(kd + key * RS + c), kp + off, ok);
       cp_async16(smem_u32(vd + key * RS + c), vp + off, ok);
     }
     if (SCALED && tid < kKeys) {
       const int pos = k0 + tid;
-      const bool ok = pos < khi;
+      const bool ok = pos < hi;
       const size_t r = ok ? row_of(pos) : 0;
       cp_async4(smem_u32(sc_s + st * 2 * kKeys + tid), p.ks + r, ok);
       cp_async4(smem_u32(sc_s + (st * 2 + 1) * kKeys + tid), p.vs + r, ok);
@@ -484,15 +470,14 @@ __global__ void __launch_bounds__(kThreads,
   constexpr int MT = kKeys / KW / 16;
   const int NT = (Rb + 7) / 8;
   const int ks = warp % KW, rp = warp / KW;
-  int rt[NTW], qpos[NTW][2], rh[NTW][2];
+  int rt[NTW], qpos[NTW][2];
 #pragma unroll
   for (int j = 0; j < NTW; ++j) {
     rt[j] = rp + j * (kWarps / KW);
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const int r = 8 * rt[j] + 2 * (lane % 4) + c;
-      qpos[j][c] = r < Rb ? base + tok(r_lo + r) : -1;   // dead: nothing
-      rh[j][c] = (r_lo + r) / p.G;                 // its head in the block
+      qpos[j][c] = r < Rb ? base + (r_lo + r) / p.G : -1;   // dead: nothing
     }
   }
   float m[NTW][2], l[NTW][2], acc[MD][NTW][4];
@@ -509,7 +494,7 @@ __global__ void __launch_bounds__(kThreads,
       for (int e = 0; e < 4; ++e) acc[md][j][e] = 0.f;
   }
 
-  const int n_tiles = khi > klo ? (khi - klo + kKeys - 1) / kKeys : 0;
+  const int n_tiles = hi > lo ? (hi - lo + kKeys - 1) / kKeys : 0;
 #pragma unroll
   for (int s = 0; s < NS - 1; ++s) {
     if (s < n_tiles) load(s, s);
@@ -526,7 +511,7 @@ __global__ void __launch_bounds__(kThreads,
     __syncthreads();                               // and n - 1 consumed
     if (n + NS - 1 < n_tiles) load(n + NS - 1, (n + NS - 1) % NS);
     cp_commit();
-    const int st = n % NS, k0 = klo + n * kKeys;
+    const int st = n % NS, k0 = lo + n * kKeys;
     const float* ksc = sc_s + st * 2 * kKeys;
     const float* vsc = ksc + kKeys;
     const TC* kt = reinterpret_cast<const TC*>(ring(st, 0));
@@ -540,21 +525,20 @@ __global__ void __launch_bounds__(kThreads,
     }
     // this warp's MT m16 tiles of keys, then one softmax step over them
     const int kb = ks * MT * 16;
-    if (k0 + kb >= khi) continue;                  // no key of them loaded
+    if (k0 + kb >= hi) continue;                   // no key of them loaded
     float s[MT][NTW][4];
     bool ok[MT][NTW][4];
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
-      if (k0 + kb + 16 * i < khi) mm.qk(kt, kb + 16 * i, s[i]);
+      if (k0 + kb + 16 * i < hi) mm.qk(kt, kb + 16 * i, s[i]);
 #pragma unroll
       for (int j = 0; j < NTW; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = kb + 16 * i + lane / 4 + 8 * (e >> 1);
-          const int pair = k0 + key, pos = pair / HB, qp = qpos[j][e & 1];
-          ok[i][j][e] = pair < khi && pos <= qp &&
-                        (p.window <= 0 || pos > qp - p.window) &&
-                        (HB == 1 || pair % HB == rh[j][e & 1]);
+          const int pos = k0 + key, qp = qpos[j][e & 1];
+          ok[i][j][e] = pos < hi && pos <= qp &&
+                        (p.window <= 0 || pos > qp - p.window);
           float x = s[i][j][e] * p.sm_scale;
           if (SCALED) x *= ksc[key];               // q·(k·s) == (q·k)·s
           x = softcap_logit(x, p.softcap) * kLog2e;  // in base 2 from here
@@ -584,7 +568,7 @@ __global__ void __launch_bounds__(kThreads,
       }
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
-      if (k0 + kb + 16 * i >= khi) break;          // p is 0 past the end
+      if (k0 + kb + 16 * i >= hi) break;           // p is 0 past the end
 #pragma unroll
       for (int j = 0; j < NTW; ++j)
 #pragma unroll
@@ -670,7 +654,6 @@ struct Call {
   int B, K1, Hq, Hkv, D, page, MP, q_dtype, kv_dtype, window;
   float softcap, sm_scale;
   int cluster;                     // blocks a cluster; 0: the kind's rule
-  int heads;                       // KV heads a dense block; 0: one
   cudaStream_t stream;
 };
 
@@ -694,11 +677,10 @@ inline int dense_cluster(int groups) {
   return cl;
 }
 
-template <typename Kind, typename TC, typename TKV, int D, int NTW, int KW,
-          int HB = 1>
+template <typename Kind, typename TC, typename TKV, int D, int NTW, int KW>
 cudaError_t launch(const Call& c, Params p) {
   using L = Layout<TC, TKV, D>;
-  const int groups = c.B * (c.Hkv / HB) * p.RG;
+  const int groups = c.B * c.Hkv * p.RG;
   const int cl = c.cluster > 0      ? c.cluster
                  : Kind::kDense     ? dense_cluster(groups)
                                     : cluster_size(groups);
@@ -706,14 +688,14 @@ cudaError_t launch(const Call& c, Params p) {
   const int rows = p.R < kMaxRows ? p.R : kMaxRows;
   p.tab = Kind::kDense ? 0 : table_slice(c.MP, share, c.page);
   const size_t smem = L::bytes(p.tab, cl * KW, (rows + cl - 1) / cl);
-  auto kernel = paged_attention_kernel<Kind, TC, TKV, D, NTW, KW, HB>;
+  auto kernel = paged_attention_kernel<Kind, TC, TKV, D, NTW, KW>;
   cudaError_t err = flash::set_smem(kernel, smem);
   if (err == cudaSuccess && cl > 8)
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cl, c.Hkv / HB * p.RG, c.B);
+  cfg.gridDim = dim3(cl, c.Hkv * p.RG, c.B);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = c.stream;
@@ -741,32 +723,12 @@ cudaError_t by_rows(const Call& c, const Params& p) {
   return launch<Kind, TC, TKV, D, 2, 1>(c, p);
 }
 
-// A dense block of HB KV heads (HB·G <= 8 rows, one row tile).
-template <typename Kind, typename TC, int D>
-cudaError_t by_heads(const Call& c, Params p) {
-  if (c.heads <= 1) return by_rows<Kind, TC, TC, D>(c, p);
-  if (c.Hkv % c.heads != 0 || c.heads * p.G > 8)
-    return cudaErrorInvalidValue;
-  p.R = c.heads * p.G;
-  p.RG = 1;
-  switch (c.heads) {
-    case 2: return launch<Kind, TC, TC, D, 1, 4, 2>(c, p);
-    case 4: return launch<Kind, TC, TC, D, 1, 4, 4>(c, p);
-    case 8: return launch<Kind, TC, TC, D, 1, 4, 8>(c, p);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 template <typename Kind, typename TC, int D>
 cudaError_t by_kv(const Call& c, const Params& p) {
-  if constexpr (Kind::kDense) {    // a dense cache is in the q dtype
-    return c.kv_dtype == 0 ? by_heads<Kind, TC, D>(c, p)
-                           : cudaErrorInvalidValue;
-  } else {
-    if (c.kv_dtype == 0) return by_rows<Kind, TC, TC, D>(c, p);
+  if (c.kv_dtype == 0) return by_rows<Kind, TC, TC, D>(c, p);
+  if constexpr (!Kind::kDense)     // a dense cache is in the q dtype
     if (c.kv_dtype == 2) return by_rows<Kind, TC, int8_t, D>(c, p);
-    return cudaErrorInvalidValue;
-  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename Kind, typename TC>

@@ -30,7 +30,7 @@ def _entry():
         f = build.load("decode_attention").decode_attention_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
         f.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
-                      ctypes.c_float, i, i, p]
+                      ctypes.c_float, i, p]
         f.restype = i
         _fn = f
     return _fn
@@ -55,15 +55,12 @@ def decode_attention(
 
 
 def decode_attention_cluster(q, k_cache, v_cache, cache_len, cluster: int,
-                             *, heads: int = 0, softcap: float = 0.0,
-                             window: int = 0,
+                             *, softcap: float = 0.0, window: int = 0,
                              sm_scale: Optional[float] = None):
     """``decode_attention`` with the blocks that share a (sequence, KV
     head)'s keys fixed at ``cluster`` (1, 2, 4, 8 or 16; 0: the kernel's
-    choice from the grid, as ``decode_attention`` takes it) and the KV
-    heads a block holds at ``heads`` (2, 4 or 8, at most 8 query rows a
-    block; 0: one), for measuring those choices.  Counts its launch like
-    ``decode_attention``."""
+    choice from the grid, as ``decode_attention`` takes it), for measuring
+    that choice.  Counts its launch like ``decode_attention``."""
     refuse_grad("decode_attention", q, k_cache, v_cache)
     if cluster not in (0, 1, 2, 4, 8, 16):
         raise ValueError(f"cluster must be 0, 1, 2, 4, 8 or 16, got "
@@ -105,7 +102,7 @@ def decode_attention_cluster(q, k_cache, v_cache, cache_len, cluster: int,
     err = _entry()(_ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(out),
                    _ptr(clen), B, S, Hq, Hkv, D, _DTYPE_CODE[q.dtype],
                    int(window), float(softcap), float(scale), int(cluster),
-                   int(heads), ctypes.c_void_p(stream))
+                   ctypes.c_void_p(stream))
     if err != 0:
         raise build.KernelError(f"decode_attention kernel launch failed: "
                                 f"CUDA error {err}")
