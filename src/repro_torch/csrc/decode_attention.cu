@@ -18,6 +18,11 @@
 // so the floor is the valid KV bytes over 3.35 TB/s: under 1 µs for the
 // draft (B 8, Hkv 4, lengths 36-543), about 6 µs for zamba2 (Hkv 32).
 //
+// What holds it back now: at the draft's shape, as for the paged kernel,
+// the latency of a block's short chain (the length, the keys, the
+// exchange and the combine); at zamba2's, the same chain and then the KV
+// streaming at about three quarters of the memory rate (`PERF.md` §6).
+//
 // Design: the kernel of `paged_attention.cuh` with one query token, its
 // `dense_decode` kind reading a dense cache as B pages of S keys through
 // the identity table, computed in place of a table slice (the key at `pos`

@@ -29,9 +29,10 @@
 //
 // What holds it back now: latency.  A block walks a chain of dependent
 // steps, each a round trip to memory or a barrier: the cache length (with
-// q beside it), its page-table slice, its keys, 1-4 tiles of products,
-// the partials' exchange, one cluster barrier that waits for the slowest
-// block, and the combine; then the launch itself.  Only long caches
+// q beside it), its page-table slice (none for a dense cache), its keys,
+// 1-4 tiles of products, the partials' exchange, one cluster barrier that
+// waits for the slowest block, and the combine; then the launch itself.
+// Only long caches
 // (lengths in the thousands) make the key loop the larger part, and there
 // a verify pass's products (40 rows on 4 warps, one warp taking two row
 // tiles) bound it before the bytes do.
