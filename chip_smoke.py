@@ -20,8 +20,7 @@ continues:
    both paged kernels timed at B 8 over 64 table entries, at B 1 with one
    543-token sequence and at B 8 over 256 entries with lengths 1024-4095;
    the dense decode kernel timed at the draft's G 8 and at zamba2's G 1,
-   also with each cluster size of 1-16 blocks in turns, and checked with
-   lengths of 0, of S and past S),
+   and checked with lengths of 0, of S and past S),
    the forward (with lse, as the train step runs it) and the backward
    kernels at the train step's (causal, non-causal, window, softcap, an
    empty row, G 1, 8, 12 and 96, Tq < Tk, D 32/64/128, packed positions
@@ -606,8 +605,7 @@ def phase_kernels(torch, timer, card):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import (
-        decode_attention, decode_attention_cluster)
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_decode_attention import \
         paged_decode_attention
@@ -798,40 +796,6 @@ def phase_kernels(torch, timer, card):
                 check(bool((out[list(empty)] == 0).all()),
                       f"decode_attention {label}: a row with no valid key "
                       f"must give exactly 0")
-    # the dense kernel's cluster size at both timed shapes: each size of
-    # 1-16 blocks a (sequence, KV head) checked against the plain version
-    # and timed in turns (1, 2, 4, 8, 16, 16, 8, 4, 2, 1); the kernel's own
-    # choice is the size whose fp32 output (where the order of the partial
-    # sums shows) equals the default launch's bit for bit
-    sizes = (1, 2, 4, 8, 16)
-    sweep = {}
-    sgen = torch.Generator(device="cuda").manual_seed(1)  # gen's draws stay
-    for label, S, extra, key, _ in dense_cases:
-        if key is None:
-            continue
-        args, kw, _, _ = _dense_case(torch, sgen, "bfloat16", S, **extra)
-        want = ref.decode_attention(*args, **kw)
-        f32 = [x.float() if x.is_floating_point() else x for x in args]
-        default = decode_attention(*f32, **kw)
-        times, picked = {c: [] for c in sizes}, []
-        for c in sizes:
-            got = decode_attention_cluster(*args, c, **kw)
-            torch.cuda.synchronize()
-            err = rel_err(want, got)
-            check(err < TOL["bfloat16"],
-                  f"decode_attention {label} cluster {c}: {err}")
-            if torch.equal(decode_attention_cluster(*f32, c, **kw), default):
-                picked.append(c)
-        for c in sizes + sizes[::-1]:
-            times[c].append(timer.ms(
-                lambda c=c: decode_attention_cluster(*args, c, **kw)))
-        check(len(picked) == 1, f"decode_attention {label}: the default "
-              f"launch equals the cluster sizes {picked}")
-        sweep[label] = dict(picked=picked[0], ms=times)
-        print(f"[kernel] decode_attention {label} bfloat16 by cluster size "
-              f"(ms, in turns): " + ", ".join(
-                  f"{c}: {t[0]:.4f}/{t[1]:.4f}" for c, t in times.items())
-              + f"; the kernel picks {picked[0]} on {card}")
     # the training path's backward kernels: timed at the train step's
     # shape, checked in every variant the path and the JAX tests take
     from repro_torch.kernels.flash_attention_bwd import (
@@ -989,7 +953,6 @@ def phase_kernels(torch, timer, card):
                 errs[n] = rel_err(ref.ssd_scan(*pre, **kw)[1], got)
             del args, kw, pre, got
     results["ssd_scan"]["stitched_state_rel_err"] = state_err
-    results["decode_attention"]["cluster_sweep"] = sweep
     print(f"[kernel] ssd_scan final state over 64-token calls, rel_err by "
           f"tokens: {state_err}")
 
@@ -2120,9 +2083,9 @@ def main() -> int:
                              "bound_by", "library_ms")}
                          for k in sorted(kernels)
                          if k.startswith(f"{name}@") and k != f"{name}@train"],
-                     **({key: k[key] for key in (
-                         "stitched_state_rel_err", "cluster_sweep")
-                         if key in k}),
+                     **({"stitched_state_rel_err":
+                         k["stitched_state_rel_err"]}
+                        if "stitched_state_rel_err" in k else {}),
                      "launch_floor_ms": kernels["launch_floor_ms"]})
     print(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s "
           f"on {card}")

@@ -38,18 +38,15 @@
 // Plain C entry point, loaded with ctypes.  dtype: 0 = float32,
 // 1 = bfloat16, the same for q and the caches.  q [B,Hq,D], k/v caches
 // [B,S,Hkv,D], cache_len [B] int32.  All tensors contiguous, the caches
-// 16-byte aligned.  `cluster`: the blocks that share a (sequence, KV
-// head)'s keys, 1, 2, 4, 8 or 16, or 0 for the kernel's own choice from
-// the grid.  Returns cudaGetLastError() after the launch.
+// 16-byte aligned.  Returns cudaGetLastError() after the launch.
 extern "C" int decode_attention_fwd(const void* q, const void* k_cache,
                                     const void* v_cache, void* o,
                                     const void* cache_len, int B, int S,
                                     int Hq, int Hkv, int D, int dtype,
                                     int window, float softcap,
-                                    float sm_scale, int cluster,
-                                    void* stream) {
+                                    float sm_scale, void* stream) {
   return paged::run<dense_decode>(
       {q, k_cache, v_cache, nullptr, nullptr, o, nullptr, cache_len, B, 1,
-       Hq, Hkv, D, S, 1, dtype, 0, window, softcap, sm_scale, cluster,
+       Hq, Hkv, D, S, 1, dtype, 0, window, softcap, sm_scale,
        static_cast<cudaStream_t>(stream)});
 }

@@ -398,9 +398,8 @@ __global__ void __launch_bounds__(kThreads,
 
   // this block has started (the combine writes into the others' shared
   // memory); q comes in while the length does
-  // (a paged kind always runs in clusters)
   const int cl = (int)gridDim.x, rank = (int)blockIdx.x;
-  const bool clustered = !DENSE || cl > 1;
+  const bool clustered = cl > 1;
   if (clustered)
     asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   const int valid = __ldg(p.clen + b);
@@ -654,7 +653,6 @@ struct Call {
   const void *table, *clen;
   int B, K1, Hq, Hkv, D, page, MP, q_dtype, kv_dtype, window;
   float softcap, sm_scale;
-  int cluster;                     // blocks a cluster; 0: the kind's rule
   cudaStream_t stream;
 };
 
@@ -682,9 +680,7 @@ template <typename Kind, typename TC, typename TKV, int D, int NTW, int KW>
 cudaError_t launch(const Call& c, Params p) {
   using L = Layout<TC, TKV, D>;
   const int groups = c.B * c.Hkv * p.RG;
-  const int cl = c.cluster > 0      ? c.cluster
-                 : Kind::kDense     ? dense_cluster(groups)
-                                    : cluster_size(groups);
+  const int cl = Kind::kDense ? dense_cluster(groups) : cluster_size(groups);
   const int share = ((c.MP * c.page + cl - 1) / cl + 15) / 16 * 16;
   const int rows = p.R < kMaxRows ? p.R : kMaxRows;
   p.tab = Kind::kDense ? 0 : table_slice(c.MP, share, c.page);
@@ -746,8 +742,7 @@ cudaError_t by_dim(const Call& c, const Params& p) {
 template <typename Kind>
 int run(const Call& c) {
   if (c.Hkv <= 0 || c.Hq % c.Hkv != 0 || c.page <= 0 || c.MP <= 0 ||
-      c.K1 < 1 || c.cluster < 0 || c.cluster > 16 ||
-      (c.cluster & (c.cluster - 1)) != 0)
+      c.K1 < 1)
     return (int)cudaErrorInvalidValue;
   if (c.kv_dtype == 2 && (c.ks == nullptr || c.vs == nullptr))
     return (int)cudaErrorInvalidValue;

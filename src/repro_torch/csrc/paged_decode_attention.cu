@@ -39,5 +39,5 @@ extern "C" int paged_decode_attention_fwd(
   return paged::run<paged_decode>(
       {q, k_pages, v_pages, k_scale, v_scale, o, page_table, cache_len, B, 1,
        Hq, Hkv, D, page, MP, q_dtype, kv_dtype, window, softcap, sm_scale,
-       0, static_cast<cudaStream_t>(stream)});
+       static_cast<cudaStream_t>(stream)});
 }

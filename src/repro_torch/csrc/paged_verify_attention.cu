@@ -44,5 +44,5 @@ extern "C" int paged_verify_attention_fwd(
   return paged::run<paged_verify>(
       {q, k_pages, v_pages, k_scale, v_scale, o, page_table, cache_len, B, K1,
        Hq, Hkv, D, page, MP, q_dtype, kv_dtype, window, softcap, sm_scale,
-       0, static_cast<cudaStream_t>(stream)});
+       static_cast<cudaStream_t>(stream)});
 }

@@ -30,7 +30,7 @@ def _entry():
         f = build.load("decode_attention").decode_attention_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
         f.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
-                      ctypes.c_float, i, p]
+                      ctypes.c_float, p]
         f.restype = i
         _fn = f
     return _fn
@@ -49,22 +49,7 @@ def decode_attention(
     """Launch the CUDA kernel on CUDA tensors (raises on anything else).
     The caches are in the dtype of ``q``, with values as wide as keys.
     Forward-only: raises under grad mode for an input that needs one."""
-    return decode_attention_cluster(q, k_cache, v_cache, cache_len, 0,
-                                    softcap=softcap, window=window,
-                                    sm_scale=sm_scale)
-
-
-def decode_attention_cluster(q, k_cache, v_cache, cache_len, cluster: int,
-                             *, softcap: float = 0.0, window: int = 0,
-                             sm_scale: Optional[float] = None):
-    """``decode_attention`` with the blocks that share a (sequence, KV
-    head)'s keys fixed at ``cluster`` (1, 2, 4, 8 or 16; 0: the kernel's
-    choice from the grid, as ``decode_attention`` takes it), for measuring
-    that choice.  Counts its launch like ``decode_attention``."""
     refuse_grad("decode_attention", q, k_cache, v_cache)
-    if cluster not in (0, 1, 2, 4, 8, 16):
-        raise ValueError(f"cluster must be 0, 1, 2, 4, 8 or 16, got "
-                         f"{cluster}")
     dev = q.device
     if not q.is_cuda or any(t.device != dev
                             for t in (k_cache, v_cache, cache_len)):
@@ -101,7 +86,7 @@ def decode_attention_cluster(q, k_cache, v_cache, cache_len, cluster: int,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _entry()(_ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(out),
                    _ptr(clen), B, S, Hq, Hkv, D, _DTYPE_CODE[q.dtype],
-                   int(window), float(softcap), float(scale), int(cluster),
+                   int(window), float(softcap), float(scale),
                    ctypes.c_void_p(stream))
     if err != 0:
         raise build.KernelError(f"decode_attention kernel launch failed: "

@@ -373,45 +373,38 @@ def test_decode_kernel_every_head_dim(D, G, dtype, cuda):
     assert _rel(want, got) < TOL[dtype]
 
 
+@pytest.mark.parametrize("B", [4, 8])
 @pytest.mark.parametrize("G", [1, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_kernel_equals_paged_over_one_page(G, dtype, cuda):
+def test_decode_kernel_equals_paged_over_one_page(B, G, dtype, cuda):
     """A dense cache [B, S, Hkv, D] is a page pool of B pages of S keys
     with the identity table: the dense kernel agrees with the paged decode
-    kernel on it within the tolerance, and bit for bit when both share a
-    (sequence, KV head)'s keys over the same cluster (8 blocks: the paged
-    kernel's at 32 and 256 (sequence, KV head) pairs)."""
-    from repro_torch.kernels.decode_attention import \
-        decode_attention_cluster
-
-    g = torch.Generator(device=cuda).manual_seed(G)
-    B, S = 8, 1024
+    kernel on it within the tolerance, and bit for bit at 16 (sequence, KV
+    head) pairs, where both share a pair's keys over a cluster of 8."""
+    g = torch.Generator(device=cuda).manual_seed(G + B)
+    S = 1024
     q, k, v, clen = _dense_inputs(g, B, 4 * G, 4, 64, S, None, dtype, cuda)
     table = torch.arange(B, dtype=torch.int32, device=cuda)[:, None]
     for window in (0, 300):
         dense = ops.decode_attention(q, k, v, clen, window=window)
         paged = ops.paged_decode_attention(q, k, v, table, clen,
                                            window=window)
-        same = decode_attention_cluster(q, k, v, clen, 8, window=window)
         torch.cuda.synchronize()
         assert _rel(paged, dense) < TOL[dtype]
-        assert torch.equal(same, paged)
+        if B == 4:
+            assert torch.equal(dense, paged)
 
 
-def test_decode_cluster_size_is_checked():
-    """The cluster size is 0 (the kernel's choice) or a power of two up to
-    16; the kernel takes CUDA tensors only."""
-    from repro_torch.kernels.decode_attention import \
-        decode_attention_cluster
+def test_decode_kernel_takes_cuda_tensors_only():
+    """The kernel's wrapper launches on CUDA tensors and raises on any
+    other; the CPU path goes through ``ops``."""
+    from repro_torch.kernels.decode_attention import decode_attention
 
     q = torch.zeros(1, 4, 32)
     k = torch.zeros(1, 16, 2, 32)
     clen = torch.ones(1, dtype=torch.int32)
-    for bad in (3, 32, -1):
-        with pytest.raises(ValueError, match="cluster must be"):
-            decode_attention_cluster(q, k, k, clen, bad)
     with pytest.raises(ValueError, match="CUDA device"):
-        decode_attention_cluster(q, k, k, clen, 4)
+        decode_attention(q, k, k, clen)
 
 
 def test_verify_and_decode_ignore_stale_keys(cuda):
