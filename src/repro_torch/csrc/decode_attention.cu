@@ -28,10 +28,11 @@
 // the identity table, computed in place of a table slice (the key at `pos`
 // of sequence b is row (b·S + pos)·Hkv + h), so a block goes from its
 // length straight to its keys.  The keys of each (sequence, KV head) are
-// shared by a cluster of blocks sized to the grid (`dense_cluster`; one
-// block, and no cluster, when the (sequence, KV head) pairs alone fill
-// the card, as zamba2's 256 do), combined in the same launch; all G rows
-// of a KV head in one block, bf16 products on the tensor cores.
+// shared by a cluster of blocks sized to the grid, as the paged kernels'
+// are (one block, and no cluster, when the (sequence, KV head) pairs
+// alone fill the card, as zamba2's 256 do), combined in the same launch;
+// all G rows of a KV head in one block, bf16 products on the tensor
+// cores.
 
 #include "paged_attention.cuh"
 

@@ -40,13 +40,13 @@
 // Design.
 // - The split: the visible key range [first, n_keys) of each (sequence,
 //   KV head, group of 64 query rows) is shared by a thread-block cluster
-//   of cl blocks in even shares of a multiple of 16 keys.  The paged
-//   kinds take 8 (16 when the clusters of 16 fit the card's 132 SMs in
-//   one wave: B·Hkv·row groups <= 8); at the serving shape (B 8, Hkv 4,
-//   lengths 36-543) that is 256 blocks of 1-2 tiles each.  The dense kind
-//   sizes cl to the grid (`dense_cluster`), down to one block a
-//   (sequence, KV head), which takes no cluster at all: its warps' partials
-//   meet in its own shared memory after one block barrier.
+//   of cl blocks in even shares of a multiple of 16 keys, cl sized to the
+//   grid (`cluster_size`): 4 at the decode serving shape (B 8, Hkv 4,
+//   lengths 36-543: 128 blocks of 1-3 tiles), 8 for a verify pass there
+//   or over 4096 keys, 16 at B 1, and 1 at zamba2's 256 (sequence, KV
+//   head) pairs of one row.  One block a pair takes no cluster at all:
+//   its warps' partials meet in its own shared memory after one block
+//   barrier.
 // - The combine happens in the same launch, through distributed shared
 //   memory: every warp writes its rows' (m, l, acc) straight into the
 //   shared memory of the block that owns the row (row r: block r % cl),
@@ -662,27 +662,30 @@ inline int table_slice(int MP, int keys, int page) {
   return n < MP ? n : MP;
 }
 
-// The paged kinds' cluster: 16 blocks a (sequence, KV head, row group)
-// when the clusters of 16 fit the card's 132 SMs in one wave, else 8.
-inline int cluster_size(int groups) { return groups * 16 <= 132 ? 16 : 8; }
-
-// The dense kind's cluster: the most blocks a (sequence, KV head, row
-// group), up to 16, that keep the grid within one block an SM (the draft's
-// 32 groups: 4; zamba2's 256: 1, no cluster).  Measured against 1-16 at
-// both (`PERF.md` §6).
-inline int dense_cluster(int groups) {
+// The cluster: as many blocks a (sequence, KV head, row group), up to 16,
+// as keep the grid within one block an SM, and twice that (two an SM) when
+// a block would still walk 4096 or more (row, key) pairs over the longest
+// key range a sequence can have (the lengths are on the card).  Measured
+// at every size 1-16 in turns (`PERF.md` §6; H100 80GB HBM3 at 700 W,
+// ms): paged decode at 32 groups over 1024 keys 4: 0.0118 against
+// 8: 0.0122, over 4096 keys 8: 0.0217 against 4: 0.0262; verify at K1 5
+// (40 rows) 8: 0.0154 against 4: 0.0170; dense decode at the draft's 32
+// groups 4: 0.0107 against 8: 0.0114, at zamba2's 256 groups of one row 1:
+// 0.0137 against 2: 0.0156; at 4 groups (B 1) verify 16: 0.0120 against
+// 8: 0.0131.
+inline int cluster_size(int groups, int rows, int keys) {
   int cl = 16;
   while (cl > 1 && groups * cl > 132) cl /= 2;
+  if (cl < 16 && rows * (keys / cl) >= 4096) cl *= 2;
   return cl;
 }
 
 template <typename Kind, typename TC, typename TKV, int D, int NTW, int KW>
 cudaError_t launch(const Call& c, Params p) {
   using L = Layout<TC, TKV, D>;
-  const int groups = c.B * c.Hkv * p.RG;
-  const int cl = Kind::kDense ? dense_cluster(groups) : cluster_size(groups);
-  const int share = ((c.MP * c.page + cl - 1) / cl + 15) / 16 * 16;
   const int rows = p.R < kMaxRows ? p.R : kMaxRows;
+  const int cl = cluster_size(c.B * c.Hkv * p.RG, rows, c.MP * c.page);
+  const int share = ((c.MP * c.page + cl - 1) / cl + 15) / 16 * 16;
   p.tab = Kind::kDense ? 0 : table_slice(c.MP, share, c.page);
   const size_t smem = L::bytes(p.tab, cl * KW, (rows + cl - 1) / cl);
   auto kernel = paged_attention_kernel<Kind, TC, TKV, D, NTW, KW>;

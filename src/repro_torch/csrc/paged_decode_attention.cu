@@ -19,7 +19,7 @@
 //
 // Design: the kernel of `paged_attention.cuh` with one query token
 // (K1 = 1): the keys of each (sequence, KV head) shared by a cluster of
-// 8 or 16 blocks and combined in the same launch through distributed
+// blocks sized to the grid and combined in the same launch through distributed
 // shared memory, all G rows of a KV head in one block, bf16 products on
 // the tensor cores.
 

@@ -194,9 +194,10 @@ def test_paged_kernel_int8_matches_plain(case, dtype, cuda):
 
 
 # Lengths at the edges of the paged kernels' splits: a tile is 64 keys and
-# a cluster of 8 (16 at a small batch) blocks shares a (sequence, KV
-# head)'s keys in multiples of 16, so 512 keys are one tile a block at 8;
-# then MP·page itself, and a length of 0 beside the long rows
+# a cluster of blocks (`cluster_size`: 4 or 8 here, 16 at B 1) shares a
+# (sequence, KV head)'s keys in multiples of 16, so 512 keys are one tile
+# a block at 8 and two at 4; then MP·page itself, and a length of 0
+# beside the long rows
 EDGE_LENGTHS = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 511, 512, 513]
 
 
@@ -379,8 +380,8 @@ def test_decode_kernel_every_head_dim(D, G, dtype, cuda):
 def test_decode_kernel_equals_paged_over_one_page(B, G, dtype, cuda):
     """A dense cache [B, S, Hkv, D] is a page pool of B pages of S keys
     with the identity table: the dense kernel agrees with the paged decode
-    kernel on it within the tolerance, and bit for bit at 16 (sequence, KV
-    head) pairs, where both share a pair's keys over a cluster of 8."""
+    kernel on it within the tolerance, and bit for bit, since both size
+    their clusters by one rule from the same grid and key range."""
     g = torch.Generator(device=cuda).manual_seed(G + B)
     S = 1024
     q, k, v, clen = _dense_inputs(g, B, 4 * G, 4, 64, S, None, dtype, cuda)
@@ -391,8 +392,7 @@ def test_decode_kernel_equals_paged_over_one_page(B, G, dtype, cuda):
                                            window=window)
         torch.cuda.synchronize()
         assert _rel(paged, dense) < TOL[dtype]
-        if B == 4:
-            assert torch.equal(dense, paged)
+        assert torch.equal(dense, paged)
 
 
 def test_decode_kernel_takes_cuda_tensors_only():
