@@ -19,7 +19,8 @@ continues:
    kernel, which at K1 = 1 is also held against the paged decode kernel;
    both paged kernels timed at B 8 over 64 table entries, at B 1 with one
    543-token sequence and at B 8 over 256 entries with lengths 1024-4095;
-   the dense decode kernel timed at the draft's G 8 and at zamba2's G 1,
+   the dense decode kernel timed at the draft's G 8, at zamba2's G 1 and
+   at the edge decode image's G 2 (B 1, S 128),
    and checked with lengths of 0, of S and past S),
    the forward (with lse, as the train step runs it) and the backward
    kernels at the train step's (causal, non-causal, window, softcap, an
@@ -62,6 +63,25 @@ continues:
    chunks and the dense decode kernel 6 x decode steps; tokens/s, TTFT,
    tick walls, a profiled decode tick and a profiled prefill tick (a lone
    512-token prompt), each with the SSD scan's and RMSNorm's device time;
+3d. the edge system: ``EdgeSystem`` with two logical nodes on cuda:0
+   (half of the card's memory each, ``LeastLoadedPolicy``), the standard
+   builders over full-width tinyllama-1.1b (heavy) and edge-stream-light
+   (light), random bf16 weights from a seed, the ``cv-infer``,
+   ``stream-analytics`` and a light decode spec; 16 rounds of mixed
+   ``submit_many`` traffic (cv frames through the container's flash
+   forward, record batches through the stream image, decode steps
+   through the decode image, a captured CUDA graph): every dispatch
+   completes and routes as ``classify`` says, each service deployed
+   once, the analytics within 1e-5 of ``reference_analytics``, the
+   image's tokens equal to eager ``Model.decode``'s, flash launched 22 x
+   the frames and the dense decode kernel 4 x the replays (the capture's
+   launches, cross-checked in a ``torch.profiler`` trace of 3 replays);
+   per-class dispatch p50/p95, footprints, the stream task's footprint
+   on the image and on a container, the capture time, replay against
+   eager ms per step; a node loss redeploys the stream instance from the
+   registry; then ``launch/serve.py`` at full width (8 requests,
+   ``--save-state``), flash and paged decode launches exact, and a fresh
+   ``EdgeSystem`` restores the saved spec set;
 4. consistency: fp32 at full width, 2 layers: every decode step's logits
    against ``Model.forward`` over the same prefix, within 2e-4 relative;
 4c. SSM consistency: mamba2 (2 layers) and zamba2 (3) in fp32 at full
@@ -90,9 +110,10 @@ continues:
    replayed through the kernels from its step-0 state: losses and grad
    norms within 1e-4 relative, final parameters within 1e-4;
 9. the kernels line (each kernel's launches from the paths that run it:
-   per request for serving, per step for training; the SSD scan and
-   RMSNorm from mamba2's serve, the dense decode kernel from the
-   speculative and zamba2's serves; flash attention's times at the serving
+   per request for serving, per step for training, per dispatch on the
+   edge path; the SSD scan and RMSNorm from mamba2's serve, the dense
+   decode kernel from the speculative and zamba2's serves and the edge
+   path; flash attention's times at the serving
    chunk, and as ``train_*`` at the train shape; other timed shapes under
    ``also_timed``, the launch floor, the stitched scans' final-state
    errors), then the last line
@@ -688,6 +709,9 @@ def phase_kernels(torch, timer, card):
         ("Tq16/Tk512 tail@400", 16, 512, 400, 416, {}, False),
         ("Tq64/Tk64 forward", 64, 64, 0, 64, {"explicit_kv_pos": True},
          False),
+        # the cv-infer container's forward in phase 3d: B 1, T 32
+        ("Tq32/Tk32 forward", 32, 32, 0, 32, {"explicit_kv_pos": True},
+         False),
         ("Tq64/Tk512 window128", 64, 512, 448, 512, {"window": 128}, False),
         ("Tq64/Tk512 softcap30", 64, 512, 448, 512, {"softcap": 30.0},
          False),
@@ -783,6 +807,15 @@ def phase_kernels(torch, timer, card):
         ("B8/S1024 a cache_len 0 row", 1024, {"fix": {2: 0}}, None, (2,)),
         ("B8/Hkv32 G1 cache_len 0 and past S", 1024,
          dict(g1, fix={3: 0, 4: 2000}), None, (3,)),
+        # the unikernel decode image of edge-stream-light (phase 3d): B 1,
+        # Hq 4, Hkv 2 (G 2), S 128 (its max_seq), timed
+        ("B1/S128 G2 edge-stream-light", 128,
+         {"B": 1, "Hq": 4, "Hkv": 2, "fix": {0: 77}},
+         "decode_attention@edge", ()),
+        ("B1/S128 G2 one key", 128, {"B": 1, "Hq": 4, "Hkv": 2,
+                                     "fix": {0: 1}}, None, ()),
+        ("B1/S128 G2 full row", 128, {"B": 1, "Hq": 4, "Hkv": 2,
+                                      "fix": {0: 128}}, None, ()),
     ]
     for dtype in ("bfloat16", "float32"):
         for label, S, extra, key, empty in dense_cases:
@@ -1417,6 +1450,345 @@ def phase_ssm_serve(torch, arch: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the edge system
+# ---------------------------------------------------------------------------
+
+EDGE_STATE = os.path.join(ROOT, "build", "edge_state.json")
+
+
+def _edge_traffic(torch, system, heavy, light, scfg, params_light):
+    """The paper's fig 1 mix through ``submit_many``, 16 rounds: every
+    round one single-stream decode step of edge-stream-light (the decode
+    image), every other round a stream record batch (the stream image),
+    every fourth a ``cv-infer`` frame (32 tokens in, argmax out, through
+    the heavy container).  The decode steps and the stream state chain
+    from round to round."""
+    from repro_torch.core import Workload, WorkloadKind
+    from repro_torch.data import stream as stream_lib
+    from repro_torch.models.model import build_model
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(0)
+    records = stream_lib.make_record_stream(scfg)
+    state = stream_lib.init_state(scfg, dev)
+    tok = torch.tensor([1], dtype=torch.int32, device=dev)
+    caches = build_model(light, dev).init_caches(1, 128, light.cdtype)
+    clen = torch.zeros((1,), dtype=torch.int32, device=dev)
+    fed, tokens, results = [], [], []
+    for r in range(16):
+        # after the first step the image holds the params and this
+        # stream's caches: only the token and length are copied in
+        items = [(Workload(f"step{r}", WorkloadKind.DECODE, light, batch=1),
+                  (params_light, tok, caches, clen))]
+        if r % 2 == 0:
+            rec = next(records)
+            fed.append(rec)
+            items.append((Workload(f"records{r}", WorkloadKind.STREAM),
+                          (state, stream_lib.to_device(rec, dev))))
+        if r % 4 == 0:
+            frame = torch.as_tensor(
+                rng.integers(0, heavy.vocab_size, size=(1, 32)), device=dev)
+            items.append((Workload(f"frame{r}", WorkloadKind.GENERIC, heavy,
+                                   batch=1, seq_len=32,
+                                   est_flops=2.0 * heavy.num_params() * 32
+                                   * 300), (frame,)))
+        out = system.submit_many(items)
+        results += list(zip((w for w, _ in items), out))
+        tok, caches, clen = out[0].output
+        tokens.append(int(tok[0]))
+        if r % 2 == 0:
+            state, analytics = out[1].output
+        if r % 4 == 0:
+            pred = out[2].output
+            check(tuple(pred.shape) == (1, 32) and pred.dtype == torch.int32
+                  and 0 <= int(pred.min()) and
+                  int(pred.max()) < heavy.vocab_size,
+                  f"cv-infer frame {r}: bad predictions")
+    return results, tokens, fed, state, analytics
+
+
+def phase_edge(torch):
+    """The paper's hybrid system on the card: an ``EdgeSystem`` of two
+    logical nodes sharing cuda:0, each given half of the card's memory,
+    ``LeastLoadedPolicy``; the standard builder set over full-width
+    tinyllama-1.1b (the heavy ``cv-infer`` container) and edge-stream-light
+    (the light decode image), random weights from a seed, bf16 compute;
+    the ``cv-infer`` and ``stream-analytics`` specs and a light decode
+    spec; the mixed traffic of ``_edge_traffic``; a node loss; and the
+    engine service, deployed by ``launch/serve.py`` at full width and
+    restored from its saved state."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (EdgeSystem, LeastLoadedPolicy,
+                                  NodeCapacity, ServiceSpec, Workload,
+                                  WorkloadClass, WorkloadKind, classify)
+    from repro_torch.core.spec import EXECUTOR_FOR_CLASS
+    from repro_torch.data import stream as stream_lib
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import router
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.monotonic()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    total = torch.cuda.get_device_properties(dev).total_memory
+    system = EdgeSystem(policy=LeastLoadedPolicy())
+    for i in range(2):
+        system.add_node(f"edge{i}", NodeCapacity(hbm_bytes=total // 2),
+                        mesh=dev)
+    print(f"[edge] nodes edge0, edge1 on {dev}, {total // 2} B each (half "
+          f"of the card's {total} B)")
+    heavy, light = get_config("tinyllama-1.1b"), get_config(
+        "edge-stream-light")
+    check(heavy.cdtype == light.cdtype == torch.bfloat16, "bf16 compute")
+    params_heavy = build_model(heavy, dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    params_light = build_model(light, dev).init(
+        torch.Generator(device=dev).manual_seed(1))
+    scfg = stream_lib.StreamConfig()
+    router.assemble_edge_system(system, heavy, light, scfg,
+                                params_heavy=params_heavy,
+                                params_light=params_light, device=dev)
+    specs = router.standard_specs(heavy) + (ServiceSpec(
+        name="light-decode",
+        workload=Workload("light-decode", WorkloadKind.DECODE, light,
+                          batch=1, seq_len=1)),)
+    t0 = time.monotonic()
+    for spec in specs:
+        system.apply(spec)
+    deps = system.orchestrator.deployments.values()
+    print(f"[edge] applied {[s.name for s in specs]} in "
+          f"{time.monotonic() - t0:.2f}s: "
+          f"{[(d.name, d.node_id) for d in deps]}")
+    for spec in specs:
+        check(sum(e.startswith(f"deploy {spec.name}/")
+                  for e in system.events) == 1,
+              f"{spec.name} must be deployed exactly once: {system.events}")
+    check(system.registry.stats()["builds"] == 2,
+          f"two images (stream, decode): {system.registry.stats()}")
+    dex = system.instances("light-decode")[0].executor
+    img = dex.image
+    simg = system.instances("stream-analytics")[0].executor.image
+    check(img.captured and simg.captured,
+          "the unikernel images must be captured CUDA graphs")
+    check(img.captured_launches == {"decode_attention": light.num_layers},
+          f"the decode image captured {img.captured_launches}, not one "
+          f"decode kernel per layer")
+    check(simg.captured_launches == {}, "the stream image runs no kernel")
+    print(f"[edge] decode image: captured in {img.build_time_s:.3f}s, "
+          f"args {img.arg_bytes} B, graph {img.temp_bytes} B allocated "
+          f"({img.pool_bytes} B pool reserved), outputs "
+          f"{img.output_bytes} B; launches per replay "
+          f"{img.captured_launches}")
+
+    # the traffic, with every kernel count at 0 just before it, in a
+    # profiler trace: the graph's kernels are counted there (a wrapper
+    # counts its launch at the capture only)
+    fa.flash_attention.launches = da.decode_attention.launches = 0
+    pda.paged_decode_attention.launches = 0
+    replays0 = img.replays
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        results, tokens, fed, state, analytics = _edge_traffic(
+            torch, system, heavy, light, scfg, params_light)
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    replays = img.replays - replays0
+    frames = sum(w.kind is WorkloadKind.GENERIC for w, _ in results)
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "paged_decode_attention":
+                    pda.paged_decode_attention.launches,
+                "decode_attention": da.decode_attention.launches}
+    check(all(not isinstance(r, Exception) for _, r in results),
+          "every dispatch must complete")
+    service = {WorkloadKind.GENERIC: "cv-infer",
+               WorkloadKind.STREAM: "stream-analytics",
+               WorkloadKind.DECODE: "light-decode"}
+    for w, r in results:
+        want = classify(w)
+        ex = system.instances(r.service)[0].executor
+        check(r.workload_class is want and r.service == service[w.kind]
+              and ex.executor_class is EXECUTOR_FOR_CLASS[want]
+              and not r.deployed_fresh,
+              f"{w.name} routed to {r.service} ({r.workload_class}), "
+              f"classify says {want}")
+    check(replays == 16, f"{replays} decode replays for 16 steps")
+    check(launches["decode_attention"] == 0,
+          "the decode kernel ran outside the graph")
+    check(launches["flash_attention"] == heavy.num_layers * frames,
+          f"flash launches {launches['flash_attention']} != "
+          f"{heavy.num_layers} x {frames} frames")
+    # the graph's launches, read from the trace: the capture's, once per
+    # layer, at each replay
+    counts = {}
+    _device_ms(prof, 1, counts)
+    seen = int(sum(v for k, v in counts.items() if "dense_decode" in k))
+    want = img.captured_launches["decode_attention"] * replays
+    check(seen == want, f"the trace holds {seen} dense decode kernels in "
+          f"{replays} replays, not {want}")
+    launches["decode_attention"] = seen
+    print(f"[edge] trace of the traffic: {seen} dense decode kernels in "
+          f"{replays} replays (= {img.captured_launches['decode_attention']}"
+          f" captured x {replays})")
+    allrec = {k: np.concatenate([r[k] for r in fed]) for k in fed[0]}
+    avg, mx, arg = stream_lib.reference_analytics(allrec, scfg.num_users)
+    err = rel_err(torch.as_tensor(avg),
+                  analytics["avg_steps_per_user"].cpu())
+    check(err < 1e-5 and abs(float(analytics["max_avg_steps"]) - mx)
+          <= 1e-5 * mx and int(analytics["argmax_user"]) == arg,
+          f"stream analytics off the reference: rel_err {err}")
+    print(f"[edge] {len(results)} dispatches ({frames} cv frames, "
+          f"{len(fed)} record batches, 16 decode steps) in {wall:.2f}s "
+          f"under the profiler; "
+          f"analytics over {len(allrec['user_id'])} records rel_err "
+          f"{err:.3e}, max avg steps {mx:.1f} (user {arg})")
+
+    # the image's tokens against eager Model.decode: the same kernels
+    model = build_model(light, dev)
+    etok = torch.tensor([1], dtype=torch.int32, device=dev)
+    ecaches = model.init_caches(1, 128, light.cdtype)
+    eclen = torch.zeros((1,), dtype=torch.int32, device=dev)
+    eager = []
+    with torch.no_grad():
+        for _ in range(16):
+            logits = model.decode(params_light, etok, ecaches, eclen)
+            etok = torch.argmax(logits, dim=-1).to(torch.int32)
+            eclen = eclen + 1
+            eager.append(int(etok[0]))
+    check(eager == tokens, f"image tokens {tokens} != eager {eager}")
+    print(f"[edge] decode image tokens equal eager Model.decode's over 16 "
+          f"steps: {tokens}")
+
+    summ = system.stats.summary()
+    for wc in ("heavy", "light"):
+        s = summ[wc]
+        print(f"[edge] {wc} dispatches: {s['count']}, p50 "
+              f"{s['p50_wall_s'] * 1e3:.3f} ms, p95 "
+              f"{s['p95_wall_s'] * 1e3:.3f} ms")
+    for d in system.orchestrator.deployments.values():
+        print(f"[edge] {d.name} on {d.node_id} "
+              f"({d.executor.executor_class.value}): static "
+              f"{d.executor.footprint_bytes()} B, dynamic "
+              f"{d.executor.dynamic_footprint_bytes()} B")
+    # the stream task on a container, for the paper's fig 5 comparison:
+    # its state and batch plus the peak an eager step allocates
+    cex, _ = router.make_stream_container_builder(scfg, device=dev)(
+        Workload("fitbit", WorkloadKind.STREAM), dev)
+    cargs = (stream_lib.init_state(scfg, dev),
+             stream_lib.to_device(next(stream_lib.make_record_stream(scfg)),
+                                  dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    cex.dispatch(Workload("fitbit", WorkloadKind.STREAM), cargs)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    cbytes = sum(t.numel() * t.element_size() for part in cargs
+                 for t in part.values()) + peak
+    print(f"[edge] stream task footprint: unikernel image "
+          f"{simg.footprint_bytes} B (args {simg.arg_bytes} B + graph "
+          f"{simg.temp_bytes} B; pool {simg.pool_bytes} B reserved) vs "
+          f"container {cbytes} B (args + an eager step's peak {peak} B; "
+          f"the container's static footprint is "
+          f"{cex.footprint_bytes()} B)")
+
+    # per step: a replay against an eager Model.decode step, 64 steps
+    # each from a fresh cache, one sync at the end
+    for name in ("replay", "eager"):
+        tok = torch.tensor([1], dtype=torch.int32, device=dev)
+        caches = model.init_caches(1, 128, light.cdtype)
+        clen = torch.zeros((1,), dtype=torch.int32, device=dev)
+        times = []
+        for _ in range(2):                  # the second pass is timed
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            with torch.no_grad():
+                for _ in range(64):
+                    if name == "replay":
+                        tok, caches, clen = img(params_light, tok,
+                                                caches, clen)
+                    else:
+                        logits = model.decode(params_light, tok, caches,
+                                              clen)
+                        tok = torch.argmax(logits, -1).to(torch.int32)
+                        clen = clen + 1
+            torch.cuda.synchronize()
+            times.append((time.monotonic() - t0) * 1e3 / 64)
+            clen = torch.zeros_like(clen)
+        print(f"[edge] decode step, {name}: {times[1]:.4f} ms/step")
+    # a node loss: the stream instance redeploys on the other node, from
+    # the registry
+    lost = system.instances("stream-analytics")[0].node_id
+    builds, hits = system.registry.builds, system.registry.hits
+    moved = system.on_node_loss(lost)
+    check("stream-analytics/0" in moved, f"failover moved {moved}")
+    rec = next(stream_lib.make_record_stream(scfg))
+    r = system.submit(Workload("after-loss", WorkloadKind.STREAM),
+                      (state, stream_lib.to_device(rec, dev)))
+    check(r.node_id != lost and r.service == "stream-analytics",
+          f"record batch after the loss ran on {r.node_id}")
+    check(system.registry.builds == builds and system.registry.hits > hits,
+          f"failover must hit the registry: {system.registry.stats()}")
+    print(f"[edge] lost {lost}: moved {moved}, next batch on {r.node_id}, "
+          f"registry {system.registry.stats()}")
+    units = len(results)
+    del system, dex, img, simg, cex, params_heavy
+    torch.cuda.empty_cache()
+
+    # the engine service, deployed by launch/serve.py at full width
+    os.makedirs(os.path.dirname(EDGE_STATE), exist_ok=True)
+    fa.flash_attention.launches = pda.paged_decode_attention.launches = 0
+    esys = serve.main(["--arch", "tinyllama-1.1b", "--requests", "8",
+                       "--slo-ms", "60000", "--save-state", EDGE_STATE,
+                       "--device", "cuda"])
+    torch.cuda.synchronize()
+    served = {"flash_attention": fa.flash_attention.launches,
+              "paged_decode_attention": pda.paged_decode_attention.launches}
+    (dep,) = esys.instances("llm-serving")
+    eng = dep.executor.engine
+    st = eng.stats()
+    L = heavy.num_layers
+    check(st["failed"] == 0 and len(eng.completed) == 8,
+          "launch/serve.py's 8 requests must complete")
+    # serve.py's warmup runs every chunk bucket and one decode step
+    check(served["flash_attention"] ==
+          L * (st["prefill_chunks"] + len(eng.chunk_buckets)),
+          f"serve flash launches {served} vs {st['prefill_chunks']} chunks "
+          f"+ {len(eng.chunk_buckets)} warmup buckets")
+    check(served["paged_decode_attention"] == L * (st["decode_steps"] + 1),
+          f"serve paged launches {served} vs {st['decode_steps']} steps + 1")
+    print(f"[edge] serve: {st['prefill_chunks']} chunks + "
+          f"{len(eng.chunk_buckets)} warmup, {st['decode_steps']} decode "
+          f"steps + 1 warmup, launches {served} (exact); footprint static "
+          f"{dep.executor.footprint_bytes()} B, dynamic "
+          f"{dep.executor.dynamic_footprint_bytes()} B")
+    with open(EDGE_STATE) as f:
+        saved = json.load(f)
+    del esys, dep, eng
+    torch.cuda.empty_cache()
+    fresh = EdgeSystem()
+    fresh.add_node("edge0")
+    fresh.register_builder("decode", WorkloadClass.HEAVY,
+                           router.make_engine_builder(
+                               heavy, max_slots=4, max_seq=128, device=dev))
+    applied = fresh.restore(EDGE_STATE)
+    check(applied == [s["name"] for s in saved["specs"]] and
+          [s.to_dict() for s in fresh.manager.specs.values()]
+          == saved["specs"] and len(fresh.instances("llm-serving")) == 1,
+          f"restore applied {applied}, not the saved spec set")
+    print(f"[edge] restored {applied} from {EDGE_STATE} on a fresh "
+          f"EdgeSystem; phase {time.monotonic() - t_phase:.1f}s")
+    del fresh
+    torch.cuda.empty_cache()
+    for k, v in served.items():
+        launches[k] += v
+    return launches, units + 8
+
+
+# ---------------------------------------------------------------------------
 # phase 4c: the SSM families in fp32 at full width
 # ---------------------------------------------------------------------------
 
@@ -2018,15 +2390,15 @@ KERNELS = {
         replaces="src/repro/kernels/rmsnorm.py:41"),
 }
 # the paths each kernel's launch count comes from, and each path's unit
-PATH_OF = {"flash_attention": ("serve",),
-           "paged_decode_attention": ("serve",),
+PATH_OF = {"flash_attention": ("serve", "edge"),
+           "paged_decode_attention": ("serve", "edge"),
            "paged_verify_attention": ("spec",),
-           "decode_attention": ("spec", "zamba2"),
+           "decode_attention": ("spec", "zamba2", "edge"),
            "flash_attention_bwd_dq": ("train",),
            "flash_attention_bwd_dkv": ("train",),
            "ssd_scan": ("mamba2",), "rmsnorm": ("mamba2",)}
 UNIT_OF = {"serve": "request", "spec": "request", "train": "step",
-           "mamba2": "request", "zamba2": "request"}
+           "mamba2": "request", "zamba2": "request", "edge": "dispatch"}
 
 
 def main() -> int:
@@ -2048,7 +2420,8 @@ def main() -> int:
     kernels = phase_kernels(torch, timer, card)
     paths = {"serve": phase_serve(torch), "spec": phase_spec_serve(torch),
              "mamba2": phase_ssm_serve(torch, "mamba2-2.7b"),
-             "zamba2": phase_ssm_serve(torch, "zamba2-1.2b")}
+             "zamba2": phase_ssm_serve(torch, "zamba2-1.2b"),
+             "edge": phase_edge(torch)}
     phase_consistency(torch)
     phase_ssm_consistency(torch)
     phase_spec_exactness(torch)

@@ -1,19 +1,16 @@
 """Structured dispatch telemetry — the paper's CPU%/RAM/time tables.
 
-A pure-Python copy of the part of ``repro.core.telemetry`` that the
-serving engine records into: one ``DispatchSample`` per finished request
-into ``DispatchStats``, summarised as percentiles (p50/p95/p99 wall, cold
-vs warm split, per-class footprints) for ``launch/serve.py``, plus named
-annotation blocks (the speculation counters).  The JSON view and the
-windowed, per-service, per-tenant and per-replica views come with the
-control-plane and fleet slices that read them (ROADMAP Queue A items 9
-and 10).
+``DispatchStats`` replaces the manager's old free-form record lists with a
+typed sample stream and percentile summaries (p50/p95/p99 wall, cold vs
+warm split, per-class footprints).  The benchmarks and ``launch/serve.py``
+consume the same summaries the manager's ``report()`` exposes, so every
+layer reports latency the same way.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 PERCENTILES = (50.0, 95.0, 99.0)
 
@@ -44,6 +41,9 @@ class DispatchSample:
     footprint_bytes: int
     winner: str = "primary"        # "primary" | "backup"
     backup_launched: bool = False
+    service: str = ""              # owning ServiceSpec name ("" = ad-hoc)
+    tenant: str = ""               # owning spec's tenant ("" = unattributed)
+    replica: str = ""              # serving instance ("svc/0"; "" = unknown)
 
 
 class DispatchStats:
@@ -52,8 +52,9 @@ class DispatchStats:
     def __init__(self):
         self._lock = threading.Lock()
         self.samples: List[DispatchSample] = []
-        # named annotation blocks (the engine's speculation counters);
-        # the latest value of each wins
+        # free-form per-subsystem annotations (e.g. the serving engine's
+        # speculation counters) — latest value wins, serialized alongside
+        # the sample summaries so scorecards/fig7 carry them for free
         self._extra: Dict[str, object] = {}
 
     def record(self, sample: DispatchSample) -> None:
@@ -61,7 +62,8 @@ class DispatchStats:
             self.samples.append(sample)
 
     def set_extra(self, key: str, value: object) -> None:
-        """Attach or refresh a named annotation block."""
+        """Attach (or refresh) a named annotation block, e.g.
+        ``set_extra("speculation", {...acceptance counters...})``."""
         with self._lock:
             self._extra[key] = value
 
@@ -72,6 +74,14 @@ class DispatchStats:
     def __len__(self) -> int:
         with self._lock:
             return len(self.samples)
+
+    def samples_for(self, service: Optional[str] = None,
+                    tenant: Optional[str] = None) -> List[DispatchSample]:
+        """Snapshot of samples filtered by service and/or tenant."""
+        with self._lock:
+            return [s for s in self.samples
+                    if (service is None or s.service == service)
+                    and (tenant is None or s.tenant == tenant)]
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -100,9 +110,22 @@ class DispatchStats:
     def summary(self) -> Dict[str, object]:
         with self._lock:
             samples = list(self.samples)
+        return self._summary_of(samples)
+
+    def windowed(self, window: int = 256) -> Dict[str, object]:
+        """``summary()`` over only the most recent ``window`` samples —
+        the live view scorecards and dashboards want (all-time summaries
+        let a cold-start tail dominate a long-running server)."""
+        with self._lock:
+            samples = self.samples[-window:] if window > 0 else []
+        return self._summary_of(samples)
+
+    @classmethod
+    def _summary_of(cls, samples: Sequence[DispatchSample]
+                    ) -> Dict[str, object]:
         per_class = {
-            wc: self.summarize([s for s in samples
-                                if s.workload_class == wc])
+            wc: cls.summarize([s for s in samples
+                               if s.workload_class == wc])
             for wc in ("heavy", "light")
         }
         per_executor = {}
@@ -123,3 +146,63 @@ class DispatchStats:
                 "wins": sum(1 for s in backups if s.winner == "backup"),
             },
         }
+
+    def per_tenant(self) -> Dict[str, Dict[str, float]]:
+        """Latency summary split by tenant — the QoS fairness report the
+        fig7 benchmark and ``EdgeSystem.report`` surface."""
+        with self._lock:
+            samples = list(self.samples)
+        tenants = sorted({s.tenant for s in samples if s.tenant})
+        return {t: self.summarize([s for s in samples if s.tenant == t])
+                for t in tenants}
+
+    def per_replica(self) -> Dict[str, Dict[str, float]]:
+        """Latency summary split by serving replica — lets fig7 and the
+        fleet scorecards attribute a p95 to the instance that caused it
+        instead of blending the fleet."""
+        with self._lock:
+            samples = list(self.samples)
+        replicas = sorted({s.replica for s in samples if s.replica})
+        return {r: self.summarize([s for s in samples if s.replica == r])
+                for r in replicas}
+
+    def to_dict(self, window: Optional[int] = None) -> Dict[str, object]:
+        """JSON-ready view: the stable ``summary()`` shape (or a windowed
+        one), per-tenant and per-replica splits, and the total sample
+        count."""
+        out = {
+            "version": 1,
+            "total_samples": len(self),
+            "window": window,
+            "summary": self.summary() if window is None
+            else self.windowed(window),
+            "per_tenant": self.per_tenant(),
+            "per_replica": self.per_replica(),
+        }
+        extras = self.extras()
+        if extras:
+            out["extra"] = extras
+        return out
+
+    def to_json(self, window: Optional[int] = None,
+                indent: Optional[int] = None) -> str:
+        """Serialized telemetry for scorecards / ``BENCH_*.json`` files."""
+        import json
+        return json.dumps(self.to_dict(window), sort_keys=True,
+                          indent=indent)
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_walls(cls, name: str, walls: Sequence[float],
+                   workload_class: str = "heavy",
+                   executor_class: str = "container",
+                   footprint_bytes: int = 0,
+                   executor: str = "", node: str = "") -> "DispatchStats":
+        """Adapter for benchmark loops that already collected wall times."""
+        stats = cls()
+        for w in walls:
+            stats.record(DispatchSample(
+                workload=name, workload_class=workload_class,
+                executor_class=executor_class, executor=executor, node=node,
+                wall_s=w, cold=False, footprint_bytes=footprint_bytes))
+        return stats

@@ -1,10 +1,63 @@
-"""Step-level fault tolerance, as ``repro.distributed.fault_tolerance``:
-the ``StragglerMonitor`` the trainer times its steps with.
-``FailureDetector`` and ``plan_elastic_mesh`` come with the mesh
-(ROADMAP Queue A item 13)."""
+"""Fault tolerance, as ``repro.distributed.fault_tolerance``: the
+``StragglerMonitor`` the trainer times its steps with, and the heartbeat
+``FailureDetector`` whose health changes the orchestrator and
+``EdgeSystem`` act on (a host missing heartbeats → its serving instances
+are redeployed on healthy nodes).  ``plan_elastic_mesh`` comes with the
+mesh (ROADMAP Queue A item 13)."""
 from __future__ import annotations
 
-from typing import List
+import dataclasses
+import time
+from typing import Callable, Dict, List, Sequence
+
+
+@dataclasses.dataclass
+class HostState:
+    host_id: str
+    last_heartbeat: float
+    healthy: bool = True
+    incarnation: int = 0          # bumps when a host rejoins
+
+
+class FailureDetector:
+    """Phi-accrual-lite: a host is failed after ``timeout`` without beats."""
+
+    def __init__(self, hosts: Sequence[str], timeout: float = 10.0,
+                 clock: Callable[[], float] = time.monotonic):
+        self.timeout = timeout
+        self.clock = clock
+        now = clock()
+        self.hosts: Dict[str, HostState] = {
+            h: HostState(h, now) for h in hosts}
+        self._listeners: List[Callable[[str, bool], None]] = []
+
+    def on_change(self, fn: Callable[[str, bool], None]):
+        self._listeners.append(fn)
+
+    def heartbeat(self, host_id: str):
+        st = self.hosts[host_id]
+        st.last_heartbeat = self.clock()
+        if not st.healthy:
+            st.healthy = True
+            st.incarnation += 1
+            for fn in self._listeners:
+                fn(host_id, True)
+
+    def poll(self) -> List[str]:
+        """Returns hosts newly marked failed."""
+        now = self.clock()
+        newly_failed = []
+        for st in self.hosts.values():
+            if st.healthy and now - st.last_heartbeat > self.timeout:
+                st.healthy = False
+                newly_failed.append(st.host_id)
+                for fn in self._listeners:
+                    fn(st.host_id, False)
+        return newly_failed
+
+    def healthy_hosts(self) -> List[str]:
+        return [h for h, st in self.hosts.items() if st.healthy]
+
 
 
 class StragglerMonitor:

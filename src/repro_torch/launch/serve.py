@@ -1,26 +1,36 @@
-"""Serving entry point of the port: a ``ServingEngine`` on the GPU.
+"""Serving entry point of the port: a continuous-batching engine deployed
+as a ServiceSpec, on the GPU.
 
 Same flags, traffic generator and report lines as ``repro.launch.serve``,
-plus ``--device``.  The JAX script deploys the engine through an
-``EdgeSystem`` and a ``ServiceSpec``; that control plane is not ported yet
-(ROADMAP Queue A item 9), so this script builds the engine directly.
-Every prompt is submitted up front to the background engine loop, which
+plus ``--device``.  The engine is not hand-built: a declarative spec is
+applied to an ``EdgeSystem`` whose builder wraps a ``ServingEngine`` in a
+container-class executor (``serving.router.make_engine_builder``).  Every
+prompt is submitted up front to the background engine loop, which
 overlaps one request's prefill chunks with the others' decode.  The
 engine picks its data plane: paged KV for the dense decoder, dense slots
-for ``mamba2-2.7b`` and ``zamba2-1.2b``.
+for ``mamba2-2.7b`` and ``zamba2-1.2b``.  ``--save-state`` writes the
+applied specs and quotas (``EdgeSystem.restore`` re-applies them).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --reduced --requests 8
+
+On the CPU (``--device cpu``) the node's capacity is the host's memory;
+on the card it is the card's.  ``main`` returns the ``EdgeSystem``.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 
 
-def main(argv=None) -> None:
+def _host_memory() -> int:
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--reduced", action="store_true")
@@ -32,27 +42,43 @@ def main(argv=None) -> None:
                     help="per-request latency SLO; every 4th request gets "
                          "a tight SLO and should jump the queue")
     ap.add_argument("--save-state", default="",
-                    help="persist applied specs + quotas (needs the "
-                         "control plane, not ported yet)")
+                    help="persist applied specs + quotas to this path")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain PyTorch path)")
     args = ap.parse_args(argv)
-    if args.save_state:
-        raise NotImplementedError(
-            "--save-state needs the EdgeSystem control plane, not ported "
-            "yet (ROADMAP Queue A item 9)")
 
     from repro_torch.configs import get_config, get_reduced_config
-    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.core import (EdgeSystem, ExecutorClass, NodeCapacity,
+                                  QoSClass, ServiceSpec, Workload,
+                                  WorkloadClass, WorkloadKind)
+    from repro_torch.device import resolve_device
+    from repro_torch.serving.router import make_engine_builder
 
     cfg = get_reduced_config(args.arch) if args.reduced \
         else get_config(args.arch)
     if cfg.encoder_only:
         raise SystemExit(f"{args.arch} is encoder-only: no decode serving")
 
-    engine = ServingEngine(cfg, max_slots=args.slots, max_seq=args.max_seq,
-                           device=args.device)
+    device = resolve_device(args.device)
+    system = EdgeSystem()
+    system.add_node("edge0", NodeCapacity(hbm_bytes=_host_memory())
+                    if device.type == "cpu" else None)
+    system.register_builder(
+        "decode", WorkloadClass.HEAVY,
+        make_engine_builder(cfg, max_slots=args.slots, max_seq=args.max_seq,
+                            device=device))
+    spec = ServiceSpec(
+        name="llm-serving",
+        workload=Workload("serve", WorkloadKind.DECODE, cfg,
+                          batch=args.slots, seq_len=args.max_new),
+        executor_class=ExecutorClass.CONTAINER,
+        tenant="serving", qos=QoSClass.GUARANTEED,
+        latency_slo_ms=args.slo_ms)
+    (dep,) = system.apply(spec)
+    engine = dep.executor.engine
+
+    # every prefill shape and the decode step run once BEFORE traffic
     engine.warmup()
     plane = "paged KV" if engine.paged else "dense slots"
     print(f"warmup: {engine.warmup_s:.2f}s ({plane}, "
@@ -65,6 +91,8 @@ def main(argv=None) -> None:
         handles = []
         for i in range(args.requests):
             plen = int(rng.integers(4, args.max_seq // 2))
+            # a tight-SLO request every 4th submission: the engine's
+            # SLO-slack ordering admits these ahead of FIFO arrivals
             slo = args.slo_ms if (args.slo_ms and i % 4 == 3) else 0.0
             handles.append(engine.submit(
                 rng.integers(0, cfg.vocab_size, size=plen),
@@ -73,9 +101,9 @@ def main(argv=None) -> None:
     dt = time.monotonic() - t0
     toks = sum(len(r.generated) for r in done)
     print(f"served {len(done)} requests, {toks} tokens in {dt:.2f}s "
-          f"({toks / dt:.1f} tok/s, {engine.ticks} overlapped ticks vs "
-          f"~{args.requests * args.max_new} serialized) "
-          f"via serving-engine on {engine.device}")
+          f"({toks / max(dt, 1e-9):.1f} tok/s, {engine.ticks} overlapped "
+          f"ticks vs ~{args.requests * args.max_new} serialized) "
+          f"via {dep.name} on {dep.node_id} ({engine.device})")
     for r in done[:3]:
         ttft = (r.first_token_at - r.submitted_at) * 1e3
         print(f"  rid={r.rid} prompt={len(r.prompt)} ttft={ttft:.0f}ms "
@@ -99,6 +127,10 @@ def main(argv=None) -> None:
               f"p50={summary['p50_wall_s'] * 1e3:.1f}ms "
               f"p95={summary['p95_wall_s'] * 1e3:.1f}ms "
               f"p99={summary['p99_wall_s'] * 1e3:.1f}ms")
+    print(f"  footprint: static {dep.executor.footprint_bytes() / 2**20:.1f}"
+          f"MiB, dynamic "
+          f"{dep.executor.dynamic_footprint_bytes() / 2**20:.1f}MiB")
+
     if args.slo_ms:
         slo_reqs = [r for r in done if r.latency_slo_ms > 0]
         met = sum((r.finished_at - r.submitted_at) * 1e3 <= r.latency_slo_ms
@@ -106,6 +138,13 @@ def main(argv=None) -> None:
         print(f"  slo: {met}/{len(slo_reqs)} tight-SLO requests "
               f"within {args.slo_ms:.0f}ms; "
               f"p95_queue_s={stats.get('p95_queue_s', 0.0) * 1e3:.1f}ms")
+        n = system.autoscale("llm-serving", mode="slo", max_n=4)
+        print(f"  slo-autoscale: engine replicas -> {n}")
+    if args.save_state:
+        system.save_state(args.save_state)
+        print(f"  state saved to {args.save_state} "
+              f"(EdgeSystem.restore re-applies it after a manager restart)")
+    return system
 
 
 if __name__ == "__main__":

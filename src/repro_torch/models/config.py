@@ -177,6 +177,16 @@ class ModelConfig:
             n += attn + mlp + 2 * norm
         return n
 
+    def active_params(self) -> int:
+        """Activated parameters per token, which ``Workload.flops`` reads:
+        ``num_params`` for the ported families (the routed-expert share
+        comes with MoE, ROADMAP Queue A item 11)."""
+        if self.family == "moe":
+            raise NotImplementedError(
+                "active_params of the moe family is not ported yet "
+                "(ROADMAP Queue A item 11)")
+        return self.num_params()
+
     def kv_bytes_per_token(self, dtype_bytes: int = 2) -> int:
         """KV-cache bytes per token per layer-application (serving planner)."""
         if self.attn_type == "mla":

@@ -38,8 +38,11 @@ place; the tensors live on the engine's device (``cuda`` unless
 ``device="cpu"``).  The dense slot tree is in the compute dtype from the
 start (the JAX engine's starts in bf16 and takes the compute dtype at its
 first decode; ROADMAP Queue C).  MoE, sliding-window, MLA and encoder
-models and ``EngineExecutor`` raise ``NotImplementedError`` naming their
-ROADMAP item.
+models raise ``NotImplementedError`` naming their ROADMAP item.
+
+``EngineExecutor`` wraps an engine as a container-class executor, so a
+serving deployment is declared through ``ServiceSpec``/``EdgeSystem``
+like every other service.
 """
 from __future__ import annotations
 
@@ -54,13 +57,17 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.executor import BaseExecutor, DispatchRecord, \
+    ExecutorClass
 from repro_torch.core.telemetry import DispatchSample, DispatchStats, percentile
+from repro_torch.core.workload import Workload, WorkloadKind
 from repro_torch.device import resolve_device
 from repro_torch.kernels.build import KernelError
 from repro_torch.kernels.paged_verify_attention import MAX_K1
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import build_model, cast_params, to_device
 from repro_torch.serving.kv_cache import (PagedKVCache, SlotKVCache,
+                                         _tree_bytes,
                                          autotune_page_size)
 from repro_torch.serving.prefix import PrefixRadixIndex
 from repro_torch.serving.spec_decode import DraftSpeculator
@@ -1095,6 +1102,15 @@ class ServingEngine:
             return list(self.completed.values())
 
     # ------------------------------------------------------------------
+    def spec_overhead_bytes(self) -> int:
+        """Draft-side memory the speculator adds (draft params + its dense
+        slot cache); 0 when speculation is off.  Charged into the
+        executor's footprint so admission/QoS arbitrates draft capacity
+        like any other tenant demand."""
+        with self._lock:
+            d = self._draft
+        return d.footprint_bytes() if d is not None else 0
+
     def stats(self) -> Dict[str, float]:
         with self._lock:
             done = list(self.completed.values())
@@ -1165,10 +1181,84 @@ class ServingEngine:
         return out
 
 
-class EngineExecutor:
-    """The control-plane wrapper of the engine (``repro.serving.engine.
-    EngineExecutor``) comes with the ``core/`` port."""
+class EngineExecutor(BaseExecutor):
+    """Container-class executor wrapping a continuous-batching engine, so a
+    serving deployment is declared through ``ServiceSpec``/``EdgeSystem``
+    like every other service.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "EngineExecutor is not ported yet (ROADMAP Queue A item 9)")
+    ``dispatch`` submits the prompt and blocks on the request's handle:
+    with the background loop running (``autostart=True`` starts it on
+    first dispatch), concurrent dispatches from different threads batch in
+    the shared engine — one request's prefill chunks overlap another's
+    decode.  Without a loop, the handle drives ticks inline (still
+    lock-serialized, so concurrent callers share the decode batch either
+    way).
+
+    Footprints follow the paged accounting: the *static* footprint (what
+    placement reserves) is params + the speculator + the KV pool's actual
+    capacity — which shrinks when ``num_pages`` undercuts the dense
+    ``max_slots × max_seq`` layout — and ``dynamic_footprint_bytes``
+    reports params + the speculator + pages currently in use, the number
+    telemetry samples carry.
+    """
+
+    executor_class = ExecutorClass.CONTAINER
+
+    def __init__(self, name: str, engine: ServingEngine, mesh=None,
+                 autostart: bool = True,
+                 result_timeout: Optional[float] = 120.0):
+        super().__init__(name, mesh)
+        self.engine = engine
+        self.autostart = autostart
+        self.result_timeout = result_timeout
+        # params are fixed at engine init — size them once, not per
+        # dispatch; the speculator's draft is sized at init too, so a
+        # mid-service speculation disable doesn't shrink a placed
+        # footprint out from under the orchestrator
+        self._params_bytes = _tree_bytes(self.engine.params)
+        self._spec_bytes = self.engine.spec_overhead_bytes()
+        self._footprint = self._params_bytes + self._spec_bytes + \
+            self.engine.kv.capacity_bytes()
+
+    def footprint_bytes(self) -> int:
+        return self._footprint
+
+    def dynamic_footprint_bytes(self) -> int:
+        """Live commitment: params + the speculator + KV pages (or slots)
+        in use."""
+        return self._params_bytes + self._spec_bytes + \
+            self.engine.kv.bytes_in_use()
+
+    def can_run(self, workload: Workload, args) -> bool:
+        if workload.kind not in (WorkloadKind.PREFILL, WorkloadKind.DECODE,
+                                 WorkloadKind.GENERIC):
+            return False
+        if len(args) != 1:           # dispatch unpacks exactly one prompt
+            return False
+        try:
+            a = np.asarray(args[0])
+        except Exception:  # noqa: BLE001
+            return False
+        return a.ndim == 1 and np.issubdtype(a.dtype, np.integer)
+
+    def dispatch(self, workload: Workload, args):
+        (prompt,) = args
+        t0 = time.monotonic()
+        if self.autostart:
+            self.engine.start()
+        self.inflight += 1
+        try:
+            handle = self.engine.submit(
+                prompt, max_new_tokens=max(workload.seq_len, 1),
+                latency_slo_ms=workload.latency_slo_ms)
+            req = handle.result(timeout=self.result_timeout)
+        finally:
+            self.inflight -= 1
+        self.history.append(DispatchRecord(workload.name,
+                                           time.monotonic() - t0, False))
+        return req
+
+    def stats_extras(self) -> Dict[str, object]:
+        """Engine-side annotations (speculation acceptance counters) for
+        the manager to merge into the system-wide ``DispatchStats``."""
+        return self.engine.dispatch_stats.extras()

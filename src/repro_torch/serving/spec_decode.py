@@ -34,7 +34,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import build_model, cast_params, to_device
-from repro_torch.serving.kv_cache import SlotKVCache
+from repro_torch.serving.kv_cache import SlotKVCache, _tree_bytes
 
 _MIN_BUCKET = 16        # smallest draft prefill bucket, as in the JAX package
 
@@ -62,6 +62,7 @@ class DraftSpeculator:
             params = self.model.init(gen)
         self.params = to_device(params, self.device)
         self._run_params = cast_params(self.params, cfg.cdtype)
+        self._params_bytes = _tree_bytes(self.params)
         self.kv = SlotKVCache(cfg, max_slots, max_seq, dtype=cfg.cdtype,
                               device=self.device)
 
@@ -105,3 +106,7 @@ class DraftSpeculator:
     def observe(self, new_len: torch.Tensor, active: torch.Tensor) -> None:
         """Adopt the target's post-commit lengths (rewind past rejects)."""
         self.kv.cache_len = torch.where(active, new_len, self.kv.cache_len)
+
+    def footprint_bytes(self) -> int:
+        """Draft params + dense slot cache — charged to admission/QoS."""
+        return self._params_bytes + self.kv.capacity_bytes()

@@ -255,7 +255,8 @@ def test_background_loop_serves_and_validates():
 
 
 def test_unported_branches_raise():
-    from repro_torch.serving.engine import EngineExecutor
+    from repro_torch.core import EdgeSystem, ServiceSpec, Workload, \
+        WorkloadKind
 
     jcfg, tcfg = _cfgs()
     # paged=False serves on dense slots now (tests/test_torch_ssm.py);
@@ -271,8 +272,10 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="item 11"):
         ServingEngine(dataclasses.replace(tcfg, sliding_window=8),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        EngineExecutor("e", None)
+    # EngineExecutor came with the control plane; the fleet has not
+    with pytest.raises(NotImplementedError, match="item 10"):
+        EdgeSystem().deploy_fleet(ServiceSpec(
+            name="f", workload=Workload("f", WorkloadKind.DECODE, tcfg)))
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.tree import leaves
 
 # the JAX suite's cases (tests/test_kernels.py:29, tests/test_paged_kv.py:33);
 # test_torch_kernels.py runs the same cases against JAX
@@ -97,6 +98,10 @@ DECODE_GPU_CASES = [
     (3, 8, 8, 64, 512, 0, 0.0, [0, 200, 512]),
     (1, 32, 32, 64, 1000, 0, 0.0, [1000]),
     (1, 8, 1, 128, 4096, 1000, 0.0, [4001]),
+    # the unikernel decode image of edge-stream-light: G 2, B 1, S 128
+    (1, 4, 2, 64, 128, 0, 0.0, [1]),
+    (1, 4, 2, 64, 128, 0, 0.0, [77]),
+    (1, 4, 2, 64, 128, 0, 0.0, [128]),
 ]
 # the SSD scan: T 1, 63, 64, 100, 257 and 511 around the chunk and the
 # kernel's 64-row tiles (its bounds mask stands in for the JAX padding),
@@ -983,3 +988,131 @@ def test_ssm_engine_launches_the_kernels(cuda):
         assert ss.ssd_scan.launches == cfg.num_layers * st["prefill_chunks"]
         assert rn.rmsnorm.launches == norms * (st["prefill_chunks"]
                                                + st["decode_steps"])
+
+
+# ---------------------------------------------------------------------------
+# the unikernel image: one captured CUDA graph
+# ---------------------------------------------------------------------------
+
+def _light_image(cuda, max_seq=32):
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core import ImageRegistry, Workload, WorkloadKind
+    from repro_torch.serving import router
+
+    cfg = get_reduced_config("edge-stream-light")
+    reg = ImageRegistry()
+    ex, _ = router.make_unikernel_decode_builder(
+        cfg, reg, max_seq=max_seq, device=cuda)(
+        Workload("d", WorkloadKind.DECODE, cfg, batch=1), None)
+    return cfg, ex, Workload("d", WorkloadKind.DECODE, cfg, batch=1)
+
+
+def test_image_replays_equal_eager_calls(cuda):
+    """Eight replays give the tokens and caches of eight eager decode
+    steps over the same params; the decode kernel was captured once per
+    layer and ran at every replay."""
+    from repro_torch.models.model import build_model
+
+    cfg, ex, w = _light_image(cuda)
+    img = ex.image
+    assert img.captured and img.build_time_s > 0
+    assert img.captured_launches.get("decode_attention") == cfg.num_layers
+    params = img.static_args[0]
+    model = build_model(cfg, cuda)
+    caches = model.init_caches(1, 32, cfg.cdtype)
+    tok = torch.tensor([3], dtype=torch.int32, device=cuda)
+    clen = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    itok, icaches, ilen = tok, model.init_caches(1, 32, cfg.cdtype), clen
+    for _ in range(8):
+        with torch.no_grad():
+            logits = model.decode(params, tok, caches, clen)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        clen = clen + 1
+        itok, icaches, ilen = ex.dispatch(w, (params, itok, icaches, ilen))
+        assert torch.equal(itok, tok) and torch.equal(ilen, clen)
+    for a, b in zip(leaves(icaches), leaves(caches)):
+        assert torch.equal(a, b)
+    assert img.replays == 8
+
+
+def test_image_rejects_a_mismatched_spec(cuda):
+    from repro_torch.core import IncompatibleWorkload
+
+    cfg, ex, w = _light_image(cuda)
+    p, tok, caches, clen = ex.image.static_args
+    with pytest.raises(IncompatibleWorkload):
+        ex.dispatch(w, (p, tok.long(), caches, clen))
+    with pytest.raises(IncompatibleWorkload):
+        ex.dispatch(w, (p, tok.cpu(), caches, clen))
+    with pytest.raises(IncompatibleWorkload):
+        ex.dispatch(w, (p, torch.zeros((2,), dtype=torch.int32,
+                                       device=cuda), caches, clen))
+    assert ex.image.replays == 0
+
+
+def test_donated_cache_is_not_copied_back_in(cuda):
+    """The caches come back in the caller's own tensors, never the
+    image's static buffers; handed back, only the token and the length
+    are copied in."""
+    cfg, ex, w = _light_image(cuda)
+    img = ex.image
+    p, tok, caches, clen = (torch.zeros_like(t) if i == 1 else t
+                            for i, t in enumerate(img.static_args))
+    from repro_torch.models.model import build_model
+    fresh = build_model(cfg, cuda).init_caches(1, 32, cfg.cdtype)
+    tok, caches, clen = ex.dispatch(w, (p, tok, fresh, clen))
+    first = img.copied_bytes
+    assert all(a is b for a, b in zip(leaves(caches), leaves(fresh)))
+    assert not any(a is b for a, b in zip(leaves(caches),
+                                          leaves(img.static_args[2])))
+    tok, caches, clen = ex.dispatch(w, (p, tok, caches, clen))
+    assert img.copied_bytes - first == 2 * 4        # int32 token + length
+
+
+def test_two_decode_streams_through_one_image(cuda):
+    """Two decode streams interleaved through one captured image, as two
+    executors share it after a failover: each stream's tokens and caches
+    equal its own eager run, bit for bit."""
+    from repro_torch.models.model import build_model
+
+    cfg, ex, w = _light_image(cuda)
+    model = build_model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(5))
+
+    def start(t):
+        return (torch.tensor([t], dtype=torch.int32, device=cuda),
+                model.init_caches(1, 32, cfg.cdtype),
+                torch.zeros((1,), dtype=torch.int32, device=cuda))
+
+    streams, eager = {"a": start(3), "b": start(9)}, {"a": start(3),
+                                                      "b": start(9)}
+    for name in "aababbab":
+        streams[name] = ex.dispatch(w, (params,) + tuple(streams[name]))
+        etok, ecaches, eclen = eager[name]
+        with torch.no_grad():
+            logits = model.decode(params, etok, ecaches, eclen)
+        eager[name] = (torch.argmax(logits, -1).to(torch.int32), ecaches,
+                       eclen + 1)
+        for a, b in zip(leaves(streams[name]), leaves(eager[name])):
+            assert torch.equal(a, b)
+    assert not torch.equal(leaves(streams["a"][1])[0],
+                           leaves(streams["b"][1])[0])
+    assert ex.image.replays == 8
+
+
+def test_capture_with_a_host_sync_raises(cuda):
+    """A host sync inside the captured function fails the capture, and
+    the build raises: it never falls back to running eagerly."""
+    from repro_torch.core import ExecutableImage
+
+    def bad(x):
+        return x * float(x.sum().item())
+
+    with pytest.raises(RuntimeError, match="capture"):
+        ExecutableImage.build("bad", bad, (torch.ones(4, device=cuda),))
+    torch.cuda.synchronize()
+    ok = ExecutableImage.build("ok", lambda x: x * 2,
+                               (torch.ones(4, device=cuda),))
+    assert ok.captured and torch.equal(ok(torch.ones(4, device=cuda)),
+                                       torch.full((4,), 2.0, device=cuda))
+

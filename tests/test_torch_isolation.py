@@ -54,6 +54,8 @@ def test_port_runs_with_jax_unimportable(tmp_path):
         import repro_torch.launch.serve
         import repro_torch.launch.train
         import repro_torch.kernels.build
+        import repro_torch.core
+        import repro_torch.serving.router
         from repro_torch.configs import get_reduced_config
         from repro_torch.serving.engine import ServingEngine
         eng = ServingEngine(get_reduced_config("tinyllama-1.1b"),
@@ -78,7 +80,10 @@ def test_entry_points_refuse_a_missing_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
     from repro_torch.configs import get_reduced_config
+    from repro_torch.core import EdgeSystem, ImageRegistry, NodeCapacity
+    from repro_torch.data import stream
     from repro_torch.launch import serve, train
+    from repro_torch.serving import router
     from repro_torch.models.attention import init_paged_pool
     from repro_torch.models.model import Model
     from repro_torch.models.transformer import init_paged_cache_tree
@@ -105,6 +110,26 @@ def test_entry_points_refuse_a_missing_gpu():
                  lambda: serve.main(["--reduced", "--requests", "1"]),
                  lambda: Trainer(cfg),
                  lambda: Trainer(cfg, device="cuda"),
-                 lambda: train.main(["--reduced", "--steps", "1"])):
+                 lambda: train.main(["--reduced", "--steps", "1"]),
+                 # the control plane: builders, nodes and launch/serve.py
+                 lambda: router.make_container_builder(cfg),
+                 lambda: router.make_unikernel_decode_builder(
+                     get_reduced_config("edge-stream-light"),
+                     ImageRegistry()),
+                 lambda: router.make_stream_builder(ImageRegistry(),
+                                                    stream.StreamConfig()),
+                 lambda: router.make_stream_container_builder(
+                     stream.StreamConfig()),
+                 lambda: router.make_engine_builder(cfg),
+                 lambda: router.assemble_edge_system(EdgeSystem(), cfg),
+                 lambda: EdgeSystem().add_node("n0"),
+                 lambda: EdgeSystem().add_node("n0", mesh="cuda:0"),
+                 lambda: NodeCapacity(),
+                 lambda: stream.init_state(stream.StreamConfig()),
+                 lambda: serve.main(["--reduced", "--requests", "1",
+                                     "--save-state", "/nonexistent/s"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+    # a CPU node has no card to read: it must be given its capacity
+    with pytest.raises(ValueError, match="capacity"):
+        EdgeSystem().add_node("n0", mesh="cpu")
