@@ -18,7 +18,12 @@ continues:
    int8 pools for the paged kernels, K1 of 1, 2 and 5 for the verify
    kernel, which at K1 = 1 is also held against the paged decode kernel;
    both paged kernels timed at B 8 over 64 table entries, at B 1 with one
-   543-token sequence and at B 8 over 256 entries with lengths 1024-4095;
+   543-token sequence and at B 8 over 256 entries with lengths 1024-4095,
+   paged decode also at the fleet's 4 slots over 8 entries (phase 3e,
+   with B 1 and rows of 1-16 and 128 keys checked there), and flash
+   attention at the fleet's prefill chunks (64 queries after a shared
+   prefix of 16 or 48 tokens over 128 keys timed; first chunks and
+   tails over 64 or 128 keys);
    the dense decode kernel timed at the draft's G 8, at zamba2's G 1 and
    at the edge decode image's G 2 (B 1, S 128),
    and checked with lengths of 0, of S and past S),
@@ -82,6 +87,24 @@ continues:
    registry; then ``launch/serve.py`` at full width (8 requests,
    ``--save-state``), flash and paged decode launches exact, and a fresh
    ``EdgeSystem`` restores the saved spec set;
+3e. the fleet: ``EdgeSystem`` with two logical nodes on cuda:0 (half of
+   the card's memory each), two full-width tinyllama-1.1b replicas (one
+   parameter tree from a seed, bf16) deployed by ``deploy_fleet``; the
+   JAX package's ``fleet_trace()`` (its fingerprint checked) replayed
+   through ``run_fleet_replay`` under affinity, round-robin, and affinity
+   with a stall of replica 0 and the loss of node edge1 (failover builds
+   a third engine; edge1 rejoins at the end): every request completes or
+   is requeued, no GUARANTEED request is dropped, affinity's hit rate is
+   above round-robin's, flash launched 22 x the chunks and paged decode
+   22 x the decode steps over every engine built (warmups included);
+   SLO attainment, latency percentiles, goodput, the router's counters,
+   the failover's redeploy time and peak memory; after the chaos replay
+   replica 0 is stalled once more and a request of a session it holds
+   must be served by replica 1 while the stall lasts, counted as one
+   stall evasion; then two engine loop threads on one card (decode tick
+   alone and paired, and the device busy share of a traced paired run
+   of the same traffic) and a 2-layer fp32 fleet whose streams equal a
+   solo engine's;
 4. consistency: fp32 at full width, 2 layers: every decode step's logits
    against ``Model.forward`` over the same prefix, within 2e-4 relative;
 4c. SSM consistency: mamba2 (2 layers) and zamba2 (3) in fp32 at full
@@ -111,7 +134,7 @@ continues:
    norms within 1e-4 relative, final parameters within 1e-4;
 9. the kernels line (each kernel's launches from the paths that run it:
    per request for serving, per step for training, per dispatch on the
-   edge path; the SSD scan and RMSNorm from mamba2's serve, the dense
+   edge path, per request on the fleet; the SSD scan and RMSNorm from mamba2's serve, the dense
    decode kernel from the speculative and zamba2's serves and the edge
    path; flash attention's times at the serving
    chunk, and as ``train_*`` at the train shape; other timed shapes under
@@ -122,6 +145,7 @@ continues:
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -137,6 +161,10 @@ HBM_BYTES_PER_S = 3.35e12              # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,      # dense tensor-core bf16
               "float32": 67e12}        # f32 outside the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 3.5e-2}
+# sha256 of the JAX package's ``fleet_trace()`` JSONL (seed 0, its default
+# knobs): phase 3e's trace must be that one, byte for byte
+FLEET_TRACE_FINGERPRINT = (
+    "b0b2baffc2a54c14ca80828fceb4903a57b0b20fa5505a258d2cf7672bbe53fc")
 
 
 def fail(msg: str) -> None:
@@ -703,27 +731,38 @@ def phase_kernels(torch, timer, card):
             shape=label, dtype=dtype)
 
     flash_cases = [
-        # label, Tq, Tk, start, valid, extra, timed
-        ("Tq64/Tk512 chunk@448", 64, 512, 448, 512, {}, True),
-        ("Tq64/Tk1024 chunk@960", 64, 1024, 960, 1024, {}, False),
-        ("Tq16/Tk512 tail@400", 16, 512, 400, 416, {}, False),
+        # label, Tq, Tk, start, valid, extra, the key the times go under
+        ("Tq64/Tk512 chunk@448", 64, 512, 448, 512, {}, "flash_attention"),
+        ("Tq64/Tk1024 chunk@960", 64, 1024, 960, 1024, {}, None),
+        ("Tq16/Tk512 tail@400", 16, 512, 400, 416, {}, None),
         ("Tq64/Tk64 forward", 64, 64, 0, 64, {"explicit_kv_pos": True},
-         False),
+         None),
         # the cv-infer container's forward in phase 3d: B 1, T 32
         ("Tq32/Tk32 forward", 32, 32, 0, 32, {"explicit_kv_pos": True},
-         False),
-        ("Tq64/Tk512 window128", 64, 512, 448, 512, {"window": 128}, False),
+         None),
+        ("Tq64/Tk512 window128", 64, 512, 448, 512, {"window": 128}, None),
         ("Tq64/Tk512 softcap30", 64, 512, 448, 512, {"softcap": 30.0},
-         False),
-        ("Tq16/Tk64 warmup(valid=0)", 16, 64, 0, 0, {}, False),
+         None),
+        ("Tq16/Tk64 warmup(valid=0)", 16, 64, 0, 0, {}, None),
+        # the fleet's chunks (phase 3e, max_seq 128, chunks of 64): a
+        # chunk after a radix-shared prefix of 1 or 3 pages, a prompt's
+        # first chunk (whole, or 40 real tokens of a 64 bucket), and the
+        # tails of 96- and 93-token prompts, over spans of 64 or 128 keys
+        ("Tq64/Tk128 chunk@16 prefix-shared", 64, 128, 16, 80, {},
+         "flash_attention@fleet"),
+        ("Tq64/Tk128 chunk@48 prefix-shared", 64, 128, 48, 112, {}, None),
+        ("Tq64/Tk64 first chunk", 64, 64, 0, 64, {}, None),
+        ("Tq64/Tk64 first chunk, 40 real", 64, 64, 0, 40, {}, None),
+        ("Tq32/Tk128 tail@64", 32, 128, 64, 96, {}, None),
+        ("Tq16/Tk128 tail@80, 13 real", 16, 128, 80, 93, {}, None),
     ]
     for dtype in ("bfloat16", "float32"):
-        for label, Tq, Tk, start, valid, extra, timed in flash_cases:
+        for label, Tq, Tk, start, valid, extra, key in flash_cases:
             args, kw, nb, fl = _flash_case(torch, gen, dtype, Tq, Tk, start,
                                            valid, **extra)
             run("flash_attention", label, dtype, flash_attention, ref.mha,
                 args, kw, nb, fl, _sdpa_flash(torch, F, *args, kw),
-                timed and dtype == "bfloat16")
+                key is not None and dtype == "bfloat16", key)
             if valid == 0:
                 out = flash_attention(*args, **kw)
                 check(bool((out == 0).all()),
@@ -738,6 +777,16 @@ def phase_kernels(torch, timer, card):
         ("B8/MP64 decode", {}, "paged_decode_attention"),
         ("B1/MP64 one 543-token sequence", one, "paged_decode_attention@B1"),
         ("B8/MP256 lengths 1024-4095", long, "paged_decode_attention@MP256"),
+        # the fleet's decode ticks (phase 3e): 4 slots over MP 8 (max_seq
+        # 128), where a cluster's blocks take shares of 16 keys and most
+        # hold none of a short row's
+        ("B4/MP8 fleet lengths 33-103", {"B": 4, "MP": 8, "lens": (33, 104)},
+         "paged_decode_attention@fleet"),
+        ("B1/MP8 one 70-token sequence", {"B": 1, "MP": 8, "lens": (70, 71)},
+         None),
+        ("B4/MP8 lengths 1-16", {"B": 4, "MP": 8, "lens": (1, 17)}, None),
+        ("B4/MP8 full rows of 128", {"B": 4, "MP": 8, "lens": (128, 129)},
+         None),
         ("B8/MP64 window256", {"window": 256}, None),
         ("B8/MP64 softcap30", {"softcap": 30.0}, None),
         ("B8/MP64 int8", {"int8": True}, None),
@@ -1789,6 +1838,345 @@ def phase_edge(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: the fleet
+# ---------------------------------------------------------------------------
+
+FLEET_SCORECARDS = os.path.join(ROOT, "build", "fleet_scorecards.json")
+
+
+def _fleet_chaos():
+    """Phase 3e's fault script over the 6 s trace: replica 0 stalls in the
+    first third, node edge1 is lost in the middle and rejoins at the
+    end."""
+    from repro_torch.harness import ChaosAction
+
+    return [ChaosAction(at_s=1.0, kind="engine-stall", target="fleet-chat/0",
+                        duration_s=1.0),
+            ChaosAction(at_s=3.0, kind="node-loss", target="edge1"),
+            ChaosAction(at_s=5.5, kind="node-rejoin", target="edge1")]
+
+
+def _fleet_run(torch, trace, cfg, params, total, name, policy, chaos):
+    """One ``run_fleet_replay`` of ``trace`` over two replicas of ``cfg``,
+    with every kernel count at 0 just before it; returns the scorecard,
+    the router, the system, the engines the fleet built and the launches
+    counted once every engine, orphans included, went idle."""
+    from repro_torch.harness import fleet_scorecard, run_fleet_replay
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    built = []
+    fa.flash_attention.launches = pda.paged_decode_attention.launches = 0
+    report, router, system = run_fleet_replay(
+        trace, cfg, policy=policy, chaos_actions=chaos, max_slots=4,
+        max_seq=128, node_hbm_bytes=total // 2,
+        engine_kw={"params": params}, device="cuda", engine_sink=built,
+        drain_timeout_s=120.0, result_timeout_s=60.0)
+    for eng in built:
+        eng.drain(timeout=120)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "paged_decode_attention":
+                    pda.paged_decode_attention.launches}
+    card = fleet_scorecard(report, router)
+    card["fingerprint"] = trace.fingerprint()
+    L = cfg.num_layers
+    sts = [e.stats() for e in built]
+    warmed = [e for e in built if e._warm]
+    chunks = sum(s["prefill_chunks"] for s in sts)
+    steps = sum(s["decode_steps"] for s in sts)
+    buckets = sum(len(e.chunk_buckets) for e in warmed)
+    c = card["requests"]
+    check(c["total"] == len(trace) and all(
+        o.ok or o.requeues > 0 for o in report.outcomes),
+          f"fleet {name}: requests neither completed nor requeued: "
+          f"{[(o.eid, o.status, o.error) for o in report.outcomes if not o.ok]}")
+    check(card["guaranteed"]["dropped"] == 0,
+          f"fleet {name}: GUARANTEED dropped: {card['guaranteed']}")
+    check(card["fingerprint"] == FLEET_TRACE_FINGERPRINT and
+          [(o.eid, o.offset_s, o.qos) for o in report.outcomes]
+          == [(e.eid, e.offset_s, e.qos) for e in trace.events],
+          f"fleet {name}: the replayed trace is not the JAX package's")
+    check(all(e.device.type == "cuda" for e in built),
+          f"fleet {name}: an engine off the card")
+    # the warmup runs every chunk bucket and one decode step of each
+    # replica warmed before the replay; failover's engines start cold
+    check(launches["flash_attention"] == L * (chunks + buckets),
+          f"fleet {name}: flash launches {launches['flash_attention']} != "
+          f"{L} x ({chunks} chunks + {buckets} warmup buckets)")
+    check(launches["paged_decode_attention"] == L * (steps + len(warmed)),
+          f"fleet {name}: paged launches "
+          f"{launches['paged_decode_attention']} != {L} x ({steps} decode "
+          f"steps + {len(warmed)} warmup)")
+    shared = sum(r.kv_shared_tokens for e in built
+                 for r in e.completed.values())
+    prompt = sum(len(r.prompt) for e in built for r in e.completed.values())
+    lat = card["latency"]
+    print(f"[fleet] {name}: {c['completed']}/{c['total']} completed, "
+          f"{c['requeued']} requeued; SLO attainment "
+          f"{card['slo']['attainment']}, latency p50 {lat['p50_s'] * 1e3:.1f}"
+          f" / p95 {lat['p95_s'] * 1e3:.1f} / p99 {lat['p99_s'] * 1e3:.1f} "
+          f"ms, goodput {card['goodput_rps']} rps, wall {card['wall_s']}s; "
+          f"{len(built)} engines, {chunks} chunks + {buckets} warmup, "
+          f"{steps} decode steps + {len(warmed)} warmup, launches "
+          f"{launches} (exact); radix-shared prompt tokens {shared}/{prompt}")
+    print(f"[fleet] {name} ticks p50 (prefill / decode ms) per engine: "
+          + ", ".join(f"{s.get('p50_prefill_tick_s', float('nan')) * 1e3:.1f}"
+                      f" / {s.get('p50_decode_tick_s', float('nan')) * 1e3:.1f}"
+                      for s in sts))
+    fl = card["fleet"]
+    print(f"[fleet] {name} router: " + json.dumps({
+        "hit_rate": fl["affinity_hit_rate"], "prefix_hits":
+        fl["prefix_hits"], "session_hits": fl["session_hits"],
+        "misses": fl["misses"], "steals": fl["steals"],
+        "reroutes": fl["reroutes"], "stall_evasions": fl["stall_evasions"],
+        "replicas": {k: {f: v[f] for f in ("submitted", "completed",
+                                           "stolen_in", "stolen_out")}
+                     for k, v in fl["replicas"].items()}}))
+    return card, report, router, system, built, launches
+
+
+def _stall_evasion(cfg, router, system, built):
+    """One more ``engine-stall`` of the replica that holds a fresh
+    session, fired through the chaos injector after the chaos replay (its
+    engine lock held for 3 s): the session's next request must go to the
+    other replica, counted as one stall evasion, and finish while the
+    stall lasts.  Both replicas are idle before it, so the other one
+    answers the router's probe."""
+    from repro_torch.harness import ChaosAction, ChaosInjector
+
+    rng = np.random.default_rng(7)
+
+    def submit():
+        before = router.stats()
+        t0 = time.monotonic()
+        h = router.submit(rng.integers(0, cfg.vocab_size, size=48),
+                          max_new_tokens=6, session="stall-probe")
+        h.result(timeout=60)
+        after = router.stats()
+        moved = [k for k, v in after["replicas"].items()
+                 if v["submitted"] > before["replicas"][k]["submitted"]]
+        return moved, after["stall_evasions"] - before["stall_evasions"], \
+            time.monotonic() - t0
+
+    (held,), _, _ = submit()
+    engine = [e for e in built if e.replica_id == held][-1]
+    chaos = ChaosInjector(system, [])
+    rec = chaos.fire(ChaosAction(at_s=0.0, kind="engine-stall",
+                                 target=held, duration_s=3.0), 0.0)
+    deadline = time.monotonic() + 5.0
+    while engine.responsive(0.0) and time.monotonic() < deadline:
+        time.sleep(0.001)               # until the stall holds the lock
+    t_held = time.monotonic()
+    moved, evasions, wall = submit()
+    in_stall = not engine.responsive(0.0)
+    held_s = time.monotonic() - t_held
+    chaos.join(timeout=10.0)
+    check(rec.details.get("instances") == [held] and moved and
+          moved[0] != held and len(moved) == 1 and evasions == 1 and
+          in_stall,
+          f"stall of {held}: the session's request went to {moved} with "
+          f"{evasions} evasions, the stall still held: {in_stall}")
+    print(f"[fleet] stall evasion: session on {held}, stalled for 3 s; its "
+          f"next request went to {moved[0]} (1 evasion) and finished in "
+          f"{wall * 1e3:.1f} ms, {held_s * 1e3:.1f} ms into the stall")
+
+
+def _pair_cost(torch, built, cfg):
+    """What two engine loop threads on one card cost each other: 4
+    requests (64-token prompts, 16 new tokens) served by replica 0 alone,
+    then 4 on each replica at once; tick p50 of each.  The device busy
+    share is measured in a ``torch.profiler`` trace of the same paired
+    traffic once more: the kernels' device time over that run's wall
+    (the two loop threads launch on one stream, so the kernels do not
+    overlap).  The profiler slows the host, so that share is low; the
+    same device time over the untraced run's wall is printed beside it
+    as an estimate of the untraced share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(5)
+
+    def serve(engines, n, new):
+        marks = [len(e._tick_log) for e in engines]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        hs = [e.submit(rng.integers(0, cfg.vocab_size, size=64),
+                       max_new_tokens=new) for e in engines for _ in range(n)]
+        for h in hs:
+            h.result(timeout=120)
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+        ticks = [[t for t in list(e._tick_log)[m:]]
+                 for e, m in zip(engines, marks)]
+        return wall, ticks
+
+    def p50(ticks, col):
+        xs = [t[col] for t in ticks if t[col + 2]]
+        return float(np.median(xs)) * 1e3 if xs else float("nan")
+
+    a, b = built[0], built[1]
+    solo_wall, (solo,) = serve([a], 4, 16)
+    pair_wall, pair = serve([a, b], 4, 16)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced_wall, traced = serve([a, b], 4, 16)
+    busy = sum(_device_ms(prof).values())
+    check(busy > 0, "the paired run's trace shows no device time")
+    n_pair = sum(len(t) for t in pair)
+    print(f"[fleet] two loop threads: decode tick p50 {p50(solo, 1):.2f} ms "
+          f"alone ({len(solo)} ticks in {solo_wall:.0f} ms), "
+          f"{p50(pair[0], 1):.2f} / {p50(pair[1], 1):.2f} ms paired "
+          f"({n_pair} ticks in {pair_wall:.0f} ms); prefill tick p50 "
+          f"{p50(solo, 0):.2f} ms alone, {p50(pair[0], 0):.2f} / "
+          f"{p50(pair[1], 0):.2f} ms paired; traced paired run: device "
+          f"busy {busy:.1f} ms of its {traced_wall:.0f} ms wall "
+          f"({100 * busy / traced_wall:.1f}% measured, "
+          f"{sum(len(t) for t in traced)} ticks); over the untraced "
+          f"run's {pair_wall:.0f} ms: {100 * busy / pair_wall:.1f}% "
+          f"(estimate)")
+
+
+def _fleet_exactness(torch, total):
+    """A 2-layer fp32 fleet at full width on the card: a burst of one
+    session queues on one replica and ``rebalance()`` steals some of it;
+    every request's greedy tokens equal one solo engine's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import EdgeSystem, NodeCapacity, WorkloadClass
+    from repro_torch.harness import fleet_trace, make_engine_item
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.router import (fleet_service_spec,
+                                            make_fleet_builder)
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), num_layers=2,
+                              compute_dtype="float32")
+    params = build_model(cfg, "cuda").init(
+        torch.Generator(device="cuda").manual_seed(3))
+    items = [make_engine_item(ev, vocab=cfg.vocab_size)
+             for ev in fleet_trace(seed=1).events[:16]]
+    system = EdgeSystem()
+    for i in range(2):
+        system.add_node(f"edge{i}", NodeCapacity(hbm_bytes=total // 2))
+    system.register_builder("generic", WorkloadClass.HEAVY,
+                            make_fleet_builder(cfg, max_slots=4, max_seq=128,
+                                               params=params, device="cuda"))
+    router = system.deploy_fleet(fleet_service_spec(cfg, name="exact"),
+                                 policy="affinity", warmup=True)
+    try:
+        hs = [router.submit(tokens, max_new_tokens=meta["max_new"],
+                            session="hot" if i < 12 else meta["session"],
+                            guaranteed=meta["guaranteed"])
+              for i, (_, (tokens, meta)) in enumerate(items)]
+        moved = router.rebalance()["moved"]
+        fleet = [list(h.result(timeout=120).generated) for h in hs]
+        st = router.stats()
+    finally:
+        router.shutdown()
+    solo = ServingEngine(cfg, max_slots=4, max_seq=128, params=params,
+                         device="cuda")
+    sh = [solo.submit(tokens, max_new_tokens=meta["max_new"])
+          for _, (tokens, meta) in items]
+    solo.run_until_drained()
+    want = [list(h.result().generated) for h in sh]
+    check(fleet == want, f"fleet tokens differ from a solo engine's: "
+          f"{[(i, a, b) for i, (a, b) in enumerate(zip(fleet, want)) if a != b]}")
+    print(f"[fleet] exactness, 2 layers fp32 full width: {len(fleet)} "
+          f"requests (12 of one session), {moved} stolen by rebalance, "
+          f"placement {[(k, v['submitted']) for k, v in st['replicas'].items()]}"
+          f"; every stream equals a solo engine's")
+
+
+def phase_fleet(torch):
+    """The replicated engine fleet on the card: an ``EdgeSystem`` of two
+    logical nodes on cuda:0 (half of the card's memory each), two
+    full-width tinyllama-1.1b replicas deployed by ``deploy_fleet`` over
+    one parameter tree from a seed (bf16 compute), replaying the JAX
+    package's ``fleet_trace()`` through ``run_fleet_replay``: affinity,
+    round-robin, and affinity under ``_fleet_chaos``; then the cost of two
+    loop threads on one card, and the fleet's fp32 exactness."""
+    from repro_torch.configs import get_config
+    from repro_torch.harness import fleet_trace, write_scorecards
+    from repro_torch.models.model import build_model
+
+    t_phase = time.monotonic()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    total = torch.cuda.get_device_properties(dev).total_memory
+    cfg = get_config("tinyllama-1.1b")
+    check(cfg.num_layers == 22 and cfg.cdtype == torch.bfloat16, "config")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    params = build_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    trace = fleet_trace()
+    check(trace.fingerprint() == FLEET_TRACE_FINGERPRINT,
+          "fleet_trace() differs from the JAX package's")
+    print(f"[fleet] trace {trace.name}: {len(trace)} requests over "
+          f"{trace.duration_s}s, {sum(e.qos == 'guaranteed' for e in trace.events)}"
+          f" GUARANTEED, prompts {min(e.prompt_len for e in trace.events)}-"
+          f"{max(e.prompt_len for e in trace.events)} tokens; nodes edge0, "
+          f"edge1 on {dev}, {total // 2} B each")
+    cards, launches = {}, {"flash_attention": 0, "paged_decode_attention": 0}
+    for name, policy, chaos in (("affinity", "affinity", None),
+                                ("round-robin", "round-robin", None),
+                                ("chaos", "affinity", _fleet_chaos())):
+        card, report, router, system, built, counted = _fleet_run(
+            torch, trace, cfg, params, total, name, policy, chaos)
+        cards[name] = card
+        for k, v in counted.items():
+            launches[k] += v
+        if name == "affinity":
+            _pair_cost(torch, built, cfg)
+        if name == "chaos":
+            kinds = [r.kind for r in report.chaos]
+            check(kinds == ["engine-stall", "node-loss", "node-rejoin"] and
+                  not any(r.details.get("error") for r in report.chaos),
+                  f"chaos records {[r.to_dict() for r in report.chaos]}")
+            stall, loss = report.chaos[0], report.chaos[1]
+            check(stall.details["instances"] == ["fleet-chat/0"] and
+                  loss.details == {"moved": 1, "failover_failed": 0} and
+                  len(built) == 3 and card["events"]["failover"] == 1,
+                  f"the loss of edge1 must rebuild one replica: "
+                  f"{loss.details}, {len(built)} engines")
+            # recovery in trace time: from the loss to the first finish of
+            # a request that arrived after it
+            after = [o.offset_s + o.latency_s for o in report.outcomes
+                     if o.ok and o.offset_s >= loss.fired_at_s]
+            check(bool(after), "no request that arrived after the loss of "
+                  "edge1 completed")
+            print(f"[fleet] chaos: stall of fleet-chat/0 fired at "
+                  f"{stall.fired_at_s:.3f}s; edge1 lost at "
+                  f"{loss.fired_at_s:.3f}s, failover redeployed in "
+                  f"{loss.wall_s * 1e3:.1f} ms; the rebuilt replica served "
+                  f"{len(built[2].completed)} requests; the first request "
+                  f"that arrived after the loss finished "
+                  f"{(min(after) - loss.fired_at_s) * 1e3:.1f} ms after it; "
+                  f"events {card['events']}")
+            _stall_evasion(cfg, router, system, built)
+        router.shutdown()
+        for eng in built:
+            eng.stop(drain=False)
+        # the engines sit in reference cycles (loop threads, handles,
+        # the system and its router): free them before the next replay
+        del router, system, built, report
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(cards["affinity"]["fleet"]["affinity_hit_rate"] >
+          cards["round-robin"]["fleet"]["affinity_hit_rate"],
+          "affinity's prefix hit rate must be above round-robin's")
+    write_scorecards({f"fleet-{k}": v for k, v in cards.items()},
+                     path=FLEET_SCORECARDS)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del params
+    torch.cuda.empty_cache()
+    _fleet_exactness(torch, total)
+    print(f"[fleet] peak memory {peak} B over the three replays; "
+          f"scorecards in {os.path.relpath(FLEET_SCORECARDS, ROOT)}; phase "
+          f"{time.monotonic() - t_phase:.1f}s")
+    return launches, 3 * len(trace)
+
+
+# ---------------------------------------------------------------------------
 # phase 4c: the SSM families in fp32 at full width
 # ---------------------------------------------------------------------------
 
@@ -2390,15 +2778,16 @@ KERNELS = {
         replaces="src/repro/kernels/rmsnorm.py:41"),
 }
 # the paths each kernel's launch count comes from, and each path's unit
-PATH_OF = {"flash_attention": ("serve", "edge"),
-           "paged_decode_attention": ("serve", "edge"),
+PATH_OF = {"flash_attention": ("serve", "edge", "fleet"),
+           "paged_decode_attention": ("serve", "edge", "fleet"),
            "paged_verify_attention": ("spec",),
            "decode_attention": ("spec", "zamba2", "edge"),
            "flash_attention_bwd_dq": ("train",),
            "flash_attention_bwd_dkv": ("train",),
            "ssd_scan": ("mamba2",), "rmsnorm": ("mamba2",)}
 UNIT_OF = {"serve": "request", "spec": "request", "train": "step",
-           "mamba2": "request", "zamba2": "request", "edge": "dispatch"}
+           "mamba2": "request", "zamba2": "request", "edge": "dispatch",
+           "fleet": "request"}
 
 
 def main() -> int:
@@ -2421,7 +2810,7 @@ def main() -> int:
     paths = {"serve": phase_serve(torch), "spec": phase_spec_serve(torch),
              "mamba2": phase_ssm_serve(torch, "mamba2-2.7b"),
              "zamba2": phase_ssm_serve(torch, "zamba2-1.2b"),
-             "edge": phase_edge(torch)}
+             "edge": phase_edge(torch), "fleet": phase_fleet(torch)}
     phase_consistency(torch)
     phase_ssm_consistency(torch)
     phase_spec_exactness(torch)

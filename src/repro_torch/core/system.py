@@ -86,12 +86,39 @@ class EdgeSystem:
                      warmup: bool = False, **router_kw):
         """Deploy a replicated engine fleet and return its ``FleetRouter``.
 
-        The replicated engine fleet and its ``FleetRouter`` are not
-        ported yet (ROADMAP Queue A item 10).
+        The fleet is placed *as engines* through the ordinary control
+        plane: ``apply(spec.with_replicas(N))`` runs the spec's engine
+        builder once per replica (each building its own ``ServingEngine``
+        + ``PagedKVCache`` pool), the ``AdmissionController`` charges
+        every replica's static footprint at placement and sees its
+        pages-in-use via ``dynamic_footprint_bytes``, and the
+        orchestrator's failover/rejoin redeploys lost replicas from the
+        stored spec — the router's ``refresh()`` (run on every submit)
+        then notices the replaced engine objects and reroutes in-flight
+        GUARANTEED work.  ``autoscale(mode="slo")`` keeps working on the
+        same service name, scaling the replica count on the
+        fleet-aggregate queue p95.
+
+        ``router_kw`` is forwarded to ``FleetRouter`` (policy, steal
+        thresholds, ...).  Every instance must be engine-backed —
+        deploying a fleet over non-engine executors is a ``ValueError``.
         """
-        raise NotImplementedError(
-            "deploy_fleet needs the FleetRouter, not ported yet "
-            "(ROADMAP Queue A item 10)")
+        from repro_torch.fleet.router import FleetRouter
+
+        if replicas is not None:
+            spec = spec.with_replicas(replicas)
+        deps = self.apply(spec)
+        bad = [d.name for d in deps
+               if getattr(d.executor, "engine", None) is None]
+        if bad:
+            raise ValueError(
+                f"deploy_fleet({spec.name!r}): instances {bad} are not "
+                f"engine-backed (use an engine builder, e.g. "
+                f"serving.router.make_fleet_builder)")
+        router = FleetRouter.for_service(self, spec.name, **router_kw)
+        if warmup:
+            router.warmup()
+        return router
 
     def scale(self, service: str, target: int) -> int:
         return self.manager.scale(service, target)

@@ -29,12 +29,23 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
 
 
 class KernelError(RuntimeError):
     """A hand-written kernel failed to build or to launch.  Callers that
     degrade gracefully on other errors (the speculative draft) let this one
     through: it is a fault of the build or the card, not of the input."""
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a wrapper's ``launches`` counter.  ``+= 1`` on an
+    attribute is a read, an add and a write; two engine loop threads
+    serving on one card would lose a count if the interpreter switched
+    threads between them.  The lock makes each count land whatever the
+    interpreter does."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def kernel_names() -> list:

@@ -91,7 +91,7 @@ def decode_attention(
     if err != 0:
         raise build.KernelError(f"decode_attention kernel launch failed: "
                                 f"CUDA error {err}")
-    decode_attention.launches += 1
+    build.count_launch(decode_attention)
     return out
 
 

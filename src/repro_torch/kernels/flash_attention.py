@@ -123,7 +123,7 @@ def flash_attention(
     if err != 0:
         raise build.KernelError(f"flash_attention kernel launch failed: "
                                 f"CUDA error {err}")
-    flash_attention.launches += 1
+    build.count_launch(flash_attention)
     return (out, lse) if return_lse else out
 
 

@@ -110,7 +110,7 @@ def flash_attention_bwd_dq(q, k, v, lse, do, dsum, *, causal=True, window=0,
     dq = torch.empty_like(a["q"])
     _launch("flash_attention_bwd_dq", a, (dq,), causal, window, softcap,
             sm_scale)
-    flash_attention_bwd_dq.launches += 1
+    build.count_launch(flash_attention_bwd_dq)
     return dq
 
 
@@ -128,7 +128,7 @@ def flash_attention_bwd_dkv(q, k, v, lse, do, dsum, *, causal=True,
     dk, dv = torch.empty_like(a["k"]), torch.empty_like(a["v"])
     _launch("flash_attention_bwd_dkv", a, (dk, dv), causal, window, softcap,
             sm_scale)
-    flash_attention_bwd_dkv.launches += 1
+    build.count_launch(flash_attention_bwd_dkv)
     return dk, dv
 
 

@@ -134,7 +134,7 @@ def paged_decode_attention(
     if err != 0:
         raise build.KernelError(f"paged_decode_attention kernel launch "
                                 f"failed: CUDA error {err}")
-    paged_decode_attention.launches += 1
+    build.count_launch(paged_decode_attention)
     return out
 
 

@@ -75,7 +75,7 @@ def paged_verify_attention(
     if err != 0:
         raise build.KernelError(f"paged_verify_attention kernel launch "
                                 f"failed: CUDA error {err}")
-    paged_verify_attention.launches += 1
+    build.count_launch(paged_verify_attention)
     return out
 
 

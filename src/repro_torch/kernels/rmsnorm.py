@@ -59,7 +59,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     if err != 0:
         raise build.KernelError(f"rmsnorm kernel launch failed: CUDA error "
                                 f"{err}")
-    rmsnorm.launches += 1
+    build.count_launch(rmsnorm)
     return out
 
 

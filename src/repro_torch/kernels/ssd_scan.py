@@ -98,7 +98,7 @@ def ssd_scan(
     if err != 0:
         raise build.KernelError(f"ssd_scan kernel launch failed: CUDA "
                                 f"error {err}")
-    ssd_scan.launches += 1
+    build.count_launch(ssd_scan)
     return (y, s_fin) if return_final_state else y
 
 

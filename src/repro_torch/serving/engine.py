@@ -42,7 +42,11 @@ models raise ``NotImplementedError`` naming their ROADMAP item.
 
 ``EngineExecutor`` wraps an engine as a container-class executor, so a
 serving deployment is declared through ``ServiceSpec``/``EdgeSystem``
-like every other service.
+like every other service.  A fleet replica (``replica_id``) answers the
+``FleetRouter``'s probes (``load``, ``queue_depth``, ``responsive``,
+``cancel_queued``, ``estimate_marginal_pages``) lock-free or with a
+bounded wait for its lock, and samples its last 256 admission waits for
+the fleet's SLO autoscale (``queue_samples``).
 """
 from __future__ import annotations
 
@@ -128,6 +132,12 @@ class RequestHandle:
     def rid(self) -> int:
         return self._req.rid
 
+    @property
+    def future(self) -> Future:
+        """The request's completion future (the fleet router chains its
+        own completion off this without polling)."""
+        return self._req.future
+
     def done(self) -> bool:
         return self._req.future.done()
 
@@ -155,6 +165,7 @@ class ServingEngine:
                  prefill_chunk: int = 64,
                  prefill_budget=None,
                  prefix_sharing: bool = True,
+                 replica_id: str = "",
                  kv_dtype: str = "auto",
                  draft_cfg: Optional[ModelConfig] = None,
                  draft_params: Optional[Dict] = None,
@@ -170,6 +181,7 @@ class ServingEngine:
             raise ValueError(f"kv_dtype must be 'auto' (the compute dtype) "
                              f"or 'int8', got {kv_dtype!r}")
         self.cfg = cfg
+        self.replica_id = replica_id     # fleet membership tag ("" = solo)
         self.device = resolve_device(device)
         self.model = build_model(cfg, self.device)    # raises if unported
         if params is None:
@@ -241,6 +253,12 @@ class ServingEngine:
         self.chunks_run = 0           # prefill chunks of traffic (not warmup)
         self.decode_steps = 0         # decode launches of traffic
         self.dispatch_stats = DispatchStats()
+        # fleet routing surfaces: recent queue waits (admission-time) for
+        # fleet-aggregate p95 autoscale, prefix-affinity hit counters
+        self.recent_queue_s: collections.deque = collections.deque(
+            maxlen=256)
+        self.prefix_hits = 0
+        self.prefix_misses = 0
         # per tick: (prefill_s, decode_s, prefill_tokens, decode_rows,
         # decode_tokens)
         self._tick_log: collections.deque = collections.deque(maxlen=512)
@@ -570,6 +588,88 @@ class ServingEngine:
         with self._lock:
             return 0 if self.prefix is None else self.prefix.clear(self.kv)
 
+    # -------------------------------------------------- fleet probe surface
+    # The fleet router scores and probes replicas while it may itself be
+    # holding the router lock, and a chaos-stalled engine holds THIS lock
+    # for seconds — so every probe below is either lock-free (racy O(1)
+    # snapshots are fine for load scoring) or takes the lock with a
+    # bounded timeout.  Blocking here would let one stalled replica
+    # head-of-line-block routing for the whole fleet.
+
+    def queue_depth(self) -> int:
+        """Racy queued-request count (router steal trigger)."""
+        return len(self.queue)  # analysis: unguarded-ok — racy len() snapshot for routing
+
+    def load(self) -> Tuple[int, int, int]:
+        """Racy ``(queued, active, kv_bytes_in_use)`` snapshot — the
+        router's least-pages / least-inflight scoring tuple."""
+        return (len(self.queue), len(self.active), self.kv.bytes_in_use())  # analysis: unguarded-ok — racy load snapshot for routing
+
+    def responsive(self, timeout: float = 0.05) -> bool:
+        """Can the engine lock be taken within ``timeout``?  False means
+        the loop is wedged or chaos-stalled; the router routes around."""
+        if not self._lock.acquire(timeout=timeout):
+            return False
+        self._lock.release()
+        return True
+
+    def cancel_queued(self, rid: int,
+                      timeout: float = 0.1) -> Optional[Request]:
+        """Remove a still-queued request (work stealing / orphan cleanup).
+
+        Returns the request if it was cancelled, ``None`` if it already
+        started (active decodes own KV pages and stay put) or the lock
+        could not be taken in time.  The request's future is left
+        unresolved — the caller re-binds it elsewhere.
+        """
+        if not self._lock.acquire(timeout=timeout):
+            return None
+        try:
+            for i, req in enumerate(self.queue):  # analysis: unguarded-ok — held via timed acquire above
+                if req.rid == rid:
+                    self.queue.pop(i)  # analysis: unguarded-ok — held via timed acquire above
+                    req.phase = "cancelled"
+                    return req
+            return None
+        finally:
+            self._lock.release()
+
+    def estimate_marginal_pages(self, prompt) -> int:  # analysis: unguarded-ok — racy routing estimate by contract
+        """Racy post-sharing page estimate for a prospective prompt — the
+        router's least-pages score charges only the pages this replica
+        would actually allocate (a warm radix makes the replica cheap).
+        Lock-free by contract: ``match(touch=False)`` mutates nothing and
+        any torn read just degrades one routing decision."""
+        try:
+            p = np.asarray(prompt, np.int32).reshape(-1)
+            need = self.kv.pages_needed(min(p.size + 1, self.max_seq))
+            if self.prefix is None or p.size == 0:
+                return need
+            m = self.prefix.match(p, touch=False)
+            w = min(m.matched_tokens, p.size - 1)
+            return max(need - w // self.kv.page_size, 1)
+        except Exception:  # noqa: BLE001 — a torn racy walk is a miss
+            return self.kv.pages_needed(
+                min(np.asarray(prompt).size + 1, self.max_seq))
+
+    def note_prefix(self, hit: bool) -> None:
+        """Router-reported prefix-affinity outcome for this replica."""
+        if hit:
+            self.prefix_hits += 1  # analysis: unguarded-ok — monotonic counter, router thread only
+        else:
+            self.prefix_misses += 1  # analysis: unguarded-ok — monotonic counter, router thread only
+
+    def queue_samples(self) -> List[float]:
+        """Recent admission queue waits (seconds) — pooled across
+        replicas for fleet-aggregate p95 autoscale."""
+        with self._lock:
+            return list(self.recent_queue_s)
+
+    def recent_queue_p95(self) -> float:
+        """Racy p95 of recent queue waits (router steal trigger)."""
+        xs = list(self.recent_queue_s)  # analysis: unguarded-ok — deque snapshot for routing
+        return percentile(xs, 95) if xs else 0.0
+
     def _fail(self, req: Request, err: Exception):
         req.done = True
         req.error = str(err)
@@ -683,6 +783,7 @@ class ServingEngine:
         req.phase = "prefill"
         req.pos = req.kv_shared_tokens         # resume after the shared part
         req.admitted_at = time.monotonic()
+        self.recent_queue_s.append(req.admitted_at - req.submitted_at)
         self.active[req.rid] = req
 
     # ------------------------------------------------------ prefill phase
@@ -1086,7 +1187,8 @@ class ServingEngine:
             workload=f"request-{req.rid}", workload_class="heavy",
             executor_class="container", executor="serving-engine",
             node="local", wall_s=now - req.submitted_at, cold=False,
-            footprint_bytes=self.kv.bytes_in_use()))
+            footprint_bytes=self.kv.bytes_in_use(),
+            replica=self.replica_id))
         if req.future is not None and not req.future.done():
             req.future.set_result(req)
 
@@ -1120,6 +1222,13 @@ class ServingEngine:
                 "decode_steps": self.decode_steps,
                 "active": len(self.active),
                 "queued": len(self.queue),
+                "queue_depth": len(self.queue),
+                "replica_id": self.replica_id,
+                "prefix_hits": self.prefix_hits,
+                "prefix_misses": self.prefix_misses,
+                "prefix_hit_rate": self.prefix_hits /
+                (self.prefix_hits + self.prefix_misses)
+                if (self.prefix_hits + self.prefix_misses) else 0.0,
                 "failed": len(self.failed),
                 "slot_utilization": self.kv.utilization(),
                 "paged": self.paged,
@@ -1155,7 +1264,10 @@ class ServingEngine:
             if self.prefix is not None:
                 for k, v in self.prefix.stats().items():
                     out[f"radix_{k}"] = v
+            recent = list(self.recent_queue_s)
             ticks = list(self._tick_log)
+        if recent:
+            out["p95_queue_recent_s"] = percentile(recent, 95)
         pre = [p for p, _d, ptoks, _n, _tk in ticks if ptoks]
         dec = [d for _p, d, _t, n, _tk in ticks if n]
         dec_tok = [d / tk for _p, d, _t, n, tk in ticks if n and tk]

@@ -12,9 +12,7 @@ the ConfigurationManager how to construct
 
 Every builder takes ``device`` (default: the card) and ``params`` (e.g.
 from ``repro_torch.models.weights``); a builder called with a node's
-placement handle builds on that device instead.  The replicated fleet's
-``make_fleet_builder`` and ``fleet_service_spec`` come with the fleet
-(ROADMAP Queue A item 10).
+placement handle builds on that device instead.
 """
 from __future__ import annotations
 
@@ -206,6 +204,52 @@ def make_engine_builder(cfg, max_slots: int = 4, max_seq: int = 128,
         return ex, ex.footprint_bytes()
 
     return builder
+
+
+def make_fleet_builder(cfg, max_slots: int = 4, max_seq: int = 128,
+                       params=None, seed: int = 0, device=None, **engine_kw):
+    """Engine builder tuned for replica fleets.
+
+    Identical to ``make_engine_builder`` except autostart is forced on
+    (the ``FleetRouter`` submits straight into engine loops, so a
+    caller-driven engine would never make progress).  Every builder call
+    constructs a FRESH ``ServingEngine`` with its own ``PagedKVCache``
+    pool, so ``replicas=N`` through the control plane yields N
+    independent replica engines — exactly what the router fronts.  Given
+    ``params``, the replicas share that one tree (each engine keeps its
+    own compute-dtype cast of it)."""
+    return make_engine_builder(cfg, max_slots=max_slots, max_seq=max_seq,
+                               params=params, seed=seed, autostart=True,
+                               device=device, **engine_kw)
+
+
+def fleet_service_spec(cfg, name: str = "fleet", replicas: int = 2,
+                       tenant: str = "default", qos=None,
+                       latency_slo_ms: float = 0.0,
+                       max_new_tokens: int = 16,
+                       priority: int = 0,
+                       kv_dtype: str = "auto") -> ServiceSpec:
+    """Declarative manifest for a replicated engine fleet.
+
+    ``est_flops`` is floored at 1e10 so the workload classifies HEAVY
+    (container-class) regardless of how small a reduced test config is —
+    fleet replicas are always engine-backed containers.  ``kv_dtype``
+    declares the replicas' KV-page precision ("int8" ≈ 2x page-pool
+    tokens per byte); builders pass it to ``ServingEngine``."""
+    from repro_torch.core.spec import QoSClass
+
+    return ServiceSpec(
+        name=name,
+        workload=Workload(
+            name, WorkloadKind.GENERIC, cfg, batch=1,
+            seq_len=max_new_tokens,
+            est_flops=max(1e10, 2.0 * cfg.num_params() * max_new_tokens),
+            latency_slo_ms=latency_slo_ms),
+        executor_class=ExecutorClass.CONTAINER,
+        replicas=replicas, tenant=tenant,
+        qos=qos if qos is not None else QoSClass.BURSTABLE,
+        priority=priority, latency_slo_ms=latency_slo_ms,
+        kv_dtype=kv_dtype)
 
 
 def assemble_edge_system(system, heavy_cfg, light_cfg=None, scfg=None,

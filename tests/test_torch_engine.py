@@ -255,8 +255,9 @@ def test_background_loop_serves_and_validates():
 
 
 def test_unported_branches_raise():
-    from repro_torch.core import EdgeSystem, ServiceSpec, Workload, \
-        WorkloadKind
+    from repro_torch.core import EdgeSystem, NodeCapacity, WorkloadClass
+    from repro_torch.serving.router import (fleet_service_spec,
+                                            make_container_builder)
 
     jcfg, tcfg = _cfgs()
     # paged=False serves on dense slots now (tests/test_torch_ssm.py);
@@ -272,10 +273,14 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="item 11"):
         ServingEngine(dataclasses.replace(tcfg, sliding_window=8),
                       device="cpu")
-    # EngineExecutor came with the control plane; the fleet has not
-    with pytest.raises(NotImplementedError, match="item 10"):
-        EdgeSystem().deploy_fleet(ServiceSpec(
-            name="f", workload=Workload("f", WorkloadKind.DECODE, tcfg)))
+    # the fleet is ported (ROADMAP item 10): as in the JAX package,
+    # deploy_fleet refuses instances that are not engine-backed
+    system = EdgeSystem()
+    system.add_node("n0", NodeCapacity(hbm_bytes=1 << 30))
+    system.register_builder("generic", WorkloadClass.HEAVY,
+                            make_container_builder(tcfg, device="cpu"))
+    with pytest.raises(ValueError, match="not engine-backed"):
+        system.deploy_fleet(fleet_service_spec(tcfg, name="f", replicas=1))
 
 
 # ---------------------------------------------------------------------------

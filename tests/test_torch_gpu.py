@@ -51,6 +51,11 @@ PAGED_CASES = [
     (1, 8, 8, 64, 16, 256, 300, 0, 0.0),
     (2, 32, 2, 128, 16, 256, 520, 0, 30.0),
     (8, 8, 1, 32, 16, 64, 520, 0, 0.0),
+    # the fleet's decode ticks: the serving heads at 4 slots and at one,
+    # over MP·page 128 (max_seq 128), where most blocks of a cluster hold
+    # none of a short row's keys
+    (4, 32, 4, 64, 16, 8, 40, 0, 0.0),
+    (1, 32, 4, 64, 16, 8, 9, 0, 0.0),
 ]
 # tests/test_spec_decode.py:35 (window 0), then a deepest-K1 windowed case;
 # test_torch_spec.py runs the same cases against JAX
@@ -1116,3 +1121,51 @@ def test_capture_with_a_host_sync_raises(cuda):
     assert ok.captured and torch.equal(ok(torch.ones(4, device=cuda)),
                                        torch.full((4,), 2.0, device=cuda))
 
+
+
+# ---------------------------------------------------------------------------
+# two engine loops on one card (the fleet's replicas)
+# ---------------------------------------------------------------------------
+
+def test_two_engine_loops_on_one_card_count_launches_exactly(cuda):
+    """Two engines, each with its own loop thread, serve 4 requests each at
+    once on one card: flash attention runs once a layer per prefill chunk
+    and paged decode once a layer per decode step, summed over both
+    engines, with no count lost between the threads."""
+    import numpy as np
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_reduced_config("tinyllama-1.1b")
+    engines = [ServingEngine(cfg, max_slots=4, max_seq=128, seed=i,
+                             device=cuda, replica_id=f"fleet/{i}")
+               for i in range(2)]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(rng.integers(8, 100)))
+               for _ in range(8)]
+    fa.flash_attention.launches = pda.paged_decode_attention.launches = 0
+    for eng in engines:
+        eng.start()
+    try:
+        hs = [engines[i % 2].submit(p, max_new_tokens=12)
+              for i, p in enumerate(prompts)]
+        done = [h.result(timeout=120) for h in hs]
+    finally:
+        for eng in engines:
+            eng.stop(timeout=60)
+    torch.cuda.synchronize()
+    sts = [e.stats() for e in engines]
+    assert all(len(r.generated) == 12 for r in done)
+    assert all(s["failed"] == 0 for s in sts)
+    assert [len(e.completed) for e in engines] == [4, 4]
+    L = cfg.num_layers
+    assert fa.flash_attention.launches == \
+        L * sum(s["prefill_chunks"] for s in sts)
+    assert pda.paged_decode_attention.launches == \
+        L * sum(s["decode_steps"] for s in sts)
+    assert [r.replica for e in engines
+            for r in e.dispatch_stats.samples] == ["fleet/0"] * 4 + \
+        ["fleet/1"] * 4
