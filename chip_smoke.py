@@ -11,7 +11,9 @@ continues:
    kernel may spill), the tensor-core instructions of every kernel counted
    in its SASS (the bf16 SSD scan's must have some, the fp32 scan's none;
    so must every bf16 instance of the paged and dense decode attention
-   kernels, and no fp32 one),
+   kernels and every wgmma instance of the flash forward, one for each
+   head dim it takes (32, 48, 64, 80, 128; registers printed), and no
+   fp32 one),
    TF32 off for matmuls and cuDNN;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (bf16 and fp32, window and softcap variants,
@@ -26,7 +28,11 @@ continues:
    tails over 64 or 128 keys);
    the dense decode kernel timed at the draft's G 8, at zamba2's G 1 and
    at the edge decode image's G 2 (B 1, S 128),
-   and checked with lengths of 0, of S and past S),
+   and checked with lengths of 0, of S and past S), flash attention
+   non-causal at G 1 at the encoders' shapes, each timed against one
+   non-causal SDPA: the cv frame (B 1, T 32, 12 heads of 64), a hubert
+   batch (B 8, T 500, 16 heads of 80) and fig 3's widest app (B 1, T 64,
+   8 heads of 48), with causal and ragged cases at D 48 and 80,
    the forward (with lse, as the train step runs it) and the backward
    kernels at the train step's (causal, non-causal, window, softcap, an
    empty row, G 1, 8, 12 and 96, Tq < Tk, D 32/64/128, packed positions
@@ -70,23 +76,25 @@ continues:
    512-token prompt), each with the SSD scan's and RMSNorm's device time;
 3d. the edge system: ``EdgeSystem`` with two logical nodes on cuda:0
    (half of the card's memory each, ``LeastLoadedPolicy``), the standard
-   builders over full-width tinyllama-1.1b (heavy) and edge-stream-light
-   (light), random bf16 weights from a seed, the ``cv-infer``,
-   ``stream-analytics`` and a light decode spec; 16 rounds of mixed
-   ``submit_many`` traffic (cv frames through the container's flash
-   forward, record batches through the stream image, decode steps
-   through the decode image, a captured CUDA graph): every dispatch
+   builders over full-width edge-cv-heavy (heavy, the paper's CV
+   container workload) and edge-stream-light (light), random bf16
+   weights from a seed, the ``cv-infer``, ``stream-analytics`` and a
+   light decode spec; 16 rounds of mixed ``submit_many`` traffic (cv
+   frames of [1, 32, 256] features through the container's non-causal
+   flash forward, predictions in [0, 1000), record batches through the
+   stream image, decode steps through the decode image, a captured CUDA
+   graph): every dispatch
    completes and routes as ``classify`` says, each service deployed
    once, the analytics within 1e-5 of ``reference_analytics``, the
-   image's tokens equal to eager ``Model.decode``'s, flash launched 22 x
+   image's tokens equal to eager ``Model.decode``'s, flash launched 12 x
    the frames and the dense decode kernel 4 x the replays (the capture's
    launches, cross-checked in a ``torch.profiler`` trace of 3 replays);
    per-class dispatch p50/p95, footprints, the stream task's footprint
    on the image and on a container, the capture time, replay against
    eager ms per step; a node loss redeploys the stream instance from the
-   registry; then ``launch/serve.py`` at full width (8 requests,
-   ``--save-state``), flash and paged decode launches exact, and a fresh
-   ``EdgeSystem`` restores the saved spec set;
+   registry; then ``launch/serve.py`` with full-width tinyllama-1.1b (8
+   requests, ``--save-state``), flash and paged decode launches exact,
+   and a fresh ``EdgeSystem`` restores the saved spec set;
 3e. the fleet: ``EdgeSystem`` with two logical nodes on cuda:0 (half of
    the card's memory each), two full-width tinyllama-1.1b replicas (one
    parameter tree from a seed, bf16) deployed by ``deploy_fleet``; the
@@ -105,6 +113,14 @@ continues:
    alone and paired, and the device busy share of a traced paired run
    of the same traffic) and a 2-layer fp32 fleet whose streams equal a
    solo engine's;
+3f. hubert-xlarge at full width (48 layers, about 946 M parameters,
+   random weights from a seed, bf16 compute) as an ``EdgeSystem``
+   container service, batches of [8, 500, 512] features through its
+   ``generic`` entry point: forward ms a batch (median of 6 after a
+   warm-up), frames/s, peak memory, the device busy share of one traced
+   batch, flash launched 48 x the batches, predictions in [0, 504); a
+   grad-mode ``flash_mha`` at D 80 raises before any launch (the backward
+   kernels do not take D 80: encoder training, ROADMAP item 11.5);
 4. consistency: fp32 at full width, 2 layers: every decode step's logits
    against ``Model.forward`` over the same prefix, within 2e-4 relative;
 4c. SSM consistency: mamba2 (2 layers) and zamba2 (3) in fp32 at full
@@ -115,7 +131,9 @@ continues:
    and in int8 (a token may differ only at a top-2 margin <= 1e-3);
 5. golden: the JAX reference's token streams (``tests/data``), plain,
    speculative and dense-slot (reduced mamba2 and zamba2), reproduced by
-   the port on the card in fp32;
+   the port on the card in fp32, and the JAX encoder logits of reduced
+   edge-cv-heavy at head dims 48 and 80 through the fp32 flash kernel
+   (within 2e-4 relative, argmax equal, the masked loss within 2e-4);
 6. train: ``Trainer`` at full tinyllama-1.1b width (fp32 parameters and
    AdamW moments, bf16 compute) on the bigram stream at B 8 x T 1024, 6
    steps: every loss and grad norm finite, the parameters still after
@@ -134,10 +152,11 @@ continues:
    norms within 1e-4 relative, final parameters within 1e-4;
 9. the kernels line (each kernel's launches from the paths that run it:
    per request for serving, per step for training, per dispatch on the
-   edge path, per request on the fleet; the SSD scan and RMSNorm from mamba2's serve, the dense
+   edge path, per request on the fleet, per batch for hubert; the SSD scan and RMSNorm from mamba2's serve, the dense
    decode kernel from the speculative and zamba2's serves and the edge
    path; flash attention's times at the serving
-   chunk, and as ``train_*`` at the train shape; other timed shapes under
+   chunk, and as ``train_*`` at the train shape, the encoders' shapes
+   under ``also_timed``; other timed shapes under
    ``also_timed``, the launch floor, the stitched scans' final-state
    errors), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -320,6 +339,21 @@ def phase_device_and_build(torch):
     # the instances of the paged kernels and of the dense decode kernel
     # (the q dtype is their second template argument): HMMA in every bf16
     # one, none in an fp32 one
+    # flash forward: one wgmma instance for each head dim the wrapper
+    # takes (D 48 and 80 for the encoders), tensor-core instructions in
+    # every one (its spills are checked above), none in the fp32 kernel
+    from repro_torch.kernels.flash_attention import FWD_HEAD_DIMS
+
+    ops = tc_ops["flash_attention"]
+    regs = {k: r for k, r, _ in _kernel_resources(logs["flash_attention"])}
+    for D in FWD_HEAD_DIMS:
+        wk, fk = f"flash_fwd_wgmma_kernel<{D}>", f"flash_fwd_kernel<{D}>"
+        check(ops.get(wk, 0) > 0 and ops.get(fk, -1) == 0,
+              f"flash_attention D {D}: {wk} without or {fk} with "
+              f"tensor-core instructions: {ops}")
+        print(f"[build] flash_attention D {D}: {wk} {ops[wk]} HGMMA, "
+              f"{regs.get(wk, 'n/a')} regs; {fk} {regs.get(fk, 'n/a')} "
+              f"regs, no HMMA")
     for name in ("paged_decode_attention", "paged_verify_attention",
                  "decode_attention"):
         inst = {k: v for k, v in _tensor_core_ops(build, name, True).items()
@@ -369,6 +403,22 @@ def _flash_case(torch, gen, dtype, Tq, Tk, start, valid, window=0,
     nbytes = (2 * B * Tq * Hq * D + 2 * B * keys * Hkv * D) * e + 4 * Tq
     flops = 4 * D * pairs
     return (q, k, v), kw, nbytes, flops
+
+
+def _encoder_flash_case(torch, gen, dtype, B, T, H, D, causal=False):
+    """An encoder's attention: q, k, v [B, T, H, D] (G 1), every position
+    explicit as ``Model.forward`` passes them, non-causal as the encoders
+    run it (``causal`` for the mask's check at the new widths)."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(B, T, H, D, generator=gen, device="cuda").to(dt)
+               for _ in range(3))
+    pos = torch.arange(T, device="cuda", dtype=torch.int32)[None].expand(B, T)
+    kw = dict(causal=causal, q_positions=pos, kv_positions=pos)
+    # what the data needs: q, k, v and o once, both position rows, and two
+    # products over the pairs the mask keeps
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    nbytes = 4 * B * T * H * D * q.element_size() + 2 * 4 * B * T
+    return (q, k, v), kw, nbytes, 4 * D * pairs
 
 
 def _sdpa_flash(torch, F, q, k, v, kw):
@@ -737,7 +787,8 @@ def phase_kernels(torch, timer, card):
         ("Tq16/Tk512 tail@400", 16, 512, 400, 416, {}, None),
         ("Tq64/Tk64 forward", 64, 64, 0, 64, {"explicit_kv_pos": True},
          None),
-        # the cv-infer container's forward in phase 3d: B 1, T 32
+        # a 32-token tinyllama forward (phase 3d's heavy container ran it
+        # until edge-cv-heavy was ported; the encoders' cases follow)
         ("Tq32/Tk32 forward", 32, 32, 0, 32, {"explicit_kv_pos": True},
          None),
         ("Tq64/Tk512 window128", 64, 512, 448, 512, {"window": 128}, None),
@@ -767,6 +818,36 @@ def phase_kernels(torch, timer, card):
                 out = flash_attention(*args, **kw)
                 check(bool((out == 0).all()),
                       "flash_attention: a fully masked chunk must give 0")
+
+    # the encoders, non-causal at G 1, each timed against one non-causal
+    # SDPA over the same q, k and v: the cv-infer container's frame
+    # (edge-cv-heavy, 12 heads of 64, phase 3d), a hubert-xlarge batch
+    # (10 s of 20 ms frames, 16 heads of 80, phase 3f) and fig 3's widest
+    # app (8 heads of 48); then the causal mask at the new widths, and
+    # ragged lengths around the 64-row tile
+    encoder_cases = [
+        # label, (B, T, H, D), causal, the key the times go under
+        ("cv frame B1/T32 H12 D64", (1, 32, 12, 64), False,
+         "flash_attention@cv"),
+        ("hubert B8/T500 H16 D80", (8, 500, 16, 80), False,
+         "flash_attention@hubert"),
+        ("fig3 B1/T64 H8 D48", (1, 64, 8, 48), False, "flash_attention@fig3"),
+        ("B2/T77 H4 D48 causal", (2, 77, 4, 48), True, None),
+        ("B2/T130 H4 D80 causal", (2, 130, 4, 80), True, None),
+        ("B1/T129 H8 D48", (1, 129, 8, 48), False, None),
+        ("B2/T65 H16 D80", (2, 65, 16, 80), False, None),
+    ]
+    for dtype in ("bfloat16", "float32"):
+        for label, dims, causal, key in encoder_cases:
+            args, kw, nb, fl = _encoder_flash_case(torch, gen, dtype, *dims,
+                                                   causal=causal)
+            qt, kt, vt = (x.transpose(1, 2) for x in args)
+            run("flash_attention", label, dtype, flash_attention, ref.mha,
+                args, kw, nb, fl,
+                None if causal else (lambda qt=qt, kt=kt, vt=vt:
+                                     F.scaled_dot_product_attention(
+                                         qt, kt, vt)),
+                key is not None and dtype == "bfloat16", key)
 
     # the paged kernels: timed at the serving shape, at B 1 with one
     # 543-token sequence and at B 8 over MP 256 (max_seq 4096) with lengths
@@ -1509,9 +1590,10 @@ def _edge_traffic(torch, system, heavy, light, scfg, params_light):
     """The paper's fig 1 mix through ``submit_many``, 16 rounds: every
     round one single-stream decode step of edge-stream-light (the decode
     image), every other round a stream record batch (the stream image),
-    every fourth a ``cv-infer`` frame (32 tokens in, argmax out, through
-    the heavy container).  The decode steps and the stream state chain
-    from round to round."""
+    every fourth a ``cv-infer`` frame (32 feature frames of
+    edge-cv-heavy's 256 in, class argmax out, through the heavy
+    container).  The decode steps and the stream state chain from round
+    to round."""
     from repro_torch.core import Workload, WorkloadKind
     from repro_torch.data import stream as stream_lib
     from repro_torch.models.model import build_model
@@ -1535,8 +1617,9 @@ def _edge_traffic(torch, system, heavy, light, scfg, params_light):
             items.append((Workload(f"records{r}", WorkloadKind.STREAM),
                           (state, stream_lib.to_device(rec, dev))))
         if r % 4 == 0:
-            frame = torch.as_tensor(
-                rng.integers(0, heavy.vocab_size, size=(1, 32)), device=dev)
+            frame = torch.as_tensor(rng.normal(
+                size=(1, 32, heavy.frontend_dim)).astype(np.float32),
+                device=dev)
             items.append((Workload(f"frame{r}", WorkloadKind.GENERIC, heavy,
                                    batch=1, seq_len=32,
                                    est_flops=2.0 * heavy.num_params() * 32
@@ -1560,12 +1643,12 @@ def phase_edge(torch):
     """The paper's hybrid system on the card: an ``EdgeSystem`` of two
     logical nodes sharing cuda:0, each given half of the card's memory,
     ``LeastLoadedPolicy``; the standard builder set over full-width
-    tinyllama-1.1b (the heavy ``cv-infer`` container) and edge-stream-light
-    (the light decode image), random weights from a seed, bf16 compute;
-    the ``cv-infer`` and ``stream-analytics`` specs and a light decode
-    spec; the mixed traffic of ``_edge_traffic``; a node loss; and the
-    engine service, deployed by ``launch/serve.py`` at full width and
-    restored from its saved state."""
+    edge-cv-heavy (the paper's heavy workload, the ``cv-infer`` container)
+    and edge-stream-light (the light decode image), random weights from a
+    seed, bf16 compute; the ``cv-infer`` and ``stream-analytics`` specs
+    and a light decode spec; the mixed traffic of ``_edge_traffic``; a
+    node loss; and the engine service, deployed by ``launch/serve.py``
+    with full-width tinyllama-1.1b and restored from its saved state."""
     from repro_torch.configs import get_config
     from repro_torch.core import (EdgeSystem, LeastLoadedPolicy,
                                   NodeCapacity, ServiceSpec, Workload,
@@ -1589,8 +1672,9 @@ def phase_edge(torch):
                         mesh=dev)
     print(f"[edge] nodes edge0, edge1 on {dev}, {total // 2} B each (half "
           f"of the card's {total} B)")
-    heavy, light = get_config("tinyllama-1.1b"), get_config(
+    heavy, light = get_config("edge-cv-heavy"), get_config(
         "edge-stream-light")
+    llm = get_config("tinyllama-1.1b")        # the engine service's model
     check(heavy.cdtype == light.cdtype == torch.bfloat16, "bf16 compute")
     params_heavy = build_model(heavy, dev).init(
         torch.Generator(device=dev).manual_seed(0))
@@ -1715,9 +1799,14 @@ def phase_edge(torch):
     summ = system.stats.summary()
     for wc in ("heavy", "light"):
         s = summ[wc]
+        # beside edge-cv-heavy's, the heavy p50 of the same traced
+        # traffic when tinyllama-1.1b on token ids stood in for the
+        # container (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 2)
+        was = (" (tinyllama-1.1b stand-in: p50 76.206 ms)"
+               if wc == "heavy" else "")
         print(f"[edge] {wc} dispatches: {s['count']}, p50 "
               f"{s['p50_wall_s'] * 1e3:.3f} ms, p95 "
-              f"{s['p95_wall_s'] * 1e3:.3f} ms")
+              f"{s['p95_wall_s'] * 1e3:.3f} ms{was}")
     for d in system.orchestrator.deployments.values():
         print(f"[edge] {d.name} on {d.node_id} "
               f"({d.executor.executor_class.value}): static "
@@ -1799,7 +1888,7 @@ def phase_edge(torch):
     (dep,) = esys.instances("llm-serving")
     eng = dep.executor.engine
     st = eng.stats()
-    L = heavy.num_layers
+    L = llm.num_layers
     check(st["failed"] == 0 and len(eng.completed) == 8,
           "launch/serve.py's 8 requests must complete")
     # serve.py's warmup runs every chunk bucket and one decode step
@@ -1822,7 +1911,7 @@ def phase_edge(torch):
     fresh.add_node("edge0")
     fresh.register_builder("decode", WorkloadClass.HEAVY,
                            router.make_engine_builder(
-                               heavy, max_slots=4, max_seq=128, device=dev))
+                               llm, max_slots=4, max_seq=128, device=dev))
     applied = fresh.restore(EDGE_STATE)
     check(applied == [s["name"] for s in saved["specs"]] and
           [s.to_dict() for s in fresh.manager.specs.values()]
@@ -1835,6 +1924,138 @@ def phase_edge(torch):
     for k, v in served.items():
         launches[k] += v
     return launches, units + 8
+
+
+# ---------------------------------------------------------------------------
+# phase 3f: hubert-xlarge through a container's generic entry point
+# ---------------------------------------------------------------------------
+
+def phase_hubert(torch):
+    """Full-width hubert-xlarge (48 layers, d 1280, 16 heads of 80, about
+    946 M parameters, random fp32 weights from a seed, bf16 compute) as a
+    container service of an ``EdgeSystem`` on cuda:0, fed batches of
+    [8, 500, 512] feature frames (10 s of 20 ms frames each) through its
+    ``generic`` entry point: a warm-up batch, then 6 timed ones (host
+    clock to a synchronize) and one in a ``torch.profiler`` trace; flash
+    launched 48 times a batch; predictions in [0, 504); a grad-mode
+    ``flash_mha`` at D 80 refused before any launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (EdgeSystem, NodeCapacity, ServiceSpec,
+                                  Workload, WorkloadClass, WorkloadKind)
+    from repro_torch.core.executor import ExecutorClass
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention_bwd import flash_mha
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import router
+    from repro_torch.tree import leaves
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.monotonic()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config("hubert-xlarge")
+    check(cfg.cdtype == torch.bfloat16 and cfg.head_dim_ == 80,
+          "hubert-xlarge: bf16 compute, head dim 80")
+    B, T = 8, 500
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated(dev)     # earlier phases' leftovers
+    system = EdgeSystem()
+    system.add_node("edge0", NodeCapacity(
+        hbm_bytes=torch.cuda.get_device_properties(dev).total_memory),
+        mesh=dev)
+    params = build_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(x.numel() for x in leaves(params))
+    check(n_params == cfg.num_params(),
+          f"hubert-xlarge tree {n_params} != num_params {cfg.num_params()}")
+    system.register_builder("generic", WorkloadClass.HEAVY,
+                            router.make_container_builder(
+                                cfg, params=params, device=dev))
+
+    def work(name):
+        return Workload(name, WorkloadKind.GENERIC, cfg, batch=B, seq_len=T,
+                        est_flops=2.0 * cfg.num_params() * B * T)
+
+    system.apply(ServiceSpec(name="hubert", workload=work("hubert"),
+                             executor_class=ExecutorClass.CONTAINER))
+    rng = np.random.default_rng(0)
+    batches = [torch.as_tensor(rng.normal(size=(B, T, cfg.frontend_dim))
+                               .astype(np.float32), device=dev)
+               for _ in range(8)]
+    res = system.submit(work("warmup"), (batches[0],))      # warm-up
+    check(res.workload_class is WorkloadClass.HEAVY
+          and res.service == "hubert", f"hubert routed to {res.service}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.flash_attention.launches = 0
+    times, preds = [], []
+    for i, x in enumerate(batches[1:7]):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = system.submit(work(f"batch{i}"), (x,)).output
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+        preds.append(out)
+    launches = {"flash_attention": fa.flash_attention.launches}
+    peak = torch.cuda.max_memory_allocated(dev) - start
+    check(launches["flash_attention"] == cfg.num_layers * len(times),
+          f"hubert flash launches {launches} != {cfg.num_layers} x "
+          f"{len(times)} batches")
+    for p in preds:
+        check(tuple(p.shape) == (B, T) and p.dtype == torch.int32
+              and 0 <= int(p.min()) and int(p.max()) < cfg.vocab_size,
+              "hubert: bad predictions")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        system.submit(work("traced"), (batches[7],))
+        torch.cuda.synchronize()
+        traced_ms = (time.monotonic() - t0) * 1e3
+    counts = {}
+    by_kernel = _device_ms(prof, 1, counts)
+    busy = sum(by_kernel.values())
+    flash_ms = sum(v for k, v in by_kernel.items()
+                   if "flash_fwd_wgmma_kernel" in k)
+    flash_n = sum(v for k, v in counts.items()
+                  if "flash_fwd_wgmma_kernel" in k)
+    check(flash_n == cfg.num_layers,
+          f"the traced batch ran {flash_n} flash kernels, not "
+          f"{cfg.num_layers}")
+    med = float(np.median(times))
+    print(f"[hubert] hubert-xlarge full width ({cfg.num_layers}L d"
+          f"{cfg.d_model}, {n_params} parameters), bf16, through the "
+          f"container's generic entry point on [{B}, {T}, "
+          f"{cfg.frontend_dim}] features: forward {med:.3f} ms a batch "
+          f"(median of {len(times)}: {[round(t, 3) for t in times]}), "
+          f"{B * T / med * 1e3:.1f} frames/s, peak {peak} B allocated "
+          f"by the phase (parameters included; {start} B were allocated "
+          f"before it); "
+          f"flash launches {launches['flash_attention']} "
+          f"({cfg.num_layers} a batch)")
+    print(f"[hubert] one traced batch: host wall {traced_ms:.3f} ms, "
+          f"device busy {busy:.3f} ms ({100 * busy / traced_ms:.1f}% of "
+          f"the wall), flash {flash_ms:.4f} ms in {flash_n:.0f} launches "
+          f"({100 * flash_ms / max(busy, 1e-9):.1f}% of the busy time)")
+    _print_kernels(by_kernel, busy, counts)
+
+    # training waits on encoder training: a grad-mode forward at D 80 is
+    # refused before it launches anything
+    q = torch.randn(1, 8, 2, 80, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    before = fa.flash_attention.launches
+    try:
+        flash_mha(q, q.detach(), q.detach(), causal=False)
+        fail("a grad-mode flash_mha at D 80 must raise")
+    except ValueError as e:
+        check("11.5" in str(e), f"the refusal must name item 11.5: {e}")
+    torch.cuda.synchronize()
+    check(fa.flash_attention.launches == before,
+          "the refused flash_mha launched the forward")
+    print(f"[hubert] a grad-mode flash_mha at D 80 raises before any "
+          f"launch (encoder training, ROADMAP item 11.5); phase "
+          f"{time.monotonic() - t_phase:.1f}s")
+    del system, params, batches, preds, prof
+    torch.cuda.empty_cache()
+    return launches, len(times)
 
 
 # ---------------------------------------------------------------------------
@@ -2453,6 +2674,40 @@ def phase_golden(torch):
               f"logits max rel err {worst:.3e} (bound 2e-4)")
         check(worst < 2e-4, f"golden {fam} logits {worst} >= 2e-4")
 
+    # the encoder: reduced fp32 edge-cv-heavy at head dims 48 and 80, JAX
+    # Model.forward's logits and masked loss, through the fp32 kernel
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import Model
+
+    for hd in (48, 80):
+        pre = f"encoder_{hd}_"
+        ecfg = ModelConfig.from_dict(json.loads(str(g[pre + "config"])))
+        check(ecfg.head_dim_ == hd and ecfg.cdtype == torch.float32,
+              f"golden encoder {hd}: config {ecfg}")
+        model = Model(ecfg, "cuda")
+        eparams = tree(pre + "params/", ecfg)
+        batch = {k: torch.as_tensor(g[pre + k], device="cuda")
+                 for k in ("features", "targets", "mask")}
+        before = fa.flash_attention.launches
+        with torch.no_grad():
+            logits = model.forward(eparams, {"features": batch["features"]})
+            loss, _ = model.loss(eparams, batch)
+        torch.cuda.synchronize()
+        check(fa.flash_attention.launches - before == 2 * ecfg.num_layers,
+              "golden encoder: the forwards must run the flash kernel")
+        want = torch.as_tensor(g[pre + "logits"], device="cuda")
+        err = rel_err(want, logits)
+        same = bool((want.argmax(-1) == logits.argmax(-1)).all())
+        lerr = abs(float(loss) - float(g[pre + "loss"])) / abs(
+            float(g[pre + "loss"]))
+        print(f"[golden] {ecfg.name} reduced ({ecfg.num_layers}L "
+              f"d{ecfg.d_model}, head dim {hd}, fp32): JAX logits max rel "
+              f"err {err:.3e} (bound 2e-4), argmax equal {same}, masked "
+              f"loss rel err {lerr:.3e} (bound 2e-4)")
+        check(err < 2e-4 and same and lerr < 2e-4,
+              f"golden encoder {hd}: logits {err}, argmax {same}, loss "
+              f"{lerr}")
+
 
 def phase_golden_train(torch):
     """The JAX training run of the fixture (fp32, 5 steps of
@@ -2778,7 +3033,7 @@ KERNELS = {
         replaces="src/repro/kernels/rmsnorm.py:41"),
 }
 # the paths each kernel's launch count comes from, and each path's unit
-PATH_OF = {"flash_attention": ("serve", "edge", "fleet"),
+PATH_OF = {"flash_attention": ("serve", "edge", "fleet", "hubert"),
            "paged_decode_attention": ("serve", "edge", "fleet"),
            "paged_verify_attention": ("spec",),
            "decode_attention": ("spec", "zamba2", "edge"),
@@ -2787,7 +3042,7 @@ PATH_OF = {"flash_attention": ("serve", "edge", "fleet"),
            "ssd_scan": ("mamba2",), "rmsnorm": ("mamba2",)}
 UNIT_OF = {"serve": "request", "spec": "request", "train": "step",
            "mamba2": "request", "zamba2": "request", "edge": "dispatch",
-           "fleet": "request"}
+           "fleet": "request", "hubert": "batch"}
 
 
 def main() -> int:
@@ -2810,7 +3065,8 @@ def main() -> int:
     paths = {"serve": phase_serve(torch), "spec": phase_spec_serve(torch),
              "mamba2": phase_ssm_serve(torch, "mamba2-2.7b"),
              "zamba2": phase_ssm_serve(torch, "zamba2-1.2b"),
-             "edge": phase_edge(torch), "fleet": phase_fleet(torch)}
+             "edge": phase_edge(torch), "fleet": phase_fleet(torch),
+             "hubert": phase_hubert(torch)}
     phase_consistency(torch)
     phase_ssm_consistency(torch)
     phase_spec_exactness(torch)

@@ -84,16 +84,29 @@ __device__ __forceinline__ void qk_tile(const float* q_rows,
   }
 }
 
+// The output columns a lane holds in a row of D: lane, lane + 32, ...
+// (kLaneCols<D> of them).  At D 48 and 80 the last runs past the row
+// for the upper lanes, and `col_ok` says which are real (a compile-time
+// true when D is a multiple of 32).
+template <int D>
+constexpr int kLaneCols = (D + 31) / 32;
+template <int D>
+__device__ __forceinline__ bool col_ok(int c, int lane) {
+  return D % 32 == 0 || c * 32 + lane < D;
+}
+
 // One online-softmax step for RW query rows over a 32-key tile: `s` are
 // this lane's logits, `ok` whether its key is visible to each row.  P·V
-// accumulates into this lane's D/32 columns; each V value read from
-// shared memory serves all RW rows.  With SCALED (int8 pools) the v-scale
-// multiplies p after the l update.
+// accumulates into this lane's columns (`kLaneCols`; a column past D
+// accumulates zeros); each V value read from shared memory serves all RW
+// rows.  With SCALED (int8 pools) the v-scale multiplies p after the l
+// update.
 template <int D, int RW, bool SCALED>
 __device__ __forceinline__ void softmax_pv_tile(
     const float (&s)[RW], const bool (&ok)[RW], float vscale,
     const float* v_s, float (&m)[RW], float (&l)[RW],
-    float (&acc)[RW][D / 32]) {
+    float (&acc)[RW][kLaneCols<D>]) {
+  constexpr int C = kLaneCols<D>;
   const int lane = threadIdx.x % 32;
   float p[RW];
 #pragma unroll
@@ -106,18 +119,19 @@ __device__ __forceinline__ void softmax_pv_tile(
     m[rr] = m_new;
     if (SCALED) p[rr] *= vscale;              // p·(v·s) == (p·s)·v
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) acc[rr][c] *= corr;
+    for (int c = 0; c < C; ++c) acc[rr][c] *= corr;
   }
 #pragma unroll 4
   for (int j = 0; j < kBK; ++j) {
-    float vv[D / 32];
+    float vv[C];
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) vv[c] = v_s[j * D + c * 32 + lane];
+    for (int c = 0; c < C; ++c)
+      vv[c] = col_ok<D>(c, lane) ? v_s[j * D + c * 32 + lane] : 0.f;
 #pragma unroll
     for (int rr = 0; rr < RW; ++rr) {
       const float pj = __shfl_sync(kFull, p[rr], j);
 #pragma unroll
-      for (int c = 0; c < D / 32; ++c) acc[rr][c] = fmaf(pj, vv[c], acc[rr][c]);
+      for (int c = 0; c < C; ++c) acc[rr][c] = fmaf(pj, vv[c], acc[rr][c]);
     }
   }
 }

@@ -18,6 +18,12 @@
 //    2·64 FLOP on each make 34.4 GFLOP, 0.035 ms at the 989 TFLOP/s of
 //    the bf16 tensor cores, against about 77 MB of q, k, v, o and lse,
 //    0.023 ms at 3.35 TB/s: bound by operations.
+//  - The encoders (edge-cv-heavy at D 64, hubert-xlarge at D 80; fig 3's
+//    apps at D 48) run it non-causal at G 1 over their whole sequence.
+//    A cv frame (B 1, T 32, 12 heads) is about 200 KB and a few tens of
+//    MFLOP, latency-bound like a serving chunk; a hubert batch (B 8,
+//    T 500, 16 heads of 80) is 41 MB against 10.2 GFLOP: 0.0122 ms of
+//    bytes against 0.0104 ms of operations, so bytes by a little.
 //  - At the serving path's shape (a 64-token prefill chunk of tinyllama,
 //    B 1, G 8, over a gathered span of at most 1024 keys) the work is a
 //    few hundred MFLOP over about a MB, under a microsecond either way:
@@ -28,7 +34,9 @@
 //  - Tensor cores.  One warpgroup of 128 threads a block and 64 query
 //    rows, as the backward's dq kernel: s = q·kᵀ is a `wgmma` m64n64k16
 //    with both operands from 128-byte swizzled shared memory (64-byte at
-//    D 32) into f32 accumulators, and o += p·v a m64nDk16 with p packed to
+//    D 32, 32-byte at D 48 and 80, whose rows are then whole 16-column
+//    atoms: no pad column is stored or read) into f32 accumulators, and
+//    o += p·v a m64nDk16 (N = D: 32, 48, 64, 80 or 128) with p packed to
 //    bf16 straight from those accumulators as the A operand and the V
 //    tile as an MN-major B: p never touches shared memory.  The scale
 //    multiplies the f32 sum, never the bf16 operand, so the logits `lse`
@@ -106,9 +114,10 @@ size_t smem_bytes(int n_tiles) {
 
 // One block per (32-row query tile, KV head [, head group], batch); its
 // rows are `32/GB` positions times GB heads of one KV head.  In a tile
-// each lane owns one key for the logits of its warp's 4 rows and D/32
-// output columns for p·v, where each V value read serves all 4 rows and
-// the probabilities pass by shuffles.
+// each lane owns one key for the logits of its warp's 4 rows and the
+// output columns lane, lane + 32, ... below D for p·v (`kLaneCols`), where
+// each V value read serves all 4 rows and the probabilities pass by
+// shuffles.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -118,7 +127,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const int* __restrict__ valid_len, int Tq, int Tk, int Hq,
                  int Hkv, int G, int GB, int tq_per_block, int causal,
                  int window, float softcap, float sm_scale) {
-  constexpr int C = D / 32;             // output columns per lane
+  constexpr int C = kLaneCols<D>;       // output columns per lane
   constexpr int RW = kRowsPerWarp;
   constexpr int VEC = 4;                // elements per 16-byte load
   constexpr int RV = D / VEC;           // loads per key row
@@ -248,7 +257,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const bool empty = l[rr] == 0.f;
 #pragma unroll
     for (int c = 0; c < C; ++c)
-      o[row * D + c * 32 + lane] = empty ? 0.f : acc[rr][c] / l[rr];
+      if (col_ok<D>(c, lane))
+        o[row * D + c * 32 + lane] = empty ? 0.f : acc[rr][c] / l[rr];
     if (lse != nullptr && lane == 0)
       lse[row] = m[rr] + logf(empty ? 1.f : l[rr]);
   }
@@ -403,23 +413,35 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           kv_pos ? kv_pos + (size_t)b * Tk : nullptr, qmin,
                           qmax, rows_whole, mk);
 
-  // This thread's 16-byte chunks of a K or V tile: rows r0 + it·RS, its
-  // column c0, and their places in the swizzled tile, the same for every
-  // tile.
-  constexpr int CPR = D / 8, RS = kWG / CPR, NC = kT / RS;
-  const int r0 = threadIdx.x / CPR, c0 = (threadIdx.x % CPR) * 8;
+  // This thread's 16-byte chunks of a K or V tile, the same for every
+  // tile: chunk `it` is number threadIdx.x + it·128 of the tile's D/8 a
+  // row, at row row[it] and column col[it], placed at dst[it] in the
+  // swizzled tile.  When D/8 divides 128 (D 32, 64, 128) a thread keeps
+  // one column and its rows step by 128·8/D, written so that the compiler
+  // keeps one row and one column (the register count of those instances
+  // depends on it); at D 48 and 80 (6 and 10 chunks a row) the columns
+  // vary.
+  constexpr int CPR = D / 8, NC = kT * CPR / kWG;
+  static_assert(NC * kWG == kT * CPR, "a tile is whole rounds of chunks");
+  constexpr bool one_col = kWG % CPR == 0;
+  int row[NC], col[NC];
   uint32_t dst[NC];
 #pragma unroll
-  for (int it = 0; it < NC; ++it) dst[it] = L::offset(r0 + it * RS, c0);
-  const size_t kv0 = ((size_t)b * Tk * Hkv + h) * D + c0;
+  for (int it = 0; it < NC; ++it) {
+    const int idx = threadIdx.x + it * kWG;
+    row[it] = one_col ? threadIdx.x / CPR + it * (kWG / CPR) : idx / CPR;
+    col[it] = (one_col ? threadIdx.x % CPR : idx % CPR) * 8;
+    dst[it] = L::offset(row[it], col[it]);
+  }
+  const size_t kv0 = ((size_t)b * Tk * Hkv + h) * D;
   const int stride = Hkv * D;
   auto load_keys = [&](int n, int st) {
     const int k0 = n * kT;
 #pragma unroll
     for (int it = 0; it < NC; ++it) {
-      const int j = k0 + r0 + it * RS;
+      const int j = k0 + row[it];
       const bool in = j < n_keys;
-      const size_t off = kv0 + (size_t)(in ? j : 0) * stride;
+      const size_t off = kv0 + (size_t)(in ? j : 0) * stride + col[it];
       cp_async16(k_s(st) + dst[it], k + off, in);
       cp_async16(v_s(st) + dst[it], v + off, in);
     }
@@ -580,7 +602,9 @@ int run(const Args& a, int D, int dtype) {
   if (a.B == 0 || a.Tq == 0) return (int)cudaSuccess;
   switch (D) {
     case 32: return (int)launch<32>(a, dtype);
+    case 48: return (int)launch<48>(a, dtype);
     case 64: return (int)launch<64>(a, dtype);
+    case 80: return (int)launch<80>(a, dtype);
     case 128: return (int)launch<128>(a, dtype);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -183,16 +183,23 @@ constexpr int kWG = 128;                // one warpgroup a block
 
 // A [64, D] bf16 tile in shared memory as wgmma reads it: D/W column
 // blocks of W = SW/2 elements, each [64 rows][SW bytes] with the 16-byte
-// chunks of row r XOR-swizzled by the row (SW = 128 bytes, or 64 at
-// D 32).  The tile starts 1024-byte aligned.  The same tile is a K-major
-// operand (its D columns are the reduction, as for s = q·kᵀ) and an
-// MN-major B (its 64 rows are the reduction, as for dq = ds·k).
+// chunks of row r XOR-swizzled by the row.  SW is the widest swizzle whose
+// atom divides a row: 128 bytes at D 64 and 128, 64 at D 32, and 32 at
+// D 48 and 80 (atoms of 16 columns), so no width leaves a pad column in
+// the tile, and each k16 step of a K-major read at D 48 or 80 is one
+// whole 32-byte atom row.  The tile starts
+// aligned to its swizzle's repeat (1024, 512 or 256 bytes).  The same tile
+// is a K-major operand (its D columns are the reduction, as for s = q·kᵀ)
+// and an MN-major B (its 64 rows are the reduction, as for dq = ds·k, or
+// o += p·v, where N = D takes the m64n48 and m64n80 shapes too).
 template <int D>
 struct Tile {
-  static constexpr int SW = D == 32 ? 64 : 128;
+  static constexpr int SW = D % 64 == 0 ? 128 : D % 32 == 0 ? 64 : 32;
   static constexpr int W = SW / 2;
+  static_assert(D % W == 0 && D % 16 == 0, "a row is whole swizzle atoms");
   static constexpr uint32_t BYTES = kT * D * 2;
-  static constexpr uint64_t SWIZZLE = SW == 128 ? 1 : 2;   // descriptor code
+  // the descriptor's layout code: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte
+  static constexpr uint64_t SWIZZLE = SW == 128 ? 1 : SW == 64 ? 2 : 3;
   static constexpr uint32_t PHASE = SW / 16 - 1;           // row bits XORed
 
   // byte offset of element (r, c), c a multiple of 8
@@ -310,7 +317,8 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// d += A·B, m64nNk16 with N = 32, 64 or 128 (the overload by d's size):
+// d += A·B, m64nNk16 with N = 32, 48, 64, 80 or 128 (the overload by
+// d's size, N/2 accumulators a thread):
 // A from registers (bf16 pairs), B from shared memory, MN-major.
 __device__ __forceinline__ void wgmma_rs(float (&d)[16],
                                          const uint32_t (&a)[4],
@@ -348,6 +356,49 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[24],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[40],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

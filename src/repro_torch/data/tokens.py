@@ -4,8 +4,9 @@ port's own copy of ``repro.data.tokens``, numpy only.
 A fixed random bigram transition table with Zipfian successor weights,
 so a model must learn P(next | prev) and its loss drops well below the
 unigram entropy.  From the same seed and host index it yields the same
-batches as the JAX package's stream, byte for byte.  The encoder
-iterator comes with the hubert family (ROADMAP Queue A item 11).
+batches as the JAX package's stream, byte for byte.  The encoders'
+masked-prediction batches (``make_encoder_iterator``) are the JAX
+package's too, byte for byte from the same seed.
 """
 from __future__ import annotations
 
@@ -67,3 +68,27 @@ def make_lm_iterator(model_cfg: ModelConfig, batch_size: int, seq_len: int,
                     batch_size=batch_size, seed=seed,
                     host_index=host_index, host_count=host_count)
     return iter(BigramStream(dc))
+
+
+def make_encoder_iterator(model_cfg: ModelConfig, batch_size: int,
+                          seq_len: int, seed: int = 1234
+                          ) -> Iterator[Dict[str, np.ndarray]]:
+    """HuBERT-style masked-prediction batches over synthetic frames:
+    ``features`` f32 [B, T, frontend_dim], ``targets`` int32 [B, T] and
+    ``mask`` bool [B, T] (a quarter of the frames).  The targets correlate
+    with the features (prototype per class plus noise), so the task is
+    learnable."""
+    rng = np.random.default_rng(seed)
+    F = model_cfg.frontend_dim
+    V = model_cfg.vocab_size
+    proto = rng.normal(size=(V, F)).astype(np.float32)
+
+    def gen():
+        while True:
+            targets = rng.integers(0, V, size=(batch_size, seq_len))
+            feats = proto[targets] + 0.1 * rng.normal(
+                size=(batch_size, seq_len, F)).astype(np.float32)
+            mask = rng.random((batch_size, seq_len)) < 0.25
+            yield {"features": feats.astype(np.float32),
+                   "targets": targets.astype(np.int32), "mask": mask}
+    return gen()

@@ -13,7 +13,9 @@ both is ``kernels.ref.flash_attention_bwd``.
 ``flash_mha`` runs the forward kernel (on the CPU ``ref.mha``) and, when
 grad mode is on and an input needs a gradient, asks it for ``lse`` and
 saves what the backward recomputes from; its backward launches the dq
-and dk/dv kernels (on the CPU their plain version).
+and dk/dv kernels (on the CPU their plain version).  On the card it
+refuses, before the forward, a head dim the forward takes and the
+backward does not (48, 80).
 """
 from __future__ import annotations
 
@@ -199,5 +201,13 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and valid lengths get no gradient."""
     save = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
+    if save and q.is_cuda and q.shape[-1] not in HEAD_DIMS:
+        # refused before the forward runs: the backward kernels take only
+        # HEAD_DIMS (D 48 and 80 come with encoder training)
+        raise ValueError(
+            f"flash attention backward does not take head dim "
+            f"{q.shape[-1]} (only {HEAD_DIMS}): training at this width "
+            f"waits on encoder training (ROADMAP Queue A item 11.5); run "
+            f"the forward under torch.no_grad()")
     return _FlashMHA.apply(q, k, v, save, causal, window, softcap,
                            q_positions, kv_positions, kv_valid_len, sm_scale)

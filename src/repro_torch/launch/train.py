@@ -7,8 +7,9 @@ Same flags as ``repro.launch.train``, plus ``--device``:
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu
 
 Without a GPU it raises unless ``--device cpu`` asks for the plain
-PyTorch path.  ``--mesh single|multi`` and ``--distributed`` need the
-sharded trainer, not ported yet (ROADMAP Queue A item 13).
+PyTorch path.  An encoder-only arch raises (ROADMAP Queue A item 11.5).
+``--mesh single|multi`` and ``--distributed`` need the sharded trainer,
+not ported yet (ROADMAP Queue A item 13).
 """
 from __future__ import annotations
 
@@ -46,6 +47,12 @@ def main(argv=None) -> None:
 
     cfg = get_reduced_config(args.arch) if args.reduced \
         else get_config(args.arch)
+    if cfg.encoder_only:
+        raise NotImplementedError(
+            f"{args.arch} is encoder-only: training it (masked prediction "
+            "over make_encoder_iterator, the flash backward at head dims "
+            "48/80, LayerNorm's backward) waits on encoder training "
+            "(ROADMAP Queue A item 11.5)")
     tcfg = dataclasses.replace(programs.default_train_config(cfg),
                                num_microbatches=args.microbatch)
     trainer = Trainer(cfg, args.device, tcfg,

@@ -144,17 +144,23 @@ class ModelConfig:
 
     def num_params(self) -> int:
         """Exact parameter count (the JAX ``num_params``), for the dense,
-        ssm and hybrid families; the others come with their slices
-        (ROADMAP Queue A item 11)."""
-        if self.family not in ("dense", "ssm", "hybrid") \
-                or self.encoder_only or self.attn_type == "mla" \
-                or self.frontend != "none":
+        encoder, ssm and hybrid families.  An encoder counts its (unused)
+        embedding and its prediction head, and the ``audio_frames``
+        frontend its projection and mask embedding.  MoE and MLA come with
+        their slices (ROADMAP Queue A items 11.3 and 11.4)."""
+        if self.family not in ("dense", "encoder", "ssm", "hybrid") \
+                or self.attn_type == "mla":
             raise NotImplementedError(
-                f"num_params of family {self.family!r} is not ported yet "
-                "(ROADMAP Queue A item 11)")
+                f"num_params of family {self.family!r} / attn_type "
+                f"{self.attn_type!r} is not ported yet (ROADMAP Queue A "
+                "item 11)")
         d, V, hd, L = self.d_model, self.vocab_size, self.head_dim_, \
             self.num_layers
-        n = V * d * (1 if self.tie_embeddings else 2)     # embed (+ head)
+        n = V * d                                          # embed
+        if self.encoder_only or not self.tie_embeddings:
+            n += V * d                         # prediction or LM head
+        if self.frontend == "audio_frames" and self.frontend_dim:
+            n += self.frontend_dim * d + d     # projection + mask embed
         attn = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
         attn += self.num_heads * hd * d
         if self.attn_bias:
@@ -164,7 +170,7 @@ class ModelConfig:
         mlp = (3 if self.activation in ("swiglu", "geglu") else 2) \
             * d * self.d_ff
         norm = 2 * d if self.norm == "layernorm" else d
-        if self.family == "dense":
+        if self.family in ("dense", "encoder"):
             per_layer = attn + mlp + (1 if self.parallel_block else 2) * norm
             return n + L * per_layer + norm
         s, di, H = self.ssm, self.d_inner, self.ssm_heads
@@ -251,24 +257,45 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for the architecture features the port has not reached.
 
-    Ported: the dense decoder and the hybrid with full attention, and the
-    attention-free SSM family (Mamba2); the rest waits on the ROADMAP
-    items named in each message."""
-    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.encoder_only:
+    Ported: the dense decoder and the hybrid with full attention, the
+    attention-free SSM family (Mamba2), and the encoder-only family
+    (LayerNorm, the ``audio_frames`` frontend, non-causal attention); the
+    rest waits on the ROADMAP items named in each message."""
+    if cfg.family not in ("dense", "ssm", "hybrid", "encoder"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: only the dense decoder, ssm and "
-            "hybrid are ported (ROADMAP Queue A item 11)")
+            f"family {cfg.family!r}: only the dense decoder, ssm, hybrid "
+            "and encoder are ported (ROADMAP Queue A item 11.3)")
+    if cfg.encoder_only != (cfg.family == "encoder"):
+        raise NotImplementedError(
+            f"encoder_only={cfg.encoder_only} with family {cfg.family!r}: "
+            "the port runs encoder_only as the encoder family only "
+            "(ROADMAP Queue A item 11)")
     if cfg.family != "ssm" and (cfg.attn_type != "full"
                                 or cfg.sliding_window > 0):
         raise NotImplementedError(
             f"attn_type {cfg.attn_type!r} / sliding_window "
             f"{cfg.sliding_window}: only full attention is ported "
             "(ROADMAP Queue A item 11)")
-    if cfg.norm != "rmsnorm" or cfg.qk_norm or cfg.attn_bias:
+    if cfg.parallel_block:
         raise NotImplementedError(
-            "layernorm, qk_norm and attention biases are not ported yet "
-            "(ROADMAP Queue A item 11)")
+            "parallel_block (command-r's parallel attention + MLP) is not "
+            "ported yet (ROADMAP Queue A item 11.2)")
+    if cfg.qk_norm or cfg.attn_bias:
+        raise NotImplementedError(
+            "qk_norm and attention biases are not ported yet (ROADMAP "
+            "Queue A item 11.2)")
+    if cfg.family == "encoder":
+        if cfg.norm != "layernorm" or cfg.frontend != "audio_frames":
+            raise NotImplementedError(
+                f"an encoder with norm {cfg.norm!r} and frontend "
+                f"{cfg.frontend!r}: only LayerNorm over audio_frames "
+                "features is ported (ROADMAP Queue A item 11.2)")
+        return
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(
+            f"norm {cfg.norm!r} in a {cfg.family} model: LayerNorm "
+            "decoders are not ported yet (ROADMAP Queue A item 11.2)")
     if cfg.frontend != "none":
         raise NotImplementedError(
-            f"frontend {cfg.frontend!r} is not ported yet "
-            "(ROADMAP Queue A item 11)")
+            f"frontend {cfg.frontend!r} in a {cfg.family} model is not "
+            "ported yet (vq_tokens: ROADMAP Queue A item 11.2)")

@@ -4,10 +4,12 @@ Counterpart of ``repro.models.layers``.  ``init_*`` returns a nested dict
 of tensors with the JAX leaf names; apply functions take (params, inputs,
 cfg).  The forward numerics follow the JAX functions step by step,
 including where each product is rounded to the compute dtype.  Gradients
-come from autograd: the JAX norm's custom VJP
+come from autograd: the JAX RMSNorm's custom VJP
 (``src/repro/models/layers.py:71``) is the same math, rounded to bf16 at
 other points in a bf16 backward; in fp32 the two agree
-(``tests/test_torch_train.py``).
+(``tests/test_torch_train.py``).  LayerNorm (the encoders') has no kernel
+in either package; training through it on the card waits on encoder
+training (ROADMAP Queue A item 11.5).
 """
 from __future__ import annotations
 
@@ -44,8 +46,11 @@ def embed_init(gen: torch.Generator, shape, dtype):
 # ---------------------------------------------------------------------------
 
 def init_norm(cfg: ModelConfig, device, dim: Optional[int] = None):
-    return {"scale": torch.ones((dim or cfg.d_model,), dtype=cfg.pdtype,
-                                device=device)}
+    d = dim or cfg.d_model
+    p = {"scale": torch.ones((d,), dtype=cfg.pdtype, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=cfg.pdtype, device=device)
+    return p
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -65,7 +70,27 @@ def rms_norm_simple(x, scale, eps: float = 1e-6, *, kernel: bool = False):
     return rms_norm(x, scale, eps)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """The JAX ``_layernorm_fwd`` (``layers.py:110-117``): the mean and
+    the mean of squares in f32, ``var = ms - mean²`` and its rsqrt in f32,
+    then ``xhat = (x - mean) * inv`` and ``xhat * scale + bias`` in
+    ``x.dtype``, each f32 factor rounded to it first.  No Pallas kernel
+    computes it, so it stays plain PyTorch on the card too."""
+    dt = x.dtype
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    inv = torch.rsqrt(ms - torch.square(mean) + eps)
+    xhat = (x - mean.to(dt)) * inv.to(dt)
+    return xhat * scale.to(dt) + bias.to(dt)
+
+
 def apply_norm(p, x, cfg: ModelConfig, *, kernel: bool = False):
+    """``cfg.norm``: LayerNorm (plain on both devices), or RMSNorm, with
+    ``kernel`` through the CUDA kernel on the card."""
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
     return rms_norm_simple(x, p["scale"], cfg.norm_eps, kernel=kernel)
 
 

@@ -1,6 +1,6 @@
-"""Top-level model API for the ported families (the dense decoder, ssm
-and hybrid): the port of ``repro.models.model.Model`` on the serving and
-training paths.
+"""Top-level model API for the ported families (the dense decoder, ssm,
+hybrid and the encoder): the port of ``repro.models.model.Model`` on the
+serving and training paths.
 
     model = Model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -18,6 +18,11 @@ training paths.
                                       last_index)
     logits = model.decode(params, tokens, caches, cache_len)
 
+Inputs per frontend, as in JAX: ``none`` takes ``batch["tokens"]`` (and
+``labels``); ``audio_frames`` (the encoders) takes ``batch["features"]``
+[B, T, F], ``targets`` [B, T] and an optional ``mask`` [B, T] (HuBERT's
+masked prediction: masked frames read ``mask_embed``).
+
 Params are nested dicts of tensors with the JAX leaf names and stacked
 ``[L, ...]`` block leaves.  Pools, caches and SSM states update in place.
 Paged pools and speculative verify are the dense family's only.
@@ -33,7 +38,8 @@ from repro_torch.models import transformer
 from repro_torch.models.mamba2 import F32_LEAVES
 from repro_torch.models.config import ModelConfig, check_ported
 from repro_torch.models.layers import (apply_embedding, apply_lm_head,
-                                       init_embedding, init_lm_head)
+                                       dense_init, init_embedding,
+                                       init_lm_head)
 
 Params = Dict[str, Any]
 
@@ -66,18 +72,40 @@ class Model:
         head = init_lm_head(gen, cfg)
         if head is not None:
             p["head"] = head
+        if cfg.frontend == "audio_frames":
+            p["frontend"] = {
+                "w_frontend": dense_init(gen, (cfg.frontend_dim,
+                                               cfg.d_model), cfg.pdtype),
+                "mask_embed": torch.zeros((cfg.d_model,), dtype=cfg.pdtype,
+                                          device=gen.device)}
         return to_device(p, self.device)
 
     def _positions(self, B: int, T: int, start=None):
         pos = torch.arange(T, device=self.device, dtype=torch.int32)[None]
         return pos.expand(B, T) if start is None else start[:, None] + pos
 
+    def _embed_inputs(self, params: Params, batch: Dict[str, torch.Tensor]):
+        """[B, T, d] in the compute dtype: the features' projection for
+        ``audio_frames`` (``mask_embed`` in the frames ``batch["mask"]``
+        sets), else the token embedding."""
+        cfg = self.cfg
+        if cfg.frontend == "audio_frames":
+            dt = cfg.cdtype
+            x = batch["features"].to(dt) @ \
+                params["frontend"]["w_frontend"].to(dt)
+            if "mask" in batch:
+                me = params["frontend"]["mask_embed"].to(dt)
+                x = torch.where(batch["mask"].bool()[..., None], me, x)
+            return x
+        return apply_embedding(params["embed"], batch["tokens"], cfg)
+
     # ------------------------------------------------------------------ fwd
     def forward(self, params: Params, batch: Dict[str, torch.Tensor],
                 positions: Optional[torch.Tensor] = None):
-        """Full-sequence logits [B, T, V] (the train-mode forward)."""
+        """Full-sequence logits [B, T, V] (the train-mode forward; an
+        encoder's is its serving forward too, non-causal)."""
         cfg = self.cfg
-        x = apply_embedding(params["embed"], batch["tokens"], cfg)
+        x = self._embed_inputs(params, batch)
         B, T = x.shape[:2]
         if positions is None:
             positions = self._positions(B, T)
@@ -88,16 +116,23 @@ class Model:
     # ----------------------------------------------------------------- loss
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]):
         """The train objective: mean next-token cross-entropy over labels
-        ``>= 0`` (a label below 0 has weight 0 and is read as 0), with
-        the log-sum-exp of the logits in f32 and the gold logit taken in
-        the logits' dtype (a gather, the same number as JAX's one-hot
-        contraction).  The dense family has no auxiliary loss.  Returns
-        ``(loss, metrics)`` with metrics ``loss``, ``ce``, ``aux`` and
-        ``tokens``."""
+        ``>= 0`` (a label below 0 has weight 0 and is read as 0), or for an
+        encoder the cross-entropy of ``targets`` weighted by ``mask`` (all
+        frames without one), with the log-sum-exp of the logits in f32 and
+        the gold logit taken in the logits' dtype (a gather, the same
+        number as JAX's one-hot contraction), over ``max(Σ weights, 1)``.
+        The ported families have no auxiliary loss.  Returns ``(loss,
+        metrics)`` with metrics ``loss``, ``ce``, ``aux`` and ``tokens``."""
         logits = self.forward(params, batch)
-        labels = batch["labels"].long()
-        weights = (labels >= 0).float()
-        targets = torch.clamp(labels, min=0)
+        if self.cfg.encoder_only:
+            targets = batch["targets"].long()
+            mask = batch.get("mask")
+            weights = torch.ones_like(targets, dtype=torch.float32) \
+                if mask is None else mask.float()
+        else:
+            labels = batch["labels"].long()
+            weights = (labels >= 0).float()
+            targets = torch.clamp(labels, min=0)
         lse = torch.logsumexp(logits.float(), dim=-1)
         gold = torch.gather(logits, -1, targets[..., None])[..., 0].float()
         nll = (lse - gold) * weights
@@ -126,7 +161,7 @@ class Model:
         prefix; SSM layers resume their conv and SSM state).  Returns
         last-valid-token logits [B, V]."""
         cfg = self.cfg
-        x = apply_embedding(params["embed"], batch["tokens"], cfg)
+        x = self._embed_inputs(params, batch)
         B, T = x.shape[:2]
         positions = self._positions(B, T, start)
         x = transformer.forward_stack(
@@ -181,7 +216,7 @@ class Model:
         may be; without it every row is exact-length.  Returns (the last
         token's logits [B, V], cache_len [B])."""
         cfg = self.cfg
-        x = apply_embedding(params["embed"], batch["tokens"], cfg)
+        x = self._embed_inputs(params, batch)
         B, T = x.shape[:2]
         x = transformer.forward_stack(params["stack"], x, cfg,
                                       positions=self._positions(B, T),

@@ -1,7 +1,7 @@
 """Block stacks of ``repro.models.transformer`` for the ported families.
 
 Layouts (the JAX ones):
-  dense  : L × [attn + MLP]
+  dense / encoder : L × [attn + MLP] (the encoder's attention non-causal)
   ssm    : L × [mamba2]
   hybrid : ⌊L/e⌋ super-blocks of (e × mamba2, then one application of a
            shared attn+MLP block) + (L mod e) trailing mamba2 blocks.
@@ -17,7 +17,7 @@ dense) and ``verify`` (the K1 tokens of a speculative block, paged).
 Caches and SSM states update in place.  On the serving modes of the ssm
 and hybrid families every norm goes through ``ops.rmsnorm`` (the CUDA
 kernel on the card); the dense family and the train mode keep
-``layers.rms_norm``.
+``layers.rms_norm``, and the encoder's LayerNorm is plain everywhere.
 """
 from __future__ import annotations
 
@@ -34,12 +34,10 @@ Params = Dict[str, Any]
 
 
 def init_attn_block(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    p = {"attn": attention.init_attention(gen, cfg),
-         "norm1": init_norm(cfg, gen.device)}
-    if not cfg.parallel_block:
-        p["norm2"] = init_norm(cfg, gen.device)
-    p["mlp"] = init_mlp(gen, cfg)
-    return p
+    return {"attn": attention.init_attention(gen, cfg),
+            "norm1": init_norm(cfg, gen.device),
+            "norm2": init_norm(cfg, gen.device),
+            "mlp": init_mlp(gen, cfg)}
 
 
 def _stack(trees):
@@ -76,7 +74,7 @@ def _hybrid_split(cfg: ModelConfig):
 def init_stack(gen: torch.Generator, cfg: ModelConfig) -> Params:
     check_ported(cfg)
     final = init_norm(cfg, gen.device)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "encoder"):
         blocks = _stack([init_attn_block(gen, cfg)
                          for _ in range(cfg.num_layers)])
         return {"blocks": blocks, "final_norm": final}
@@ -104,9 +102,10 @@ def _stack_tree(one: Params, n: int, device) -> Params:
 def init_paged_cache_tree(cfg: ModelConfig, num_pages: int, page_size: int,
                           dtype=torch.bfloat16, device=None) -> Params:
     """Paged pools stacked along the layer axis (``[L, P, page, H, D]``).
-    Only the dense family pages; the stateful ones keep dense slots."""
+    Only the dense block stack pages (as in JAX, the encoder's too); the
+    stateful families keep dense slots."""
     check_ported(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "encoder"):
         raise ValueError(f"paged KV cache unsupported for family "
                          f"{cfg.family!r}")
     device = resolve_device(device)
@@ -118,12 +117,13 @@ def init_cache_tree(cfg: ModelConfig, batch: int, max_seq: int,
                     dtype=torch.bfloat16, device=None) -> Params:
     """Dense caches stacked along the layer axis: ``attn`` [L, B, S, H, D]
     for the dense family; ``mamba`` states (conv f32 and ssm f32, as the
-    JAX ``init_mamba2_state`` makes them) [L, B, ...] for ssm; for the
+    JAX ``init_mamba2_state`` makes them) [L, B, ...] for ssm (the encoder
+    takes the dense family's tree, as in JAX); for the
     hybrid ``mamba`` [n_super, e, B, ...], ``attn`` [n_super, B, S, H, D]
     in ``dtype`` and ``mamba_tail`` [rem, B, ...]."""
     check_ported(cfg)
     device = resolve_device(device)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "encoder"):
         one = attention.init_cache(cfg, batch, max_seq, dtype, "meta")
         return {"attn": _stack_tree(one, cfg.num_layers, device)}
     mstate = mamba2.init_mamba2_state(cfg, batch, device="meta")
@@ -166,8 +166,6 @@ def attn_block(bp: Params, x, cfg: ModelConfig, *, positions, mode: str,
         attn_out = attention.attend(p, h, cfg, positions=positions,
                                     causal=not cfg.encoder_only,
                                     cache=cache)
-    if cfg.parallel_block:
-        return x + attn_out + apply_mlp(bp["mlp"], h, cfg)
     x = x + attn_out
     h2 = apply_norm(bp["norm2"], x, cfg, kernel=kernel_norm)
     return x + apply_mlp(bp["mlp"], h2, cfg)
@@ -205,8 +203,8 @@ def forward_stack(params: Params, x, cfg: ModelConfig, *, positions,
                   cache_len=None, page_table=None, chunked: bool = False):
     """Returns the final-normed hidden states; pools, caches and states
     update in place.  ``prefill``/``decode``/``verify`` need ``caches``:
-    paged pools with a ``page_table`` (dense family only; ``verify`` is
-    paged only), else dense caches.  In paged and chunked prefill
+    paged pools with a ``page_table`` (the dense block stack only;
+    ``verify`` is paged only), else dense caches.  In paged and chunked prefill
     ``cache_len`` carries the post-chunk valid length."""
     if mode not in ("train", "prefill", "decode", "verify"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -215,14 +213,15 @@ def forward_stack(params: Params, x, cfg: ModelConfig, *, positions,
     if mode == "verify" and page_table is None:
         raise ValueError("verify mode is paged only (speculative decoding)")
     fam = cfg.family
-    if page_table is not None and fam != "dense":
+    dense = fam in ("dense", "encoder")
+    if page_table is not None and not dense:
         raise ValueError(f"paged attention unsupported for family {fam!r}")
     if mode == "train":
         caches = None
-    kn = mode != "train" and fam != "dense"
+    kn = mode != "train" and not dense
     kw = dict(positions=positions, mode=mode, cache_len=cache_len,
               kernel_norm=kn)
-    if fam == "dense":
+    if dense:
         blocks = unstack(params["blocks"])
         pools = unstack(caches["attn"]) if caches else [None] * len(blocks)
         for bp, cache in zip(blocks, pools, strict=True):

@@ -37,8 +37,11 @@ eagerly and updates the pools, slot caches, page table and lengths in
 place; the tensors live on the engine's device (``cuda`` unless
 ``device="cpu"``).  The dense slot tree is in the compute dtype from the
 start (the JAX engine's starts in bf16 and takes the compute dtype at its
-first decode; ROADMAP Queue C).  MoE, sliding-window, MLA and encoder
-models raise ``NotImplementedError`` naming their ROADMAP item.
+first decode; ROADMAP Queue C).  MoE, sliding-window and MLA models
+raise ``NotImplementedError`` naming their ROADMAP item.  An encoder
+raises ``ValueError`` at construction: it serves through the container's
+``generic`` entry point (the JAX engine takes the config and fails at its
+first prefill; ROADMAP Queue C).
 
 ``EngineExecutor`` wraps an engine as a container-class executor, so a
 serving deployment is declared through ``ServiceSpec``/``EdgeSystem``
@@ -170,6 +173,11 @@ class ServingEngine:
                  draft_cfg: Optional[ModelConfig] = None,
                  draft_params: Optional[Dict] = None,
                  spec_k_max: int = 4):
+        if cfg.encoder_only:
+            raise ValueError(
+                f"{cfg.name} is encoder-only: it has no prefill or decode "
+                f"to batch; serve it through the container's 'generic' "
+                f"entry point (serving.router.make_container_builder)")
         budget_auto = isinstance(prefill_budget, str) and \
             prefill_budget == "auto"
         if not (prefill_budget is None or budget_auto or (

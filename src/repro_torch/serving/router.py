@@ -60,7 +60,9 @@ def make_container_builder(cfg, params=None, seed: int = 0, device=None):
     The entry points leave the caller's buffers as they were: prefill and
     decode write into copies of the caches they are given (the JAX
     executor returns new caches the same way), train steps a copy of the
-    params and optimizer state."""
+    params and optimizer state.  An encoder (``edge-cv-heavy``,
+    ``hubert-xlarge``) serves through ``generic`` alone: its prefill and
+    decode raise."""
     dev0 = resolve_device(device)
     p0 = _params(cfg, params, seed, dev0)
 
@@ -69,12 +71,20 @@ def make_container_builder(cfg, params=None, seed: int = 0, device=None):
         p = to_device(p0, dev)
         model = build_model(cfg, dev)
 
+        def no_decode():
+            if cfg.encoder_only:
+                raise ValueError(f"{cfg.name} is encoder-only: it has no "
+                                 f"prefill or decode; serve it through "
+                                 f"the 'generic' entry point")
+
         def prefill(tokens, caches):
+            no_decode()
             caches = clone_args(caches)
             logits, cache_len = model.prefill(p, {"tokens": tokens}, caches)
             return logits, caches, cache_len
 
         def decode(tokens, caches, cache_len):
+            no_decode()
             caches = clone_args(caches)
             return model.decode(p, tokens, caches, cache_len), caches
 
@@ -85,8 +95,10 @@ def make_container_builder(cfg, params=None, seed: int = 0, device=None):
 
         def infer(inputs):
             """Generic single-shot inference (the paper's CV-detection
-            analogue): tokens in → class predictions out."""
-            logits = model.forward(p, {"tokens": inputs})
+            analogue): features (``audio_frames``) or tokens in → class
+            predictions out."""
+            key = "features" if cfg.frontend == "audio_frames" else "tokens"
+            logits = model.forward(p, {key: inputs})
             return torch.argmax(logits, dim=-1).to(torch.int32)
 
         ex = ContainerExecutor(

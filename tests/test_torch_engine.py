@@ -261,11 +261,13 @@ def test_unported_branches_raise():
 
     jcfg, tcfg = _cfgs()
     # paged=False serves on dense slots now (tests/test_torch_ssm.py);
-    # MoE, sliding-window, MLA and encoder models still raise
+    # MoE, sliding-window and MLA models still raise, and an encoder-only
+    # model is refused at construction: it serves through a container's
+    # generic entry point (tests/test_torch_encoder.py)
     with pytest.raises(NotImplementedError, match="item 11"):
         ServingEngine(dataclasses.replace(tcfg, attn_type="mla"),
                       device="cpu", paged=False)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="encoder-only"):
         ServingEngine(dataclasses.replace(tcfg, encoder_only=True),
                       device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):

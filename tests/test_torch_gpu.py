@@ -36,6 +36,16 @@ FLASH_CASES = [
     (1, 40, 40, 96, 1, 128, False, 0, 0.0, False),
     (1, 129, 129, 2, 2, 128, True, 0, 0.0, True),
     (2, 129, 129, 8, 2, 32, True, 0, 30.0, False),
+    # the encoders' widths (fig 3's apps at D 48, hubert-xlarge at D 80):
+    # non-causal (as the encoders run it) and causal, G 1 and G 4
+    (1, 37, 37, 4, 4, 48, False, 0, 0.0, False),
+    (2, 70, 70, 8, 2, 48, False, 0, 0.0, False),
+    (1, 37, 37, 4, 4, 48, True, 0, 0.0, True),
+    (2, 70, 70, 8, 2, 48, True, 0, 20.0, False),
+    (1, 37, 37, 4, 4, 80, False, 0, 0.0, False),
+    (2, 70, 70, 8, 2, 80, False, 0, 0.0, True),
+    (1, 37, 37, 4, 4, 80, True, 0, 0.0, False),
+    (2, 70, 70, 8, 2, 80, True, 16, 0.0, False),
 ]
 PAGED_CASES = [
     # B, Hq, Hkv, D, page, MP, num_pages, window, softcap
@@ -451,12 +461,41 @@ def test_empty_rows_give_zero(cuda):
 
 
 def test_unsupported_head_dim_raises(cuda):
-    q = torch.randn(1, 4, 2, 48, device=cuda)
+    q = torch.randn(1, 4, 2, 96, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention(q, q, q)
 
 
+@pytest.mark.parametrize("D", [48, 80])
+def test_forward_only_head_dims_stay_out_of_the_other_kernels(D, cuda):
+    """The forward takes D 48 and 80; the dense decode and the backward
+    kernels instantiate neither, so their wrappers refuse both, and a
+    grad-mode ``flash_mha`` refuses before it launches the forward."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd, flash_mha)
+
+    q = torch.randn(1, 4, 2, D, device=cuda)
+    k = torch.randn(1, 16, 2, D, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_attention(q[:, 0], k, k, torch.tensor([5], device=cuda,
+                                                     dtype=torch.int32))
+    out, lse = fa.flash_attention(q, q, q, return_lse=True)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd(q, q, q, out, lse, torch.ones_like(q))
+    before = fa.flash_attention.launches
+    leaf = q.clone().requires_grad_()
+    with pytest.raises(ValueError, match="item 11.5"):
+        flash_mha(leaf, q, q)
+    assert fa.flash_attention.launches == before
+    with torch.no_grad():
+        flash_mha(leaf, q, q)
+    assert fa.flash_attention.launches == before + 1
+
+
 @pytest.mark.parametrize("shape", [(2, 40, 8, 2, 64), (1, 129, 24, 2, 128),
+                                   (2, 70, 8, 2, 48), (1, 77, 4, 4, 80),
                                    (2, 100, 4, 4, 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_lse(dtype, shape, cuda):

@@ -28,6 +28,14 @@ in exact-length chunks of 16, each prompt's last-position logits from
 JAX ``Model.forward``, and the parameters.  The JAX engine is warmed up
 first, so its slot tree is in fp32 before the first insert.
 
+The encoder family rides along (``encoder_48_*``, ``encoder_80_*``):
+reduced fp32 ``edge-cv-heavy`` at head dims 48 and 80 (the widths the
+CUDA forward gained for fig 3's apps and hubert-xlarge), 2 layers at
+d_model 64, its JAX parameters, a batch of features [2, 40, 32] with
+targets and a mask, JAX ``Model.forward``'s logits (without the mask, as
+the container serves) and its masked-prediction loss.  ``chip_smoke.py``
+replays them through the fp32 flash kernel.
+
 The same waves are served again speculatively, with a random 1-layer,
 1-head draft (seed 0, ``spec_k_max=3``), once over pages in the compute
 dtype (``spec_streams_auto``) and once over int8 pages
@@ -58,6 +66,10 @@ STATEFUL = {"ssm": ("mamba2-2.7b", dict(d_model=64)),
                                            num_kv_heads=2, d_ff=128))}
 STATEFUL_ENGINE = dict(max_slots=2, max_seq=64, prefill_chunk=16,
                        prefill_budget=32)
+ENCODER_HEAD_DIMS = (48, 80)
+ENCODER_MODEL = dict(num_layers=2, d_model=64, num_heads=2, num_kv_heads=2,
+                     d_ff=128, vocab_size=64, frontend_dim=32)
+ENCODER_BATCH = (2, 40)
 TRAIN_MODEL = dict(num_layers=2, d_model=64, head_dim=32, d_ff=128,
                    vocab_size=128)
 TRAIN = dict(batch=8, seq=32, seed=3, steps=5,
@@ -162,6 +174,43 @@ def _stateful() -> dict:
     return out
 
 
+def _encoder() -> dict:
+    """The encoder logits of the module docstring."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_reduced_config
+    from repro.models.model import build_model
+
+    out = {}
+    B, T = ENCODER_BATCH
+    for hd in ENCODER_HEAD_DIMS:
+        cfg = dataclasses.replace(
+            get_reduced_config("edge-cv-heavy", head_dim=hd,
+                               **ENCODER_MODEL), compute_dtype="float32")
+        model = build_model(cfg)
+        params = model.init(jax.random.key(hd))
+        rng = np.random.default_rng(hd)
+        feats = rng.normal(size=(B, T, cfg.frontend_dim)).astype(np.float32)
+        targets = rng.integers(0, cfg.vocab_size, size=(B, T)) \
+            .astype(np.int32)
+        mask = rng.random((B, T)) < 0.25
+        logits, _ = model.forward(params, {"features": jnp.asarray(feats)})
+        loss, _ = model.loss(params, {"features": jnp.asarray(feats),
+                                      "targets": jnp.asarray(targets),
+                                      "mask": jnp.asarray(mask)})
+        pre = f"encoder_{hd}_"
+        out[pre + "config"] = np.array(json.dumps(cfg.to_dict(),
+                                                  sort_keys=True))
+        out[pre + "features"] = feats
+        out[pre + "targets"] = targets
+        out[pre + "mask"] = mask
+        out[pre + "logits"] = np.asarray(logits, np.float32)
+        out[pre + "loss"] = np.array(float(loss), np.float32)
+        out.update(_flat_params(pre + "params/", params))
+    return out
+
+
 def make() -> dict:
     """Regenerate the fixture's arrays with the JAX package."""
     import jax
@@ -208,6 +257,7 @@ def make() -> dict:
     out.update(_flat_params("draft_params/", dparams))
     out.update(_train())
     out.update(_stateful())
+    out.update(_encoder())
     return out
 
 
