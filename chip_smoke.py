@@ -11,8 +11,9 @@ continues:
    kernel may spill), the tensor-core instructions of every kernel counted
    in its SASS (the bf16 SSD scan's must have some, the fp32 scan's none;
    so must every bf16 instance of the paged and dense decode attention
-   kernels and every wgmma instance of the flash forward, one for each
-   head dim it takes (32, 48, 64, 80, 128; registers printed), and no
+   kernels and every wgmma instance of the flash forward and of the
+   flash backward's dq and dk/dv kernels, one for each head dim they
+   take (32, 48, 64, 80, 128; registers and spills printed), and no
    fp32 one),
    TF32 off for matmuls and cuDNN;
 2. kernels: each kernel against its plain PyTorch version on the card at
@@ -39,7 +40,12 @@ continues:
    that restart mid-row, T 129; at the train shape the share of 64 x 64
    tiles computed, the useful TFLOP/s of each, the forward against one
    causal SDPA forward and the two backward kernels against SDPA's one
-   backward), the SSD scan
+   backward), the backward at the encoders' widths (D 48 and 80:
+   non-causal and causal, G 1 and GQA, ragged T, an empty row, softcap,
+   explicit, packed and index positions; the forward's lse with them),
+   timed at hubert-xlarge's train shape (B 8, T 500, 16 heads of 80,
+   non-causal, G 1: the forward with lse, dq and dk/dv, against one
+   maskless SDPA forward and backward), the SSD scan
    at the SSM prefill's (mamba2's 64-token chunk with the carried state
    and zamba2's H 64 N 64, both timed, a 511-token prompt whole, 511 and
    4096 tokens as 64-token calls that carry the state, groups 2, one
@@ -119,8 +125,8 @@ continues:
    ``generic`` entry point: forward ms a batch (median of 6 after a
    warm-up), frames/s, peak memory, the device busy share of one traced
    batch, flash launched 48 x the batches, predictions in [0, 504); a
-   grad-mode ``flash_mha`` at D 80 raises before any launch (the backward
-   kernels do not take D 80: encoder training, ROADMAP item 11.5);
+   grad-mode ``flash_mha`` at D 80 launches the forward, dq and dk/dv
+   once each;
 4. consistency: fp32 at full width, 2 layers: every decode step's logits
    against ``Model.forward`` over the same prefix, within 2e-4 relative;
 4c. SSM consistency: mamba2 (2 layers) and zamba2 (3) in fp32 at full
@@ -143,15 +149,27 @@ continues:
    bf16 forward's and backward's tensor-core kernels 22 times each); an
    async checkpoint restored into a fresh ``Trainer`` gives the same next
    loss;
+6b. encoder training through ``launch/train.py``'s ``main``: full-width
+   hubert-xlarge (fp32 parameters and AdamW, bf16 compute) on
+   masked-prediction batches of [8, 500, 512] frames, 6 steps: losses and
+   grad norms finite, the parameters still after step 1 and moved after
+   step 2, the flash forward, dq and dk/dv each launched 48 x 6 times;
+   median step, frames/s, the phase's peak memory, a profiled step; then
+   edge-cv-heavy (B 8 x T 64) restarted from its checkpoint gives the
+   loss of a run that did not stop;
 7. train consistency: fp32 at full width, 2 layers, every gradient leaf of
    ``Model.loss`` through the kernels against the plain path within 2e-4
    relative; a reduced fp32 model trained 30 steps through the kernels
-   lowers its loss by more than 0.3;
+   lowers its loss by more than 0.3; one full-width fp32 hubert-xlarge
+   layer's every gradient leaf the same way;
 8. golden train: the JAX trainer's 5 fp32 steps from the fixture,
    replayed through the kernels from its step-0 state: losses and grad
-   norms within 1e-4 relative, final parameters within 1e-4;
+   norms within 1e-4 relative, final parameters within 1e-4; the same
+   for the fixture's encoder runs (reduced edge-cv-heavy at head dims 48
+   and 80, masked prediction);
 9. the kernels line (each kernel's launches from the paths that run it:
-   per request for serving, per step for training, per dispatch on the
+   per request for serving, per step for training (tinyllama's and
+   hubert-xlarge's), per dispatch on the
    edge path, per request on the fleet, per batch for hubert; the SSD scan and RMSNorm from mamba2's serve, the dense
    decode kernel from the speculative and zamba2's serves and the edge
    path; flash attention's times at the serving
@@ -342,11 +360,12 @@ def phase_device_and_build(torch):
     # flash forward: one wgmma instance for each head dim the wrapper
     # takes (D 48 and 80 for the encoders), tensor-core instructions in
     # every one (its spills are checked above), none in the fp32 kernel
-    from repro_torch.kernels.flash_attention import FWD_HEAD_DIMS
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
 
     ops = tc_ops["flash_attention"]
     regs = {k: r for k, r, _ in _kernel_resources(logs["flash_attention"])}
-    for D in FWD_HEAD_DIMS:
+    for D in HEAD_DIMS:
         wk, fk = f"flash_fwd_wgmma_kernel<{D}>", f"flash_fwd_kernel<{D}>"
         check(ops.get(wk, 0) > 0 and ops.get(fk, -1) == 0,
               f"flash_attention D {D}: {wk} without or {fk} with "
@@ -354,6 +373,25 @@ def phase_device_and_build(torch):
         print(f"[build] flash_attention D {D}: {wk} {ops[wk]} HGMMA, "
               f"{regs.get(wk, 'n/a')} regs; {fk} {regs.get(fk, 'n/a')} "
               f"regs, no HMMA")
+    # flash backward: the dq and dk/dv kernels at every head dim the
+    # wrapper takes (D 48 and 80 for encoder training), the wgmma
+    # instances with tensor-core instructions (and, as above, no spill),
+    # the fp32 instances without
+    ops = tc_ops["flash_attention_bwd"]
+    res = {k: (r, b) for k, r, b in
+           _kernel_resources(logs["flash_attention_bwd"])}
+    for D in fab.HEAD_DIMS:
+        for part in ("dq", "dkv"):
+            wk = f"flash_bwd_{part}_wgmma_kernel<{D}>"
+            fk = f"flash_bwd_{part}_kernel<{D}>"
+            check(ops.get(wk, 0) > 0 and ops.get(fk, -1) == 0,
+                  f"flash_attention_bwd D {D}: {wk} without or {fk} with "
+                  f"tensor-core instructions: {ops}")
+            (wr, wb), (fr, fb) = res.get(wk, ("n/a", 0)), res.get(fk,
+                                                                  ("n/a", 0))
+            print(f"[build] flash_attention_bwd D {D} {part}: {wk} "
+                  f"{ops[wk]} HGMMA, {wr} regs, {wb} B spilled; {fk} {fr} "
+                  f"regs, {fb} B spilled, no HMMA")
     for name in ("paged_decode_attention", "paged_verify_attention",
                  "decode_attention"):
         inst = {k: v for k, v in _tensor_core_ops(build, name, True).items()
@@ -619,18 +657,20 @@ def _tile_share(qp, kp, G, causal, window):
     return kept / tiles
 
 
-def _sdpa_causal(torch, F, q, k, v):
-    """Library yardstick of the forward at the train shape: one causal
-    ``F.scaled_dot_product_attention`` over the same q, k and v, the KV
-    heads expanded to the query heads beforehand (untimed)."""
+def _sdpa_causal(torch, F, q, k, v, causal=True):
+    """Library yardstick of the forward at a train shape: one causal (or,
+    for the encoders, maskless) ``F.scaled_dot_product_attention`` over
+    the same q, k and v, the KV heads expanded to the query heads
+    beforehand (untimed)."""
     G = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2)
     kt, vt = (x.transpose(1, 2).repeat_interleave(G, dim=1) for x in (k, v))
-    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
 
 
-def _sdpa_bwd(torch, F, q, k, v, do):
-    """Library yardstick: the backward of one causal
+def _sdpa_bwd(torch, F, q, k, v, do, causal=True):
+    """Library yardstick: the backward of one causal (or maskless)
     ``F.scaled_dot_product_attention`` over the same q, k and v, the KV
     heads expanded to the query heads beforehand (untimed), by
     ``torch.autograd.grad``.  It computes dq, dk and dv in one call."""
@@ -638,7 +678,7 @@ def _sdpa_bwd(torch, F, q, k, v, do):
     qt = q.transpose(1, 2).detach().requires_grad_()
     kt, vt = (x.transpose(1, 2).repeat_interleave(G, dim=1).detach()
               .requires_grad_() for x in (k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     dot = do.transpose(1, 2)
     return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                        retain_graph=True)
@@ -965,8 +1005,12 @@ def phase_kernels(torch, timer, card):
         flash_attention_bwd_dkv, flash_attention_bwd_dq)
 
     bwd_cases = [
-        # label, (B, Tq, Tk, Hq, Hkv, D), extra, timed
-        ("B8/T1024 train", (8, 1024, 1024, 32, 4, 64), {}, True),
+        # label, (B, Tq, Tk, Hq, Hkv, D), extra, timed as: the train step's
+        # shape under the kernels' names, hubert-xlarge's under
+        # "@hubert_train", False untimed
+        ("B8/T1024 train", (8, 1024, 1024, 32, 4, 64), {}, "train"),
+        ("B8/T500 H16 D80 hubert train", (8, 500, 500, 16, 16, 80),
+         {"causal": False}, "hubert_train"),
         ("B2/T256 causal", (2, 256, 256, 32, 4, 64), {}, False),
         ("B2/T256 non-causal", (2, 256, 256, 32, 4, 64),
          {"causal": False}, False),
@@ -993,15 +1037,35 @@ def phase_kernels(torch, timer, card):
         ("B1/T129 D128 G1", (1, 129, 129, 4, 4, 128), {}, False),
         ("B2/T256 G12", (2, 256, 256, 24, 2, 64), {"valid": True}, False),
         ("B1/T200 G96 D128", (1, 200, 200, 96, 1, 128), {}, False),
+        # the encoders' widths: D 48 and 80, non-causal and causal, G 1
+        # and GQA, ragged T, an empty row, softcap, explicit and index
+        # positions
+        ("B2/T129 D48 G1 non-causal", (2, 129, 129, 8, 8, 48),
+         {"causal": False, "valid": True}, False),
+        ("B2/T200 D48 G4", (2, 200, 200, 16, 4, 48), {}, False),
+        ("B2/T129 D48 softcap30", (2, 129, 129, 8, 2, 48),
+         {"softcap": 30.0}, False),
+        ("B2/T500 D80 G1 non-causal", (2, 500, 500, 16, 16, 80),
+         {"causal": False}, False),
+        ("B2/T129 D80 G2", (2, 129, 129, 8, 4, 80), {"valid": True},
+         False),
+        ("B2/T256 D80 G1 non-causal packed", (2, 256, 256, 4, 4, 80),
+         {"causal": False, "packed": True}, False),
+        ("B2/T200 D80 index positions", (2, 200, 200, 8, 2, 80),
+         {"index_kv": True, "valid": True}, False),
     ]
     for dtype in ("bfloat16", "float32"):
         for label, dims, extra, timed in bwd_cases:
             if timed and dtype == "float32":
-                continue               # the train step's backward is bf16
+                continue               # the train steps' backward is bf16
             args, kw, out, nb, fl = _bwd_case(torch, gen, dtype, dims,
                                               **extra)
-            library = _sdpa_bwd(torch, F, *args[:3], args[4]) \
+            causal = kw["causal"]
+            library = _sdpa_bwd(torch, F, *args[:3], args[4], causal) \
                 if timed else None
+            # where the times go: the train step's under the kernels'
+            # own names, another shape's under "<name>@<tag>"
+            at = "" if timed in (False, "train") else f"@{timed}"
 
             def plain_dq(q, k, v, lse, do, dsum, out=out, **kw):
                 return ref.flash_attention_bwd(q, k, v, out, lse, do, **kw)[0]
@@ -1022,17 +1086,20 @@ def phase_kernels(torch, timer, card):
             # on its own
             run("flash_attention", f"{label} (train forward)", dtype, fwd,
                 plain_fwd, args, kw, nb["fwd"], fl["fwd"],
-                _sdpa_causal(torch, F, *args[:3]) if timed else None,
-                timed, key="flash_attention@train")
+                _sdpa_causal(torch, F, *args[:3], causal) if timed
+                else None, bool(timed),
+                key=f"flash_attention@{timed or 'train'}")
             check_lse(f"{label} (train forward)", dtype, args[3],
                       ref.mha(*args[:3], return_lse=True, **kw)[1])
 
             run("flash_attention_bwd_dq", label, dtype,
                 flash_attention_bwd_dq, plain_dq, args, kw, nb["dq"],
-                fl["dq"], library, timed)
+                fl["dq"], library, bool(timed),
+                key=f"flash_attention_bwd_dq{at}")
             run("flash_attention_bwd_dkv", label, dtype,
                 flash_attention_bwd_dkv, plain_dkv, args, kw, nb["dkv"],
-                fl["dkv"], library, timed)
+                fl["dkv"], library, bool(timed),
+                key=f"flash_attention_bwd_dkv{at}")
             dq = flash_attention_bwd_dq(*args, **kw)
             dk, dv = flash_attention_bwd_dkv(*args, **kw)
             check(all(float(x.abs().max()) > 0 for x in (dq, dk, dv)),
@@ -1046,20 +1113,21 @@ def phase_kernels(torch, timer, card):
                       f"flash_attention {label}: a row with no key must "
                       f"give 0 and lse NEG_INF")
             if timed:
-                dq_r = results["flash_attention_bwd_dq"]
-                dkv_r = results["flash_attention_bwd_dkv"]
-                fwd_r = results["flash_attention@train"]
+                dq_r = results[f"flash_attention_bwd_dq{at}"]
+                dkv_r = results[f"flash_attention_bwd_dkv{at}"]
+                fwd_r = results[f"flash_attention@{timed}"]
                 both = dq_r["ms"] + dkv_r["ms"]
                 qp = kw["q_positions"][0].cpu().numpy()
                 kp = kw["kv_positions"][0].cpu().numpy()
                 share = _tile_share(qp, kp, dims[3] // dims[4],
                                     kw["causal"], kw["window"])
                 fwd_r["tile_share"] = share
+                sdpa = "causal SDPA" if causal else "maskless SDPA"
                 print(f"[kernel] flash_attention {label} {dtype}: useful "
                       f"work {fl['fwd'] / fwd_r['ms'] / 1e9:.1f} TFLOP/s "
                       f"({100 * share:.1f}% of the 64 x 64 tiles hold a "
                       f"kept pair); {fwd_r['ms']:.4f} ms against one "
-                      f"causal SDPA forward {fwd_r['library_ms']:.4f} ms "
+                      f"{sdpa} forward {fwd_r['library_ms']:.4f} ms "
                       f"({fwd_r['ms'] / fwd_r['library_ms']:.2f}x) on "
                       f"{card}")
                 print(f"[kernel] flash_attention_bwd {label} {dtype}: "
@@ -1068,7 +1136,7 @@ def phase_kernels(torch, timer, card):
                       f"{fl['dkv'] / dkv_r['ms'] / 1e9:.1f} TFLOP/s "
                       f"({100 * share:.1f}% of the 64 x 64 tiles hold a "
                       f"kept pair); dq + dk/dv {both:.4f} ms against "
-                      f"SDPA's backward {dq_r['library_ms']:.4f} ms "
+                      f"{sdpa}'s backward {dq_r['library_ms']:.4f} ms "
                       f"({both / dq_r['library_ms']:.2f}x) on {card}")
             del args, out
 
@@ -1938,7 +2006,8 @@ def phase_hubert(torch):
     ``generic`` entry point: a warm-up batch, then 6 timed ones (host
     clock to a synchronize) and one in a ``torch.profiler`` trace; flash
     launched 48 times a batch; predictions in [0, 504); a grad-mode
-    ``flash_mha`` at D 80 refused before any launch."""
+    ``flash_mha`` at D 80 through the forward and both backward
+    kernels."""
     from repro_torch.configs import get_config
     from repro_torch.core import (EdgeSystem, NodeCapacity, ServiceSpec,
                                   Workload, WorkloadClass, WorkloadKind)
@@ -2037,21 +2106,22 @@ def phase_hubert(torch):
           f"({100 * flash_ms / max(busy, 1e-9):.1f}% of the busy time)")
     _print_kernels(by_kernel, busy, counts)
 
-    # training waits on encoder training: a grad-mode forward at D 80 is
-    # refused before it launches anything
+    # a grad-mode forward at D 80 trains: the forward once (with lse),
+    # then the dq and dk/dv kernels once each
     q = torch.randn(1, 8, 2, 80, device=dev, dtype=torch.bfloat16,
                     requires_grad=True)
-    before = fa.flash_attention.launches
-    try:
-        flash_mha(q, q.detach(), q.detach(), causal=False)
-        fail("a grad-mode flash_mha at D 80 must raise")
-    except ValueError as e:
-        check("11.5" in str(e), f"the refusal must name item 11.5: {e}")
+    counters = _train_counters()
+    before = [fn.launches for fn, _ in counters]
+    dq, = torch.autograd.grad(
+        flash_mha(q, q.detach(), q.detach(), causal=False).float().sum(),
+        (q,))
     torch.cuda.synchronize()
-    check(fa.flash_attention.launches == before,
-          "the refused flash_mha launched the forward")
-    print(f"[hubert] a grad-mode flash_mha at D 80 raises before any "
-          f"launch (encoder training, ROADMAP item 11.5); phase "
+    moved = [fn.launches - b for (fn, _), b in zip(counters, before)]
+    check(moved == [1, 1, 1] and bool(torch.isfinite(dq).all()),
+          f"a grad-mode flash_mha at D 80 must launch the forward, dq and "
+          f"dk/dv once each: {moved}")
+    print(f"[hubert] a grad-mode flash_mha at D 80 launches the forward, "
+          f"dq and dk/dv once each; phase "
           f"{time.monotonic() - t_phase:.1f}s")
     del system, params, batches, preds, prof
     torch.cuda.empty_cache()
@@ -2709,14 +2779,16 @@ def phase_golden(torch):
               f"{lerr}")
 
 
-def phase_golden_train(torch):
-    """The JAX training run of the fixture (fp32, 5 steps of
-    ``build_train_step``) replayed on the card through the kernels from
-    its step-0 parameters and AdamW state, restored by ``Trainer`` from a
-    checkpoint: each step's loss and grad norm within 1e-4 relative, the
-    final parameters within 1e-4."""
+def phase_golden_train(torch, pre: str = "train_"):
+    """A JAX training run of the fixture (fp32, 5 steps of
+    ``build_train_step``; ``pre`` names it: ``train_`` the decoder's on
+    the bigram stream, ``encoder_train_48_`` and ``encoder_train_80_``
+    the encoder's on masked-prediction batches) replayed on the card
+    through the kernels from its step-0 parameters and AdamW state,
+    restored by ``Trainer`` from a checkpoint: each step's loss and grad
+    norm within 1e-4 relative, the final parameters within 1e-4."""
     from repro_torch.checkpointing import checkpoint as ck
-    from repro_torch.data.tokens import make_lm_iterator
+    from repro_torch.data.tokens import make_encoder_iterator, make_lm_iterator
     from repro_torch.launch import programs
     from repro_torch.models.config import ModelConfig
     from repro_torch.models.weights import from_numpy_tree, unflatten
@@ -2726,9 +2798,9 @@ def phase_golden_train(torch):
 
     with np.load(os.path.join(ROOT, "tests", "data",
                               "torch_port_golden.npz")) as f:
-        g = {k: f[k] for k in f.files if k.startswith("train_")}
-    cfg = ModelConfig.from_dict(json.loads(str(g["train_config"])))
-    setup = json.loads(str(g["train_setup"]))
+        g = {k[len(pre):]: f[k] for k in f.files if k.startswith(pre)}
+    cfg = ModelConfig.from_dict(json.loads(str(g["config"])))
+    setup = json.loads(str(g["setup"]))
 
     def tree(prefix):
         return from_numpy_tree(unflatten(
@@ -2737,9 +2809,9 @@ def phase_golden_train(torch):
 
     ckpt = os.path.join(ROOT, "build", "chip_smoke_golden_train")
     shutil.rmtree(ckpt, ignore_errors=True)
-    ck.save(ckpt, 0, {"params": tree("train_params0/"), "opt": {
+    ck.save(ckpt, 0, {"params": tree("params0/"), "opt": {
         "step": torch.zeros((), dtype=torch.int32, device="cuda"),
-        "m": tree("train_opt0/m/"), "v": tree("train_opt0/v/")}},
+        "m": tree("opt0/m/"), "v": tree("opt0/v/")}},
         {"step": 0})
     tcfg = programs.TrainConfig(
         adamw=adamw.AdamWConfig(**setup["adamw"]),
@@ -2747,8 +2819,8 @@ def phase_golden_train(torch):
     tr = Trainer(cfg, "cuda", tcfg, TrainerConfig(ckpt_dir=ckpt,
                                                   ckpt_every=0))
     tr.initialize(restore=True)
-    data = make_lm_iterator(cfg, setup["batch"], setup["seq"],
-                            seed=setup["seed"])
+    stream = make_encoder_iterator if cfg.encoder_only else make_lm_iterator
+    data = stream(cfg, setup["batch"], setup["seq"], seed=setup["seed"])
     before = [fn.launches for fn, _ in _train_counters()]
     ms = [tr.train_step(next(data)) for _ in range(setup["steps"])]
     moved = [fn.launches - b for (fn, _), b in zip(_train_counters(), before)]
@@ -2756,18 +2828,19 @@ def phase_golden_train(torch):
     check(moved == [cfg.num_layers * setup["steps"]] * 3,
           f"golden training did not run through the kernels: {moved}")
     loss_err = max(abs(m["loss"] - w) / abs(w)
-                   for m, w in zip(ms, g["train_losses"]))
+                   for m, w in zip(ms, g["losses"]))
     norm_err = max(abs(m["grad_norm"] - w) / abs(w)
-                   for m, w in zip(ms, g["train_grad_norms"]))
-    want = dict(flatten_with_path(tree("train_final/")))
+                   for m, w in zip(ms, g["grad_norms"]))
+    want = dict(flatten_with_path(tree("final/")))
     param_err = max(float((p.detach() - want[path]).abs().max())
                     for path, p in flatten_with_path(tr.params))
-    print(f"[golden-train] the JAX trainer's {setup['steps']} fp32 steps "
+    print(f"[golden-train] {pre[:-1]} (head dim {cfg.head_dim_}): the JAX "
+          f"trainer's {setup['steps']} fp32 steps "
           f"replayed on the card through the kernels: loss max rel err "
           f"{loss_err:.3e}, grad norm {norm_err:.3e} (bound 1e-4), final "
           f"params max abs err {param_err:.3e} (bound 1e-4)")
     check(loss_err < 1e-4 and norm_err < 1e-4 and param_err < 1e-4,
-          "the golden training run does not replay")
+          f"the golden training run {pre[:-1]} does not replay")
 
 
 # ---------------------------------------------------------------------------
@@ -2783,14 +2856,63 @@ def _train_counters():
             (fab.flash_attention_bwd_dkv, "flash_attention_bwd_dkv"))
 
 
+def _profile_train_step(torch, tr, batch, med_s: float, label: str):
+    """One ``tr.train_step(batch)`` in a ``torch.profiler`` trace: the
+    device busy share of its wall and of the unprofiled median step
+    ``med_s``, the time by kernel group and the top kernels; the bf16
+    forward's and backward's tensor-core kernels must each run once a
+    layer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            by_kernel[ev.key] = (us / 1e3, ev.count)
+    busy = sum(ms for ms, _ in by_kernel.values())
+    print(f"[profile] {label} step (profiled): wall {wall_ms:.1f} ms, "
+          f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}% of the "
+          f"profiled wall, {100 * busy / (med_s * 1e3):.1f}% of the "
+          f"unprofiled median step; "
+          f"{'measured' if by_kernel else 'no device time seen'})")
+    groups = {}
+    for name, (ms, n) in by_kernel.items():
+        group = ("attention kernels" if "flash_" in name else
+                 "GEMMs" if re.search(r"nvjet|gemm|cutlass|sm90_", name)
+                 else "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    print(f"[profile]   by group: " + ", ".join(
+        f"{g} {ms:.1f} ms ({100 * ms / busy:.1f}%)"
+        for g, ms in sorted(groups.items(), key=lambda x: -x[1])))
+    for name, (ms, n) in sorted(by_kernel.items(), key=lambda x: -x[1][0])[:12]:
+        print(f"[profile]   {ms:9.3f} ms {n:5d}x  {name[:90]}")
+    # bf16 attention runs on the tensor-core kernels, once a layer each
+    for kname in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                  "flash_bwd_dkv_wgmma_kernel"):
+        ms = sum(t for name, (t, _) in by_kernel.items() if kname in name)
+        n = sum(c for name, (_, c) in by_kernel.items() if kname in name)
+        print(f"[profile]   {kname}: {ms:.3f} ms over {n} launches")
+        check(n == tr.cfg.num_layers, f"the profiled {label} step ran "
+              f"{kname} {n} times, not {tr.cfg.num_layers}")
+
+
 def phase_train(torch):
     """``Trainer`` at full tinyllama width on the card: fp32 parameters,
     bf16 compute, fp32 AdamW moments, the bigram stream at B 8 x T 1024.
     Six counted steps (the first at lr 0), one profiled step, then an
     async checkpoint restored into a fresh ``Trainer``: one more step
     from both gives the same loss."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import make_lm_iterator
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -2847,46 +2969,7 @@ def phase_train(torch):
           f"{peak / 2**30:.2f} GiB (max_memory_allocated); launches "
           f"{launches}")
 
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        tr.train_step(batches[steps])
-        torch.cuda.synchronize()
-    wall_ms = (time.monotonic() - t0) * 1e3
-    by_kernel = {}
-    for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us > 0:
-            by_kernel[ev.key] = (us / 1e3, ev.count)
-    busy = sum(ms for ms, _ in by_kernel.values())
-    print(f"[profile] train step (profiled): wall {wall_ms:.1f} ms, device "
-          f"busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}% of the profiled "
-          f"wall, {100 * busy / (med * 1e3):.1f}% of the unprofiled median "
-          f"step; {'measured' if by_kernel else 'no device time seen'})")
-    groups = {}
-    for name, (ms, n) in by_kernel.items():
-        group = ("attention kernels" if "flash_" in name else
-                 "GEMMs" if re.search(r"nvjet|gemm|cutlass|sm90_", name)
-                 else "other")
-        groups[group] = groups.get(group, 0.0) + ms
-    print(f"[profile]   by group: " + ", ".join(
-        f"{g} {ms:.1f} ms ({100 * ms / busy:.1f}%)"
-        for g, ms in sorted(groups.items(), key=lambda x: -x[1])))
-    for name, (ms, n) in sorted(by_kernel.items(), key=lambda x: -x[1][0])[:12]:
-        print(f"[profile]   {ms:9.3f} ms {n:5d}x  {name[:90]}")
-    # bf16 attention runs on the tensor-core kernels, once a layer each
-    for kname in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
-                  "flash_bwd_dkv_wgmma_kernel"):
-        ms = sum(t for name, (t, _) in by_kernel.items() if kname in name)
-        n = sum(c for name, (_, c) in by_kernel.items() if kname in name)
-        print(f"[profile]   {kname}: {ms:.3f} ms over {n} launches")
-        check(n == cfg.num_layers, f"the profiled step ran {kname} {n} "
-              f"times, not {cfg.num_layers}")
+    _profile_train_step(torch, tr, batches[steps], med, "train")
 
     t0 = time.monotonic()
     tr.maybe_checkpoint(force=True)        # host snapshot now, write behind
@@ -2912,6 +2995,128 @@ def phase_train(torch):
           "the restored trainer's next loss differs")
     del tr2
     shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches, steps
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: encoder training through launch/train.py
+# ---------------------------------------------------------------------------
+
+def phase_encoder_train(torch):
+    """Encoder training through its entry point,
+    ``repro_torch.launch.train.main``: full-width hubert-xlarge (48
+    layers, d 1280, 16 heads of 80, about 946 M parameters; fp32
+    parameters and AdamW moments, bf16 compute) on masked-prediction
+    batches of [8, 500, 512] frames, 6 steps: every loss and grad norm
+    finite, the parameters still after step 1 (lr 0) and moved after
+    step 2, the flash forward, dq and dk/dv each launched 48 x 6 times;
+    the median step, frames/s, the phase's peak memory (what earlier
+    phases left allocated subtracted) and a profiled step.  Then
+    edge-cv-heavy at the launcher's defaults (B 8 x T 64): 3 steps, then
+    one more from their checkpoint (the stream replayed) against 4 steps
+    that did not stop: the same last loss."""
+    from repro_torch.data.tokens import make_encoder_iterator
+    from repro_torch.launch import train
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import leaves
+
+    t_phase = time.monotonic()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    B, T, steps = 8, 500, 6
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_encoder_ckpt")
+    for d in (ckpt, ckpt + "_a", ckpt + "_b"):
+        shutil.rmtree(d, ignore_errors=True)
+    # each step's metrics and the first layer's w_q before and after it
+    hist, w_q = [], []
+    step = Trainer.train_step
+
+    def spy(self, batch):
+        first = self.params["stack"]["blocks"]["attn"]["w_q"][0]
+        before = first.detach().clone()
+        m = step(self, batch)
+        hist.append(m)
+        w_q.append((before, first.detach().clone()))
+        return m
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated(dev)     # earlier phases' leftovers
+    torch.cuda.reset_peak_memory_stats(dev)
+    counters = _train_counters()
+    for fn, _ in counters:
+        fn.launches = 0
+    Trainer.train_step = spy
+    t0 = time.monotonic()
+    try:
+        tr, _ = train.main(["--arch", "hubert-xlarge", "--batch", str(B),
+                            "--seq", str(T), "--steps", str(steps),
+                            "--ckpt-dir", ckpt])
+    finally:
+        Trainer.train_step = step
+    run_s = time.monotonic() - t0
+    launches = {name: fn.launches for fn, name in counters}
+    peak = torch.cuda.max_memory_allocated(dev) - start
+    cfg = tr.cfg
+    check(cfg.num_params() == sum(p.numel() for p in leaves(tr.params))
+          and cfg.head_dim_ == 80
+          and tr.tcfg.adamw.state_dtype == "float32"
+          and cfg.compute_dtype == "bfloat16",
+          "hubert-xlarge: full width, fp32 AdamW, bf16 compute")
+    check(len(hist) == steps, f"{len(hist)} steps ran, not {steps}")
+    for i, m in enumerate(hist):
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+              f"hubert step {i + 1}: loss {m['loss']} grad norm "
+              f"{m['grad_norm']}")
+    check(hist[0]["lr"] == 0.0 and bool(torch.equal(*w_q[0])),
+          "hubert step 1 trains at lr 0: the parameters must not move")
+    check(not bool(torch.equal(w_q[0][0], w_q[1][1])),
+          "hubert: the parameters must move after step 2")
+    L = cfg.num_layers
+    for name, n in launches.items():
+        check(n == L * steps, f"hubert training launched {name} {n} times, "
+              f"not {L} x {steps} steps")
+    secs = sorted(m["step_time_s"] for m in hist)
+    med = secs[len(secs) // 2]
+    print(f"[encoder-train] hubert-xlarge through launch/train.py "
+          f"({L}L d{cfg.d_model}, {cfg.num_params()} parameters, fp32 "
+          f"params + AdamW, bf16 compute) on [{B}, {T}, "
+          f"{cfg.frontend_dim}] masked-prediction batches: losses "
+          f"{[round(m['loss'], 4) for m in hist]}, grad norms "
+          f"{[round(m['grad_norm'], 3) for m in hist]}, lr "
+          f"{[m['lr'] for m in hist]}")
+    print(f"[encoder-train] step time median {med * 1e3:.1f} ms (all "
+          f"{[round(m['step_time_s'] * 1e3, 1) for m in hist]} ms), "
+          f"{B * T / med:.0f} frames/s; peak {peak} B allocated by the "
+          f"phase ({start} B were allocated before it); launches "
+          f"{launches}; main() {run_s:.1f}s with its final checkpoint")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    batch = next(make_encoder_iterator(cfg, B, T, seed=99))
+    _profile_train_step(torch, tr, batch, med, "hubert-xlarge train")
+    del tr, batch, w_q
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # edge-cv-heavy: a restart from the checkpoint resumes the same run
+    args = ["--arch", "edge-cv-heavy"]
+    _, whole = train.main(args + ["--steps", "4", "--ckpt-dir",
+                                  ckpt + "_a"])
+    train.main(args + ["--steps", "3", "--ckpt-dir", ckpt + "_b"])
+    again, rest = train.main(args + ["--steps", "1", "--ckpt-dir",
+                                     ckpt + "_b"])
+    a, b = whole["loss"][-1], rest["loss"][-1]
+    print(f"[encoder-train] edge-cv-heavy (B 8 x T 64): 4 steps losses "
+          f"{[round(x, 6) for x in whole['loss']]}; 3 steps, a restart "
+          f"from step {again.step - 1}, one more: {b:.6f} against "
+          f"{a:.6f}; phase {time.monotonic() - t_phase:.1f}s")
+    check(again.step == 4 and np.isfinite(a)
+          and abs(a - b) <= 1e-6 * abs(a),
+          "the restarted edge-cv-heavy run's loss differs")
+    del again
+    for d in (ckpt + "_a", ckpt + "_b"):
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
     torch.cuda.empty_cache()
     return launches, steps
 
@@ -3003,6 +3208,68 @@ def phase_train_consistency(torch):
     check(last < first - 0.3, f"loss did not decrease: {first} -> {last}")
 
 
+def phase_encoder_train_consistency(torch):
+    """One full-width hubert-xlarge layer in fp32 (d 1280, 16 heads of
+    80, non-causal): every gradient leaf of ``Model.loss`` on a [2, 256]
+    masked-prediction batch through the kernels against the plain path,
+    within 2e-4 relative (the unread embedding's zero aside)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import make_encoder_iterator
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.model import Model
+    from repro_torch.tree import flatten_with_path
+
+    cfg = dataclasses.replace(get_config("hubert-xlarge"), num_layers=1,
+                              compute_dtype="float32")
+    model = Model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = model.init(gen)
+    # mask_embed starts at zero, and one layer's masked rows would then
+    # normalise to zero: q and k of the only rows the loss reads vanish,
+    # and with them w_q's and w_k's gradients
+    me = params["frontend"]["mask_embed"]
+    me.copy_(torch.randn(me.shape, generator=gen, device="cuda"))
+    flat = [(path, p) for path, p in flatten_with_path(params)
+            if path not in model.unread_leaves()]
+    for _, p in flat:
+        p.requires_grad_(True)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             next(make_encoder_iterator(cfg, 2, 256, seed=5)).items()}
+
+    def grads():
+        loss, _ = model.loss(params, batch)
+        return float(loss.detach()), torch.autograd.grad(
+            loss, [p for _, p in flat])
+
+    counters = _train_counters()
+    before = [fn.launches for fn, _ in counters]
+    loss_k, g_k = grads()
+    moved = [fn.launches - b for (fn, _), b in zip(counters, before)]
+    check(moved == [1, 1, 1], f"one layer must launch each kernel once: "
+          f"{moved}")
+    plain = ops.flash_mha
+    ops.flash_mha = ref.mha                   # autograd through the plain
+    try:
+        loss_p, g_p = grads()
+    finally:
+        ops.flash_mha = plain
+    worst, where = 0.0, ""
+    for (path, _), a, b in zip(flat, g_k, g_p):
+        err = rel_err(b, a)
+        if err > worst:
+            worst, where = err, path
+        check(bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0,
+              f"gradient of {path} is zero or non-finite")
+    print(f"[train-consistency] hubert-xlarge fp32 full width, 1 layer, "
+          f"B 2 x T 256: loss {loss_k:.6f} (kernels) vs {loss_p:.6f} "
+          f"(plain); every gradient leaf within {worst:.3e} relative "
+          f"(worst {where}; bound 2e-4)")
+    check(worst < 2e-4, f"encoder gradients through the kernels differ: "
+          f"{worst}")
+    del model, params, flat, g_k, g_p
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 
 KERNELS = {
@@ -3033,16 +3300,17 @@ KERNELS = {
         replaces="src/repro/kernels/rmsnorm.py:41"),
 }
 # the paths each kernel's launch count comes from, and each path's unit
-PATH_OF = {"flash_attention": ("serve", "edge", "fleet", "hubert"),
+PATH_OF = {"flash_attention": ("serve", "edge", "fleet", "hubert",
+                               "hubert_train"),
            "paged_decode_attention": ("serve", "edge", "fleet"),
            "paged_verify_attention": ("spec",),
            "decode_attention": ("spec", "zamba2", "edge"),
-           "flash_attention_bwd_dq": ("train",),
-           "flash_attention_bwd_dkv": ("train",),
+           "flash_attention_bwd_dq": ("train", "hubert_train"),
+           "flash_attention_bwd_dkv": ("train", "hubert_train"),
            "ssd_scan": ("mamba2",), "rmsnorm": ("mamba2",)}
 UNIT_OF = {"serve": "request", "spec": "request", "train": "step",
            "mamba2": "request", "zamba2": "request", "edge": "dispatch",
-           "fleet": "request", "hubert": "batch"}
+           "fleet": "request", "hubert": "batch", "hubert_train": "step"}
 
 
 def main() -> int:
@@ -3072,8 +3340,11 @@ def main() -> int:
     phase_spec_exactness(torch)
     phase_golden(torch)
     paths["train"] = phase_train(torch)
+    paths["hubert_train"] = phase_encoder_train(torch)
     phase_train_consistency(torch)
-    phase_golden_train(torch)
+    phase_encoder_train_consistency(torch)
+    for pre in ("train_", "encoder_train_48_", "encoder_train_80_"):
+        phase_golden_train(torch, pre)
     line = []
     for name, meta in KERNELS.items():
         k = kernels[name]

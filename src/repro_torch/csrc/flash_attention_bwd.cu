@@ -49,9 +49,15 @@
 //    group sum stays in registers: no atomics, the same result from run
 //    to run.
 //  - Copies.  Tiles arrive by 16-byte `cp.async` into a two-stage ring in
-//    the 128-byte swizzled layout `wgmma` reads (64-byte at D 32), the
-//    next tile in flight while the current one is computed; rows outside
-//    the tensor are zero-filled, never read.
+//    the swizzled layout `wgmma` reads (`Tile<D>`: 128-byte at D 64 and
+//    128, 64-byte at D 32, 32-byte at D 48 and 80), the next tile in
+//    flight while the current one is computed; rows outside the tensor
+//    are zero-filled, never read.
+//  - Head dims 32, 48, 64, 80 and 128, every one a template instance of
+//    the same code: s and do·vᵀ take D/16 k16 steps over `Tile<D>`'s
+//    K-major reads, and the three MN-major products N = D (m64n48k16 and
+//    m64n80k16 at the encoders' widths, D/2 accumulators a thread).  At
+//    D 80 the dk/dv thread holds 2 x 40 accumulators beside s and dp.
 //  - Little arithmetic between the products: p = 2^(s·scale·log2e −
 //    lse·log2e) is one FMA and one `ex2.approx`, the mask and softcap code
 //    only in the tiles that need them, and p is computed while do·vᵀ is
@@ -165,22 +171,26 @@ __device__ __forceinline__ void two_dots(const float* a, const float* b,
 
 // acc[i][col] += Σ_j w_j[i] · m[j][col] over the 32 rows j of `m`, where
 // lane j holds w[i] for row j (passed by shuffles) and this lane owns
-// the columns col = cc·32 + lane.
+// the columns col = cc·32 + lane below D (`kLaneCols`; at D 48 and 80 the
+// last column of the upper lanes is past the row, accumulates zeros and
+// is never stored).
 template <int D>
 __device__ __forceinline__ void acc_rows(const float (&w)[kPerWarp],
                                          const float* m,
-                                         float (&acc)[kPerWarp][D / 32]) {
+                                         float (&acc)[kPerWarp][kLaneCols<D>]) {
+  constexpr int C = kLaneCols<D>;
   const int lane = threadIdx.x % 32;
 #pragma unroll 4
   for (int j = 0; j < 32; ++j) {
-    float mv[D / 32];
+    float mv[C];
 #pragma unroll
-    for (int cc = 0; cc < D / 32; ++cc) mv[cc] = m[j * kPad<D> + cc * 32 + lane];
+    for (int cc = 0; cc < C; ++cc)
+      mv[cc] = col_ok<D>(cc, lane) ? m[j * kPad<D> + cc * 32 + lane] : 0.f;
 #pragma unroll
     for (int i = 0; i < kPerWarp; ++i) {
       const float wj = __shfl_sync(kFull, w[i], j);
 #pragma unroll
-      for (int cc = 0; cc < D / 32; ++cc) acc[i][cc] = fmaf(wj, mv[cc], acc[i][cc]);
+      for (int cc = 0; cc < C; ++cc) acc[i][cc] = fmaf(wj, mv[cc], acc[i][cc]);
     }
   }
 }
@@ -188,8 +198,8 @@ __device__ __forceinline__ void acc_rows(const float (&w)[kPerWarp],
 // dq: one block per (32-row query tile, KV head [, head group], batch),
 // rows laid out as in the forward kernel; it loops over the 32-key tiles
 // it does not skip.  Each warp owns 4 rows, each lane one key of the tile
-// for s and do·vᵀ, then D/32 columns of dq for ds·k, with ds passed by
-// shuffles.
+// for s and do·vᵀ, then the columns lane, lane + 32, ... below D of dq
+// for ds·k, with ds passed by shuffles.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -203,7 +213,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     int Tq, int Tk, int Hq, int Hkv, int G, int GB,
                     int tq_per_block, int causal, int window, float softcap,
                     float sm_scale) {
-  constexpr int C = D / 32;
+  constexpr int C = kLaneCols<D>;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);   // [kTile][D+1], q·scale
   float* do_s = q_s + kTile * kPad<D>;           // [kTile][D+1]
@@ -295,7 +305,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (!row_live(r)) continue;
 #pragma unroll
     for (int cc = 0; cc < C; ++cc)
-      dq[row_index(r) * D + cc * 32 + lane] = acc[i][cc] * sm_scale;
+      if (col_ok<D>(cc, lane))
+        dq[row_index(r) * D + cc * 32 + lane] = acc[i][cc] * sm_scale;
   }
 }
 
@@ -303,7 +314,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // (position, head) pairs `R = t·G + g` of the G heads of its KV head; it
 // loops over them 32 at a time, skipping the row tiles that see none of
 // its keys.  Each warp owns 4 keys, each lane one query row for s and
-// do·vᵀ, then D/32 columns of dk and dv.
+// do·vᵀ, then the columns lane, lane + 32, ... below D of dk and dv.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -317,7 +328,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      float* __restrict__ dk, float* __restrict__ dv, int Tq,
                      int Tk, int Hq, int Hkv, int G, int causal, int window,
                      float softcap, float sm_scale) {
-  constexpr int C = D / 32;
+  constexpr int C = kLaneCols<D>;
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);   // [kTile][D+1]
   float* v_s = k_s + kTile * kPad<D>;            // [kTile][D+1]
@@ -410,6 +421,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (!key_live(j)) continue;
 #pragma unroll
     for (int cc = 0; cc < C; ++cc) {
+      if (!col_ok<D>(cc, lane)) continue;
       dk[key_index(j) * D + cc * 32 + lane] = dk_acc[i][cc];
       dv[key_index(j) * D + cc * 32 + lane] = dv_acc[i][cc];
     }
@@ -950,7 +962,9 @@ int run(const Args& a, int D, int dtype) {
   if (a.B == 0 || a.Tq == 0 || a.Tk == 0) return (int)cudaSuccess;
   switch (D) {
     case 32: return (int)launch<DQ, 32>(a, dtype);
+    case 48: return (int)launch<DQ, 48>(a, dtype);
     case 64: return (int)launch<DQ, 64>(a, dtype);
+    case 80: return (int)launch<DQ, 80>(a, dtype);
     case 128: return (int)launch<DQ, 128>(a, dtype);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -17,10 +17,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import (_DTYPE_CODE, HEAD_DIMS,
-                                                 _aligned, _int32, _ptr,
-                                                 refuse_grad)
+from repro_torch.kernels.flash_attention import (_DTYPE_CODE, _aligned,
+                                                 _int32, _ptr, refuse_grad)
 
+# the head dims the kernel instantiates (csrc/paged_attention.cuh)
+HEAD_DIMS = (32, 64, 128)
 _fn = None
 
 

@@ -13,9 +13,9 @@ both is ``kernels.ref.flash_attention_bwd``.
 ``flash_mha`` runs the forward kernel (on the CPU ``ref.mha``) and, when
 grad mode is on and an input needs a gradient, asks it for ``lse`` and
 saves what the backward recomputes from; its backward launches the dq
-and dk/dv kernels (on the CPU their plain version).  On the card it
-refuses, before the forward, a head dim the forward takes and the
-backward does not (48, 80).
+and dk/dv kernels (on the CPU their plain version).  The backward
+kernels take every head dim the forward does (32, 48, 64, 80, 128), so
+a grad-mode forward always has its backward.
 """
 from __future__ import annotations
 
@@ -25,11 +25,13 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.flash_attention import (_DTYPE_CODE, HEAD_DIMS,
-                                                 _aligned, _int32, _ptr)
+from repro_torch.kernels.flash_attention import (_DTYPE_CODE, _aligned,
+                                                 _int32, _ptr)
 from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_fwd
 
+# the head dims the dq and dk/dv kernels instantiate: the forward's
+HEAD_DIMS = (32, 48, 64, 80, 128)
 _fns = {}
 
 
@@ -201,13 +203,5 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and valid lengths get no gradient."""
     save = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
-    if save and q.is_cuda and q.shape[-1] not in HEAD_DIMS:
-        # refused before the forward runs: the backward kernels take only
-        # HEAD_DIMS (D 48 and 80 come with encoder training)
-        raise ValueError(
-            f"flash attention backward does not take head dim "
-            f"{q.shape[-1]} (only {HEAD_DIMS}): training at this width "
-            f"waits on encoder training (ROADMAP Queue A item 11.5); run "
-            f"the forward under torch.no_grad()")
     return _FlashMHA.apply(q, k, v, save, causal, window, softcap,
                            q_positions, kv_positions, kv_valid_len, sm_scale)

@@ -19,9 +19,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import (HEAD_DIMS, _aligned, _int32,
-                                                 _ptr, refuse_grad)
+from repro_torch.kernels.flash_attention import (_aligned, _int32, _ptr,
+                                                 refuse_grad)
 
+# the head dims the kernel instantiates (csrc/paged_attention.cuh)
+HEAD_DIMS = (32, 64, 128)
 _Q_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 

@@ -36,7 +36,8 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
     def train_step(params, opt_state, batch):
         (loss, metrics), grads = gradlib.accumulate_grads(
-            model.loss, params, batch, tcfg.num_microbatches)
+            model.loss, params, batch, tcfg.num_microbatches,
+            unread=model.unread_leaves())
         lr_scale = schedule.lr_multiplier(opt_state["step"], tcfg.sched)
         params, opt_state, om = adamw.apply_updates(
             params, grads, opt_state, tcfg.adamw, lr_scale)

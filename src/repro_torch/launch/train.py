@@ -5,11 +5,17 @@ Same flags as ``repro.launch.train``, plus ``--device``:
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
         --reduced --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge \\
+        --batch 8 --seq 500 --steps 6
 
 Without a GPU it raises unless ``--device cpu`` asks for the plain
-PyTorch path.  An encoder-only arch raises (ROADMAP Queue A item 11.5).
-``--mesh single|multi`` and ``--distributed`` need the sharded trainer,
-not ported yet (ROADMAP Queue A item 13).
+PyTorch path.  An encoder-only arch (``edge-cv-heavy``,
+``hubert-xlarge``) trains on HuBERT-style masked-prediction batches from
+``make_encoder_iterator`` (``--seq`` frames a row), a decoder on the
+bigram token stream; after a restore either stream skips the batches the
+restored steps consumed.  ``--mesh single|multi`` and ``--distributed``
+need the sharded trainer, not ported yet (ROADMAP Queue A item 13).
+``main`` returns the ``Trainer`` and the ``fit`` history.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ import argparse
 import dataclasses
 
 
-def main(argv=None) -> None:
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--reduced", action="store_true",
@@ -41,25 +47,23 @@ def main(argv=None) -> None:
             "trainer, not ported yet (ROADMAP Queue A item 13)")
 
     from repro_torch.configs import get_config, get_reduced_config
-    from repro_torch.data.tokens import make_lm_iterator
+    from repro_torch.data.tokens import (make_encoder_iterator,
+                                         make_lm_iterator)
     from repro_torch.launch import programs
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     cfg = get_reduced_config(args.arch) if args.reduced \
         else get_config(args.arch)
-    if cfg.encoder_only:
-        raise NotImplementedError(
-            f"{args.arch} is encoder-only: training it (masked prediction "
-            "over make_encoder_iterator, the flash backward at head dims "
-            "48/80, LayerNorm's backward) waits on encoder training "
-            "(ROADMAP Queue A item 11.5)")
     tcfg = dataclasses.replace(programs.default_train_config(cfg),
                                num_microbatches=args.microbatch)
     trainer = Trainer(cfg, args.device, tcfg,
                       TrainerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=25))
     trainer.initialize(restore=True)
 
-    data = make_lm_iterator(cfg, args.batch, args.seq)
+    if cfg.encoder_only:
+        data = make_encoder_iterator(cfg, args.batch, args.seq)
+    else:
+        data = make_lm_iterator(cfg, args.batch, args.seq)
     for _ in range(trainer.step):
         next(data)                       # deterministic replay after restart
 
@@ -71,6 +75,7 @@ def main(argv=None) -> None:
     hist = trainer.fit(data, num_steps=args.steps, log_fn=log)
     print(f"final loss {hist['loss'][-1]:.4f}; checkpoints in "
           f"{args.ckpt_dir} ({trainer.device})")
+    return trainer, hist
 
 
 if __name__ == "__main__":

@@ -3,13 +3,15 @@
 Counterpart of ``repro.models.layers``.  ``init_*`` returns a nested dict
 of tensors with the JAX leaf names; apply functions take (params, inputs,
 cfg).  The forward numerics follow the JAX functions step by step,
-including where each product is rounded to the compute dtype.  Gradients
-come from autograd: the JAX RMSNorm's custom VJP
+including where each product is rounded to the compute dtype.  RMSNorm's
+gradient comes from autograd: the JAX custom VJP
 (``src/repro/models/layers.py:71``) is the same math, rounded to bf16 at
 other points in a bf16 backward; in fp32 the two agree
-(``tests/test_torch_train.py``).  LayerNorm (the encoders') has no kernel
-in either package; training through it on the card waits on encoder
-training (ROADMAP Queue A item 11.5).
+(``tests/test_torch_train.py``).  LayerNorm (the encoders') is a
+``torch.autograd.Function`` whose backward follows the JAX custom VJP
+``_layernorm_bwd`` (``layers.py:120-137``) rounding for rounding; no
+Pallas kernel computes it in either package, so it is plain PyTorch on
+the card too.
 """
 from __future__ import annotations
 
@@ -70,25 +72,63 @@ def rms_norm_simple(x, scale, eps: float = 1e-6, *, kernel: bool = False):
     return rms_norm(x, scale, eps)
 
 
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float) -> torch.Tensor:
+def _layer_norm_fwd(x, scale, bias, eps):
     """The JAX ``_layernorm_fwd`` (``layers.py:110-117``): the mean and
     the mean of squares in f32, ``var = ms - mean²`` and its rsqrt in f32,
     then ``xhat = (x - mean) * inv`` and ``xhat * scale + bias`` in
-    ``x.dtype``, each f32 factor rounded to it first.  No Pallas kernel
-    computes it, so it stays plain PyTorch on the card too."""
+    ``x.dtype``, each f32 factor rounded to it first.  Returns ``y`` and
+    the f32 ``mean`` and ``inv`` [..., 1] the backward reads."""
     dt = x.dtype
     xf = x.float()
     mean = torch.mean(xf, dim=-1, keepdim=True)
     ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     inv = torch.rsqrt(ms - torch.square(mean) + eps)
     xhat = (x - mean.to(dt)) * inv.to(dt)
-    return xhat * scale.to(dt) + bias.to(dt)
+    return xhat * scale.to(dt) + bias.to(dt), mean, inv
+
+
+class _LayerNorm(torch.autograd.Function):
+    """LayerNorm with the JAX custom VJP's backward (``_layernorm_bwd``,
+    ``layers.py:120-137``): ``xhat``, ``gs = g·scale`` and ``dx`` in the
+    compute dtype; ``m1 = Σ gs / d`` and ``m2 = Σ gs·xhat / d`` as f32
+    sums over d, each rounded to it before use; ``dscale = Σ g·xhat`` and
+    ``dbias = Σ g`` as f32 sums over every leading axis, in the parameter
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        y, mean, inv = _layer_norm_fwd(x, scale, bias, eps)
+        ctx.save_for_backward(x, scale, mean, inv)
+        ctx.bias_dtype = bias.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, mean, inv = ctx.saved_tensors
+        dt, d = x.dtype, x.shape[-1]
+        xhat = (x - mean.to(dt)) * inv.to(dt)
+        gs = g * scale.to(dt)
+        m1 = gs.float().sum(-1, keepdim=True) / d
+        m2 = (gs.float() * xhat.float()).sum(-1, keepdim=True) / d
+        dx = (gs - m1.to(dt) - xhat * m2.to(dt)) * inv.to(dt)
+        lead = tuple(range(g.dim() - 1))
+        dscale = (g.float() * xhat.float()).sum(lead).to(scale.dtype)
+        dbias = g.float().sum(lead).to(ctx.bias_dtype)
+        return dx, dscale, dbias, None
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis with the JAX package's rounding in
+    both passes (``_layer_norm_fwd``, ``_LayerNorm``).  No Pallas kernel
+    computes it, so it stays plain PyTorch on the card too."""
+    return _LayerNorm.apply(x, scale, bias, eps)
 
 
 def apply_norm(p, x, cfg: ModelConfig, *, kernel: bool = False):
-    """``cfg.norm``: LayerNorm (plain on both devices), or RMSNorm, with
-    ``kernel`` through the CUDA kernel on the card."""
+    """``cfg.norm``: LayerNorm (plain on both devices, its backward the
+    JAX custom VJP's), or RMSNorm, with ``kernel`` through the CUDA
+    kernel on the card."""
     if cfg.norm == "layernorm":
         return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
     return rms_norm_simple(x, p["scale"], cfg.norm_eps, kernel=kernel)

@@ -80,6 +80,16 @@ class Model:
                                           device=gen.device)}
         return to_device(p, self.device)
 
+    def unread_leaves(self) -> tuple:
+        """The paths (``tree.flatten_with_path`` form) of the leaves that
+        ``init`` makes and no forward reads: an ``audio_frames`` encoder's
+        token embedding, kept because the JAX ``Model.init`` makes it too
+        (``src/repro/models/model.py:41-44``).  Their gradient is zero,
+        as ``jax.grad`` gives it, and AdamW still decays them."""
+        if self.cfg.frontend == "audio_frames":
+            return ("['embed']['embedding']",)
+        return ()
+
     def _positions(self, B: int, T: int, start=None):
         pos = torch.arange(T, device=self.device, dtype=torch.int32)[None]
         return pos.expand(B, T) if start is None else start[:, None] + pos

@@ -17,7 +17,9 @@ dense) and ``verify`` (the K1 tokens of a speculative block, paged).
 Caches and SSM states update in place.  On the serving modes of the ssm
 and hybrid families every norm goes through ``ops.rmsnorm`` (the CUDA
 kernel on the card); the dense family and the train mode keep
-``layers.rms_norm``, and the encoder's LayerNorm is plain everywhere.
+``layers.rms_norm``, and the encoder's LayerNorm is plain PyTorch
+everywhere, trained through the JAX custom VJP's backward
+(``layers._LayerNorm``).
 """
 from __future__ import annotations
 

@@ -9,20 +9,29 @@ sending it across pods waits for sharding (ROADMAP Queue A item 13).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.tree import flatten_with_path, tree_map, unflatten_like
 
 
-def _grads(loss_fn: Callable, params, batch):
+def _grads(loss_fn: Callable, params, batch, unread: Sequence[str] = ()):
     """Every leaf must get a gradient: one that gets none means the graph
-    was cut on the way to the loss, and is an error, not a zero."""
+    was cut on the way to the loss, and is an error, not a zero.  The
+    leaves at the paths ``unread`` (``Model.unread_leaves()``: leaves no
+    forward reads) get zeros, as ``jax.grad`` gives them, and only
+    they."""
     (loss, metrics) = loss_fn(params, batch)
     flat = flatten_with_path(params)
-    gs = torch.autograd.grad(loss, [p for _, p in flat], allow_unused=True)
-    missing = [path for (path, _), g in zip(flat, gs) if g is None]
+    gs = list(torch.autograd.grad(loss, [p for _, p in flat],
+                                  allow_unused=True))
+    missing = []
+    for i, (path, p) in enumerate(flat):
+        if gs[i] is None and path in unread:
+            gs[i] = torch.zeros_like(p)
+        elif gs[i] is None:
+            missing.append(path)
     if missing:
         raise ValueError(f"the loss has no gradient for "
                          f"{', '.join(missing)}: the autograd graph is cut "
@@ -32,12 +41,14 @@ def _grads(loss_fn: Callable, params, batch):
     return (loss.detach(), metrics), grads
 
 
-def accumulate_grads(loss_fn: Callable, params, batch, num_microbatches: int):
+def accumulate_grads(loss_fn: Callable, params, batch, num_microbatches: int,
+                     unread: Sequence[str] = ()):
     """Split the batch along dim 0 into microbatches and sum their
     gradients in f32.  Returns ``((loss, metrics_mean), grads)`` matching
-    a single big-batch call.  The parameter leaves must require grad."""
+    a single big-batch call.  The parameter leaves must require grad;
+    ``unread`` names those that get zeros (``_grads``)."""
     if num_microbatches <= 1:
-        return _grads(loss_fn, params, batch)
+        return _grads(loss_fn, params, batch, unread)
     n = num_microbatches
     for x in batch.values():
         if x.shape[0] % n:
@@ -45,12 +56,12 @@ def accumulate_grads(loss_fn: Callable, params, batch, num_microbatches: int):
                              f"microbatches")
     micro = [{k: x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))[i]
               for k, x in batch.items()} for i in range(n)]
-    (loss, metrics), g0 = _grads(loss_fn, params, micro[0])
+    (loss, metrics), g0 = _grads(loss_fn, params, micro[0], unread)
     grads = tree_map(lambda p, g: torch.zeros(p.shape, dtype=torch.float32,
                                               device=p.device) + g,
                      params, g0)
     for mb in micro[1:]:
-        (l_i, m_i), g = _grads(loss_fn, params, mb)
+        (l_i, m_i), g = _grads(loss_fn, params, mb, unread)
         grads = tree_map(torch.add, grads, g)
         loss = loss + l_i
         metrics = {k: metrics[k] + m_i[k] for k in metrics}

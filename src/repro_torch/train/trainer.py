@@ -29,6 +29,15 @@ from repro_torch.optim import adamw
 from repro_torch.tree import leaves
 
 
+def _batch_leaf(v, device) -> torch.Tensor:
+    """A batch leaf on ``device`` by its kind, never a floating or boolean
+    leaf cast to an integer (the JAX trainer keeps each leaf's dtype)."""
+    t = torch.as_tensor(v, device=device)
+    if t.dtype == torch.bool:
+        return t
+    return t.float() if t.is_floating_point() else t.long()
+
+
 @dataclasses.dataclass
 class TrainerConfig:
     ckpt_dir: str = "build/train_ckpt"
@@ -79,11 +88,12 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def train_step(self, batch) -> Dict[str, float]:
-        """One step on a batch of numpy or torch arrays.  ``step_time_s``
+        """One step on a batch of numpy or torch arrays: integer leaves
+        (tokens, labels, targets) as int64, floating ones (an encoder's
+        features) as f32, booleans (its mask) kept.  ``step_time_s``
         covers the device's work: reading the metrics synchronizes."""
         t0 = time.perf_counter()
-        batch = {k: torch.as_tensor(v, device=self.device).long()
-                 for k, v in batch.items()}
+        batch = {k: _batch_leaf(v, self.device) for k, v in batch.items()}
         self.params, self.opt_state, metrics = self.step_fn(
             self.params, self.opt_state, batch)
         metrics = {k: float(v) for k, v in metrics.items()}

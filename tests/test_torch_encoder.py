@@ -17,8 +17,7 @@ the JAX package, on the same inputs made from a numpy seed, on the CPU:
   packages' ``EdgeSystem``: the same placements, events and predictions;
 - the gates: ``check_ported`` refuses ``parallel_block``, ``qk_norm`` and
   attention biases (item 11.2), the engine refuses an encoder with a
-  ``ValueError``, the train launcher and the container's prefill/decode
-  refuse it too.
+  ``ValueError``, and the container's prefill/decode refuse it too.
 
 Tolerances: 2e-5 (fp32) and 3.5e-2 (bf16) for the norm and attention,
 relative to the largest output; 2e-4 for logits and losses (the two
@@ -384,15 +383,13 @@ def test_check_ported_refuses_unported_encoder_and_decoder_variants():
 
 
 @pytest.mark.parametrize("arch", ENCODERS)
-def test_engine_and_train_launcher_refuse_encoders(arch):
-    from repro_torch.launch import train
-
+def test_engine_refuses_encoders(arch):
+    """An encoder serves through a container's ``generic`` entry point,
+    never the token engine (it trains through ``launch/train.py``:
+    ``tests/test_torch_encoder_train.py``)."""
     cfg = get_reduced_config(arch)
     with pytest.raises(ValueError, match="generic"):
         ServingEngine(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 11\.5"):
-        train.main(["--arch", arch, "--reduced", "--device", "cpu",
-                    "--steps", "1"])
 
 
 def test_container_serves_an_encoder_through_generic_only():

@@ -468,30 +468,15 @@ def test_unsupported_head_dim_raises(cuda):
 
 @pytest.mark.parametrize("D", [48, 80])
 def test_forward_only_head_dims_stay_out_of_the_other_kernels(D, cuda):
-    """The forward takes D 48 and 80; the dense decode and the backward
-    kernels instantiate neither, so their wrappers refuse both, and a
-    grad-mode ``flash_mha`` refuses before it launches the forward."""
-    from repro_torch.kernels import flash_attention as fa
+    """The flash forward and backward take D 48 and 80; the dense decode
+    kernel instantiates neither, so its wrapper refuses both."""
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention_bwd import (
-        flash_attention_bwd, flash_mha)
 
     q = torch.randn(1, 4, 2, D, device=cuda)
     k = torch.randn(1, 16, 2, D, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         decode_attention(q[:, 0], k, k, torch.tensor([5], device=cuda,
                                                      dtype=torch.int32))
-    out, lse = fa.flash_attention(q, q, q, return_lse=True)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention_bwd(q, q, q, out, lse, torch.ones_like(q))
-    before = fa.flash_attention.launches
-    leaf = q.clone().requires_grad_()
-    with pytest.raises(ValueError, match="item 11.5"):
-        flash_mha(leaf, q, q)
-    assert fa.flash_attention.launches == before
-    with torch.no_grad():
-        flash_mha(leaf, q, q)
-    assert fa.flash_attention.launches == before + 1
 
 
 @pytest.mark.parametrize("shape", [(2, 40, 8, 2, 64), (1, 129, 24, 2, 128),
@@ -558,7 +543,8 @@ def test_draft_kernel_launch_failure_fails_the_batch(cuda, monkeypatch):
 # around the bf16 kernels' 64-row tile, D 32 and D 128 at G 8 and G 1,
 # G 128, more heads a KV head than a dq block's 64 rows hold, G 12,
 # whose dq blocks hold 60 rows and whose row map divides by a number
-# that is no power of two, and G 96, whose second head group is partial.
+# that is no power of two, and G 96, whose second head group is partial;
+# last the encoders' head dims 48 and 80.
 BWD_CASES = [
     (2, 64, 64, 4, 2, 32, True, 0, 0.0, False),
     (2, 64, 64, 4, 2, 32, False, 0, 0.0, False),
@@ -581,6 +567,12 @@ BWD_CASES = [
     (2, 70, 70, 24, 2, 64, True, 0, 0.0, True),
     (1, 70, 70, 96, 1, 64, True, 0, 0.0, False),
     (1, 70, 70, 96, 1, 128, False, 0, 0.0, False),
+    # the encoders' widths: D 48 and 80, non-causal (as the encoders
+    # train) and causal, G 1 and GQA, ragged T, an empty row, softcap
+    (2, 70, 70, 4, 4, 48, False, 0, 0.0, False),
+    (2, 129, 129, 8, 2, 48, True, 0, 0.0, True),
+    (2, 129, 129, 16, 16, 80, False, 0, 0.0, True),
+    (2, 70, 70, 8, 2, 80, True, 16, 20.0, False),
 ]
 
 
@@ -776,6 +768,39 @@ def test_flash_mha_grads_match_autograd_of_plain(case, cuda):
     torch.cuda.synchronize()
     for w, x in zip(want, got):
         assert _rel(w, x) < 2e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_mha_at_head_dim_80_trains_through_the_kernels(dtype, cuda):
+    """A grad-mode ``flash_mha`` at hubert-xlarge's width (16 heads of 80,
+    non-causal, explicit positions) launches the forward once and the dq
+    and dk/dv kernels once each; its gradients match autograd through
+    ``ref.mha`` (2e-4 in fp32, the bf16 tolerance in bf16)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    g = torch.Generator(device=cuda).manual_seed(80)
+    q, k, v = (torch.randn(2, 100, 16, 80, generator=g, device=cuda)
+               .to(dtype) for _ in range(3))
+    pos = torch.arange(100, device=cuda, dtype=torch.int32)[None].expand(
+        2, 100)
+    kw = dict(causal=False, q_positions=pos, kv_positions=pos)
+    counts = [fa.flash_attention.launches, fab.flash_attention_bwd_dq.launches,
+              fab.flash_attention_bwd_dkv.launches]
+    leaves_ = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(
+        fab.flash_mha(*leaves_, **kw).float().cos().sum(), leaves_)
+    assert [fa.flash_attention.launches - counts[0],
+            fab.flash_attention_bwd_dq.launches - counts[1],
+            fab.flash_attention_bwd_dkv.launches - counts[2]] == [1, 1, 1]
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.mha(*plain, **kw).float().cos().sum(),
+                               plain)
+    torch.cuda.synchronize()
+    for w, x in zip(want, got):
+        assert x.dtype == dtype
+        assert _rel(w, x) < (2e-4 if dtype == torch.float32
+                             else TOL[dtype])
 
 
 def _small_train_model(cuda):

@@ -29,7 +29,7 @@ torch.set_num_threads(1)
 # the cases of tests/test_kernels.py:245 (causal, MQA, window, softcap,
 # ragged Tq != Tk, non-causal), then a chunk at explicit positions over
 # explicit keys with an empty kv_valid_len row and three queries whose
-# positions see no key
+# positions see no key, then the encoders' head dims 48 and 80
 CASES = [
     # B, Tq, Tk, Hq, Hkv, D, causal, window, softcap, explicit
     (2, 32, 32, 4, 2, 16, True, 0, 0.0, False),
@@ -39,6 +39,11 @@ CASES = [
     (2, 24, 40, 4, 2, 16, True, 0, 0.0, False),
     (2, 32, 32, 4, 2, 16, False, 0, 0.0, False),
     (2, 16, 48, 8, 2, 32, True, 0, 0.0, True),
+    # the encoders' widths, non-causal as they train: fig 3's D 48 at G 2
+    # and hubert-xlarge's D 80 at G 1 (T a multiple of the Pallas blocks:
+    # its interpret mode reads a ragged non-causal tail as NaN)
+    (1, 32, 32, 4, 2, 48, False, 0, 0.0, False),
+    (1, 32, 32, 2, 2, 80, False, 0, 0.0, False),
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 3.5e-2)}

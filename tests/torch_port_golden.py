@@ -36,6 +36,14 @@ targets and a mask, JAX ``Model.forward``'s logits (without the mask, as
 the container serves) and its masked-prediction loss.  ``chip_smoke.py``
 replays them through the fp32 flash kernel.
 
+Encoder training rides along (``encoder_train_48_*``,
+``encoder_train_80_*``): the same reduced fp32 ``edge-cv-heavy`` at each
+head dim, from its step-0 parameters and AdamW state, 5 steps of JAX
+``build_train_step`` on ``make_encoder_iterator`` (masked prediction),
+each step's loss and grad norm, and the final parameters.
+``chip_smoke.py`` replays them on the card through the flash forward and
+backward kernels.
+
 The same waves are served again speculatively, with a random 1-layer,
 1-head draft (seed 0, ``spec_k_max=3``), once over pages in the compute
 dtype (``spec_streams_auto``) and once over int8 pages
@@ -70,6 +78,9 @@ ENCODER_HEAD_DIMS = (48, 80)
 ENCODER_MODEL = dict(num_layers=2, d_model=64, num_heads=2, num_kv_heads=2,
                      d_ff=128, vocab_size=64, frontend_dim=32)
 ENCODER_BATCH = (2, 40)
+ENCODER_TRAIN = dict(batch=4, seq=40, seed=5, steps=5,
+                     adamw=dict(lr=3e-3, grad_clip_norm=1.0),
+                     sched=dict(warmup_steps=2, decay_steps=200))
 TRAIN_MODEL = dict(num_layers=2, d_model=64, head_dim=32, d_ff=128,
                    vocab_size=128)
 TRAIN = dict(batch=8, seq=32, seed=3, steps=5,
@@ -107,41 +118,62 @@ def _flat_params(prefix: str, params) -> dict:
             for path, leaf in flat}
 
 
-def _train() -> dict:
-    """The JAX training run of the module docstring."""
+def _train_run(pre: str, cfg, setup: dict, data, key: int) -> dict:
+    """``setup["steps"]`` fp32 steps of JAX ``build_train_step`` on
+    ``data`` from ``Model.init(key)``: the config and setup, the step-0
+    parameters and AdamW moments, each step's loss and grad norm, and the
+    final parameters, under keys that start with ``pre``."""
     import jax
 
-    from repro.configs import get_reduced_config
-    from repro.data.tokens import make_lm_iterator
     from repro.launch import programs
     from repro.models.model import build_model
     from repro.optim import adamw, schedule
 
-    cfg = dataclasses.replace(
-        get_reduced_config("tinyllama-1.1b", **TRAIN_MODEL),
-        compute_dtype="float32")
     tcfg = programs.TrainConfig(
-        adamw=adamw.AdamWConfig(**TRAIN["adamw"]),
-        sched=schedule.ScheduleConfig(**TRAIN["sched"]))
-    params = build_model(cfg).init(jax.random.key(0))
+        adamw=adamw.AdamWConfig(**setup["adamw"]),
+        sched=schedule.ScheduleConfig(**setup["sched"]))
+    params = build_model(cfg).init(jax.random.key(key))
     opt = adamw.init_state(params, tcfg.adamw)
-    out = {"train_config": np.array(json.dumps(cfg.to_dict(),
+    out = {pre + "config": np.array(json.dumps(cfg.to_dict(),
                                                sort_keys=True)),
-           "train_setup": np.array(json.dumps(TRAIN, sort_keys=True))}
-    out.update(_flat_params("train_params0/", params))
-    out.update(_flat_params("train_opt0/m/", opt["m"]))
-    out.update(_flat_params("train_opt0/v/", opt["v"]))
+           pre + "setup": np.array(json.dumps(setup, sort_keys=True))}
+    out.update(_flat_params(pre + "params0/", params))
+    out.update(_flat_params(pre + "opt0/m/", opt["m"]))
+    out.update(_flat_params(pre + "opt0/v/", opt["v"]))
     step = jax.jit(programs.build_train_step(cfg, tcfg))
-    data = make_lm_iterator(cfg, TRAIN["batch"], TRAIN["seq"],
-                            seed=TRAIN["seed"])
     losses, norms = [], []
-    for _ in range(TRAIN["steps"]):
+    for _ in range(setup["steps"]):
         params, opt, m = step(params, opt, next(data))
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
-    out["train_losses"] = np.array(losses, np.float32)
-    out["train_grad_norms"] = np.array(norms, np.float32)
-    out.update(_flat_params("train_final/", params))
+    out[pre + "losses"] = np.array(losses, np.float32)
+    out[pre + "grad_norms"] = np.array(norms, np.float32)
+    out.update(_flat_params(pre + "final/", params))
+    return out
+
+
+def _train() -> dict:
+    """The JAX training runs of the module docstring: the decoder's
+    (``train_*``) and the encoder's at each head dim
+    (``encoder_train_<hd>_*``)."""
+    from repro.configs import get_reduced_config
+    from repro.data.tokens import make_encoder_iterator, make_lm_iterator
+
+    cfg = dataclasses.replace(
+        get_reduced_config("tinyllama-1.1b", **TRAIN_MODEL),
+        compute_dtype="float32")
+    out = _train_run("train_", cfg, TRAIN, make_lm_iterator(
+        cfg, TRAIN["batch"], TRAIN["seq"], seed=TRAIN["seed"]), key=0)
+    e = ENCODER_TRAIN
+    for hd in ENCODER_HEAD_DIMS:
+        cfg = dataclasses.replace(
+            get_reduced_config("edge-cv-heavy", head_dim=hd,
+                               **ENCODER_MODEL), compute_dtype="float32")
+        out.update(_train_run(f"encoder_train_{hd}_", cfg, e,
+                              make_encoder_iterator(cfg, e["batch"],
+                                                    e["seq"],
+                                                    seed=e["seed"]),
+                              key=hd))
     return out
 
 
