@@ -13,8 +13,10 @@ continues:
    so must every bf16 instance of the paged and dense decode attention
    kernels and every wgmma instance of the flash forward and of the
    flash backward's dq and dk/dv kernels, one for each head dim they
-   take (32, 48, 64, 80, 128; registers and spills printed), and no
-   fp32 one),
+   take (the forward 32, 48, 64, 80, 128, 192 and 256, the backward up to
+   128; registers and spills printed), and no fp32 one; the paged,
+   verify and dense decode kinds at D 192 and 256 in bf16 and fp32, over
+   int8 pools too for the paged kinds, registers and spills printed),
    TF32 off for matmuls and cuDNN;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (bf16 and fp32, window and softcap variants,
@@ -28,7 +30,13 @@ continues:
    prefix of 16 or 48 tokens over 128 keys timed; first chunks and
    tails over 64 or 128 keys);
    the dense decode kernel timed at the draft's G 8, at zamba2's G 1 and
-   at the edge decode image's G 2 (B 1, S 128),
+   at the edge decode image's G 2 (B 1, S 128), and at the dense
+   variants' head dims (phase 3g): flash at gemma-2b's 64-token chunk
+   after 448 keys (Hq 8, Hkv 1, D 256) and nemotron-4-340b's (Hq 96, Hkv
+   8, D 192), each with a first chunk, a window, a softcap and a ragged
+   tail; paged decode at B 8 over MP 64 for both, on bf16 and int8 pools;
+   verify at K1 1, 2 and 5 at D 256; the gemma draft's dense decode (G 8,
+   D 256) with lengths of 0, S and past S, each timed shape against SDPA,
    and checked with lengths of 0, of S and past S), flash attention
    non-causal at G 1 at the encoders' shapes, each timed against one
    non-causal SDPA: the cv frame (B 1, T 32, 12 heads of 64), a hubert
@@ -80,6 +88,18 @@ continues:
    chunks and the dense decode kernel 6 x decode steps; tokens/s, TTFT,
    tick walls, a profiled decode tick and a profiled prefill tick (a lone
    512-token prompt), each with the SSD scan's and RMSNorm's device time;
+3g. the dense variants (after 3f): full-width gemma-2b (18 layers, fp32
+   parameters, bf16 compute, random weights from a seed) with phase 3's
+   traffic, flash launched 18 x the chunks at D 256 and paged decode 18
+   x the decode steps, a radix hit and a COW copy, a profiled decode
+   tick; then speculatively over int8 pages (``spec_k_max`` 4, a draft of
+   its first 2 layers, residual writes zeroed): verify 18 x the rounds,
+   the draft's dense decode at D 256, acceptance printed; then
+   ``launch/serve.py --arch gemma-2b`` (4 requests, launches exact);
+   command-r-35b (8 of 40 layers), chameleon-34b (8 of 48) and
+   nemotron-4-340b (2 of 96) at full width with bf16 parameters, 4
+   requests of 4-511 tokens and 16 new tokens each, launches exact, peak
+   memory printed;
 3d. the edge system: ``EdgeSystem`` with two logical nodes on cuda:0
    (half of the card's memory each, ``LeastLoadedPolicy``), the standard
    builders over full-width edge-cv-heavy (heavy, the paper's CV
@@ -136,8 +156,11 @@ continues:
    as the draft: speculative streams equal plain ones with pages in fp32
    and in int8 (a token may differ only at a top-2 margin <= 1e-3);
 5. golden: the JAX reference's token streams (``tests/data``), plain,
-   speculative and dense-slot (reduced mamba2 and zamba2), reproduced by
-   the port on the card in fp32, and the JAX encoder logits of reduced
+   speculative and dense-slot (reduced mamba2 and zamba2), and the dense
+   variants' (reduced gemma-2b at head dim 256, command-r-35b,
+   chameleon-34b, nemotron-4-340b at head dim 192, with their last-token
+   logits within 2e-4), reproduced by the port on the card in fp32, and
+   the JAX encoder logits of reduced
    edge-cv-heavy at head dims 48 and 80 through the fp32 flash kernel
    (within 2e-4 relative, argmax equal, the masked loss within 2e-4);
 6. train: ``Trainer`` at full tinyllama-1.1b width (fp32 parameters and
@@ -170,7 +193,9 @@ continues:
 9. the kernels line (each kernel's launches from the paths that run it:
    per request for serving, per step for training (tinyllama's and
    hubert-xlarge's), per dispatch on the
-   edge path, per request on the fleet, per batch for hubert; the SSD scan and RMSNorm from mamba2's serve, the dense
+   edge path, per request on the fleet, per batch for hubert, per request
+   of each dense variant's path; the SSD scan and RMSNorm from mamba2's
+   serve, the dense
    decode kernel from the speculative and zamba2's serves and the edge
    path; flash attention's times at the serving
    chunk, and as ``train_*`` at the train shape, the encoders' shapes
@@ -405,6 +430,24 @@ def phase_device_and_build(torch):
         check(bf and all(bf) and f32 and not any(f32),
               f"{name}: bf16 instances without or fp32 instances with "
               f"tensor-core instructions: {inst}")
+        # the dense variants' widths: bf16 and fp32 instances at D 192 and
+        # 256, and over int8 pools for the paged kinds (the check above
+        # holds their tensor-core instructions; the spill check, spills)
+        have = {(a[1], a[2], a[3].replace("(int)", ""))
+                for a in map(_template_args, inst)}
+        pools = ("", "signed char") if name != "decode_attention" else ("",)
+        for D in ("192", "256"):
+            for tc in ("__nv_bfloat16", "float"):
+                for kv in pools:
+                    check((tc, kv or tc, D) in have,
+                          f"{name}: no {tc} instance over {kv or tc} "
+                          f"pools at D {D}: {sorted(have)}")
+        wide = [f"{k} {r} regs" + (f", {b} B spilled" if b else "")
+                for k, r, b in _kernel_resources(logs[name])
+                if re.search(r"<(192|256),", k)]
+        print(f"[build] {name} at D 192 and 256 (bf16 and fp32, "
+              f"{'bf16, fp32 and int8 pools' if len(pools) > 1 else 'dense'}"
+              f"): {', '.join(wide)}")
     return card
 
 
@@ -413,11 +456,12 @@ def phase_device_and_build(torch):
 # ---------------------------------------------------------------------------
 
 def _flash_case(torch, gen, dtype, Tq, Tk, start, valid, window=0,
-                softcap=0.0, explicit_kv_pos=False):
-    """A prefill chunk of tinyllama (Hq 32, Hkv 4, D 64) over a gathered
-    KV span: queries at start..start+Tq-1, keys valid below ``valid``."""
+                softcap=0.0, explicit_kv_pos=False, heads=(32, 4, 64)):
+    """A prefill chunk of tinyllama (``heads``: Hq 32, Hkv 4, D 64) over a
+    gathered KV span: queries at start..start+Tq-1, keys valid below
+    ``valid``."""
     dt = getattr(torch, dtype)
-    B, Hq, Hkv, D = 1, 32, 4, 64
+    B, (Hq, Hkv, D) = 1, heads
     q = torch.randn(B, Tq, Hq, D, generator=gen, device="cuda").to(dt)
     k = torch.randn(B, Tk, Hkv, D, generator=gen, device="cuda").to(dt)
     v = torch.randn(B, Tk, Hkv, D, generator=gen, device="cuda").to(dt)
@@ -476,16 +520,16 @@ def _sdpa_flash(torch, F, q, k, v, kw):
 
 
 def _paged_case(torch, gen, dtype, int8=False, window=0, softcap=0.0,
-                K1=0, B=8, MP=64, lens=(36, 544)):
+                K1=0, B=8, MP=64, lens=(36, 544), heads=(32, 4, 64)):
     """A decode tick of the serving path: B 8, Hq 32, Hkv 4, D 64, page
     16, 64 table entries (max_seq 1024), pages scattered over the pool,
-    lengths 36-543 (``B``, ``MP`` and the lengths' range ``lens`` change
-    them).  ``K1 > 0`` makes it a verify pass: K1 query tokens per
-    sequence, the last K1 of its length."""
+    lengths 36-543 (``B``, ``MP``, the lengths' range ``lens`` and
+    ``heads``, (Hq, Hkv, D), change them).  ``K1 > 0`` makes it a verify
+    pass: K1 query tokens per sequence, the last K1 of its length."""
     from repro_torch.models.attention import _quantize
 
     dt = getattr(torch, dtype)
-    Hq, Hkv, D, page = 32, 4, 64, 16
+    (Hq, Hkv, D), page = heads, 16
     P = B * MP + 1
     qshape = (B, K1, Hq, D) if K1 else (B, Hq, D)
     q = torch.randn(*qshape, generator=gen, device="cuda").to(dt)
@@ -847,6 +891,24 @@ def phase_kernels(torch, timer, card):
         ("Tq32/Tk128 tail@64", 32, 128, 64, 96, {}, None),
         ("Tq16/Tk128 tail@80, 13 real", 16, 128, 80, 93, {}, None),
     ]
+    # the dense variants' heads (phase 3g), each timed at its chunk after
+    # 448 keys: gemma-2b's Hq 8 over one KV head at D 256, nemotron-4-340b's
+    # G 12 at D 192; a first chunk, a window, a softcap, a ragged tail
+    gemma, nemo = (8, 1, 256), (96, 8, 192)
+    for heads, tag in ((gemma, "gemma"), (nemo, "nemotron")):
+        D, hd = heads[2], {"heads": heads}
+        flash_cases += [
+            (f"D{D} Tq64/Tk512 chunk@448", 64, 512, 448, 512, hd,
+             f"flash_attention@{tag}"),
+            (f"D{D} Tq64/Tk64 first chunk", 64, 64, 0, 64, hd, None),
+            (f"D{D} Tq64/Tk512 window128", 64, 512, 448, 512,
+             dict(hd, window=128), None),
+            (f"D{D} Tq64/Tk512 softcap30", 64, 512, 448, 512,
+             dict(hd, softcap=30.0), None),
+            (f"D{D} Tq16/Tk512 tail@400, 13 real", 16, 512, 400, 413, hd,
+             None),
+            (f"D{D} Tq64/Tk64 forward", 64, 64, 0, 64,
+             dict(hd, explicit_kv_pos=True), None)]
     for dtype in ("bfloat16", "float32"):
         for label, Tq, Tk, start, valid, extra, key in flash_cases:
             args, kw, nb, fl = _flash_case(torch, gen, dtype, Tq, Tk, start,
@@ -913,6 +975,17 @@ def phase_kernels(torch, timer, card):
         ("B8/MP64 int8", {"int8": True}, None),
         ("B8/MP64 int8+softcap30", {"int8": True, "softcap": 30.0}, None),
     ]
+    # the dense variants' decode ticks at B 8 over MP 64 (phase 3g), on
+    # bf16 and int8 pools, timed
+    for heads, tag in ((gemma, "gemma"), (nemo, "nemotron")):
+        D, hd = heads[2], {"heads": heads}
+        paged_cases += [
+            (f"D{D} B8/MP64 decode", hd, f"paged_decode_attention@{tag}"),
+            (f"D{D} B8/MP64 int8", dict(hd, int8=True),
+             f"paged_decode_attention@{tag}_int8"),
+            (f"D{D} B8/MP64 window256+softcap30",
+             dict(hd, window=256, softcap=30.0), None),
+            (f"D{D} B1/MP64 one 543-token sequence", dict(hd, **one), None)]
     for dtype in ("bfloat16", "float32"):
         for label, extra, key in paged_cases:
             args, kw, nb, fl = _paged_case(torch, gen, dtype, **extra)
@@ -935,6 +1008,19 @@ def phase_kernels(torch, timer, card):
                             ("int8", {"int8": True}),
                             ("int8+softcap30",
                              {"int8": True, "softcap": 30.0}))]
+    # gemma-2b's verify (phase 3g): K1 5 timed over bf16 and int8 pools,
+    # K1 1 and 2 checked, a window with a softcap
+    hd = {"heads": gemma}
+    verify_cases += [
+        ("D256 B8/MP64 K1=5 verify", dict(hd, K1=5),
+         "paged_verify_attention@gemma"),
+        ("D256 B8/MP64 K1=5 int8", dict(hd, K1=5, int8=True),
+         "paged_verify_attention@gemma_int8"),
+        ("D256 B8/MP64 K1=5 window256+softcap30",
+         dict(hd, K1=5, window=256, softcap=30.0), None)] + [
+        (f"D256 B8/MP64 K1={k1}{name}", dict(hd, K1=k1, **extra), None)
+        for k1 in (1, 2) for name, extra in (("", {}),
+                                             (" int8", {"int8": True}))]
     for dtype in ("bfloat16", "float32"):
         for label, extra, key in verify_cases:
             args, kw, nb, fl = _paged_case(torch, gen, dtype, **extra)
@@ -986,6 +1072,19 @@ def phase_kernels(torch, timer, card):
                                      "fix": {0: 1}}, None, ()),
         ("B1/S128 G2 full row", 128, {"B": 1, "Hq": 4, "Hkv": 2,
                                       "fix": {0: 128}}, None, ()),
+        # the gemma-2b draft's steps (phase 3g): G 8 over one KV head at D
+        # 256, timed, with lengths of 0, S and past S and a window; G 12
+        # at D 192
+        ("D256 B8/S1024 gemma draft", 1024, {"D": 256, "Hq": 8, "Hkv": 1},
+         "decode_attention@gemma", ()),
+        ("D256 B8/S1024 a cache_len 0 row, one of S, one past S", 1024,
+         {"D": 256, "Hq": 8, "Hkv": 1, "fix": {0: 0, 1: 1024, 2: 1500}},
+         None, (0,)),
+        ("D256 B8/S1000 window100+softcap30", 1000,
+         {"D": 256, "Hq": 8, "Hkv": 1, "window": 100, "softcap": 30.0,
+          "fix": {0: 1000}}, None, ()),
+        ("D192 B8/S1024 G12", 1024, {"D": 192, "Hq": 96, "Hkv": 8}, None,
+         ()),
     ]
     for dtype in ("bfloat16", "float32"):
         for label, S, extra, key, empty in dense_cases:
@@ -1235,10 +1334,80 @@ def phase_kernels(torch, timer, card):
 # phase 3: serve full-width tinyllama
 # ---------------------------------------------------------------------------
 
-def phase_serve(torch):
-    from repro_torch.configs import get_config
+def serve_traffic(torch, eng, rng, n: int, new: int, pair: bool,
+                  tag: str):
+    """Phase 3's traffic through the background loop: ``n`` random
+    prompts of 4-511 tokens and, with ``pair``, a 266-token first turn
+    whose follow-up extends it past a page boundary (its admission
+    attaches the shared pages and copy-seeds the tail), ``new`` tokens
+    each.  Every request completes, the pair hits the radix and copies on
+    write, flash launches L x the chunks and paged decode L x the decode
+    steps the engine ran.  Returns the launches, the requests and the
+    engine's stats."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pda
+
+    cfg = eng.cfg
+    V = cfg.vocab_size
+    lens = [int(rng.integers(4, 512)) for _ in range(n)]
+    prompts = [rng.integers(0, V, size=m) for m in lens]
+    if pair:
+        first_turn = np.concatenate([rng.integers(0, V, size=256),
+                                     rng.integers(0, V, size=10)])
+    fa.flash_attention.launches = 0
+    pda.paged_decode_attention.launches = 0
+    t0 = time.monotonic()
+    with eng:
+        handles = [eng.submit(p, max_new_tokens=new) for p in prompts]
+        done, pair_lens = [], ""
+        if pair:
+            r1 = eng.submit(first_turn, max_new_tokens=new).result(
+                timeout=900)
+            follow = np.concatenate([first_turn, np.asarray(r1.generated),
+                                     rng.integers(0, V, size=8)])
+            handles.append(eng.submit(follow, max_new_tokens=new))
+            done.append(r1)
+            pair_lens = f" + shared pair {len(first_turn)}/{len(follow)}"
+        done = [h.result(timeout=900) for h in handles] + done
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "paged_decode_attention":
+                    pda.paged_decode_attention.launches}
+    st = eng.stats()
+    check(not eng.failed and st["failed"] == 0,
+          f"{tag}: failed requests {[r.error for r in eng.failed.values()]}")
+    check(len(done) == n + 2 * pair
+          and all(len(r.generated) == new for r in done),
+          f"{tag}: every request must complete with {new} tokens")
+    check(not pair or (st["kv_prefix_hits"] >= 1 and st["cow_copies"] >= 1),
+          f"{tag}: the shared-prefix pair must hit the radix and COW: {st}")
+    L = cfg.num_layers
+    check(launches["flash_attention"] == L * st["prefill_chunks"],
+          f"{tag}: flash launches {launches['flash_attention']} != {L} x "
+          f"{st['prefill_chunks']} chunks")
+    check(launches["paged_decode_attention"] == L * st["decode_steps"],
+          f"{tag}: paged launches {launches['paged_decode_attention']} != "
+          f"{L} x {st['decode_steps']} decode steps")
+    check(min(launches.values()) > 0,
+          f"{tag}: a kernel never ran on the main path")
+    toks = sum(len(r.generated) for r in done)
+    print(f"[{tag}] {len(done)} requests, {toks} tokens in {wall:.2f}s "
+          f"({toks / wall:.1f} tok/s); prompts {lens}{pair_lens}")
+    print(f"[{tag}] ttft p50 {st['p50_ttft_s'] * 1e3:.1f} ms p95 "
+          f"{st['p95_ttft_s'] * 1e3:.1f} ms; decode tick p50 "
+          f"{st['p50_decode_tick_s'] * 1e3:.2f} ms p95 "
+          f"{st['p95_decode_tick_s'] * 1e3:.2f} ms; prefill tick p50 "
+          f"{st['p50_prefill_tick_s'] * 1e3:.2f} ms")
+    print(f"[{tag}] {st['prefill_chunks']} chunks, {st['decode_steps']} "
+          f"decode steps, launches {launches} (exact), radix hits "
+          f"{st['kv_prefix_hits']}, cow copies {st['cow_copies']}, "
+          f"preemptions {st['preemptions']}")
+    return launches, len(done), st
+
+
+def phase_serve(torch):
+    from repro_torch.configs import get_config
     from repro_torch.serving.engine import ServingEngine
 
     cfg = get_config("tinyllama-1.1b")
@@ -1251,62 +1420,11 @@ def phase_serve(torch):
           f"{time.monotonic() - t0 - eng.warmup_s:.1f}s, warmup "
           f"{eng.warmup_s:.2f}s")
     rng = np.random.default_rng(0)
-    lens = [int(rng.integers(4, 512)) for _ in range(8)]
-    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
-    shared = rng.integers(0, cfg.vocab_size, size=256)
-    first_turn = np.concatenate([shared,
-                                 rng.integers(0, cfg.vocab_size, size=10)])
-
-    fa.flash_attention.launches = 0
-    pda.paged_decode_attention.launches = 0
-    t0 = time.monotonic()
-    with eng:
-        handles = [eng.submit(p, max_new_tokens=32) for p in prompts]
-        h1 = eng.submit(first_turn, max_new_tokens=32)
-        r1 = h1.result(timeout=600)
-        # the follow-up turn extends the first one past a page boundary:
-        # its admission attaches the shared pages and copy-seeds the tail
-        follow = np.concatenate([first_turn, np.asarray(r1.generated),
-                                 rng.integers(0, cfg.vocab_size, size=8)])
-        h2 = eng.submit(follow, max_new_tokens=32)
-        done = [h.result(timeout=600) for h in handles + [h2]] + [r1]
-        torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = {"flash_attention": fa.flash_attention.launches,
-                "paged_decode_attention":
-                    pda.paged_decode_attention.launches}
-    st = eng.stats()
-    check(not eng.failed and st["failed"] == 0,
-          f"failed requests: {[r.error for r in eng.failed.values()]}")
-    check(len(done) == 10 and all(len(r.generated) == 32 for r in done),
-          "every request must complete with 32 tokens")
-    check(st["kv_prefix_hits"] >= 1 and st["cow_copies"] >= 1,
-          f"the shared-prefix pair must hit the radix and COW: {st}")
-    L = cfg.num_layers
-    check(launches["flash_attention"] == L * st["prefill_chunks"],
-          f"flash launches {launches['flash_attention']} != {L} x "
-          f"{st['prefill_chunks']} chunks")
-    check(launches["paged_decode_attention"] == L * st["decode_steps"],
-          f"paged launches {launches['paged_decode_attention']} != {L} x "
-          f"{st['decode_steps']} decode steps")
-    check(min(launches.values()) > 0, "a kernel never ran on the main path")
-    toks = sum(len(r.generated) for r in done)
-    print(f"[serve] {len(done)} requests, {toks} tokens in {wall:.2f}s "
-          f"({toks / wall:.1f} tok/s); prompts {lens} + shared pair "
-          f"{len(first_turn)}/{len(follow)}")
-    print(f"[serve] ttft p50 {st['p50_ttft_s'] * 1e3:.1f} ms p95 "
-          f"{st['p95_ttft_s'] * 1e3:.1f} ms; decode tick p50 "
-          f"{st['p50_decode_tick_s'] * 1e3:.2f} ms p95 "
-          f"{st['p95_decode_tick_s'] * 1e3:.2f} ms; prefill tick p50 "
-          f"{st['p50_prefill_tick_s'] * 1e3:.2f} ms")
-    print(f"[serve] {st['prefill_chunks']} chunks, {st['decode_steps']} "
-          f"decode steps, launches {launches}, radix hits "
-          f"{st['kv_prefix_hits']}, cow copies {st['cow_copies']}, "
-          f"preemptions {st['preemptions']}")
+    launches, n, _ = serve_traffic(torch, eng, rng, 8, 32, True, "serve")
     profile_decode(torch, eng, rng)
     del eng
     torch.cuda.empty_cache()
-    return launches, len(done)
+    return launches, n
 
 
 def profile_decode(torch, eng, rng, steps: int = 10, label: str = "decode",
@@ -1645,6 +1763,178 @@ def phase_ssm_serve(torch, arch: str):
     del eng
     torch.cuda.empty_cache()
     return launches, len(done)
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: the dense variants at full width
+# ---------------------------------------------------------------------------
+
+# each cut arch's path name in the kernels line and the layers it keeps
+# of its full depth, at full width with bf16 parameters, so that its
+# weights fit one card (PERF.md §4)
+DENSE_CUT = {"command-r-35b": ("command-r", 8),
+             "chameleon-34b": ("chameleon", 8),
+             "nemotron-4-340b": ("nemotron", 2)}
+
+
+def phase_dense_variants(torch):
+    """gemma-2b at full width and depth (fp32 parameters, bf16 compute)
+    with phase 3's traffic, a profiled decode tick, then speculatively
+    over int8 pages with its first 2 layers as the draft (residual writes
+    zeroed, as phase 3b), then through ``launch/serve.py``;
+    command-r-35b, chameleon-34b and nemotron-4-340b at full width and
+    cut depth (``DENSE_CUT``) with bf16 parameters, 4 requests each.
+    Returns each path's launches and requests."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_verify_attention as pva
+    from repro_torch.serving.engine import ServingEngine
+
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[dense] {torch.cuda.memory_allocated()} B allocated before the "
+          f"phase")
+    paths = {}
+    rng = np.random.default_rng(0)
+    cfg = get_config("gemma-2b")
+    check(cfg.num_layers == 18 and cfg.d_model == 2048
+          and cfg.head_dim_ == 256 and cfg.num_kv_heads == 1,
+          f"gemma-2b config {cfg}")
+    kw = dict(max_slots=8, max_seq=1024, page_size=16, prefill_chunk=64,
+              device="cuda")
+    t0 = time.monotonic()
+    eng = ServingEngine(cfg, seed=0, **kw)
+    eng.warmup()
+    print(f"[gemma-2b] 18L d2048, 8 heads of 256 over 1 KV head, vocab "
+          f"256000 (tied), fp32 parameters "
+          f"({cfg.num_params() / 1e9:.3f} B), bf16 compute: init "
+          f"{time.monotonic() - t0 - eng.warmup_s:.1f}s, warmup "
+          f"{eng.warmup_s:.2f}s, {torch.cuda.memory_allocated()} B "
+          f"allocated")
+    launches, n, _ = serve_traffic(torch, eng, rng, 8, 32, True, "gemma-2b")
+    paths["gemma"] = (launches, n)
+    profile_decode(torch, eng, rng, label="gemma-2b decode")
+
+    # speculative over int8 pages: the same fp32 tree, residual writes
+    # zeroed in place (the first engine is done with it), its first 2
+    # layers the draft
+    params = _zero_residual(eng.params)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    dcfg = dataclasses.replace(cfg, num_layers=2)
+    spec = ServingEngine(cfg, params=params, kv_dtype="int8", draft_cfg=dcfg,
+                         draft_params=_truncated(params, 2), spec_k_max=4,
+                         **kw)
+    spec.warmup()
+    counters = ((fa, "flash_attention"), (pda, "paged_decode_attention"),
+                (pva, "paged_verify_attention"), (da, "decode_attention"))
+    for mod, fn in counters:
+        getattr(mod, fn).launches = 0
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(m))
+               for m in rng.integers(4, 512, size=4)]
+    t0 = time.monotonic()
+    for p in prompts:
+        spec.submit(p, max_new_tokens=24)
+    done = spec.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {fn: getattr(mod, fn).launches for mod, fn in counters}
+    st = spec.stats()
+    L = cfg.num_layers
+    check(not spec.failed and len(done) == 4
+          and all(len(r.generated) == 24 for r in done),
+          "gemma-2b speculative: every request must complete")
+    check("spec_disabled_reason" not in st and st["spec_rounds"] > 0
+          and st["acceptance_rate"] >= 0.95,
+          f"gemma-2b speculative: {st}")
+    check(launches["paged_verify_attention"] == L * st["spec_rounds"],
+          f"gemma-2b verify launches {launches['paged_verify_attention']} "
+          f"!= {L} x {st['spec_rounds']} rounds")
+    check(launches["decode_attention"] > 0
+          and launches["decode_attention"] % dcfg.num_layers == 0,
+          f"gemma-2b draft decode launches {launches['decode_attention']}")
+    check(launches["flash_attention"] ==
+          L * st["prefill_chunks"] + dcfg.num_layers * len(prompts),
+          f"gemma-2b speculative flash launches {launches}")
+    check(launches["paged_decode_attention"] == L * st["decode_steps"],
+          "gemma-2b speculative: paged decode launches differ from the "
+          "normal ticks run")
+    print(f"[gemma-2b] speculative over int8 pages, spec_k_max 4, draft = "
+          f"its first 2 layers (zero-residual weights): 4 requests x 24 "
+          f"tokens in {wall:.2f}s; acceptance {st['acceptance_rate']:.3f}, "
+          f"{st['spec_rounds']} verify rounds, {st['draft_ticks']} draft "
+          f"ticks, launches {launches}")
+    paths["gemma_spec"] = (launches, len(done))
+    del spec, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the serve launcher's entry point: an EdgeSystem container over a fresh
+    # full-width engine (its warmup runs every chunk bucket and one decode
+    # step, counted here)
+    from repro_torch.launch import serve
+
+    for mod, fn in counters:
+        getattr(mod, fn).launches = 0
+    esys = serve.main(["--arch", "gemma-2b", "--requests", "4",
+                       "--max-new", "8", "--device", "cuda"])
+    torch.cuda.synchronize()
+    (dep,) = esys.instances("llm-serving")
+    eng = dep.executor.engine
+    st = eng.stats()
+    check(st["failed"] == 0 and len(eng.completed) == 4,
+          "launch/serve.py --arch gemma-2b: 4 requests must complete")
+    check(fa.flash_attention.launches ==
+          L * (st["prefill_chunks"] + len(eng.chunk_buckets))
+          and pda.paged_decode_attention.launches ==
+          L * (st["decode_steps"] + 1),
+          f"launch/serve.py --arch gemma-2b launches: flash "
+          f"{fa.flash_attention.launches}, paged "
+          f"{pda.paged_decode_attention.launches}, {st['prefill_chunks']} "
+          f"chunks + {len(eng.chunk_buckets)} warmup, {st['decode_steps']} "
+          f"steps + 1")
+    print(f"[gemma-2b] launch/serve.py --arch gemma-2b: 4 requests through "
+          f"an EdgeSystem container, {st['prefill_chunks']} chunks, "
+          f"{st['decode_steps']} decode steps, flash and paged decode "
+          f"launches exact")
+    del esys, dep, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for arch, (path, depth) in DENSE_CUT.items():
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=depth,
+                                  param_dtype="bfloat16")
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        eng = ServingEngine(cfg, max_slots=4, max_seq=1024, page_size=16,
+                            prefill_chunk=64, seed=0, device="cuda")
+        eng.warmup()
+        print(f"[{arch}] {depth} of {full.num_layers} layers at full width "
+              f"(d{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim_} "
+              f"over {cfg.num_kv_heads} KV heads, d_ff {cfg.d_ff}, "
+              f"{cfg.norm}, {cfg.activation}"
+              f"{', parallel blocks' if cfg.parallel_block else ''}"
+              f"{', qk-norm' if cfg.qk_norm else ''}), bf16 parameters "
+              f"({cfg.num_params()} = {cfg.num_params() * 2} B): init "
+              f"{time.monotonic() - t0 - eng.warmup_s:.1f}s, warmup "
+              f"{eng.warmup_s:.2f}s")
+        launches, n, _ = serve_traffic(torch, eng, rng, 4, 16, False, arch)
+        torch.cuda.synchronize()
+        print(f"[{arch}] peak memory {torch.cuda.max_memory_allocated()} B "
+              f"({start} B allocated before it); "
+              f"{time.monotonic() - t0:.1f}s")
+        paths[path] = (launches, n)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[dense] phase 3g {time.monotonic() - t_phase:.1f}s")
+    return paths
 
 
 # ---------------------------------------------------------------------------
@@ -2744,10 +3034,53 @@ def phase_golden(torch):
               f"logits max rel err {worst:.3e} (bound 2e-4)")
         check(worst < 2e-4, f"golden {fam} logits {worst} >= 2e-4")
 
+    # the dense variants: reduced fp32 gemma-2b at head dim 256,
+    # command-r-35b, chameleon-34b and nemotron-4-340b at 192, served by
+    # the JAX engine; the streams token for token and the logits, through
+    # the flash and paged decode kernels at those head dims
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.models.model import Model
+
+    for arch in sorted({k.split("_")[1] for k in g if k.startswith("dense_")}):
+        pre = f"dense_{arch}_"
+        vcfg = ModelConfig.from_dict(json.loads(str(g[pre + "config"])))
+        vparams = tree(pre + "params/", vcfg)
+        before = (fa.flash_attention.launches,
+                  pda.paged_decode_attention.launches)
+        veng = ServingEngine(vcfg, params=vparams, device="cuda",
+                             **json.loads(str(g["engine"])))
+        for w in (0, 1):
+            for p, n, pw in zip(g["prompts"], g["prompt_lens"], g["waves"]):
+                if pw == w:
+                    veng.submit(p[:n], max_new_tokens=int(g["max_new"]))
+            veng.run_until_drained()
+        got = [r.generated for r in sorted(veng.completed.values(),
+                                           key=lambda r: r.rid)]
+        check(not veng.failed and got == g[pre + "streams"].tolist(),
+              f"golden {arch} streams differ:\n{got}\n"
+              f"{g[pre + 'streams'].tolist()}")
+        check(fa.flash_attention.launches > before[0]
+              and pda.paged_decode_attention.launches > before[1],
+              f"golden {arch}: the kernels did not run")
+        worst = 0.0
+        with torch.no_grad():
+            for p, n, want in zip(g["prompts"], g["prompt_lens"],
+                                  g[pre + "first_logits"]):
+                lg = veng.model.forward(vparams, {"tokens": torch.tensor(
+                    p[None, :n].astype(np.int64), device="cuda")})[0, -1]
+                w = torch.tensor(want, device="cuda")
+                worst = max(worst, float((lg - w).abs().max()
+                                         / w.abs().max()))
+        print(f"[golden] {arch} reduced ({vcfg.num_layers}L d{vcfg.d_model},"
+              f" head dim {vcfg.head_dim_}, fp32): the JAX engine's "
+              f"{len(got)} streams reproduced on the card (cow copies "
+              f"{veng.kv.cow_copies}); last-position logits max rel err "
+              f"{worst:.3e} (bound 2e-4)")
+        check(worst < 2e-4, f"golden {arch} logits {worst} >= 2e-4")
+
     # the encoder: reduced fp32 edge-cv-heavy at head dims 48 and 80, JAX
     # Model.forward's logits and masked loss, through the fp32 kernel
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.model import Model
 
     for hd in (48, 80):
         pre = f"encoder_{hd}_"
@@ -3300,17 +3633,20 @@ KERNELS = {
         replaces="src/repro/kernels/rmsnorm.py:41"),
 }
 # the paths each kernel's launch count comes from, and each path's unit
+DENSE_PATHS = ("gemma", "gemma_spec", "command-r", "chameleon", "nemotron")
 PATH_OF = {"flash_attention": ("serve", "edge", "fleet", "hubert",
-                               "hubert_train"),
-           "paged_decode_attention": ("serve", "edge", "fleet"),
-           "paged_verify_attention": ("spec",),
-           "decode_attention": ("spec", "zamba2", "edge"),
+                               "hubert_train") + DENSE_PATHS,
+           "paged_decode_attention": ("serve", "edge", "fleet")
+           + DENSE_PATHS,
+           "paged_verify_attention": ("spec", "gemma_spec"),
+           "decode_attention": ("spec", "zamba2", "edge", "gemma_spec"),
            "flash_attention_bwd_dq": ("train", "hubert_train"),
            "flash_attention_bwd_dkv": ("train", "hubert_train"),
            "ssd_scan": ("mamba2",), "rmsnorm": ("mamba2",)}
 UNIT_OF = {"serve": "request", "spec": "request", "train": "step",
            "mamba2": "request", "zamba2": "request", "edge": "dispatch",
-           "fleet": "request", "hubert": "batch", "hubert_train": "step"}
+           "fleet": "request", "hubert": "batch", "hubert_train": "step",
+           **{p: "request" for p in DENSE_PATHS}}
 
 
 def main() -> int:
@@ -3335,6 +3671,7 @@ def main() -> int:
              "zamba2": phase_ssm_serve(torch, "zamba2-1.2b"),
              "edge": phase_edge(torch), "fleet": phase_fleet(torch),
              "hubert": phase_hubert(torch)}
+    paths.update(phase_dense_variants(torch))
     phase_consistency(torch)
     phase_ssm_consistency(torch)
     phase_spec_exactness(torch)

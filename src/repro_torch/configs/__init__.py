@@ -11,6 +11,10 @@ from repro_torch.models.config import ModelConfig, reduced  # re-export
 
 _MODULES = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
+    "gemma-2b": "repro_torch.configs.gemma_2b",
+    "command-r-35b": "repro_torch.configs.command_r_35b",
+    "chameleon-34b": "repro_torch.configs.chameleon_34b",
+    "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
     "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
@@ -21,16 +25,15 @@ _MODULES = {
 
 _ATTR = {"edge-cv-heavy": "CV_HEAVY", "edge-stream-light": "STREAM_LIGHT"}
 
-# registered in ``repro.configs`` but not ported yet (ROADMAP Queue A
-# items 11.2-11.4)
-_NOT_PORTED = ("chameleon-34b", "nemotron-4-340b", "command-r-35b",
-               "gemma-2b", "deepseek-v2-236b", "mixtral-8x7b")
+# registered in ``repro.configs`` but not ported yet: MoE with
+# sliding-window attention (ROADMAP Queue A item 11.3) and MLA (11.4)
+_NOT_PORTED = {"mixtral-8x7b": "11.3", "deepseek-v2-236b": "11.4"}
 
 
 def get_config(name: str) -> ModelConfig:
     if name in _NOT_PORTED:
         raise KeyError(f"arch {name!r} is not ported yet "
-                       "(ROADMAP Queue A item 11)")
+                       f"(ROADMAP Queue A item {_NOT_PORTED[name]})")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     return getattr(importlib.import_module(_MODULES[name]),

@@ -36,11 +36,21 @@
 //    with both operands from 128-byte swizzled shared memory (64-byte at
 //    D 32, 32-byte at D 48 and 80, whose rows are then whole 16-column
 //    atoms: no pad column is stored or read) into f32 accumulators, and
-//    o += p·v a m64nDk16 (N = D: 32, 48, 64, 80 or 128) with p packed to
+//    o += p·v a m64nNk16 (N = D: 32, 48, 64, 80 or 128) with p packed to
 //    bf16 straight from those accumulators as the A operand and the V
 //    tile as an MN-major B: p never touches shared memory.  The scale
 //    multiplies the f32 sum, never the bf16 operand, so the logits `lse`
 //    describes are the ones the backward recomputes.
+//  - D 192 and 256 (nemotron-4-340b, gemma-2b).  One warpgroup's whole
+//    [64, D] accumulator would be D/2 floats a thread (128 at D 256) on
+//    top of s, p and the addressing: past the 255-register cap.  So a
+//    block has 3 warpgroups at D 192 and 2 at D 256, each owning 64 or
+//    128 output columns (m64n64 or m64n128 p·v, as at D 64 and 128), and
+//    each computing the whole s = q·kᵀ and its softmax itself: the q·kᵀ
+//    products are repeated (1.5x the tile's products at D 256, 2x at
+//    D 192) so that no p, max or rescale passes between warpgroups.
+//    Shared memory is 1 KB + 5 tiles of 64 x D: 161 KB at D 256, one
+//    block an SM.
 //  - Online softmax in registers.  Each thread holds two rows' worth of
 //    the accumulator map; a row's max is reduced over the 4 lanes that
 //    hold it, its sum stays per lane until the end, p is one FMA and one
@@ -274,6 +284,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 namespace wg {
 namespace {
 
+// Warpgroups a block: one up to D 128; above it each of kGroups<D> owns
+// D / kGroups<D> output columns, whole 64-column blocks of the tile (64 at
+// D 192, 128 at D 256), so no thread holds more than 64 accumulators.
+template <int D>
+constexpr int kGroups = D <= 128 ? 1 : D % 128 == 0 ? D / 128 : D / 64;
+
 // The q tile, then K and V of two stages, from a 1024-byte aligned base;
 // 2 x 64 key positions and a class byte a key tile.
 template <int D>
@@ -353,9 +369,13 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&o)[N],
 // One block per (64-row query tile, KV head [, head group], batch), the
 // last query tile first (under a causal mask it has the most keys); rows
 // `r` are position t0 + r / GB of head h·G + hg·GB + r % GB.  q is loaded
-// once; the block loops over the 64-key tiles it does not skip.
+// once; the block loops over the 64-key tiles it does not skip.  Above D
+// 128 each warpgroup computes the whole s = q·kᵀ and its softmax (the
+// same numbers in each) and o += p·v for its own columns only: twice the
+// q·kᵀ products at D 256 and three times at D 192, in place of a p and a
+// rescale passed through shared memory.
 template <int D>
-__global__ void __launch_bounds__(kWG)
+__global__ void __launch_bounds__(kWG * kGroups<D>)
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o,
                        float* __restrict__ lse,
@@ -366,6 +386,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        int causal, int window, float softcap,
                        float sm_scale) {
   using L = Tile<D>;
+  constexpr int NWG = kGroups<D>, DW = D / NWG, THREADS = kWG * NWG;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = aligned_smem(smem_raw);
   const uint32_t q_s = smem_u32(sm);
@@ -393,43 +414,52 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto row_pos = [&](int r) {
     return q_pos[(size_t)b * Tq + t0 + gb.div(r)];
   };
-  cp_tile<D>(q_s, [&](int r) {
+  cp_tile<D, THREADS>(q_s, [&](int r) {
     return row_live(r) ? q + row_index(r) * D : nullptr; }, q);
   cp_commit();
 
-  // this thread's two accumulator rows
+  // this thread's warpgroup, its output columns [wgi·DW, wgi·DW + DW) (a
+  // whole block of the V tile's, `v_col` bytes in) and its two
+  // accumulator rows
+  const int wgi = NWG == 1 ? 0 : (int)threadIdx.x / kWG;
+  const int wt = NWG == 1 ? (int)threadIdx.x : (int)threadIdx.x % kWG;
+  const uint32_t v_col = (wgi * DW / L::W) * (kT * L::SW);
+  auto my_row = [&](int i) {
+    return 16 * (wt / 32) + (wt % 32) / 4 + 8 * i;
+  };
   int qp_r[2];
   bool live_r[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    live_r[i] = row_live(acc_row(i));
-    qp_r[i] = live_r[i] ? row_pos(acc_row(i)) : 0;
+    live_r[i] = row_live(my_row(i));
+    qp_r[i] = live_r[i] ? row_pos(my_row(i)) : 0;
   }
 
   int qmin, qmax;
   bool rows_whole;
   live_bounds(kT, row_live, row_pos, qmin, qmax, rows_whole);
-  plan_key_tiles<kT, kWG>(cls, n_keys,
-                          kv_pos ? kv_pos + (size_t)b * Tk : nullptr, qmin,
-                          qmax, rows_whole, mk);
+  plan_key_tiles<kT, THREADS>(cls, n_keys,
+                              kv_pos ? kv_pos + (size_t)b * Tk : nullptr,
+                              qmin, qmax, rows_whole, mk);
 
   // This thread's 16-byte chunks of a K or V tile, the same for every
-  // tile: chunk `it` is number threadIdx.x + it·128 of the tile's D/8 a
-  // row, at row row[it] and column col[it], placed at dst[it] in the
-  // swizzled tile.  When D/8 divides 128 (D 32, 64, 128) a thread keeps
-  // one column and its rows step by 128·8/D, written so that the compiler
-  // keeps one row and one column (the register count of those instances
-  // depends on it); at D 48 and 80 (6 and 10 chunks a row) the columns
-  // vary.
-  constexpr int CPR = D / 8, NC = kT * CPR / kWG;
-  static_assert(NC * kWG == kT * CPR, "a tile is whole rounds of chunks");
-  constexpr bool one_col = kWG % CPR == 0;
+  // tile: chunk `it` is number threadIdx.x + it·THREADS of the tile's D/8
+  // a row, at row row[it] and column col[it], placed at dst[it] in the
+  // swizzled tile.  When D/8 divides THREADS (D 32, 64, 128, 192, 256) a
+  // thread keeps one column and its rows step by THREADS·8/D, written so
+  // that the compiler keeps one row and one column (the register count of
+  // those instances depends on it); at D 48 and 80 (6 and 10 chunks a
+  // row) the columns vary.
+  constexpr int CPR = D / 8, NC = kT * CPR / THREADS;
+  static_assert(NC * THREADS == kT * CPR, "a tile is whole rounds of chunks");
+  constexpr bool one_col = THREADS % CPR == 0;
   int row[NC], col[NC];
   uint32_t dst[NC];
 #pragma unroll
   for (int it = 0; it < NC; ++it) {
-    const int idx = threadIdx.x + it * kWG;
-    row[it] = one_col ? threadIdx.x / CPR + it * (kWG / CPR) : idx / CPR;
+    const int idx = threadIdx.x + it * THREADS;
+    row[it] = one_col ? threadIdx.x / CPR + it * (THREADS / CPR)
+                      : idx / CPR;
     col[it] = (one_col ? threadIdx.x % CPR : idx % CPR) * 8;
     dst[it] = L::offset(row[it], col[it]);
   }
@@ -460,10 +490,10 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // capped logit and f = log2e; lse = m·f / log2e + ln l
   const float f = softcap > 0.f ? kLog2e : sm_scale * kLog2e;
   const float m_scale = softcap > 0.f ? 1.f : sm_scale;
-  float acc[D / 2], s[32];
+  float acc[DW / 2], s[32];
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  for (int e = 0; e < DW / 2; ++e) acc[e] = 0.f;
 #pragma unroll
   for (int e = 0; e < 32; ++e) s[e] = 0.f;
   __syncthreads();                              // the classes are written
@@ -501,10 +531,12 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     uint32_t a[4][4];
     to_a(s, a);
 
-    // o += p·v: v's 64 rows are the reduction
+    // o += p·v over this warpgroup's columns: v's 64 rows are the
+    // reduction
     wg_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) wgmma_rs(acc, a[ks], L::mnmajor(v_s(st), ks));
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_rs(acc, a[ks], L::mnmajor(v_s(st) + v_col, ks));
     wg_commit();
     wg_wait<0>();
     fence_regs(acc);
@@ -521,15 +553,15 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (!live_r[i]) continue;
-    const size_t row = row_index(acc_row(i));
+    const size_t row = row_index(my_row(i));
     const bool empty = l[i] == 0.f;             // no kept key: exact zeros
     const float inv = empty ? 0.f : 1.f / l[i];
-    bf16* out = o + row * D;
+    bf16* out = o + row * D + wgi * DW;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DW / 8; ++j)
       *reinterpret_cast<uint32_t*>(out + acc_col(j, 0)) =
           pack_bf16(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
-    if (lse != nullptr && threadIdx.x % 4 == 0)
+    if (lse != nullptr && wgi == 0 && threadIdx.x % 4 == 0)
       lse[row] = empty ? kNegInf : m[i] * m_scale + logf(l[i]);
   }
 }
@@ -579,7 +611,8 @@ cudaError_t launch_bf16(const Args& a) {
   cudaError_t err = set_smem(wg::flash_fwd_wgmma_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   wg::flash_fwd_wgmma_kernel<D>
-      <<<m.grid(a.B, a.Tq, a.Hkv), wg::kWG, smem, a.stream>>>(
+      <<<m.grid(a.B, a.Tq, a.Hkv), wg::kWG * wg::kGroups<D>, smem,
+         a.stream>>>(
           FWD_ARGS(bf16), m.G, divisor(m.GB), m.tq_per_block, a.causal,
           a.window, a.softcap, a.sm_scale);
   return cudaGetLastError();
@@ -606,6 +639,8 @@ int run(const Args& a, int D, int dtype) {
     case 64: return (int)launch<64>(a, dtype);
     case 80: return (int)launch<80>(a, dtype);
     case 128: return (int)launch<128>(a, dtype);
+    case 192: return (int)launch<192>(a, dtype);
+    case 256: return (int)launch<256>(a, dtype);
     default: return (int)cudaErrorInvalidValue;
   }
 }

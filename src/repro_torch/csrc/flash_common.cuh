@@ -184,14 +184,15 @@ constexpr int kWG = 128;                // one warpgroup a block
 // A [64, D] bf16 tile in shared memory as wgmma reads it: D/W column
 // blocks of W = SW/2 elements, each [64 rows][SW bytes] with the 16-byte
 // chunks of row r XOR-swizzled by the row.  SW is the widest swizzle whose
-// atom divides a row: 128 bytes at D 64 and 128, 64 at D 32, and 32 at
-// D 48 and 80 (atoms of 16 columns), so no width leaves a pad column in
-// the tile, and each k16 step of a K-major read at D 48 or 80 is one
-// whole 32-byte atom row.  The tile starts
-// aligned to its swizzle's repeat (1024, 512 or 256 bytes).  The same tile
-// is a K-major operand (its D columns are the reduction, as for s = q·kᵀ)
-// and an MN-major B (its 64 rows are the reduction, as for dq = ds·k, or
-// o += p·v, where N = D takes the m64n48 and m64n80 shapes too).
+// atom divides a row: 128 bytes at D 64, 128, 192 and 256, 64 at D 32,
+// and 32 at D 48 and 80 (atoms of 16 columns), so no width leaves a pad
+// column in the tile, and each k16 step of a K-major read at D 48 or 80
+// is one whole 32-byte atom row.  The tile starts aligned to its
+// swizzle's repeat (1024, 512 or 256 bytes).  The same tile is a K-major
+// operand (its D columns are the reduction, as for s = q·kᵀ) and an
+// MN-major B (its 64 rows are the reduction, as for dq = ds·k, or
+// o += p·v, where N = D takes the m64n48 and m64n80 shapes too, and a
+// slice of whole column blocks, from a block's start, is a B of its own).
 template <int D>
 struct Tile {
   static constexpr int SW = D % 64 == 0 ? 128 : D % 32 == 0 ? 64 : 32;
@@ -253,16 +254,18 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Copies one [64, D] tile into the swizzled layout at `dst`: `src(r)` is
-// row r's first element, or nullptr for a row outside the tensor (zeroed;
-// `any` is a valid address that is not read).
-template <int D, typename Src>
+// Copies one [64, D] tile into the swizzled layout at `dst` with the
+// THREADS threads of a block: `src(r)` is row r's first element, or
+// nullptr for a row outside the tensor (zeroed; `any` is a valid address
+// that is not read).
+template <int D, int THREADS = kWG, typename Src>
 __device__ __forceinline__ void cp_tile(uint32_t dst, Src src,
                                         const bf16* any) {
   constexpr int CPR = D / 8;            // 16-byte chunks a row
+  static_assert(kT * CPR % THREADS == 0, "a tile is whole rounds of chunks");
 #pragma unroll
-  for (int it = 0; it < kT * CPR / kWG; ++it) {
-    const int idx = threadIdx.x + it * kWG;
+  for (int it = 0; it < kT * CPR / THREADS; ++it) {
+    const int idx = threadIdx.x + it * THREADS;
     const int r = idx / CPR, c = (idx % CPR) * 8;
     const bf16* p = src(r);
     cp_async16(dst + Tile<D>::offset(r, c), p ? p + c : any, p != nullptr);

@@ -39,14 +39,14 @@
 //
 // Design.
 // - The split: the visible key range [first, n_keys) of each (sequence,
-//   KV head, group of 64 query rows) is shared by a thread-block cluster
-//   of cl blocks in even shares of a multiple of 16 keys, cl sized to the
-//   grid (`cluster_size`): 4 at the decode serving shape (B 8, Hkv 4,
-//   lengths 36-543: 128 blocks of 1-3 tiles), 8 for a verify pass there
-//   or over 4096 keys, 16 at B 1, and 1 at zamba2's 256 (sequence, KV
-//   head) pairs of one row.  One block a pair takes no cluster at all:
-//   its warps' partials meet in its own shared memory after one block
-//   barrier.
+//   KV head, group of up to 64 query rows) is shared by a thread-block
+//   cluster of cl blocks in even shares of a multiple of 16 keys, cl
+//   sized to the grid (`cluster_size`): 4 at the decode serving shape
+//   (B 8, Hkv 4, lengths 36-543: 128 blocks of 1-3 tiles), 8 for a
+//   verify pass there or over 4096 keys, 16 at B 1 or at gemma-2b's one
+//   KV head, and 1 at zamba2's 256 (sequence, KV head) pairs of one
+//   row.  One block a pair takes no cluster at all: its warps' partials
+//   meet in its own shared memory after one block barrier.
 // - The combine happens in the same launch, through distributed shared
 //   memory: every warp writes its rows' (m, l, acc) straight into the
 //   shared memory of the block that owns the row (row r: block r % cl),
@@ -66,8 +66,9 @@
 //   dtype by 16-byte cp.async, 64 keys a tile, in a ring of 3 stages (2 in
 //   fp32), each key finding its page through the table (or its dense row).
 //   Keys at or past the block's end are not loaded but zero-filled, and
-//   masked, so stale rows never reach a product.  int8 tiles widen to the compute dtype in
-//   shared memory (exactly: an int8 value fits bf16's 8 significant bits).
+//   masked, so stale rows never reach a product.  int8 tiles widen to the
+//   compute dtype in shared memory (exactly: an int8 value fits bf16's 8
+//   significant bits).
 // - Warps split a tile's keys 4 ways (up to 16 rows: one or two n8 row
 //   tiles a warp), or 2 or 1 ways with the rows split over the rest (KW
 //   key slices × 4/KW row partitions); each warp keeps its own online
@@ -81,6 +82,13 @@
 //   computed by f32 FMAs on the CUDA cores (no TF32; the 2e-5 tolerance
 //   and the fp32 golden streams need it), with the one warp layout that
 //   takes any row count past 8.
+// - D 192 and 256 (nemotron-4-340b's and gemma-2b's heads): a block keeps
+//   q in shared memory for its own rows only (8-64 by its warp layout,
+//   not always 64), the ring has 2 stages (of 32-key tiles in fp32), a
+//   warp takes one row tile, and more than 32 rows (gemma's K1 5 verify
+//   at G 8: 40) go to more row groups, each reading the KV again.  The
+//   largest block, gemma's decode over int8 pools in a cluster of 16,
+//   takes 205 KB.
 // - Measured against (`PERF.md` §6): splits of 64 keys at fixed
 //   places combined by the last block to finish through an f32 workspace
 //   and an atomic counter, 1.4-2.9x slower at every timed shape.
@@ -111,30 +119,37 @@ using flash::wg::smem_u32;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kKeys = 64;        // keys a tile
-constexpr int kMaxRows = 64;     // query rows a block (a row group)
+
+// The query rows of a block (a row group) when each warp takes NTW row
+// tiles of 8 and a tile's keys are split KW ways: 8, 16, 32 or 64.
+template <int NTW, int KW>
+constexpr int kRows = 8 * NTW * kWarps / KW;
 
 // Byte offsets of a block's shared memory.  TC is the compute dtype (the
-// q dtype), TKV the pools'.  The ring holds NS stages of K and V tiles in
-// the pools' dtype; for int8 they widen into one compute tile each.  The
-// block's slice of the page table follows (none for a dense cache), then
-// the inbox that the cluster's warps write their partials of this block's
-// rows into.  Compute
-// rows are padded by 16 bytes, so the 8 rows an ldmatrix reads start in
-// different bank groups.
-template <typename TC, typename TKV, int D>
+// q dtype), TKV the pools'; QR query rows.  The ring holds NS stages of K
+// and V tiles of KT keys in the pools' dtype; for int8 they widen into
+// one compute tile each.  Up to D 128 a tile is 64 keys in 3 stages (2 in
+// fp32); at D 192 and 256 two stages, of 32 keys in fp32, keep the block
+// within 227 KB (bf16 at D 256: 4 tiles of 33 KB, against 6 that would
+// not fit).  The block's slice of the page table follows (none for a
+// dense cache), then the inbox that the cluster's warps write their
+// partials of this block's rows into.  Compute rows are padded by 16
+// bytes, so the 8 rows an ldmatrix reads start in different bank groups.
+template <typename TC, typename TKV, int D, int QR>
 struct Layout {
   static constexpr bool kScaled = sizeof(TKV) == 1;
-  static constexpr int NS = sizeof(TC) == 2 ? 3 : 2;
+  static constexpr bool kWide = D > 128;
+  static constexpr int KT = kWide && sizeof(TC) == 4 ? 32 : 64;   // keys
+  static constexpr int NS = sizeof(TC) == 2 && !kWide ? 3 : 2;
   static constexpr int CS = D + 16 / (int)sizeof(TC);     // compute stride
   static constexpr int RS = kScaled ? D : CS;             // ring stride
   static constexpr size_t Q = 0;
-  static constexpr size_t RING = Q + (size_t)kMaxRows * CS * sizeof(TC);
-  static constexpr size_t TILE = (size_t)kKeys * RS * sizeof(TKV);
+  static constexpr size_t RING = Q + (size_t)QR * CS * sizeof(TC);
+  static constexpr size_t TILE = (size_t)KT * RS * sizeof(TKV);
   static constexpr size_t CONV = RING + NS * 2 * TILE;
   static constexpr size_t SC =
-      CONV + (kScaled ? 2 * (size_t)kKeys * CS * sizeof(TC) : 0);
-  static constexpr size_t TAB = SC + (kScaled ? NS * 2 * kKeys * 4 : 0);
+      CONV + (kScaled ? 2 * (size_t)KT * CS * sizeof(TC) : 0);
+  static constexpr size_t TAB = SC + (kScaled ? NS * 2 * KT * 4 : 0);
   // [cl·KW sources][rows a block owns][D + 2]: acc, then m and l
   static __host__ __device__ size_t INBOX(int tab) {
     return (TAB + 4 * (size_t)tab + 15) / 16 * 16;
@@ -338,13 +353,13 @@ struct Products<float, D, NTW> {
   }
 };
 
-// widens a stage's int8 K and V tiles into the compute tiles
-template <typename TC, int D>
+// widens a stage's int8 K and V tiles of KT keys into the compute tiles
+template <typename TC, int D, int KT>
 __device__ __forceinline__ void widen(const int8_t* k8, const int8_t* v8,
                                       TC* kc, TC* vc) {
   constexpr int CPR = D / 16, CS = D + 16 / (int)sizeof(TC);
-  for (int i = threadIdx.x; i < 2 * kKeys * CPR; i += kThreads) {
-    const int t = i / (kKeys * CPR), j = i % (kKeys * CPR);
+  for (int i = threadIdx.x; i < 2 * KT * CPR; i += kThreads) {
+    const int t = i / (KT * CPR), j = i % (KT * CPR);
     const int key = j / CPR, c = (j % CPR) * 16;
     const uint4 u =
         *reinterpret_cast<const uint4*>((t ? v8 : k8) + key * D + c);
@@ -375,9 +390,10 @@ __global__ void __launch_bounds__(kThreads,
                                   sizeof(TC) == 2 && D <= 64 ? 3 : 2)
     paged_attention_kernel(
     const Params p) {
-  using L = Layout<TC, TKV, D>;
+  constexpr int QR = kRows<NTW, KW>;
+  using L = Layout<TC, TKV, D, QR>;
   constexpr bool SCALED = L::kScaled, DENSE = Kind::kDense;
-  constexpr int NS = L::NS, CS = L::CS, RS = L::RS, MD = D / 16;
+  constexpr int NS = L::NS, CS = L::CS, RS = L::RS, MD = D / 16, KT = L::KT;
   extern __shared__ __align__(16) uint8_t smem[];
   TC* q_s = reinterpret_cast<TC*>(smem + L::Q);
   int* tab_s = reinterpret_cast<int*>(smem + L::TAB);
@@ -388,7 +404,7 @@ __global__ void __launch_bounds__(kThreads,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int b = blockIdx.z, h = blockIdx.y / p.RG, rg = blockIdx.y % p.RG;
-  const int r_lo = rg * kMaxRows, Rb = min(kMaxRows, p.R - r_lo);
+  const int r_lo = rg * QR, Rb = min(QR, p.R - r_lo);
   // block row r is row r_lo + r of (b, h): query token (r_lo + r) / G of
   // head h·G + (r_lo + r) % G
   auto q_row = [&](int r) {
@@ -404,7 +420,7 @@ __global__ void __launch_bounds__(kThreads,
     asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   const int valid = __ldg(p.clen + b);
   constexpr int QV = 16 / (int)sizeof(TC), QC = D / QV;
-  for (int i = tid; i < kMaxRows * QC; i += kThreads) {
+  for (int i = tid; i < QR * QC; i += kThreads) {
     const int r = i / QC, c = (i % QC) * QV;
     const bool ok = r < Rb;
     cp_async16(smem_u32(q_s + r * CS + c), ok ? q + q_row(r) * D + c : q, ok);
@@ -443,31 +459,32 @@ __global__ void __launch_bounds__(kThreads,
   auto ring = [&](int st, int t) {
     return reinterpret_cast<TKV*>(smem + L::RING + (2 * st + t) * L::TILE);
   };
-  float* sc_s = reinterpret_cast<float*>(smem + L::SC);   // [NS][2][kKeys]
+  float* sc_s = reinterpret_cast<float*>(smem + L::SC);   // [NS][2][KT]
   auto load = [&](int n, int st) {
     constexpr int VEC = 16 / (int)sizeof(TKV), CPR = D / VEC;
-    const int k0 = lo + n * kKeys;
+    const int k0 = lo + n * KT;
     TKV* kd = ring(st, 0);
     TKV* vd = ring(st, 1);
-    for (int i = tid; i < kKeys * CPR; i += kThreads) {
+    for (int i = tid; i < KT * CPR; i += kThreads) {
       const int key = i / CPR, c = (i % CPR) * VEC, pos = k0 + key;
       const bool ok = pos < hi;
       const size_t off = ok ? row_of(pos) * D + c : 0;
       cp_async16(smem_u32(kd + key * RS + c), kp + off, ok);
       cp_async16(smem_u32(vd + key * RS + c), vp + off, ok);
     }
-    if (SCALED && tid < kKeys) {
+    if (SCALED && tid < KT) {
       const int pos = k0 + tid;
       const bool ok = pos < hi;
       const size_t r = ok ? row_of(pos) : 0;
-      cp_async4(smem_u32(sc_s + st * 2 * kKeys + tid), p.ks + r, ok);
-      cp_async4(smem_u32(sc_s + (st * 2 + 1) * kKeys + tid), p.vs + r, ok);
+      cp_async4(smem_u32(sc_s + st * 2 * KT + tid), p.ks + r, ok);
+      cp_async4(smem_u32(sc_s + (st * 2 + 1) * KT + tid), p.vs + r, ok);
     }
   };
 
   // warps: KW key slices of a tile (MT m16 tiles each) times kWarps / KW
   // row partitions
-  constexpr int MT = kKeys / KW / 16;
+  constexpr int MT = KT / KW / 16;
+  static_assert(MT >= 1, "a warp's key slice is whole m16 tiles");
   const int NT = (Rb + 7) / 8;
   const int ks = warp % KW, rp = warp / KW;
   int rt[NTW], qpos[NTW][2];
@@ -494,7 +511,7 @@ __global__ void __launch_bounds__(kThreads,
       for (int e = 0; e < 4; ++e) acc[md][j][e] = 0.f;
   }
 
-  const int n_tiles = hi > lo ? (hi - lo + kKeys - 1) / kKeys : 0;
+  const int n_tiles = hi > lo ? (hi - lo + KT - 1) / KT : 0;
 #pragma unroll
   for (int s = 0; s < NS - 1; ++s) {
     if (s < n_tiles) load(s, s);
@@ -505,19 +522,19 @@ __global__ void __launch_bounds__(kThreads,
   __syncthreads();
   mm.load_q(q_s, rt);
   TC* kc = reinterpret_cast<TC*>(smem + L::CONV);
-  TC* vc = kc + kKeys * CS;
+  TC* vc = kc + KT * CS;
   for (int n = 0; n < n_tiles; ++n) {
     cp_wait<NS - 2>();                             // tile n is in
     __syncthreads();                               // and n - 1 consumed
     if (n + NS - 1 < n_tiles) load(n + NS - 1, (n + NS - 1) % NS);
     cp_commit();
-    const int st = n % NS, k0 = lo + n * kKeys;
-    const float* ksc = sc_s + st * 2 * kKeys;
-    const float* vsc = ksc + kKeys;
+    const int st = n % NS, k0 = lo + n * KT;
+    const float* ksc = sc_s + st * 2 * KT;
+    const float* vsc = ksc + KT;
     const TC* kt = reinterpret_cast<const TC*>(ring(st, 0));
     const TC* vt = reinterpret_cast<const TC*>(ring(st, 1));
     if constexpr (SCALED) {
-      widen<TC, D>(reinterpret_cast<const int8_t*>(ring(st, 0)),
+      widen<TC, D, KT>(reinterpret_cast<const int8_t*>(ring(st, 0)),
                    reinterpret_cast<const int8_t*>(ring(st, 1)), kc, vc);
       __syncthreads();
       kt = kc;
@@ -682,8 +699,10 @@ inline int cluster_size(int groups, int rows, int keys) {
 
 template <typename Kind, typename TC, typename TKV, int D, int NTW, int KW>
 cudaError_t launch(const Call& c, Params p) {
-  using L = Layout<TC, TKV, D>;
-  const int rows = p.R < kMaxRows ? p.R : kMaxRows;
+  constexpr int QR = kRows<NTW, KW>;
+  using L = Layout<TC, TKV, D, QR>;
+  p.RG = (p.R + QR - 1) / QR;
+  const int rows = p.R < QR ? p.R : QR;
   const int cl = cluster_size(c.B * c.Hkv * p.RG, rows, c.MP * c.page);
   const int share = ((c.MP * c.page + cl - 1) / cl + 15) / 16 * 16;
   p.tab = Kind::kDense ? 0 : table_slice(c.MP, share, c.page);
@@ -713,14 +732,25 @@ cudaError_t launch(const Call& c, Params p) {
 // How a block's warps share its rows: up to 8 rows one row tile a warp and
 // the keys split 4 ways; more rows two tiles a warp, the keys split 4, 2 or
 // 1 ways so that the 4 warps cover every row tile (fp32: only the last).
+// At D 192 and 256 a warp takes one row tile (its accumulators are D/4
+// floats a thread, and two tiles' would spill): the keys split 4 ways up
+// to 8 rows (bf16), 2 up to 16, else 1 way over row groups of 32.  An
+// fp32 tile of 32 keys splits at most 2 ways.
 template <typename Kind, typename TC, typename TKV, int D>
 cudaError_t by_rows(const Call& c, const Params& p) {
-  if (p.R <= 8) return launch<Kind, TC, TKV, D, 1, 4>(c, p);
-  if constexpr (sizeof(TC) == 2) {
-    if (p.R <= 16) return launch<Kind, TC, TKV, D, 2, 4>(c, p);
-    if (p.R <= 32) return launch<Kind, TC, TKV, D, 2, 2>(c, p);
+  if constexpr (D > 128) {
+    if constexpr (sizeof(TC) == 2)
+      if (p.R <= 8) return launch<Kind, TC, TKV, D, 1, 4>(c, p);
+    if (p.R <= 16) return launch<Kind, TC, TKV, D, 1, 2>(c, p);
+    return launch<Kind, TC, TKV, D, 1, 1>(c, p);
+  } else {
+    if (p.R <= 8) return launch<Kind, TC, TKV, D, 1, 4>(c, p);
+    if constexpr (sizeof(TC) == 2) {
+      if (p.R <= 16) return launch<Kind, TC, TKV, D, 2, 4>(c, p);
+      if (p.R <= 32) return launch<Kind, TC, TKV, D, 2, 2>(c, p);
+    }
+    return launch<Kind, TC, TKV, D, 2, 1>(c, p);
   }
-  return launch<Kind, TC, TKV, D, 2, 1>(c, p);
 }
 
 template <typename Kind, typename TC, int D>
@@ -737,6 +767,8 @@ cudaError_t by_dim(const Call& c, const Params& p) {
     case 32: return by_kv<Kind, TC, 32>(c, p);
     case 64: return by_kv<Kind, TC, 64>(c, p);
     case 128: return by_kv<Kind, TC, 128>(c, p);
+    case 192: return by_kv<Kind, TC, 192>(c, p);
+    case 256: return by_kv<Kind, TC, 256>(c, p);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -763,8 +795,7 @@ int run(const Call& c) {
   p.Hq = c.Hq;
   p.Hkv = c.Hkv;
   p.G = c.Hq / c.Hkv;
-  p.R = c.K1 * p.G;
-  p.RG = (p.R + kMaxRows - 1) / kMaxRows;
+  p.R = c.K1 * p.G;      // row groups: by the block's rows, at launch
   p.page = c.page;
   p.MP = c.MP;
   p.window = c.window;

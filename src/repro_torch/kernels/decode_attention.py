@@ -21,7 +21,7 @@ from repro_torch.kernels.flash_attention import (_DTYPE_CODE, _aligned,
                                                  _int32, _ptr, refuse_grad)
 
 # the head dims the kernel instantiates (csrc/paged_attention.cuh)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 192, 256)
 _fn = None
 
 

@@ -17,9 +17,10 @@ import torch
 from repro_torch.kernels import build
 
 # The head dims the forward kernel instantiates: 48 for fig 3's apps and
-# 80 for hubert-xlarge beside the decoders' 32, 64 and 128.  Each kernel
-# wrapper keeps its own set.
-HEAD_DIMS = (32, 48, 64, 80, 128)
+# 80 for hubert-xlarge beside the decoders' 32, 64 and 128, 192
+# (nemotron-4-340b) and 256 (gemma-2b).  Each kernel wrapper keeps its
+# own set.
+HEAD_DIMS = (32, 48, 64, 80, 128, 192, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 

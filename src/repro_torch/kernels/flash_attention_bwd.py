@@ -14,8 +14,11 @@ both is ``kernels.ref.flash_attention_bwd``.
 grad mode is on and an input needs a gradient, asks it for ``lse`` and
 saves what the backward recomputes from; its backward launches the dq
 and dk/dv kernels (on the CPU their plain version).  The backward
-kernels take every head dim the forward does (32, 48, 64, 80, 128), so
-a grad-mode forward always has its backward.
+kernels take the forward's head dims up to 128 (32, 48, 64, 80, 128);
+the forward's 192 and 256 (serving nemotron-4-340b and gemma-2b) have
+no backward yet (ROADMAP Queue B part 1), so on the card a grad-mode
+call at those widths raises before the forward runs: a grad-mode
+forward always has its backward.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ from repro_torch.kernels.flash_attention import (_DTYPE_CODE, _aligned,
 from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_fwd
 
-# the head dims the dq and dk/dv kernels instantiate: the forward's
+# the head dims the dq and dk/dv kernels instantiate: the forward's up to
+# 128
 HEAD_DIMS = (32, 48, 64, 80, 128)
 _fns = {}
 
@@ -203,5 +207,9 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and valid lengths get no gradient."""
     save = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
+    if save and q.is_cuda and q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[-1]}: the backward kernels "
+                         f"take {HEAD_DIMS} (ROADMAP Queue B part 1); "
+                         f"call it under torch.no_grad() to serve")
     return _FlashMHA.apply(q, k, v, save, causal, window, softcap,
                            q_positions, kv_positions, kv_valid_len, sm_scale)

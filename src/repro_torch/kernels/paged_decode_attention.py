@@ -22,8 +22,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (_aligned, _int32, _ptr,
                                                  refuse_grad)
 
-# the head dims the kernel instantiates (csrc/paged_attention.cuh)
-HEAD_DIMS = (32, 64, 128)
+# the head dims the kernel instantiates (csrc/paged_attention.cuh); the
+# verify kernel takes the same
+HEAD_DIMS = (32, 64, 128, 192, 256)
 _Q_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 

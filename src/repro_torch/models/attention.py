@@ -8,7 +8,11 @@ return a new pool or cache and donate the old one; the effect is the
 same).  Page 0 of every pool is the allocator's trash page.  The dense
 cache serves the speculative draft model and the dense slot plane (with
 its staging cache for chunked prefill); MLA and sliding-window attention
-are not ported.
+are not ported.  The projections carry the JAX options: biases
+(``attn_bias``: ``b_q [H, hd]``, ``b_k``/``b_v [Hkv, hd]``, ``b_o [d]``)
+and an RMSNorm of q and k over the head dim (``qk_norm``: ``q_norm``,
+``k_norm [hd]``) between the biases and RoPE; every path (train, paged,
+dense and verify) goes through ``_qkv`` and ``_out_proj``.
 """
 from __future__ import annotations
 
@@ -20,21 +24,32 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gather_pages
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm_simple
 
 Pool = Dict[str, torch.Tensor]
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig):
+    """The JAX leaves (``attention.py:61-69``): zero biases and unit
+    qk-norm scales where the config has them."""
     d, hd = cfg.d_model, cfg.head_dim_
-    dt = cfg.pdtype
-    return {
+    dt, dev = cfg.pdtype, gen.device
+    p = {
         "w_q": dense_init(gen, (d, cfg.num_heads, hd), dt),
         "w_k": dense_init(gen, (d, cfg.num_kv_heads, hd), dt),
         "w_v": dense_init(gen, (d, cfg.num_kv_heads, hd), dt),
         "w_o": dense_init(gen, (cfg.num_heads, hd, d), dt,
                           fan_in=cfg.num_heads * hd),
     }
+    if cfg.attn_bias:
+        p["b_q"] = torch.zeros((cfg.num_heads, hd), dtype=dt, device=dev)
+        p["b_k"] = torch.zeros((cfg.num_kv_heads, hd), dtype=dt, device=dev)
+        p["b_v"] = torch.zeros((cfg.num_kv_heads, hd), dtype=dt, device=dev)
+        p["b_o"] = torch.zeros((d,), dtype=dt, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dt, device=dev)
+        p["k_norm"] = torch.ones((hd,), dtype=dt, device=dev)
+    return p
 
 
 def init_paged_pool(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -84,10 +99,19 @@ def _proj(x, w, dt):
 
 
 def _qkv(params, x, cfg: ModelConfig, positions):
+    """The JAX order (``attention.py:140-150``): projections, biases, the
+    qk RMSNorm over the head dim, RoPE; each step in the compute dtype."""
     dt = cfg.cdtype
     q = _proj(x, params["w_q"], dt)
     k = _proj(x, params["w_k"], dt)
     v = _proj(x, params["w_v"], dt)
+    if cfg.attn_bias:
+        q = q + params["b_q"].to(dt)
+        k = k + params["b_k"].to(dt)
+        v = v + params["b_v"].to(dt)
+    if cfg.qk_norm:
+        q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm_simple(k, params["k_norm"], cfg.norm_eps)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -95,9 +119,12 @@ def _qkv(params, x, cfg: ModelConfig, positions):
 
 
 def _out_proj(params, o, cfg: ModelConfig):
-    """einsum("bthk,hkd->btd")."""
+    """einsum("bthk,hkd->btd"), then ``b_o`` (JAX ``attention.py:156``)."""
     H, hd, d = params["w_o"].shape
-    return o.flatten(-2) @ params["w_o"].to(cfg.cdtype).reshape(H * hd, d)
+    out = o.flatten(-2) @ params["w_o"].to(cfg.cdtype).reshape(H * hd, d)
+    if cfg.attn_bias:
+        out = out + params["b_o"].to(cfg.cdtype)
+    return out
 
 
 # ---------------------------------------------------------------------------

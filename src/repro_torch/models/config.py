@@ -257,14 +257,22 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for the architecture features the port has not reached.
 
-    Ported: the dense decoder and the hybrid with full attention, the
+    Ported: the dense decoder (RMSNorm or LayerNorm, parallel blocks,
+    qk-norm, attention biases, the ``vq_tokens`` frontend: token ids in a
+    shared vocabulary) and the hybrid with full attention, the
     attention-free SSM family (Mamba2), and the encoder-only family
-    (LayerNorm, the ``audio_frames`` frontend, non-causal attention); the
-    rest waits on the ROADMAP items named in each message."""
+    (LayerNorm, the ``audio_frames`` frontend, non-causal attention).  MoE,
+    sliding-window attention and MLA wait on the ROADMAP items named in
+    their messages; an encoder or a decoder in a combination that no
+    registered config uses is refused as such."""
+    if cfg.attn_type == "mla":
+        raise NotImplementedError(
+            "attn_type 'mla' (DeepSeek's latent attention) is not ported "
+            "yet (ROADMAP Queue A item 11.4)")
     if cfg.family not in ("dense", "ssm", "hybrid", "encoder"):
         raise NotImplementedError(
             f"family {cfg.family!r}: only the dense decoder, ssm, hybrid "
-            "and encoder are ported (ROADMAP Queue A item 11.3)")
+            "and encoder are ported (MoE: ROADMAP Queue A item 11.3)")
     if cfg.encoder_only != (cfg.family == "encoder"):
         raise NotImplementedError(
             f"encoder_only={cfg.encoder_only} with family {cfg.family!r}: "
@@ -274,28 +282,18 @@ def check_ported(cfg: ModelConfig) -> None:
                                 or cfg.sliding_window > 0):
         raise NotImplementedError(
             f"attn_type {cfg.attn_type!r} / sliding_window "
-            f"{cfg.sliding_window}: only full attention is ported "
-            "(ROADMAP Queue A item 11)")
-    if cfg.parallel_block:
-        raise NotImplementedError(
-            "parallel_block (command-r's parallel attention + MLP) is not "
-            "ported yet (ROADMAP Queue A item 11.2)")
-    if cfg.qk_norm or cfg.attn_bias:
-        raise NotImplementedError(
-            "qk_norm and attention biases are not ported yet (ROADMAP "
-            "Queue A item 11.2)")
+            f"{cfg.sliding_window}: sliding-window attention is not ported "
+            "yet (ROADMAP Queue A item 11.3)")
     if cfg.family == "encoder":
         if cfg.norm != "layernorm" or cfg.frontend != "audio_frames":
             raise NotImplementedError(
                 f"an encoder with norm {cfg.norm!r} and frontend "
-                f"{cfg.frontend!r}: only LayerNorm over audio_frames "
-                "features is ported (ROADMAP Queue A item 11.2)")
+                f"{cfg.frontend!r}: no registered config has one, so the "
+                "port runs encoders with LayerNorm over audio_frames "
+                "features only")
         return
-    if cfg.norm != "rmsnorm":
+    if cfg.frontend not in ("none", "vq_tokens"):
         raise NotImplementedError(
-            f"norm {cfg.norm!r} in a {cfg.family} model: LayerNorm "
-            "decoders are not ported yet (ROADMAP Queue A item 11.2)")
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"frontend {cfg.frontend!r} in a {cfg.family} model is not "
-            "ported yet (vq_tokens: ROADMAP Queue A item 11.2)")
+            f"frontend {cfg.frontend!r} in a {cfg.family} model: no "
+            "registered config has one, so the port's decoders take token "
+            "ids only (frontend 'none' or 'vq_tokens')")

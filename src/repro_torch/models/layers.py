@@ -30,17 +30,20 @@ from repro_torch.models.config import ModelConfig
 # ---------------------------------------------------------------------------
 
 def dense_init(gen: torch.Generator, shape, dtype, fan_in: Optional[int] = None):
+    """N(0, 1/fan_in) drawn in f32 and scaled in place (one f32 copy of
+    the leaf at a time: nemotron-4-340b's head is 18.9 GB of it), then
+    cast to ``dtype``."""
     fan = fan_in if fan_in is not None else shape[0]
     std = 1.0 / math.sqrt(max(fan, 1))
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype):
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (x * 0.02).to(dtype)
+    return x.mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------

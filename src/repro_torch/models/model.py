@@ -18,8 +18,10 @@ serving and training paths.
                                       last_index)
     logits = model.decode(params, tokens, caches, cache_len)
 
-Inputs per frontend, as in JAX: ``none`` takes ``batch["tokens"]`` (and
-``labels``); ``audio_frames`` (the encoders) takes ``batch["features"]``
+Inputs per frontend, as in JAX: ``none`` and ``vq_tokens`` (chameleon's
+VQ image tokens, already ids in the shared vocabulary: JAX
+``model.py:12``) take ``batch["tokens"]`` (and ``labels``);
+``audio_frames`` (the encoders) takes ``batch["features"]``
 [B, T, F], ``targets`` [B, T] and an optional ``mask`` [B, T] (HuBERT's
 masked prediction: masked frames read ``mask_embed``).
 

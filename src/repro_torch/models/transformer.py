@@ -1,7 +1,8 @@
 """Block stacks of ``repro.models.transformer`` for the ported families.
 
 Layouts (the JAX ones):
-  dense / encoder : L × [attn + MLP] (the encoder's attention non-causal)
+  dense / encoder : L × [attn + MLP] (the encoder's attention non-causal;
+           with ``parallel_block`` one norm feeds both, x + attn + MLP)
   ssm    : L × [mamba2]
   hybrid : ⌊L/e⌋ super-blocks of (e × mamba2, then one application of a
            shared attn+MLP block) + (L mod e) trailing mamba2 blocks.
@@ -36,10 +37,13 @@ Params = Dict[str, Any]
 
 
 def init_attn_block(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    return {"attn": attention.init_attention(gen, cfg),
-            "norm1": init_norm(cfg, gen.device),
-            "norm2": init_norm(cfg, gen.device),
-            "mlp": init_mlp(gen, cfg)}
+    """A parallel block has no ``norm2`` (JAX ``transformer.py:46``)."""
+    p = {"attn": attention.init_attention(gen, cfg),
+         "norm1": init_norm(cfg, gen.device)}
+    if not cfg.parallel_block:
+        p["norm2"] = init_norm(cfg, gen.device)
+    p["mlp"] = init_mlp(gen, cfg)
+    return p
 
 
 def _stack(trees):
@@ -146,7 +150,9 @@ def attn_block(bp: Params, x, cfg: ModelConfig, *, positions, mode: str,
                chunked: bool = False, kernel_norm: bool = False):
     """One block; ``cache`` is this layer's page pool when ``page_table``
     is given, else its dense cache (``None`` in train mode).  A
-    ``chunked`` prefill resumes the dense cache's prefix."""
+    ``chunked`` prefill resumes the dense cache's prefix.  A parallel
+    block (command-r) adds the attention and the MLP of the same normed
+    input to x (JAX ``transformer.py:94-96``)."""
     h = apply_norm(bp["norm1"], x, cfg, kernel=kernel_norm)
     p = bp["attn"]
     if mode == "verify":
@@ -168,6 +174,8 @@ def attn_block(bp: Params, x, cfg: ModelConfig, *, positions, mode: str,
         attn_out = attention.attend(p, h, cfg, positions=positions,
                                     causal=not cfg.encoder_only,
                                     cache=cache)
+    if cfg.parallel_block:
+        return x + attn_out + apply_mlp(bp["mlp"], h, cfg)
     x = x + attn_out
     h2 = apply_norm(bp["norm2"], x, cfg, kernel=kernel_norm)
     return x + apply_mlp(bp["mlp"], h2, cfg)

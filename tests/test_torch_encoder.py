@@ -15,9 +15,12 @@ the JAX package, on the same inputs made from a numpy seed, on the CPU:
 - ``examples/hybrid_edge_serving.py``'s scenario (4 workers, 2 CV and 2
   stream replicas, 6 frames, a node failure, a scale-up) through both
   packages' ``EdgeSystem``: the same placements, events and predictions;
-- the gates: ``check_ported`` refuses ``parallel_block``, ``qk_norm`` and
-  attention biases (item 11.2), the engine refuses an encoder with a
-  ``ValueError``, and the container's prefill/decode refuse it too.
+- the gates: ``check_ported`` takes ``parallel_block``, ``qk_norm`` and
+  attention biases on a decoder and an encoder (logits equal to JAX's)
+  and refuses MoE and sliding-window attention (item 11.3), MLA (item
+  11.4) and combinations no registered config has; the engine refuses an
+  encoder with a ``ValueError``, and the container's prefill/decode
+  refuse it too.
 
 Tolerances: 2e-5 (fp32) and 3.5e-2 (bf16) for the norm and attention,
 relative to the largest output; 2e-4 for logits and losses (the two
@@ -349,37 +352,74 @@ def test_hybrid_edge_scenario_matches_jax():
 @pytest.mark.parametrize("over", [dict(parallel_block=True),
                                   dict(qk_norm=True), dict(attn_bias=True)])
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "edge-cv-heavy"])
-def test_check_ported_refuses_item_11_2_features(arch, over):
-    """``parallel_block`` (command-r) is refused explicitly: before this
-    gate a LayerNorm model with it reached the stack untested."""
-    cfg = dataclasses.replace(get_config(arch), **over)
-    with pytest.raises(NotImplementedError, match=r"item 11\.2"):
-        check_ported(cfg)
-    with pytest.raises(NotImplementedError, match=r"item 11\.2"):
-        Model(cfg, "cpu")
+def test_check_ported_accepts_item_11_2_features(arch, over):
+    """``parallel_block`` (command-r), ``qk_norm`` (chameleon) and
+    attention biases, on a decoder and on an encoder: accepted, and the
+    logits from the JAX parameters (their zero biases and unit scales
+    seeded nonzero) equal JAX's.  ``tests/test_torch_dense_variants.py``
+    serves the registered archs that have them."""
+    jcfg, tcfg = _cfgs(arch, **over)
+    check_ported(tcfg)
+    flat = golden.seeded(jax_build(jcfg).init(jax.random.key(7)), 7)
+    jp, tp = jax.tree.map(jnp.asarray, flat), from_numpy_tree(flat, tcfg,
+                                                             "cpu")
+    if tcfg.encoder_only:
+        feats = _batch(jcfg)[0]
+        want, _ = jax_build(jcfg).forward(jp, {"features":
+                                               jnp.asarray(feats)})
+        batch = {"features": torch.as_tensor(feats)}
+    else:
+        tokens = np.random.default_rng(3).integers(0, jcfg.vocab_size,
+                                                   size=(2, 24))
+        want, _ = jax_build(jcfg).forward(jp, {"tokens":
+                                               jnp.asarray(tokens)})
+        batch = {"tokens": torch.as_tensor(tokens)}
+    with torch.no_grad():
+        got = Model(tcfg, "cpu").forward(tp, batch)
+    assert _rel(want, got) < LOGIT_TOL
 
 
-def test_check_ported_refuses_unported_encoder_and_decoder_variants():
+def test_check_ported_refuses_moe_swa_mla_and_unused_variants():
+    """MoE and sliding-window attention name item 11.3, MLA item 11.4
+    (their registered archs too, by ``get_config``); an encoder without
+    LayerNorm or ``audio_frames`` and a decoder with ``audio_frames`` are
+    combinations no registered config has; ``encoder_only`` belongs to
+    the encoder family.  The four dense variants pass."""
     cv = get_config("edge-cv-heavy")
-    command_r_like = dataclasses.replace(get_config("tinyllama-1.1b"),
-                                         norm="layernorm")
+    tiny = get_config("tinyllama-1.1b")
+    for arch, item in (("mixtral-8x7b", r"item 11\.3"),
+                       ("deepseek-v2-236b", r"item 11\.4")):
+        with pytest.raises(KeyError, match=item):
+            get_config(arch)
+        with pytest.raises(NotImplementedError, match=item):
+            check_ported(ModelConfig.from_dict(jax_config(arch).to_dict()))
+    for over, item in ((dict(sliding_window=8), r"item 11\.3"),
+                       (dict(attn_type="swa", sliding_window=64),
+                        r"item 11\.3"),
+                       (dict(family="moe"), r"item 11\.3"),
+                       (dict(attn_type="mla"), r"item 11\.4")):
+        for cfg in (dataclasses.replace(tiny, **over),
+                    dataclasses.replace(cv, **over)):
+            with pytest.raises(NotImplementedError, match=item):
+                check_ported(cfg)
+            with pytest.raises(NotImplementedError, match=item):
+                Model(cfg, "cpu")
     for cfg in (dataclasses.replace(cv, norm="rmsnorm"),
                 dataclasses.replace(cv, frontend="none"),
-                command_r_like,
-                dataclasses.replace(get_config("tinyllama-1.1b"),
-                                    frontend="vq_tokens")):
-        with pytest.raises(NotImplementedError, match=r"item 11\.2"):
+                dataclasses.replace(tiny, frontend="audio_frames")):
+        with pytest.raises(NotImplementedError,
+                           match="no registered config"):
             check_ported(cfg)
     for cfg in (dataclasses.replace(cv, encoder_only=False),
-                dataclasses.replace(get_config("tinyllama-1.1b"),
-                                    encoder_only=True)):
+                dataclasses.replace(tiny, encoder_only=True)):
         with pytest.raises(NotImplementedError, match="item 11"):
             check_ported(cfg)
-    for arch in ("command-r-35b", "nemotron-4-340b", "chameleon-34b"):
-        with pytest.raises(KeyError, match="not ported"):
-            get_config(arch)
-        with pytest.raises(NotImplementedError, match=r"item 11\.2"):
-            check_ported(ModelConfig.from_dict(jax_config(arch).to_dict()))
+    for arch in ("gemma-2b", "command-r-35b", "chameleon-34b",
+                 "nemotron-4-340b"):
+        check_ported(get_config(arch))
+    for cfg in (dataclasses.replace(tiny, norm="layernorm"),
+                dataclasses.replace(tiny, frontend="vq_tokens")):
+        check_ported(cfg)
 
 
 @pytest.mark.parametrize("arch", ENCODERS)

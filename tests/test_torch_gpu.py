@@ -118,6 +118,53 @@ DECODE_GPU_CASES = [
     (1, 4, 2, 64, 128, 0, 0.0, [77]),
     (1, 4, 2, 64, 128, 0, 0.0, [128]),
 ]
+# head dims 192 (nemotron-4-340b) and 256 (gemma-2b), which the flash
+# forward and the three paged-template kernels take since the dense
+# variants; test_torch_dense_variants.py runs the same cases' plain
+# versions against JAX.  Flash: gemma's G 8 over one KV head, nemotron's
+# G 12, G 1 non-causal, a window, a softcap, ragged valid lengths and
+# Tq < Tk.
+WIDE_FLASH_CASES = [
+    # B, Tq, Tk, Hq, Hkv, D, causal, window, softcap, valid
+    (1, 64, 64, 8, 1, 256, True, 0, 0.0, False),
+    (2, 70, 70, 8, 1, 256, True, 0, 0.0, True),
+    (1, 40, 40, 4, 4, 256, False, 0, 0.0, False),
+    (2, 64, 64, 8, 1, 256, True, 16, 30.0, False),
+    (1, 48, 96, 8, 1, 256, True, 0, 0.0, False),
+    (1, 64, 64, 12, 1, 192, True, 0, 0.0, False),
+    (2, 70, 70, 12, 1, 192, True, 0, 0.0, True),
+    (1, 40, 40, 4, 4, 192, False, 0, 0.0, False),
+    (2, 64, 64, 24, 2, 192, True, 16, 30.0, False),
+]
+# paged decode: gemma's serving shape (B 8, G 8 over MP 64), nemotron's
+# (G 12 on 8 KV heads), B 2-3 (clusters of 16 blocks), a window, softcap
+WIDE_PAGED_CASES = [
+    # B, Hq, Hkv, D, page, MP, num_pages, window, softcap
+    (8, 8, 1, 256, 16, 64, 520, 0, 0.0),
+    (8, 96, 8, 192, 16, 64, 520, 0, 0.0),
+    (2, 8, 1, 256, 16, 4, 11, 0, 20.0),
+    (3, 12, 1, 192, 16, 8, 30, 40, 0.0),
+    (1, 4, 4, 256, 32, 4, 9, 48, 0.0),
+]
+# verify: K1 1, 2 and 5 at gemma's G 8 (8, 16 and 40 rows: one row
+# group of 8, one of 16, two of 32), K1 8 (64 rows), nemotron's G 12 at
+# K1 3 with a window
+WIDE_VERIFY_CASES = [
+    # B, K1, Hq, Hkv, D, page, MP, num_pages, softcap, window
+    (2, 1, 8, 1, 256, 16, 8, 30, 0.0, 0),
+    (2, 2, 8, 1, 256, 16, 4, 11, 20.0, 0),
+    (8, 5, 8, 1, 256, 16, 64, 520, 0.0, 0),
+    (2, 8, 8, 1, 256, 16, 6, 15, 0.0, 0),
+    (2, 3, 12, 1, 192, 16, 6, 15, 0.0, 24),
+]
+# dense decode: the gemma draft's G 8, nemotron's G 12, G 1 with a window
+WIDE_DECODE_CASES = [
+    # B, Hq, Hkv, D, S, window, softcap
+    (8, 8, 1, 256, 1024, 0, 0.0),
+    (3, 12, 1, 192, 100, 0, 0.0),
+    (2, 8, 1, 256, 96, 40, 20.0),
+    (1, 4, 4, 192, 70, 16, 0.0),
+]
 # the SSD scan: T 1, 63, 64, 100, 257 and 511 around the chunk and the
 # kernel's 64-row tiles (its bounds mask stands in for the JAX padding),
 # chunk 100 (a partial second tile), P 16/32/64, N 16/32/64/128, groups 1
@@ -381,7 +428,7 @@ def test_decode_kernel_serving_shapes(case, dtype, cuda):
     assert bool((got[empty] == 0).all())
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 192, 256])
 @pytest.mark.parametrize("G", [1, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_every_head_dim(D, G, dtype, cuda):
@@ -413,6 +460,69 @@ def test_decode_kernel_equals_paged_over_one_page(B, G, dtype, cuda):
         torch.cuda.synchronize()
         assert _rel(paged, dense) < TOL[dtype]
         assert torch.equal(dense, paged)
+
+
+@pytest.mark.parametrize("case", WIDE_FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_flash_kernel_matches_plain(case, dtype, cuda):
+    """D 192 and 256: three and two warpgroups a block in bf16, each
+    with its own output columns."""
+    test_flash_kernel_matches_plain(case, dtype, cuda)
+
+
+@pytest.mark.parametrize("case", WIDE_PAGED_CASES)
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_paged_kernel_matches_plain(case, int8, dtype, cuda):
+    """D 192 and 256: two ring stages (32-key tiles in fp32), one row
+    tile a warp; B 2-3 over one KV head takes clusters of 16 blocks."""
+    if int8:
+        test_paged_kernel_int8_matches_plain(case, dtype, cuda)
+    else:
+        test_paged_kernel_matches_plain(case, dtype, cuda)
+
+
+@pytest.mark.parametrize("case", WIDE_VERIFY_CASES)
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_verify_kernel_matches_plain(case, int8, dtype, cuda):
+    """More than 32 rows (K1 5 and 8 at G 8, K1 3 at G 12) take row
+    groups of 32 at D 192 and 256."""
+    test_verify_kernel_matches_plain(case, int8, dtype, cuda)
+
+
+@pytest.mark.parametrize("case", WIDE_DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_decode_kernel_matches_plain(case, dtype, cuda):
+    test_decode_kernel_matches_plain(case, dtype, cuda)
+
+
+@pytest.mark.parametrize("D", [192, 256])
+def test_backward_still_refuses_wide_head_dims(D, cuda):
+    """The flash forward takes D 192 and 256 for serving; the dq and
+    dk/dv kernels do not (ROADMAP Queue B part 1): their wrappers raise,
+    and so does a grad-mode ``flash_mha`` before its forward launches."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q = torch.randn(1, 64, 8, D, generator=g, device=cuda) \
+        .to(torch.bfloat16)
+    k = torch.randn(1, 64, 1, D, generator=g, device=cuda) \
+        .to(torch.bfloat16)
+    lse = torch.zeros(1, 64, 8, device=cuda)
+    for kernel in (fab.flash_attention_bwd_dq, fab.flash_attention_bwd_dkv):
+        with pytest.raises(ValueError, match="head dim"):
+            kernel(q, k, k, lse, q, lse)
+    from repro_torch.kernels import flash_attention as fa
+
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="head dim"):
+        fab.flash_mha(q.clone().requires_grad_(), k, k)
+    assert fa.flash_attention.launches == before
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, k)
+    torch.cuda.synchronize()
+    assert _rel(ref.mha(q, k, k), out) < TOL[torch.bfloat16]
 
 
 def test_decode_kernel_takes_cuda_tensors_only():

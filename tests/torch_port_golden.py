@@ -44,6 +44,15 @@ each step's loss and grad norm, and the final parameters.
 ``chip_smoke.py`` replays them on the card through the flash forward and
 backward kernels.
 
+The dense variants ride along (``dense_<arch>_*``): reduced fp32
+``gemma-2b`` at head dim 256, ``command-r-35b`` (LayerNorm, parallel
+blocks), ``chameleon-34b`` (qk-norm, ``vq_tokens``) and
+``nemotron-4-340b`` at head dim 192 (LayerNorm, relu2), each from
+``Model.init`` with its zero biases and unit norm scales replaced by
+seeded nonzero values (``seeded``), the JAX engine's streams for the
+waves and each prompt's last-position logits.  ``chip_smoke.py`` replays
+them on the card through the kernels at head dims 256 and 192.
+
 The same waves are served again speculatively, with a random 1-layer,
 1-head draft (seed 0, ``spec_k_max=3``), once over pages in the compute
 dtype (``spec_streams_auto``) and once over int8 pages
@@ -86,6 +95,14 @@ TRAIN_MODEL = dict(num_layers=2, d_model=64, head_dim=32, d_ff=128,
 TRAIN = dict(batch=8, seq=32, seed=3, steps=5,
              adamw=dict(lr=3e-3, grad_clip_norm=1.0),
              sched=dict(warmup_steps=5, decay_steps=200))
+# reduced, at the real head dims where the CUDA kernels gained them
+DENSE_VARIANTS = {"gemma-2b": dict(head_dim=256), "command-r-35b": {},
+                  "chameleon-34b": {}, "nemotron-4-340b": dict(head_dim=192)}
+# leaves that init makes zero or one, which a test could not tell from
+# missing: biases (and LayerNorm's) and norm scales
+_SEEDED = {"b_q": 0.0, "b_k": 0.0, "b_v": 0.0, "b_o": 0.0, "bias": 0.0,
+           "b_up": 0.0, "b_down": 0.0, "q_norm": 1.0, "k_norm": 1.0,
+           "scale": 1.0}
 
 
 def _prompts():
@@ -95,6 +112,24 @@ def _prompts():
             np.concatenate([base[:35], rng.integers(0, 256, size=6)]),
             rng.integers(0, 256, size=23),
             rng.integers(0, 256, size=5)]
+
+
+def seeded(params, seed: int) -> dict:
+    """A float32 numpy copy of a params tree whose zero biases and unit
+    norm scales (``_SEEDED``) are replaced by seeded nonzero values
+    (``init + 0.1·N(0, 1)``), so that a comparison can see them."""
+    rng = np.random.default_rng(seed)
+
+    def walk(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k], k) for k in sorted(tree)}
+        a = np.asarray(tree, np.float32)
+        if key in _SEEDED:
+            a = (_SEEDED[key] + 0.1 * rng.standard_normal(a.shape)) \
+                .astype(np.float32)
+        return a
+
+    return walk(params)
 
 
 def _serve(eng, prompts):
@@ -243,6 +278,33 @@ def _encoder() -> dict:
     return out
 
 
+def _dense_variants() -> dict:
+    """The dense variants' streams and logits of the module docstring."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_reduced_config
+    from repro.models.model import build_model
+    from repro.serving.engine import ServingEngine
+
+    out = {}
+    for i, (arch, over) in enumerate(DENSE_VARIANTS.items()):
+        cfg = dataclasses.replace(get_reduced_config(arch, **over),
+                                  compute_dtype="float32")
+        params = jax.tree.map(jnp.asarray, seeded(
+            build_model(cfg).init(jax.random.key(i)), seed=i))
+        eng = ServingEngine(cfg, params=params, **ENGINE)
+        pre = f"dense_{arch}_"
+        out[pre + "config"] = np.array(json.dumps(cfg.to_dict(),
+                                                  sort_keys=True))
+        out[pre + "streams"] = _serve(eng, _prompts())
+        out[pre + "first_logits"] = np.stack([np.asarray(eng.model.forward(
+            params, {"tokens": jnp.asarray(p[None], jnp.int32)})[0])[0, -1]
+            for p in _prompts()]).astype(np.float32)
+        out.update(_flat_params(pre + "params/", params))
+    return out
+
+
 def make() -> dict:
     """Regenerate the fixture's arrays with the JAX package."""
     import jax
@@ -290,6 +352,7 @@ def make() -> dict:
     out.update(_train())
     out.update(_stateful())
     out.update(_encoder())
+    out.update(_dense_variants())
     return out
 
 
