@@ -37,7 +37,12 @@ continues:
    tail; paged decode at B 8 over MP 64 for both, on bf16 and int8 pools;
    verify at K1 1, 2 and 5 at D 256; the gemma draft's dense decode (G 8,
    D 256) with lengths of 0, S and past S, each timed shape against SDPA,
-   and checked with lengths of 0, of S and past S), flash attention
+   and checked with lengths of 0, of S and past S), and at mixtral-8x7b's
+   (phase 3h): flash over a 4608-token prompt under the 4096-key window
+   (B 1, Hq 32, Hkv 8, D 128; also 4600 tokens, and 4200 with 4100
+   valid) and the dense decode kernel over 8 rings of 4096 at G 4, full
+   or wrapped (lengths past S), both timed against SDPA with the explicit
+   windowed or length mask, and rings filling; flash attention
    non-causal at G 1 at the encoders' shapes, each timed against one
    non-causal SDPA: the cv frame (B 1, T 32, 12 heads of 64), a hubert
    batch (B 8, T 500, 16 heads of 80) and fig 3's widest app (B 1, T 64,
@@ -100,6 +105,18 @@ continues:
    nemotron-4-340b (2 of 96) at full width with bf16 parameters, 4
    requests of 4-511 tokens and 16 new tokens each, launches exact, peak
    memory printed;
+3h. mixtral-8x7b (after 3g): 8 of its 32 layers at full width (d 4096,
+   32 heads of 128 over 8 KV heads, 8 experts of 14336, top 2, window
+   4096), bf16 parameters, random weights from a seed, on the dense-slot
+   plane (8 slots, max_seq 8192, rings of 4096): 10 prompts of 4-511
+   tokens and one of 4600, 32 new tokens each, each prompt prefilled once
+   at its exact length; every request completes, flash launched 8 x the
+   prefills and the dense decode kernel 8 x the decode steps; tokens/s,
+   TTFT, tick walls, peak memory and a profiled decode tick with the MoE
+   dispatch's, expert FFN's and combine's device time; then a 2-layer
+   fp32 mixtral at full width (capacity factor 8, no drops) serves a
+   4600-token prompt plus 16 tokens through the ring wrap, each token the
+   argmax of one ``Model.forward`` over the whole sequence;
 3d. the edge system: ``EdgeSystem`` with two logical nodes on cuda:0
    (half of the card's memory each, ``LeastLoadedPolicy``), the standard
    builders over full-width edge-cv-heavy (heavy, the paper's CV
@@ -159,7 +176,10 @@ continues:
    speculative and dense-slot (reduced mamba2 and zamba2), and the dense
    variants' (reduced gemma-2b at head dim 256, command-r-35b,
    chameleon-34b, nemotron-4-340b at head dim 192, with their last-token
-   logits within 2e-4), reproduced by the port on the card in fp32, and
+   logits within 2e-4) and reduced mixtral-8x7b's (prompts past its
+   window of 32 on dense slots, the default capacity factor, through the
+   windowed flash and the dense decode kernels), reproduced by the port
+   on the card in fp32, and
    the JAX encoder logits of reduced
    edge-cv-heavy at head dims 48 and 80 through the fp32 flash kernel
    (within 2e-4 relative, argmax equal, the masked loss within 2e-4);
@@ -194,10 +214,12 @@ continues:
    per request for serving, per step for training (tinyllama's and
    hubert-xlarge's), per dispatch on the
    edge path, per request on the fleet, per batch for hubert, per request
-   of each dense variant's path; the SSD scan and RMSNorm from mamba2's
-   serve, the dense
-   decode kernel from the speculative and zamba2's serves and the edge
-   path; flash attention's times at the serving
+   of each dense variant's path and of mixtral's; the SSD scan and
+   RMSNorm from mamba2's serve, the dense
+   decode kernel from the speculative, zamba2's and mixtral's serves and
+   the edge path; a timed shape named after a serving path (``@mixtral``)
+   with that path's launches per 10 requests; flash attention's times at
+   the serving
    chunk, and as ``train_*`` at the train shape, the encoders' shapes
    under ``also_timed``; other timed shapes under
    ``also_timed``, the launch floor, the stitched scans' final-state
@@ -909,6 +931,17 @@ def phase_kernels(torch, timer, card):
              None),
             (f"D{D} Tq64/Tk64 forward", 64, 64, 0, 64,
              dict(hd, explicit_kv_pos=True), None)]
+    # mixtral-8x7b's monolithic prefill (phase 3h): a prompt of 4608
+    # tokens under the 4096-key window (G 4, D 128), the key positions
+    # explicit as ``attend`` passes them, timed against SDPA with the
+    # windowed mask; a ragged 4600 and a 4200-token prompt's first keys
+    mix = {"heads": (32, 8, 128), "window": 4096, "explicit_kv_pos": True}
+    flash_cases += [
+        ("mixtral B1/T4608 window4096", 4608, 4608, 0, 4608, mix,
+         "flash_attention@mixtral"),
+        ("mixtral B1/T4600 window4096", 4600, 4600, 0, 4600, mix, None),
+        ("mixtral B1/T4200 window4096, 4100 valid", 4200, 4200, 0, 4100,
+         mix, None)]
     for dtype in ("bfloat16", "float32"):
         for label, Tq, Tk, start, valid, extra, key in flash_cases:
             args, kw, nb, fl = _flash_case(torch, gen, dtype, Tq, Tk, start,
@@ -1045,6 +1078,7 @@ def phase_kernels(torch, timer, card):
     # of the key range (the third field: the key the times go under; the
     # fourth: rows that must give exactly 0)
     g1 = {"Hq": 32, "Hkv": 32}
+    mixd = {"D": 128, "Hq": 32, "Hkv": 8}
     dense_cases = [
         ("B8/S1024 decode", 1024, {}, "decode_attention", ()),
         ("B8/Hkv32 G1 zamba2", 1024, g1, "decode_attention@zamba2", ()),
@@ -1085,6 +1119,16 @@ def phase_kernels(torch, timer, card):
           "fix": {0: 1000}}, None, ()),
         ("D192 B8/S1024 G12", 1024, {"D": 192, "Hq": 96, "Hkv": 8}, None,
          ()),
+        # mixtral-8x7b's decode tick (phase 3h): 8 slots at G 4, D 128
+        # over rings of 4096, every ring full or wrapped (lengths past S
+        # read all S slots), timed; then rings filling, and an empty one
+        ("mixtral B8/S4096 G4 full rings, lengths past S", 4096,
+         dict(mixd, fix={0: 4096, 1: 4097, 2: 4600, 3: 5000, 4: 8191,
+                         5: 4200, 6: 6000, 7: 8000}),
+         "decode_attention@mixtral", ()),
+        ("mixtral B8/S4096 G4 rings filling", 4096,
+         dict(mixd, fix={0: 1, 1: 100, 2: 2000, 3: 4095, 4: 4096, 5: 0,
+                         6: 3000, 7: 4500}), None, (5,)),
     ]
     for dtype in ("bfloat16", "float32"):
         for label, S, extra, key, empty in dense_cases:
@@ -1428,13 +1472,15 @@ def phase_serve(torch):
 
 
 def profile_decode(torch, eng, rng, steps: int = 10, label: str = "decode",
-                   per_tick: int = 1):
+                   per_tick: int = 1, ranges: tuple = ()):
     """Where a steady decode tick's time goes: 8 rows decoding, ``steps``
     ticks to settle (a speculative depth grows with its acceptance), the
     host wall of ``steps`` ticks without the profiler, then the device
     time of the same number of ticks by kernel from ``torch.profiler``.
     A tick commits up to ``per_tick`` tokens per row (k+1 when
-    speculative)."""
+    speculative).  ``ranges`` names operator rows (``record_function``
+    ranges, ``aten::`` ops) whose device time, their kernels' included,
+    is printed too."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(8):
@@ -1458,6 +1504,11 @@ def profile_decode(torch, eng, rng, steps: int = 10, label: str = "decode",
         torch.cuda.synchronize()
     counts = {}
     by_kernel = _device_ms(prof, steps, counts)
+    # a range's device-side row spans its first kernel's start to its
+    # last one's end, idle gaps included: a span, not a kernel
+    spans = {k: by_kernel.pop(k) for k in ranges if k in by_kernel}
+    for k in ranges:
+        counts.pop(k, None)
     eng.run_until_drained()
     busy = sum(by_kernel.values())
     print(f"[profile] {label} tick, 8 rows: host wall {wall_ms:.2f} ms for "
@@ -1465,6 +1516,24 @@ def profile_decode(torch, eng, rng, steps: int = 10, label: str = "decode",
           f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}% of the wall; "
           f"{'measured' if by_kernel else 'no device time seen'})")
     _print_kernels(by_kernel, busy, counts)
+    # each range's kernels: the host-side events of that name, whose
+    # device time sums the kernels they and their child ops launched
+    kern, calls = dict.fromkeys(ranges, 0.0), dict.fromkeys(ranges, 0)
+    for ev in prof.events():
+        if ev.name in kern and str(ev.device_type).endswith("CPU"):
+            kern[ev.name] += getattr(ev, "device_time_total", None) \
+                or getattr(ev, "cuda_time_total", 0.0)
+            calls[ev.name] += 1
+    for name in ranges:
+        ms = kern[name] / 1e3 / steps
+        if not (ms and busy):
+            print(f"[profile]   {name}: no device time seen (not measured)")
+            continue
+        span = (f"; its device-side span {spans[name]:.4f} ms/tick"
+                if name in spans else "")
+        print(f"[profile]   {name}: its kernels {ms:.4f} ms/tick over "
+              f"{calls[name] / steps:.1f} calls/tick ({100 * ms / busy:.1f}% "
+              f"of the device busy time){span}")
 
 
 def _device_ms(prof, ticks: int = 1, counts: dict = None) -> dict:
@@ -1935,6 +2004,186 @@ def phase_dense_variants(torch):
         torch.cuda.empty_cache()
     print(f"[dense] phase 3g {time.monotonic() - t_phase:.1f}s")
     return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 3h: mixtral-8x7b at full width
+# ---------------------------------------------------------------------------
+
+# the layers phase 3h keeps of mixtral-8x7b's 32, at full width with bf16
+# parameters: 8 x 1 451 270 144 + 262 148 096 = 11 872 309 248 of them,
+# 23.7 GB (PERF.md §4)
+MIXTRAL_CUT = 8
+
+
+def _moe_ranges(torch):
+    """The MoE's dispatch, expert FFN and combine wrapped in
+    ``record_function`` ranges (module attributes that
+    ``_apply_moe_local`` reads), for a profiled tick; returns the undo."""
+    from repro_torch.models import moe
+
+    names = {"_dispatch": "moe.dispatch", "_expert_ffn": "moe.expert_ffn",
+             "_combine": "moe.combine"}
+    saved = {n: getattr(moe, n) for n in names}
+
+    def wrap(fn, label):
+        def ranged(*a, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*a, **kw)
+        return ranged
+
+    for n, label in names.items():
+        setattr(moe, n, wrap(saved[n], label))
+    return lambda: [setattr(moe, n, f) for n, f in saved.items()]
+
+
+def _mixtral_wrap_exactness(torch):
+    """Through the wrap at full width: a 2-layer fp32 mixtral with
+    ``capacity_factor`` 8 (no pair drops, as ``tests/conftest.py:31``'s
+    ``exact_config`` sets) serves a 4600-token prompt plus 16 new tokens
+    over its ring of 4096 (prefill past the window, decode over wrapped
+    rings); each generated token must be the argmax of one
+    ``Model.forward`` over the whole sequence at its position."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import ServingEngine
+
+    full = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(
+        full, num_layers=2, compute_dtype="float32",
+        moe=dataclasses.replace(full.moe, capacity_factor=8.0))
+    t0 = time.monotonic()
+    eng = ServingEngine(cfg, max_slots=2, max_seq=8192, seed=5,
+                        device="cuda")
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, size=4600)
+    req = eng.submit(prompt, max_new_tokens=16).result(timeout=900)
+    check(len(req.generated) == 16 and not eng.failed,
+          "mixtral fp32: the 4600-token request must complete")
+    seq = torch.tensor(np.concatenate([prompt, req.generated])[None],
+                       device="cuda")
+    with torch.no_grad():
+        logits = eng.model.forward(eng.params, {"tokens": seq})[0]
+    ahead = logits[len(prompt) - 1:len(prompt) + 15]         # [16, V]
+    want = torch.argmax(ahead, dim=-1).tolist()
+    top2 = torch.topk(ahead, 2, dim=-1).values
+    margin = float((top2[:, 0] - top2[:, 1]).min())
+    print(f"[mixtral] fp32, 2 layers at full width, capacity factor 8: a "
+          f"4600-token prompt + 16 tokens over the ring of "
+          f"{eng.kv.caches['attn']['k'].shape[2]}: the engine's stream "
+          f"{req.generated} against Model.forward's argmax {want} (least "
+          f"top-2 margin {margin:.4f}); {time.monotonic() - t0:.1f}s")
+    check(req.generated == want,
+          "mixtral fp32: the stream through the ring wrap differs from "
+          "Model.forward's argmax")
+    del eng, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_mixtral(torch):
+    """mixtral-8x7b at full width and cut depth (``MIXTRAL_CUT`` layers,
+    bf16 parameters, random weights from a seed) on the dense-slot plane:
+    8 slots, ``max_seq`` 8192 (rings of 4096), phase 3's 10 prompts of
+    4-511 tokens and one of 4600 tokens, 32 new tokens each; every request
+    completes, flash launched layers x prefills and the dense decode
+    kernel layers x decode steps (no paged kernel); tokens/s, TTFT, tick
+    walls, peak memory and a profiled decode tick with the MoE dispatch's
+    and the expert GEMMs' device time; then the fp32 stream through the
+    ring wrap (``_mixtral_wrap_exactness``).  Returns the launches and
+    the requests."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.serving.engine import ServingEngine
+
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config("mixtral-8x7b")
+    check(full.d_model == 4096 and full.num_heads == 32
+          and full.num_kv_heads == 8 and full.moe.num_experts == 8
+          and full.moe.top_k == 2 and full.moe.d_expert == 14336
+          and full.sliding_window == 4096
+          and full.num_params() == 46_702_792_704,
+          f"mixtral-8x7b config {full}")
+    cfg = dataclasses.replace(full, num_layers=MIXTRAL_CUT,
+                              param_dtype="bfloat16")
+    L = cfg.num_layers
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = ServingEngine(cfg, max_slots=8, max_seq=8192, seed=0,
+                        device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    eng.warmup()
+    check(not eng.paged and eng._stateful, "mixtral must serve on dense "
+          "slots with exact-length prefill")
+    ring = eng.kv.caches["attn"]["k"].shape[2]
+    check(ring == 4096, f"mixtral's ring holds {ring} slots, not 4096")
+    print(f"[mixtral] {L} of {full.num_layers} layers at full width (d4096, "
+          f"32 heads of 128 over 8 KV heads, 8 experts of 14336, top 2, "
+          f"window 4096), bf16 parameters ({cfg.num_params()} = "
+          f"{cfg.num_params() * 2} B; {full.active_params()} active of "
+          f"{full.num_params()} at full depth): init {init_s:.1f}s (peak "
+          f"{init_peak - start} B over the {start} B allocated before), "
+          f"warmup {eng.warmup_s:.2f}s, rings of {ring} slots "
+          f"({eng.kv.capacity_bytes()} B for 8 slots)")
+    rng = np.random.default_rng(0)
+    lens = [int(rng.integers(4, 512)) for _ in range(10)] + [4600]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
+    counters = ((fa, "flash_attention"), (da, "decode_attention"),
+                (pda, "paged_decode_attention"))
+    for mod, fn in counters:
+        getattr(mod, fn).launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with eng:
+        handles = [eng.submit(p, max_new_tokens=32) for p in prompts]
+        done = [h.result(timeout=900) for h in handles]
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {fn: getattr(mod, fn).launches for mod, fn in counters}
+    st = eng.stats()
+    check(not eng.failed and st["failed"] == 0,
+          f"mixtral: failed requests {[r.error for r in eng.failed.values()]}")
+    check(len(done) == 11 and all(len(r.generated) == 32 for r in done),
+          "mixtral: every request must complete with 32 tokens")
+    chunks, steps = st["prefill_chunks"], st["decode_steps"]
+    check(chunks == len(prompts),
+          f"mixtral: {chunks} prefills for {len(prompts)} prompts (each "
+          "must prefill once, at its exact length)")
+    want = {"flash_attention": L * chunks, "decode_attention": L * steps,
+            "paged_decode_attention": 0}
+    check(launches == want and steps > 0,
+          f"mixtral launches {launches} != {want} ({chunks} prefills, "
+          f"{steps} decode steps)")
+    toks = sum(len(r.generated) for r in done)
+    print(f"[mixtral] {len(done)} requests, {toks} tokens in {wall:.2f}s "
+          f"({toks / wall:.1f} tok/s); prompts {lens}; peak memory "
+          f"{torch.cuda.max_memory_allocated()} B")
+    print(f"[mixtral] ttft p50 {st['p50_ttft_s'] * 1e3:.1f} ms p95 "
+          f"{st['p95_ttft_s'] * 1e3:.1f} ms; decode tick p50 "
+          f"{st['p50_decode_tick_s'] * 1e3:.2f} ms p95 "
+          f"{st['p95_decode_tick_s'] * 1e3:.2f} ms; prefill tick p50 "
+          f"{st['p50_prefill_tick_s'] * 1e3:.2f} ms")
+    print(f"[mixtral] {chunks} prefills, {steps} decode steps, launches "
+          f"{launches} (exact)")
+    undo = _moe_ranges(torch)
+    try:
+        profile_decode(torch, eng, rng, label="mixtral decode",
+                       ranges=("moe.dispatch", "moe.expert_ffn",
+                               "moe.combine", "aten::bmm"))
+    finally:
+        undo()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    _mixtral_wrap_exactness(torch)
+    print(f"[mixtral] phase 3h {time.monotonic() - t_phase:.1f}s")
+    return {k: launches[k] for k in ("flash_attention", "decode_attention")}, \
+        len(done)
 
 
 # ---------------------------------------------------------------------------
@@ -3079,6 +3328,47 @@ def phase_golden(torch):
               f"{worst:.3e} (bound 2e-4)")
         check(worst < 2e-4, f"golden {arch} logits {worst} >= 2e-4")
 
+    # mixtral: reduced fp32 (window 32, 4 experts, the default capacity),
+    # prompts of 40-90 tokens on two dense slots, served by the JAX
+    # engine; the streams token for token and the logits, through the
+    # windowed flash and dense decode kernels
+    from repro_torch.kernels import decode_attention as da
+
+    pre = "mixtral_"
+    mcfg = ModelConfig.from_dict(json.loads(str(g[pre + "config"])))
+    mparams = tree(pre + "params/", mcfg)
+    before = (fa.flash_attention.launches, da.decode_attention.launches)
+    meng = ServingEngine(mcfg, params=mparams, device="cuda",
+                         **json.loads(str(g[pre + "engine"])))
+    mprompts = [p[:n] for p, n in zip(g[pre + "prompts"],
+                                      g[pre + "prompt_lens"])]
+    for p in mprompts:
+        meng.submit(p, max_new_tokens=int(g[pre + "max_new"]))
+    got = [r.generated for r in sorted(meng.run_until_drained(),
+                                       key=lambda r: r.rid)]
+    check(not meng.failed and got == g[pre + "streams"].tolist(),
+          f"golden mixtral streams differ:\n{got}\n"
+          f"{g[pre + 'streams'].tolist()}")
+    moved = (fa.flash_attention.launches - before[0],
+             da.decode_attention.launches - before[1])
+    check(moved[0] == mcfg.num_layers * len(mprompts) and moved[1] > 0,
+          f"golden mixtral: flash and dense decode launches {moved}")
+    worst = 0.0
+    with torch.no_grad():
+        for p, want in zip(mprompts, g[pre + "last_logits"]):
+            lg = meng.model.forward(mparams, {"tokens": torch.tensor(
+                p[None].astype(np.int64), device="cuda")})[0, -1]
+            w = torch.tensor(want, device="cuda")
+            worst = max(worst, float((lg - w).abs().max() / w.abs().max()))
+    print(f"[golden] mixtral-8x7b reduced ({mcfg.num_layers}L "
+          f"d{mcfg.d_model}, window {mcfg.sliding_window}, "
+          f"{mcfg.moe.num_experts} experts, fp32): the JAX engine's "
+          f"{len(got)} streams over prompts of "
+          f"{[len(p) for p in mprompts]} tokens reproduced on the card "
+          f"(launches: flash {moved[0]}, dense decode {moved[1]}); "
+          f"last-position logits max rel err {worst:.3e} (bound 2e-4)")
+    check(worst < 2e-4, f"golden mixtral logits {worst} >= 2e-4")
+
     # the encoder: reduced fp32 edge-cv-heavy at head dims 48 and 80, JAX
     # Model.forward's logits and masked loss, through the fp32 kernel
 
@@ -3635,18 +3925,29 @@ KERNELS = {
 # the paths each kernel's launch count comes from, and each path's unit
 DENSE_PATHS = ("gemma", "gemma_spec", "command-r", "chameleon", "nemotron")
 PATH_OF = {"flash_attention": ("serve", "edge", "fleet", "hubert",
-                               "hubert_train") + DENSE_PATHS,
+                               "hubert_train", "mixtral") + DENSE_PATHS,
            "paged_decode_attention": ("serve", "edge", "fleet")
            + DENSE_PATHS,
            "paged_verify_attention": ("spec", "gemma_spec"),
-           "decode_attention": ("spec", "zamba2", "edge", "gemma_spec"),
+           "decode_attention": ("spec", "zamba2", "edge", "gemma_spec",
+                                "mixtral"),
            "flash_attention_bwd_dq": ("train", "hubert_train"),
            "flash_attention_bwd_dkv": ("train", "hubert_train"),
            "ssd_scan": ("mamba2",), "rmsnorm": ("mamba2",)}
 UNIT_OF = {"serve": "request", "spec": "request", "train": "step",
            "mamba2": "request", "zamba2": "request", "edge": "dispatch",
            "fleet": "request", "hubert": "batch", "hubert_train": "step",
-           **{p: "request" for p in DENSE_PATHS}}
+           "mixtral": "request", **{p: "request" for p in DENSE_PATHS}}
+
+
+def _path_rate(paths: dict, name: str, tag: str) -> dict:
+    """A timed shape named after a serving path (``@mixtral``): that
+    path's launches of the kernel per 10 requests."""
+    if tag not in paths or UNIT_OF.get(tag) != "request" \
+            or name not in paths[tag][0]:
+        return {}
+    launches, n = paths[tag]
+    return {"path": tag, "launches_per_10_requests": 10 * launches[name] / n}
 
 
 def main() -> int:
@@ -3672,6 +3973,7 @@ def main() -> int:
              "edge": phase_edge(torch), "fleet": phase_fleet(torch),
              "hubert": phase_hubert(torch)}
     paths.update(phase_dense_variants(torch))
+    paths["mixtral"] = phase_mixtral(torch)
     phase_consistency(torch)
     phase_ssm_consistency(torch)
     phase_spec_exactness(torch)
@@ -3704,9 +4006,10 @@ def main() -> int:
                                      "library_ms", "shape", "tile_share")}
                         if f"{name}@train" in kernels else {}),
                      "also_timed": [
-                         {key: kernels[k][key] for key in (
+                         {**{key: kernels[k][key] for key in (
                              "shape", "ms", "plain_ms", "bound_ms",
-                             "bound_by", "library_ms")}
+                             "bound_by", "library_ms")},
+                          **_path_rate(paths, name, k.split("@")[1])}
                          for k in sorted(kernels)
                          if k.startswith(f"{name}@") and k != f"{name}@train"],
                      **({"stitched_state_rel_err":

@@ -15,6 +15,7 @@ _MODULES = {
     "command-r-35b": "repro_torch.configs.command_r_35b",
     "chameleon-34b": "repro_torch.configs.chameleon_34b",
     "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
@@ -25,9 +26,9 @@ _MODULES = {
 
 _ATTR = {"edge-cv-heavy": "CV_HEAVY", "edge-stream-light": "STREAM_LIGHT"}
 
-# registered in ``repro.configs`` but not ported yet: MoE with
-# sliding-window attention (ROADMAP Queue A item 11.3) and MLA (11.4)
-_NOT_PORTED = {"mixtral-8x7b": "11.3", "deepseek-v2-236b": "11.4"}
+# registered in ``repro.configs`` but not ported yet: MLA (ROADMAP Queue
+# A item 11.4)
+_NOT_PORTED = {"deepseek-v2-236b": "11.4"}
 
 
 def get_config(name: str) -> ModelConfig:

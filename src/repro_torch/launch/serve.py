@@ -8,7 +8,9 @@ container-class executor (``serving.router.make_engine_builder``).  Every
 prompt is submitted up front to the background engine loop, which
 overlaps one request's prefill chunks with the others' decode.  The
 engine picks its data plane: paged KV for the dense decoder, dense slots
-for ``mamba2-2.7b`` and ``zamba2-1.2b``.  ``--save-state`` writes the
+for ``mamba2-2.7b``, ``zamba2-1.2b`` and ``mixtral-8x7b`` (sliding-window
+rings, exact-length prefill; at full depth its 93 GB of bf16 weights
+exceed one card, so run it ``--reduced``).  ``--save-state`` writes the
 applied specs and quotas (``EdgeSystem.restore`` re-applies them).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\

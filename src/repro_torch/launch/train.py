@@ -14,8 +14,9 @@ PyTorch path.  An encoder-only arch (``edge-cv-heavy``,
 ``make_encoder_iterator`` (``--seq`` frames a row), a decoder on the
 bigram token stream; after a restore either stream skips the batches the
 restored steps consumed.  ``--mesh single|multi`` and ``--distributed``
-need the sharded trainer, not ported yet (ROADMAP Queue A item 13).
-``main`` returns the ``Trainer`` and the ``fit`` history.
+need the sharded trainer, not ported yet (ROADMAP Queue A item 13); a
+moe arch (``mixtral-8x7b``) raises in ``Trainer`` (item 17, MoE
+training).  ``main`` returns the ``Trainer`` and the ``fit`` history.
 """
 from __future__ import annotations
 

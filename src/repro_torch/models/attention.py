@@ -1,4 +1,5 @@
-"""Full attention: the serving path of ``repro.models.attention``.
+"""Full and sliding-window attention: the serving path of
+``repro.models.attention``.
 
 Layouts are the JAX package's: projections ``w_q [d, H, hd]``,
 ``w_k``/``w_v [d, Hkv, hd]``, ``w_o [H, hd, d]``; pools
@@ -7,12 +8,16 @@ Pools and caches are device tensors written in place (the JAX functions
 return a new pool or cache and donate the old one; the effect is the
 same).  Page 0 of every pool is the allocator's trash page.  The dense
 cache serves the speculative draft model and the dense slot plane (with
-its staging cache for chunked prefill); MLA and sliding-window attention
-are not ported.  The projections carry the JAX options: biases
-(``attn_bias``: ``b_q [H, hd]``, ``b_k``/``b_v [Hkv, hd]``, ``b_o [d]``)
-and an RMSNorm of q and k over the head dim (``qk_norm``: ``q_norm``,
-``k_norm [hd]``) between the biases and RoPE; every path (train, paged,
-dense and verify) goes through ``_qkv`` and ``_out_proj``.
+its staging cache for chunked prefill).  Sliding-window attention
+(``attn_type == "swa"``) keeps a ring of ``cache_capacity`` slots: a
+position's KV lives at ``position % S``, prefill attends with the
+window, and decode reads the whole valid ring with no window (the ring
+already bounds it), as in JAX.  MLA is not ported.  The projections
+carry the JAX options: biases (``attn_bias``: ``b_q [H, hd]``,
+``b_k``/``b_v [Hkv, hd]``, ``b_o [d]``) and an RMSNorm of q and k over
+the head dim (``qk_norm``: ``q_norm``, ``k_norm [hd]``) between the
+biases and RoPE; every path (train, paged, dense and verify) goes
+through ``_qkv`` and ``_out_proj``.
 """
 from __future__ import annotations
 
@@ -73,17 +78,26 @@ def init_paged_pool(cfg: ModelConfig, num_pages: int, page_size: int,
     return pool
 
 
+def cache_capacity(cfg: ModelConfig, max_seq: int) -> int:
+    """Slots a dense cache holds: a sliding-window arch keeps a ring of
+    ``min(window, max_seq)`` (JAX ``attention.py:72-76``)."""
+    if cfg.sliding_window > 0:
+        return min(cfg.sliding_window, max_seq)
+    return max_seq
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> Pool:
-    """Per-layer dense cache ``[batch, max_seq, Hkv, D]``, zero-filled.
-    Full attention only: the sliding-window ring of the JAX cache comes
-    with the SWA slice."""
-    if cfg.attn_type != "full" or cfg.sliding_window > 0:
-        raise NotImplementedError(f"dense caches need full attention, got "
-                                  f"{cfg.attn_type!r} (ROADMAP Queue A "
-                                  f"item 11)")
+    """Per-layer dense cache ``[batch, S, Hkv, D]`` with ``S =
+    cache_capacity(cfg, max_seq)``, zero-filled.  MLA's latent cache is
+    not ported."""
+    if cfg.attn_type not in ("full", "swa"):
+        raise NotImplementedError(f"dense caches of attn_type "
+                                  f"{cfg.attn_type!r} are not ported (ROADMAP "
+                                  f"Queue A item 11.4)")
     device = resolve_device(device)
-    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim_)
+    shape = (batch, cache_capacity(cfg, max_seq), cfg.num_kv_heads,
+             cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -133,11 +147,13 @@ def _out_proj(params, o, cfg: ModelConfig):
 
 def attend(params, x, cfg: ModelConfig, *, positions, causal: bool = True,
            cache: Optional[Pool] = None):
-    """[B, T, d] → [B, T, d] over the sequence itself; with ``cache`` (the
-    dense prefill) the sequence's KV is also written into it."""
+    """[B, T, d] → [B, T, d] over the sequence itself, with the sliding
+    window for ``attn_type == "swa"``; with ``cache`` (the dense prefill)
+    the sequence's KV is also written into it."""
     x = x.to(cfg.cdtype)
     q, k, v = _qkv(params, x, cfg, positions)
-    o = ops.flash_attention(q, k, v, causal=causal, window=0,
+    window = cfg.sliding_window if cfg.attn_type == "swa" else 0
+    o = ops.flash_attention(q, k, v, causal=causal, window=window,
                             softcap=cfg.attn_logit_softcap,
                             q_positions=positions, kv_positions=positions)
     if cache is not None:
@@ -147,11 +163,17 @@ def attend(params, x, cfg: ModelConfig, *, positions, causal: bool = True,
 
 def _fill_cache(cache: Pool, k, v, positions):
     """Write KV [B, T, H, D] into the dense cache at ``positions % S``, in
-    place.  With full attention the wrap is reached only by a free draft
-    slot whose stale length sits at ``max_seq`` (a request that filled
-    its cache in a speculative round): its masked rewrite lands on slot 0,
-    which the next request's prefill overwrites."""
+    place.  A write of T > S positions (increasing along T, as every
+    caller's are) keeps only the last S: two positions S apart share a
+    slot, and an index assignment with repeated indices leaves either
+    one (the CPU's threads race, the card gives no order), where JAX's
+    sequential scatter keeps the later.  The wrap is reached by every
+    sliding-window prompt longer than its ring, and with full attention
+    by a free draft slot whose stale length sits at ``max_seq`` (its
+    masked rewrite lands on slot 0, which the next prefill overwrites)."""
     S = cache["k"].shape[1]
+    if k.shape[1] > S:
+        k, v, positions = k[:, -S:], v[:, -S:], positions[:, -S:]
     slots = positions.long() % S                          # [B, T]
     bidx = torch.arange(k.shape[0], device=k.device)[:, None]
     cache["k"][bidx, slots] = k.to(cache["k"].dtype)
@@ -280,7 +302,9 @@ def verify_step_paged(params, x, cfg: ModelConfig, pool: Pool, page_table,
 
 def decode_step(params, x, cfg: ModelConfig, cache: Pool, cache_len):
     """Single-token decode: write the token's KV at ``cache_len`` (its ring
-    slot), then run the dense decode kernel over the valid slots."""
+    slot), then run the dense decode kernel over the valid slots with no
+    window: a sliding-window ring of ``window`` slots holds exactly the
+    keys the window keeps (JAX ``attention.py:419-424``)."""
     x = x.to(cfg.cdtype)
     positions = cache_len[:, None]
     q, k, v = _qkv(params, x, cfg, positions)

@@ -143,17 +143,13 @@ class ModelConfig:
         return self.d_inner // self.ssm.head_dim
 
     def num_params(self) -> int:
-        """Exact parameter count (the JAX ``num_params``), for the dense,
-        encoder, ssm and hybrid families.  An encoder counts its (unused)
-        embedding and its prediction head, and the ``audio_frames``
-        frontend its projection and mask embedding.  MoE and MLA come with
-        their slices (ROADMAP Queue A items 11.3 and 11.4)."""
-        if self.family not in ("dense", "encoder", "ssm", "hybrid") \
-                or self.attn_type == "mla":
-            raise NotImplementedError(
-                f"num_params of family {self.family!r} / attn_type "
-                f"{self.attn_type!r} is not ported yet (ROADMAP Queue A "
-                "item 11)")
+        """Exact parameter count (the JAX ``num_params``) of every
+        registered config.  An encoder counts its (unused) embedding and
+        its prediction head, and the ``audio_frames`` frontend its
+        projection and mask embedding; a moe layer its router and every
+        routed and shared expert, DeepSeek's leading dense layers their
+        MLP; MLA its low-rank projections and their two norms (counted,
+        though its attention is not ported yet: item 11.4)."""
         d, V, hd, L = self.d_model, self.vocab_size, self.head_dim_, \
             self.num_layers
         n = V * d                                          # embed
@@ -161,18 +157,35 @@ class ModelConfig:
             n += V * d                         # prediction or LM head
         if self.frontend == "audio_frames" and self.frontend_dim:
             n += self.frontend_dim * d + d     # projection + mask embed
-        attn = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
-        attn += self.num_heads * hd * d
-        if self.attn_bias:
-            attn += (self.num_heads + 2 * self.num_kv_heads) * hd + d
-        if self.qk_norm:
-            attn += 2 * hd
-        mlp = (3 if self.activation in ("swiglu", "geglu") else 2) \
-            * d * self.d_ff
+        if self.attn_type == "mla":
+            m, H = self.mla, self.num_heads
+            attn = d * m.q_lora_rank + m.q_lora_rank * H * (
+                m.qk_nope_head_dim + m.qk_rope_head_dim)
+            attn += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+            attn += m.kv_lora_rank * H * (m.qk_nope_head_dim + m.v_head_dim)
+            attn += H * m.v_head_dim * d + m.q_lora_rank + m.kv_lora_rank
+        else:
+            attn = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
+            attn += self.num_heads * hd * d
+            if self.attn_bias:
+                attn += (self.num_heads + 2 * self.num_kv_heads) * hd + d
+            if self.qk_norm:
+                attn += 2 * hd
+        mlp = self._mlp_params(self.d_ff)
         norm = 2 * d if self.norm == "layernorm" else d
         if self.family in ("dense", "encoder"):
             per_layer = attn + mlp + (1 if self.parallel_block else 2) * norm
             return n + L * per_layer + norm
+        if self.family == "moe":
+            m = self.moe
+            moe_layer = attn + 2 * norm + d * m.num_experts     # router
+            moe_layer += m.num_experts * self._mlp_params(m.d_expert)
+            if m.num_shared_experts:
+                moe_layer += self._mlp_params(m.d_shared_expert)
+            dense_layer = attn + self._mlp_params(m.first_dense_d_ff) \
+                + 2 * norm
+            nd = m.first_dense_layers
+            return n + (L - nd) * moe_layer + nd * dense_layer + norm
         s, di, H = self.ssm, self.d_inner, self.ssm_heads
         conv_ch = di + 2 * s.n_groups * s.d_state
         mamba = d * (2 * di + 2 * s.n_groups * s.d_state + H)   # in_proj
@@ -183,15 +196,22 @@ class ModelConfig:
             n += attn + mlp + 2 * norm
         return n
 
+    def _mlp_params(self, d_ff: int) -> int:
+        """An MLP's weights: three matrices for a gated activation, else
+        two (the JAX ``mlp_params``, without biases)."""
+        return (3 if self.activation in ("swiglu", "geglu") else 2) \
+            * self.d_model * d_ff
+
     def active_params(self) -> int:
         """Activated parameters per token, which ``Workload.flops`` reads:
-        ``num_params`` for the ported families (the routed-expert share
-        comes with MoE, ROADMAP Queue A item 11)."""
-        if self.family == "moe":
-            raise NotImplementedError(
-                "active_params of the moe family is not ported yet "
-                "(ROADMAP Queue A item 11)")
-        return self.num_params()
+        ``num_params`` less, for moe, the routed experts a token does not
+        take (``E - k`` of them in each routed layer)."""
+        if self.family != "moe":
+            return self.num_params()
+        m = self.moe
+        routed = self.num_layers - m.first_dense_layers
+        return self.num_params() - routed * (m.num_experts - m.top_k) \
+            * self._mlp_params(m.d_expert)
 
     def kv_bytes_per_token(self, dtype_bytes: int = 2) -> int:
         """KV-cache bytes per token per layer-application (serving planner)."""
@@ -260,30 +280,48 @@ def check_ported(cfg: ModelConfig) -> None:
     Ported: the dense decoder (RMSNorm or LayerNorm, parallel blocks,
     qk-norm, attention biases, the ``vq_tokens`` frontend: token ids in a
     shared vocabulary) and the hybrid with full attention, the
-    attention-free SSM family (Mamba2), and the encoder-only family
-    (LayerNorm, the ``audio_frames`` frontend, non-causal attention).  MoE,
-    sliding-window attention and MLA wait on the ROADMAP items named in
-    their messages; an encoder or a decoder in a combination that no
+    attention-free SSM family (Mamba2), the encoder-only family
+    (LayerNorm, the ``audio_frames`` frontend, non-causal attention), and
+    the moe family with sliding-window attention (Mixtral: ring caches,
+    the routed experts' local path).  MLA and DeepSeek's leading dense
+    layers wait on ROADMAP Queue A item 11.4; a combination that no
     registered config uses is refused as such."""
     if cfg.attn_type == "mla":
         raise NotImplementedError(
             "attn_type 'mla' (DeepSeek's latent attention) is not ported "
             "yet (ROADMAP Queue A item 11.4)")
-    if cfg.family not in ("dense", "ssm", "hybrid", "encoder"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encoder"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: only the dense decoder, ssm, hybrid "
-            "and encoder are ported (MoE: ROADMAP Queue A item 11.3)")
+            f"family {cfg.family!r}: only the dense decoder, moe, ssm, "
+            "hybrid and encoder are ported (ROADMAP Queue A item 11)")
     if cfg.encoder_only != (cfg.family == "encoder"):
         raise NotImplementedError(
             f"encoder_only={cfg.encoder_only} with family {cfg.family!r}: "
             "the port runs encoder_only as the encoder family only "
             "(ROADMAP Queue A item 11)")
-    if cfg.family != "ssm" and (cfg.attn_type != "full"
-                                or cfg.sliding_window > 0):
+    if cfg.family == "moe":
+        if cfg.moe is None or cfg.attn_type != "swa" \
+                or cfg.sliding_window <= 0:
+            raise NotImplementedError(
+                f"a moe model with moe={cfg.moe!r}, attn_type "
+                f"{cfg.attn_type!r} and sliding_window "
+                f"{cfg.sliding_window}: the port runs the moe family with "
+                "sliding-window attention only, as mixtral-8x7b has it (a "
+                "full-attention moe is in no registered config; DeepSeek's "
+                "MLA is ROADMAP Queue A item 11)")
+        if cfg.moe.first_dense_layers:
+            raise NotImplementedError(
+                f"first_dense_layers={cfg.moe.first_dense_layers} "
+                "(DeepSeek's leading dense blocks) is not ported yet "
+                "(ROADMAP Queue A item 11.4)")
+    elif cfg.family != "ssm" and (cfg.attn_type != "full"
+                                  or cfg.sliding_window > 0):
         raise NotImplementedError(
             f"attn_type {cfg.attn_type!r} / sliding_window "
-            f"{cfg.sliding_window}: sliding-window attention is not ported "
-            "yet (ROADMAP Queue A item 11.3)")
+            f"{cfg.sliding_window} in a {cfg.family} model: the port runs "
+            "sliding-window attention in the moe family only, as no "
+            "registered config of another family has it (ROADMAP Queue A "
+            "item 11)")
     if cfg.family == "encoder":
         if cfg.norm != "layernorm" or cfg.frontend != "audio_frames":
             raise NotImplementedError(

@@ -24,6 +24,11 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ModelConfig
 
+# leaves the JAX package keeps in float32 whatever the parameter dtype:
+# Mamba2's timestep bias, decay and skip (``mamba2.py:43-45``) and the MoE
+# router (``moe.py:50``), whose logits are f32 products
+F32_LEAVES = frozenset({"dt_bias", "a_log", "d_skip", "router"})
+
 
 # ---------------------------------------------------------------------------
 # initializers (same distributions as the JAX package; different numbers)

@@ -21,11 +21,9 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, rms_norm_simple
-
-# leaves the JAX block keeps in float32 whatever the parameter dtype
-# (``mamba2.py:43-45``): the timestep bias and the decay are used in f32
-F32_LEAVES = frozenset({"dt_bias", "a_log", "d_skip"})
+# F32_LEAVES (Mamba2's f32 leaves among them) is re-exported here
+from repro_torch.models.layers import (F32_LEAVES, dense_init,  # noqa: F401
+                                       rms_norm_simple)
 
 
 def _dims(cfg: ModelConfig):

@@ -1,10 +1,11 @@
-"""Top-level model API for the ported families (the dense decoder, ssm,
-hybrid and the encoder): the port of ``repro.models.model.Model`` on the
-serving and training paths.
+"""Top-level model API for the ported families (the dense decoder, moe,
+ssm, hybrid and the encoder): the port of ``repro.models.model.Model`` on
+the serving and training paths.
 
     model = Model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     logits = model.forward(params, {"tokens": toks})           # [B, T, V]
+    logits, aux = model.forward_with_aux(params, {"tokens": toks})
     loss, metrics = model.loss(params, {"tokens": toks, "labels": labels})
     pools = model.init_paged_caches(num_pages, page_size)
     logits = model.prefill_chunk(params, {"tokens": chunk}, pools, start,
@@ -37,20 +38,20 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
-from repro_torch.models.mamba2 import F32_LEAVES
 from repro_torch.models.config import ModelConfig, check_ported
-from repro_torch.models.layers import (apply_embedding, apply_lm_head,
-                                       dense_init, init_embedding,
-                                       init_lm_head)
+from repro_torch.models.layers import (F32_LEAVES, apply_embedding,
+                                       apply_lm_head, dense_init,
+                                       init_embedding, init_lm_head)
 
 Params = Dict[str, Any]
 
 
 def cast_params(params: Params, dtype: torch.dtype) -> Params:
-    """Every floating leaf in ``dtype``, but the SSM leaves kept in f32
-    (``mamba2.F32_LEAVES``).  Every use of any other weight casts it to
-    the compute dtype first (``w.to(cdtype)``), so casting the tree once
-    gives the same numbers without a cast per call."""
+    """Every floating leaf in ``dtype``, but the SSM leaves and the MoE
+    router kept in f32 (``layers.F32_LEAVES``).  Every use of any other
+    weight casts it to the compute dtype first (``w.to(cdtype)``), so
+    casting the tree once gives the same numbers without a cast per
+    call."""
     if isinstance(params, dict):
         return {k: v if k in F32_LEAVES else cast_params(v, dtype)
                 for k, v in params.items()}
@@ -116,14 +117,29 @@ class Model:
                 positions: Optional[torch.Tensor] = None):
         """Full-sequence logits [B, T, V] (the train-mode forward; an
         encoder's is its serving forward too, non-causal)."""
+        return self._forward(params, batch, positions)[0]
+
+    def forward_with_aux(self, params: Params,
+                         batch: Dict[str, torch.Tensor],
+                         positions: Optional[torch.Tensor] = None):
+        """(logits [B, T, V], aux): the JAX ``Model.forward``'s pair, with
+        ``aux`` the moe layers' weighted load-balancing losses summed (an
+        f32 scalar; zero for the other families)."""
+        logits, aux = self._forward(params, batch, positions)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        return logits, aux
+
+    def _forward(self, params, batch, positions):
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
         B, T = x.shape[:2]
         if positions is None:
             positions = self._positions(B, T)
-        x = transformer.forward_stack(params["stack"], x, cfg,
-                                      positions=positions, mode="train")
-        return apply_lm_head(params["embed"], params.get("head"), x, cfg)
+        x, aux = transformer.forward_stack(params["stack"], x, cfg,
+                                           positions=positions, mode="train")
+        return apply_lm_head(params["embed"], params.get("head"), x,
+                             cfg), aux
 
     # ----------------------------------------------------------------- loss
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]):
@@ -132,10 +148,10 @@ class Model:
         encoder the cross-entropy of ``targets`` weighted by ``mask`` (all
         frames without one), with the log-sum-exp of the logits in f32 and
         the gold logit taken in the logits' dtype (a gather, the same
-        number as JAX's one-hot contraction), over ``max(Σ weights, 1)``.
-        The ported families have no auxiliary loss.  Returns ``(loss,
-        metrics)`` with metrics ``loss``, ``ce``, ``aux`` and ``tokens``."""
-        logits = self.forward(params, batch)
+        number as JAX's one-hot contraction), over ``max(Σ weights, 1)``,
+        plus the moe layers' auxiliary loss.  Returns ``(loss, metrics)``
+        with metrics ``loss``, ``ce``, ``aux`` and ``tokens``."""
+        logits, aux = self.forward_with_aux(params, batch)
         if self.cfg.encoder_only:
             targets = batch["targets"].long()
             mask = batch.get("mask")
@@ -150,7 +166,6 @@ class Model:
         nll = (lse - gold) * weights
         tokens = weights.sum()
         ce = nll.sum() / torch.clamp(tokens, min=1.0)
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         loss = ce + aux
         return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": tokens}
 
@@ -176,7 +191,7 @@ class Model:
         x = self._embed_inputs(params, batch)
         B, T = x.shape[:2]
         positions = self._positions(B, T, start)
-        x = transformer.forward_stack(
+        x, _ = transformer.forward_stack(
             params["stack"], x, cfg, positions=positions, mode="prefill",
             caches=caches, cache_len=new_len, page_table=page_table,
             chunked=True)
@@ -193,7 +208,7 @@ class Model:
         is appended at ``cache_len`` through the page table."""
         cfg = self.cfg
         x = apply_embedding(params["embed"], tokens[:, None], cfg)
-        x = transformer.forward_stack(
+        x, _ = transformer.forward_stack(
             params["stack"], x, cfg, positions=None, mode="decode",
             caches=caches, cache_len=cache_len, page_table=page_table)
         logits = apply_lm_head(params["embed"], params.get("head"), x, cfg)
@@ -208,7 +223,7 @@ class Model:
         caller winds ``cache_len`` back past a rejected suffix."""
         cfg = self.cfg
         x = apply_embedding(params["embed"], tokens, cfg)
-        x = transformer.forward_stack(
+        x, _ = transformer.forward_stack(
             params["stack"], x, cfg, positions=None, mode="verify",
             caches=caches, cache_len=cache_len, page_table=page_table)
         return apply_lm_head(params["embed"], params.get("head"), x, cfg)
@@ -230,9 +245,9 @@ class Model:
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
         B, T = x.shape[:2]
-        x = transformer.forward_stack(params["stack"], x, cfg,
-                                      positions=self._positions(B, T),
-                                      mode="prefill", caches=caches)
+        x, _ = transformer.forward_stack(params["stack"], x, cfg,
+                                         positions=self._positions(B, T),
+                                         mode="prefill", caches=caches)
         if last_index is None:
             last_index = torch.full((B,), T - 1, dtype=torch.int32,
                                     device=x.device)
@@ -247,7 +262,7 @@ class Model:
         the new token's KV is written at ``cache_len``."""
         cfg = self.cfg
         x = apply_embedding(params["embed"], tokens[:, None], cfg)
-        x = transformer.forward_stack(
+        x, _ = transformer.forward_stack(
             params["stack"], x, cfg, positions=None, mode="decode",
             caches=caches, cache_len=cache_len)
         logits = apply_lm_head(params["embed"], params.get("head"), x, cfg)

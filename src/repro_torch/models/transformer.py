@@ -3,6 +3,8 @@
 Layouts (the JAX ones):
   dense / encoder : L × [attn + MLP] (the encoder's attention non-causal;
            with ``parallel_block`` one norm feeds both, x + attn + MLP)
+  moe    : L × [attn + MoE] (sliding-window attention; each layer's
+           load-balancing loss summed into the stack's ``aux``)
   ssm    : L × [mamba2]
   hybrid : ⌊L/e⌋ super-blocks of (e × mamba2, then one application of a
            shared attn+MLP block) + (L mod e) trailing mamba2 blocks.
@@ -17,7 +19,7 @@ chunk resuming a dense staging cache), ``decode`` (one token, paged or
 dense) and ``verify`` (the K1 tokens of a speculative block, paged).
 Caches and SSM states update in place.  On the serving modes of the ssm
 and hybrid families every norm goes through ``ops.rmsnorm`` (the CUDA
-kernel on the card); the dense family and the train mode keep
+kernel on the card); the dense and moe families and the train mode keep
 ``layers.rms_norm``, and the encoder's LayerNorm is plain PyTorch
 everywhere, trained through the JAX custom VJP's backward
 (``layers._LayerNorm``).
@@ -29,26 +31,35 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, mamba2
+from repro_torch.models import attention, mamba2, moe
 from repro_torch.models.config import ModelConfig, check_ported
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
 
 Params = Dict[str, Any]
 
 
-def init_attn_block(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """A parallel block has no ``norm2`` (JAX ``transformer.py:46``)."""
+def init_attn_block(gen: torch.Generator, cfg: ModelConfig,
+                    use_moe: bool = False) -> Params:
+    """A parallel block has no ``norm2`` (JAX ``transformer.py:46``); a
+    moe block has ``moe`` in place of ``mlp``."""
     p = {"attn": attention.init_attention(gen, cfg),
          "norm1": init_norm(cfg, gen.device)}
     if not cfg.parallel_block:
         p["norm2"] = init_norm(cfg, gen.device)
-    p["mlp"] = init_mlp(gen, cfg)
+    if use_moe:
+        p["moe"] = moe.init_moe(gen, cfg)
+    else:
+        p["mlp"] = init_mlp(gen, cfg)
     return p
 
 
 def _stack(trees):
+    """Stack per-layer trees leaf by leaf, taking each leaf out of its
+    layer's tree as it goes: the layers' copy of a leaf is freed once its
+    stack exists, so the peak is one full copy plus one leaf's layers."""
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+        return {k: _stack([t.pop(k) for t in trees])
+                for k in list(trees[0])}
     return torch.stack(trees)
 
 
@@ -80,8 +91,9 @@ def _hybrid_split(cfg: ModelConfig):
 def init_stack(gen: torch.Generator, cfg: ModelConfig) -> Params:
     check_ported(cfg)
     final = init_norm(cfg, gen.device)
-    if cfg.family in ("dense", "encoder"):
-        blocks = _stack([init_attn_block(gen, cfg)
+    if cfg.family in ("dense", "encoder", "moe"):
+        use_moe = cfg.family == "moe"
+        blocks = _stack([init_attn_block(gen, cfg, use_moe)
                          for _ in range(cfg.num_layers)])
         return {"blocks": blocks, "final_norm": final}
     if cfg.family == "ssm":
@@ -122,14 +134,15 @@ def init_paged_cache_tree(cfg: ModelConfig, num_pages: int, page_size: int,
 def init_cache_tree(cfg: ModelConfig, batch: int, max_seq: int,
                     dtype=torch.bfloat16, device=None) -> Params:
     """Dense caches stacked along the layer axis: ``attn`` [L, B, S, H, D]
-    for the dense family; ``mamba`` states (conv f32 and ssm f32, as the
-    JAX ``init_mamba2_state`` makes them) [L, B, ...] for ssm (the encoder
-    takes the dense family's tree, as in JAX); for the
+    for the dense and moe families (a sliding-window ring of ``S =
+    attention.cache_capacity`` slots); ``mamba`` states (conv f32 and ssm
+    f32, as the JAX ``init_mamba2_state`` makes them) [L, B, ...] for ssm
+    (the encoder takes the dense family's tree, as in JAX); for the
     hybrid ``mamba`` [n_super, e, B, ...], ``attn`` [n_super, B, S, H, D]
     in ``dtype`` and ``mamba_tail`` [rem, B, ...]."""
     check_ported(cfg)
     device = resolve_device(device)
-    if cfg.family in ("dense", "encoder"):
+    if cfg.family in ("dense", "encoder", "moe"):
         one = attention.init_cache(cfg, batch, max_seq, dtype, "meta")
         return {"attn": _stack_tree(one, cfg.num_layers, device)}
     mstate = mamba2.init_mamba2_state(cfg, batch, device="meta")
@@ -148,11 +161,12 @@ def init_cache_tree(cfg: ModelConfig, batch: int, max_seq: int,
 def attn_block(bp: Params, x, cfg: ModelConfig, *, positions, mode: str,
                cache=None, cache_len=None, page_table=None,
                chunked: bool = False, kernel_norm: bool = False):
-    """One block; ``cache`` is this layer's page pool when ``page_table``
-    is given, else its dense cache (``None`` in train mode).  A
-    ``chunked`` prefill resumes the dense cache's prefix.  A parallel
-    block (command-r) adds the attention and the MLP of the same normed
-    input to x (JAX ``transformer.py:94-96``)."""
+    """One block → (x, aux); ``cache`` is this layer's page pool when
+    ``page_table`` is given, else its dense cache (``None`` in train
+    mode).  A ``chunked`` prefill resumes the dense cache's prefix.  A
+    parallel block (command-r) adds the attention and the MLP of the same
+    normed input to x (JAX ``transformer.py:94-96``).  ``aux`` is a moe
+    block's load-balancing loss, ``None`` for an MLP block."""
     h = apply_norm(bp["norm1"], x, cfg, kernel=kernel_norm)
     p = bp["attn"]
     if mode == "verify":
@@ -175,10 +189,13 @@ def attn_block(bp: Params, x, cfg: ModelConfig, *, positions, mode: str,
                                     causal=not cfg.encoder_only,
                                     cache=cache)
     if cfg.parallel_block:
-        return x + attn_out + apply_mlp(bp["mlp"], h, cfg)
+        return x + attn_out + apply_mlp(bp["mlp"], h, cfg), None
     x = x + attn_out
     h2 = apply_norm(bp["norm2"], x, cfg, kernel=kernel_norm)
-    return x + apply_mlp(bp["mlp"], h2, cfg)
+    if "moe" in bp:
+        ff, aux = moe.apply_moe(bp["moe"], h2, cfg)
+        return x + ff, aux
+    return x + apply_mlp(bp["mlp"], h2, cfg), None
 
 
 def mamba_block(bp: Params, x, cfg: ModelConfig, *, mode: str, state=None,
@@ -211,11 +228,13 @@ def _mamba_blocks(blocks: Params, x, cfg: ModelConfig, *, mode: str,
 def forward_stack(params: Params, x, cfg: ModelConfig, *, positions,
                   mode: str = "train", caches: Optional[Params] = None,
                   cache_len=None, page_table=None, chunked: bool = False):
-    """Returns the final-normed hidden states; pools, caches and states
-    update in place.  ``prefill``/``decode``/``verify`` need ``caches``:
-    paged pools with a ``page_table`` (the dense block stack only;
-    ``verify`` is paged only), else dense caches.  In paged and chunked prefill
-    ``cache_len`` carries the post-chunk valid length."""
+    """Returns (the final-normed hidden states, aux): ``aux`` the moe
+    layers' load-balancing losses summed (f32), ``None`` for the other
+    families.  Pools, caches and states update in place.
+    ``prefill``/``decode``/``verify`` need ``caches``: paged pools with a
+    ``page_table`` (the dense block stack only; ``verify`` is paged
+    only), else dense caches.  In paged and chunked prefill ``cache_len``
+    carries the post-chunk valid length."""
     if mode not in ("train", "prefill", "decode", "verify"):
         raise ValueError(f"unknown mode {mode!r}")
     if mode != "train" and caches is None:
@@ -228,15 +247,18 @@ def forward_stack(params: Params, x, cfg: ModelConfig, *, positions,
         raise ValueError(f"paged attention unsupported for family {fam!r}")
     if mode == "train":
         caches = None
-    kn = mode != "train" and not dense
+    kn = mode != "train" and fam in ("ssm", "hybrid")
     kw = dict(positions=positions, mode=mode, cache_len=cache_len,
               kernel_norm=kn)
-    if dense:
+    aux = None
+    if dense or fam == "moe":
         blocks = unstack(params["blocks"])
         pools = unstack(caches["attn"]) if caches else [None] * len(blocks)
         for bp, cache in zip(blocks, pools, strict=True):
-            x = attn_block(bp, x, cfg, cache=cache, page_table=page_table,
-                           chunked=chunked, **kw)
+            x, a = attn_block(bp, x, cfg, cache=cache, page_table=page_table,
+                              chunked=chunked, **kw)
+            if a is not None:
+                aux = a if aux is None else aux + a
     elif fam == "ssm":
         x = _mamba_blocks(params["blocks"], x, cfg, mode=mode,
                           states=caches["mamba"] if caches else None,
@@ -249,10 +271,10 @@ def forward_stack(params: Params, x, cfg: ModelConfig, *, positions,
         for sp, ms, ac in zip(supers, mstates, acaches, strict=True):
             x = _mamba_blocks(sp, x, cfg, mode=mode, states=ms,
                               kernel_norm=kn)
-            x = attn_block(params["shared_attn"], x, cfg, cache=ac,
-                           chunked=chunked, **kw)
+            x, _ = attn_block(params["shared_attn"], x, cfg, cache=ac,
+                              chunked=chunked, **kw)
         if "tail_blocks" in params:
             x = _mamba_blocks(params["tail_blocks"], x, cfg, mode=mode,
                               states=caches["mamba_tail"] if caches
                               else None, kernel_norm=kn)
-    return apply_norm(params["final_norm"], x, cfg, kernel=kn)
+    return apply_norm(params["final_norm"], x, cfg, kernel=kn), aux

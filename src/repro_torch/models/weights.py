@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.mamba2 import F32_LEAVES
+from repro_torch.models.layers import F32_LEAVES
 from repro_torch.tree import unflatten as unflatten_paths
 
 

@@ -9,15 +9,18 @@ then advances the whole decode batch by one token, growing pages on
 demand through the reclaim ladder (radix eviction, then preemption of a
 strictly-lower-QoS request, else a stall).
 
-Dense slots (the ssm and hybrid families, and the dense decoder with
+Dense slots (the ssm, hybrid and moe families, and the dense decoder with
 ``paged=False``): a request claims a slot of a ``SlotKVCache``.  The
-stateful families prefill in exact-length chunks that resume a batch-1
-staging cache of their own (their SSM state must not see pad tokens); the
-dense decoder prefills the whole prompt at once, right-padded to a pow2
-bucket.  A finished prefill is copied into the slot, and decode advances
-every slot together (the states of idle slots move on stale tokens, and
-the next ``insert`` overwrites them).  A failed chunk wrote only its own
-staging cache, so it fails only its own request.
+ssm and hybrid families prefill in exact-length chunks that resume a
+batch-1 staging cache of their own (their SSM state must not see pad
+tokens); a sliding-window arch (mixtral's ring caches) prefills the
+whole prompt at once at its exact length (pad KV would land in the ring,
+and pad tokens would change the experts' capacity and so which pairs
+drop); the dense decoder prefills the whole prompt at once, right-padded
+to a pow2 bucket.  A finished prefill is copied into the slot, and
+decode advances every slot together (the states of idle slots move on
+stale tokens, and the next ``insert`` overwrites them).  A failed chunk
+wrote only its own staging cache, so it fails only its own request.
 
 The engine is caller-driven (``step``/``run_until_drained``/a handle's
 ``result``) or runs a background loop (``start``/``stop``/``drain``).
@@ -37,8 +40,8 @@ eagerly and updates the pools, slot caches, page table and lengths in
 place; the tensors live on the engine's device (``cuda`` unless
 ``device="cpu"``).  The dense slot tree is in the compute dtype from the
 start (the JAX engine's starts in bf16 and takes the compute dtype at its
-first decode; ROADMAP Queue C).  MoE, sliding-window and MLA models
-raise ``NotImplementedError`` naming their ROADMAP item.  An encoder
+first decode; ROADMAP Queue C).  MLA models raise
+``NotImplementedError`` naming their ROADMAP item.  An encoder
 raises ``ValueError`` at construction: it serves through the container's
 ``generic`` entry point (the JAX engine takes the config and fails at its
 first prefill; ROADMAP Queue C).
@@ -241,6 +244,7 @@ class ServingEngine:
                               if b <= self.chunk_tokens]
         # stateful chunks are exact-length (an SSM state may not see pad
         # tokens); the dense decoder on dense slots prefills whole prompts
+        # (a sliding-window arch's at their exact length, ``_stateful``)
         self._chunkable_stateful = cfg.family in ("ssm", "hybrid")
         self._chunkable = self.paged or self._chunkable_stateful
         # "auto" starts from the provisional 2 chunks; on the paged plane
@@ -303,6 +307,14 @@ class ServingEngine:
             self._draft = DraftSpeculator(draft_cfg, max_slots, max_seq,
                                           params=draft_params, seed=seed + 1,
                                           device=self.device)
+
+    @property
+    def _stateful(self) -> bool:
+        """Archs whose prefill must not see pad tokens (an SSM state, a
+        sliding-window ring) → exact-length prefill, no pow2 bucket (JAX
+        ``engine.py:333-337``)."""
+        return self.cfg.family in ("ssm", "hybrid") or \
+            self.cfg.sliding_window > 0
 
     # ------------------------------------------------------------ steps
     def _chunk(self, tokens, table_row, start, new_len):
@@ -385,7 +397,9 @@ class ServingEngine:
         (first CUDA launches, kernel builds, library handles): every chunk
         bucket on the paged plane, with a draft also every speculative
         depth's propose and verify and every draft prefill bucket; one
-        chunk or every prompt bucket on dense slots.
+        chunk or every prompt bucket on dense slots (none for a
+        sliding-window arch, which prefills at each prompt's exact
+        length: a ``max_seq`` prompt would be the warmup's).
 
         State-neutral: paged chunks run against an all-zero table row with
         ``new_len = 0`` (every token is masked padding, every write lands
@@ -423,7 +437,7 @@ class ServingEngine:
                         self.model.init_caches(1, self.max_seq,
                                                self.cfg.cdtype),
                         zeros(self.chunk_tokens), zero1, zero1)
-                else:
+                elif not self._stateful:
                     for b in self.buckets:
                         self._prefill(zeros(b), zero1)
                 self._decode(self.last_tokens, self.kv.cache_len, inactive,
@@ -839,7 +853,8 @@ class ServingEngine:
                     self._i32(req.prompt[None, start:start + real]),
                     self._i32([start]), self._i32([start + real]))
             else:
-                bucket = next(b for b in self.buckets if b >= plen)
+                bucket = plen if self._stateful else next(
+                    b for b in self.buckets if b >= plen)
                 padded = np.zeros((1, bucket), np.int32)
                 padded[0, :plen] = req.prompt
                 logits, req.staging = self._prefill(self._i32(padded),

@@ -261,7 +261,8 @@ def test_unported_branches_raise():
 
     jcfg, tcfg = _cfgs()
     # paged=False serves on dense slots now (tests/test_torch_ssm.py);
-    # MoE, sliding-window and MLA models still raise, and an encoder-only
+    # MLA, a MoE or sliding window outside mixtral's pairing of them
+    # (tests/test_torch_moe.py) still raise, and an encoder-only
     # model is refused at construction: it serves through a container's
     # generic entry point (tests/test_torch_encoder.py)
     with pytest.raises(NotImplementedError, match="item 11"):

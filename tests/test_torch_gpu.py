@@ -117,6 +117,23 @@ DECODE_GPU_CASES = [
     (1, 4, 2, 64, 128, 0, 0.0, [1]),
     (1, 4, 2, 64, 128, 0, 0.0, [77]),
     (1, 4, 2, 64, 128, 0, 0.0, [128]),
+    # mixtral-8x7b's decode tick over its ring of 4096 slots (G 4, D 128,
+    # 8 slots): every ring full, every ring wrapped (lengths past S read
+    # all S slots, as decode_step clamps them), and rings filling
+    (8, 32, 8, 128, 4096, 0, 0.0, [4096] * 8),
+    (8, 32, 8, 128, 4096, 0, 0.0, [4097, 4600, 5000, 8191, 4096, 4200,
+                                   6000, 8000]),
+    (8, 32, 8, 128, 4096, 0, 0.0, [1, 100, 2000, 4095, 4096, 0, 3000,
+                                   4500]),
+]
+# mixtral-8x7b's monolithic prefill (the card only: the plain version's
+# scores take 2.7 GB): G 4 at D 128 under its 4096-key window, a prompt
+# of 4608 tokens, a ragged 4600, and a valid length past the window
+MIXTRAL_FLASH_CASES = [
+    # B, Tq, Tk, Hq, Hkv, D, causal, window, softcap, valid
+    (1, 4608, 4608, 32, 8, 128, True, 4096, 0.0, False),
+    (1, 4600, 4600, 32, 8, 128, True, 4096, 0.0, False),
+    (1, 4200, 4200, 32, 8, 128, True, 4096, 0.0, True),
 ]
 # head dims 192 (nemotron-4-340b) and 256 (gemma-2b), which the flash
 # forward and the three paged-template kernels take since the dense
@@ -220,6 +237,13 @@ def test_flash_kernel_matches_plain(case, dtype, cuda):
     want = ref.mha(q, k, v, **kw)
     torch.cuda.synchronize()
     assert got.dtype == dtype and _rel(want, got) < TOL[dtype]
+
+
+@pytest.mark.parametrize("case", MIXTRAL_FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_flash_kernel_at_mixtral_prefill(case, dtype, cuda):
+    """The window crosses 4096 keys on both sides of the tile skip."""
+    test_flash_kernel_matches_plain(case, dtype, cuda)
 
 
 @pytest.mark.parametrize("case", PAGED_CASES)

@@ -65,6 +65,11 @@ def test_port_runs_with_jax_unimportable(tmp_path):
         assert logits.shape == (1, 4, 256) and torch.isfinite(logits).all()
         r = eng.submit(np.arange(6), max_new_tokens=3).result(timeout=60)
         assert len(r.generated) == 3
+        import repro_torch.models.moe
+        moe_eng = ServingEngine(get_reduced_config("mixtral-8x7b"),
+                                max_slots=2, max_seq=64, device="cpu")
+        r = moe_eng.submit(np.arange(40), max_new_tokens=2).result(timeout=60)
+        assert len(r.generated) == 2
         assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
@@ -102,6 +107,7 @@ def test_entry_points_refuse_a_missing_gpu():
                  lambda: SlotKVCache(ssm, max_slots=2, max_seq=64),
                  lambda: ServingEngine(ssm),
                  lambda: Model(get_reduced_config("zamba2-1.2b")),
+                 lambda: Model(get_reduced_config("mixtral-8x7b")),
                  lambda: serve.main(["--arch", "mamba2-2.7b", "--reduced",
                                      "--requests", "1"]),
                  lambda: init_paged_cache_tree(cfg, 3, 16),

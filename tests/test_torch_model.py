@@ -51,7 +51,7 @@ def test_config_dict_round_trip_and_reduced():
     assert tcfg.kv_bytes_per_token() == jcfg.kv_bytes_per_token()
     assert tcfg.cdtype == torch.bfloat16 and tcfg.pdtype == torch.float32
     with pytest.raises(KeyError, match="not ported"):
-        get_config("mixtral-8x7b")
+        get_config("deepseek-v2-236b")
 
 
 # ---------------------------------------------------------------------------

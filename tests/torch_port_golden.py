@@ -53,6 +53,15 @@ seeded nonzero values (``seeded``), the JAX engine's streams for the
 waves and each prompt's last-position logits.  ``chip_smoke.py`` replays
 them on the card through the kernels at head dims 256 and 192.
 
+Mixtral rides along (``mixtral_*``): reduced fp32 ``mixtral-8x7b``
+(window 32, 4 experts of 128, top 2, the default capacity factor 1.25)
+from ``Model.init`` with its norm scales seeded, four prompts of 40-90
+tokens (longer than the window, so the ring wraps in prefill and again
+in decode) served at once on two dense slots by the warmed JAX engine,
+its greedy streams and each prompt's last-position logits.
+``chip_smoke.py`` replays them on the card through the fp32 windowed
+flash and dense decode kernels.
+
 The same waves are served again speculatively, with a random 1-layer,
 1-head draft (seed 0, ``spec_k_max=3``), once over pages in the compute
 dtype (``spec_streams_auto``) and once over int8 pages
@@ -98,6 +107,8 @@ TRAIN = dict(batch=8, seq=32, seed=3, steps=5,
 # reduced, at the real head dims where the CUDA kernels gained them
 DENSE_VARIANTS = {"gemma-2b": dict(head_dim=256), "command-r-35b": {},
                   "chameleon-34b": {}, "nemotron-4-340b": dict(head_dim=192)}
+MIXTRAL_ENGINE = dict(max_slots=2, max_seq=128, prefill_chunk=16)
+MIXTRAL_MAX_NEW = 12
 # leaves that init makes zero or one, which a test could not tell from
 # missing: biases (and LayerNorm's) and norm scales
 _SEEDED = {"b_q": 0.0, "b_k": 0.0, "b_v": 0.0, "b_o": 0.0, "bias": 0.0,
@@ -305,6 +316,49 @@ def _dense_variants() -> dict:
     return out
 
 
+def _padded(prompts) -> tuple:
+    lens = np.array([len(p) for p in prompts], np.int32)
+    padded = np.zeros((len(prompts), lens.max()), np.int32)
+    for i, p in enumerate(prompts):
+        padded[i, :len(p)] = p
+    return padded, lens
+
+
+def _mixtral() -> dict:
+    """The mixtral streams and logits of the module docstring."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_reduced_config
+    from repro.models.model import build_model
+    from repro.serving.engine import ServingEngine
+
+    cfg = dataclasses.replace(get_reduced_config("mixtral-8x7b"),
+                              compute_dtype="float32")
+    params = jax.tree.map(jnp.asarray, seeded(
+        build_model(cfg).init(jax.random.key(11)), seed=11))
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, 256, size=int(n))
+               for n in rng.integers(40, 91, size=4)]
+    eng = ServingEngine(cfg, params=params, **MIXTRAL_ENGINE).warmup()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=MIXTRAL_MAX_NEW)
+    eng.run_until_drained()
+    done = sorted(eng.completed.values(), key=lambda r: r.rid)
+    padded, lens = _padded(prompts)
+    out = {"config": np.array(json.dumps(cfg.to_dict(), sort_keys=True)),
+           "engine": np.array(json.dumps(MIXTRAL_ENGINE, sort_keys=True)),
+           "prompts": padded, "prompt_lens": lens,
+           "max_new": np.array(MIXTRAL_MAX_NEW, np.int32),
+           "streams": np.array([r.generated for r in done], np.int32),
+           "last_logits": np.stack([np.asarray(eng.model.forward(
+               params, {"tokens": jnp.asarray(p[None], jnp.int32)})[0])[0, -1]
+               for p in prompts]).astype(np.float32)}
+    out = {"mixtral_" + k: v for k, v in out.items()}
+    out.update(_flat_params("mixtral_params/", params))
+    return out
+
+
 def make() -> dict:
     """Regenerate the fixture's arrays with the JAX package."""
     import jax
@@ -329,10 +383,7 @@ def make() -> dict:
     first = [np.asarray(eng.model.forward(
         eng.params, {"tokens": jnp.asarray(p[None], jnp.int32)})[0])[0, -1]
         for p in prompts]
-    lens = np.array([len(p) for p in prompts], np.int32)
-    padded = np.zeros((len(prompts), lens.max()), np.int32)
-    for i, p in enumerate(prompts):
-        padded[i, :len(p)] = p
+    padded, lens = _padded(prompts)
     out = {
         "config": np.array(json.dumps(cfg.to_dict(), sort_keys=True)),
         "engine": np.array(json.dumps(ENGINE, sort_keys=True)),
@@ -353,6 +404,7 @@ def make() -> dict:
     out.update(_stateful())
     out.update(_encoder())
     out.update(_dense_variants())
+    out.update(_mixtral())
     return out
 
 
