@@ -13,8 +13,10 @@ continues:
    so must every bf16 instance of the paged and dense decode attention
    kernels and every wgmma instance of the flash forward and of the
    flash backward's dq and dk/dv kernels, one for each head dim they
-   take (the forward 32, 48, 64, 80, 128, 192 and 256, the backward up to
-   128; registers and spills printed), and no fp32 one; the paged,
+   take (the forward 32, 48, 64, 80, 128, 192 and 256, and keys of 192
+   over values of 128; the backward up to 128; registers and spills
+   printed), and MLA's absorbed-decode wgmma kernel (keys 576, values
+   512), and no fp32 one; the paged,
    verify and dense decode kinds at D 192 and 256 in bf16 and fp32, over
    int8 pools too for the paged kinds, registers and spills printed),
    TF32 off for matmuls and cuDNN;
@@ -42,7 +44,15 @@ continues:
    (B 1, Hq 32, Hkv 8, D 128; also 4600 tokens, and 4200 with 4100
    valid) and the dense decode kernel over 8 rings of 4096 at G 4, full
    or wrapped (lengths past S), both timed against SDPA with the explicit
-   windowed or length mask, and rings filling; flash attention
+   windowed or length mask, and rings filling; at deepseek-v2-236b's
+   (phase 3i): flash at q/k 192 and v 128 over its 512-token bucket (B 1,
+   128 heads, causal; also 64, a ragged 256, a softcap, GQA, non-causal)
+   and the dense decode kernel at keys 576 and values 512 under one KV
+   head at G 128 (B 8 over 1024 slots with lengths 36-543, and over 8
+   full caches of 4096; lengths 0, S and past S, a softcap, G 4 and 16,
+   values of their own), each timed shape against SDPA on the first of
+   its cuDNN, memory-efficient and math backends that takes it (named);
+   flash attention
    non-causal at G 1 at the encoders' shapes, each timed against one
    non-causal SDPA: the cv frame (B 1, T 32, 12 heads of 64), a hubert
    batch (B 8, T 500, 16 heads of 80) and fig 3's widest app (B 1, T 64,
@@ -117,6 +127,17 @@ continues:
    fp32 mixtral at full width (capacity factor 8, no drops) serves a
    4600-token prompt plus 16 tokens through the ring wrap, each token the
    argmax of one ``Model.forward`` over the whole sequence;
+3i. deepseek-v2-236b (after 3h, whose memory is freed first): 4 of its 60
+   layers at full width (the dense one and 3 MoE: d 5120, 128 heads of
+   MLA with kv_lora 512, 160 experts of 1536, top 6, 2 shared), bf16
+   parameters, random weights from a seed, on the dense-slot plane (8
+   slots, max_seq 1024): phase 3's 10 prompts of 4-511 tokens, 32 new
+   tokens each, each prompt prefilled once, whole, in its pow2 bucket;
+   every request completes, flash launched 4 x the prefills and the
+   dense decode kernel 4 x the decode steps (no paged kernel); tokens/s,
+   TTFT, tick walls, peak memory at init and under traffic, and a
+   profiled decode tick with the expert GEMMs', the latent-key copies'
+   (``mla.kv_cat``) and the dense decode kernel's device time;
 3d. the edge system: ``EdgeSystem`` with two logical nodes on cuda:0
    (half of the card's memory each, ``LeastLoadedPolicy``), the standard
    builders over full-width edge-cv-heavy (heavy, the paper's CV
@@ -178,8 +199,10 @@ continues:
    chameleon-34b, nemotron-4-340b at head dim 192, with their last-token
    logits within 2e-4) and reduced mixtral-8x7b's (prompts past its
    window of 32 on dense slots, the default capacity factor, through the
-   windowed flash and the dense decode kernels), reproduced by the port
-   on the card in fp32, and
+   windowed flash and the dense decode kernels) and reduced
+   deepseek-v2-236b's at the published MLA widths (through flash at
+   192/128 and the dense decode kernel at 576/512), reproduced by the
+   port on the card in fp32, and
    the JAX encoder logits of reduced
    edge-cv-heavy at head dims 48 and 80 through the fp32 flash kernel
    (within 2e-4 relative, argmax equal, the masked loss within 2e-4);
@@ -214,10 +237,10 @@ continues:
    per request for serving, per step for training (tinyllama's and
    hubert-xlarge's), per dispatch on the
    edge path, per request on the fleet, per batch for hubert, per request
-   of each dense variant's path and of mixtral's; the SSD scan and
-   RMSNorm from mamba2's serve, the dense
-   decode kernel from the speculative, zamba2's and mixtral's serves and
-   the edge path; a timed shape named after a serving path (``@mixtral``)
+   of each dense variant's path and of mixtral's and deepseek's; the SSD
+   scan and RMSNorm from mamba2's serve, the dense
+   decode kernel from the speculative, zamba2's, mixtral's and
+   deepseek's serves and the edge path; a timed shape named after a serving path (``@mixtral``)
    with that path's launches per 10 requests; flash attention's times at
    the serving
    chunk, and as ``train_*`` at the train shape, the encoders' shapes
@@ -404,22 +427,40 @@ def phase_device_and_build(torch):
     # the instances of the paged kernels and of the dense decode kernel
     # (the q dtype is their second template argument): HMMA in every bf16
     # one, none in an fp32 one
-    # flash forward: one wgmma instance for each head dim the wrapper
-    # takes (D 48 and 80 for the encoders), tensor-core instructions in
-    # every one (its spills are checked above), none in the fp32 kernel
+    # flash forward: one wgmma instance for each (key, value) head dims
+    # the wrapper takes (D 48 and 80 for the encoders, MLA's 192 and 128),
+    # tensor-core instructions in every one (its spills are checked
+    # above), none in the fp32 kernel
     from repro_torch.kernels import flash_attention_bwd as fab
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    from repro_torch.kernels.flash_attention import DIM_PAIRS
 
     ops = tc_ops["flash_attention"]
     regs = {k: r for k, r, _ in _kernel_resources(logs["flash_attention"])}
-    for D in HEAD_DIMS:
-        wk, fk = f"flash_fwd_wgmma_kernel<{D}>", f"flash_fwd_kernel<{D}>"
+    for D, Dv in DIM_PAIRS:
+        wk = f"flash_fwd_wgmma_kernel<{D},{Dv}>"
+        fk = f"flash_fwd_kernel<{D},{Dv}>"
         check(ops.get(wk, 0) > 0 and ops.get(fk, -1) == 0,
-              f"flash_attention D {D}: {wk} without or {fk} with "
+              f"flash_attention D {D}/{Dv}: {wk} without or {fk} with "
               f"tensor-core instructions: {ops}")
-        print(f"[build] flash_attention D {D}: {wk} {ops[wk]} HGMMA, "
+        print(f"[build] flash_attention D {D}/{Dv}: {wk} {ops[wk]} HGMMA, "
               f"{regs.get(wk, 'n/a')} regs; {fk} {regs.get(fk, 'n/a')} "
               f"regs, no HMMA")
+    # MLA's absorbed decode (keys 576, values 512): its wgmma kernel with
+    # tensor-core instructions (and, as above, no spill), its fp32 kernel
+    # and the partials' merge without
+    ops = tc_ops["decode_attention"]
+    res = {k: (r, b) for k, r, b in _kernel_resources(logs[
+        "decode_attention"]) if k.startswith("mla_")}
+    mla = {k: v for k, v in ops.items() if k.startswith("mla_")}
+    wk = [k for k in mla if k.startswith("mla_dense_decode_wgmma_kernel")]
+    rest = [k for k in mla if k not in wk]
+    check(len(wk) == 1 and mla[wk[0]] > 0 and len(rest) >= 2
+          and not any(mla[k] for k in rest),
+          f"decode_attention MLA: the wgmma kernel without or the fp32 "
+          f"kernels with tensor-core instructions: {mla}")
+    print(f"[build] decode_attention MLA (576/512): " + ", ".join(
+        f"{k} {mla.get(k, 0)} HMMA/HGMMA, {r} regs, {b} B spilled"
+        for k, (r, b) in sorted(res.items())))
     # flash backward: the dq and dk/dv kernels at every head dim the
     # wrapper takes (D 48 and 80 for encoder training), the wgmma
     # instances with tensor-core instructions (and, as above, no spill),
@@ -648,6 +689,102 @@ def _sdpa_dense(torch, F, args, kw):
     kt, vt = (x.transpose(1, 2).repeat_interleave(G, dim=1) for x in (k, v))
     return lambda: F.scaled_dot_product_attention(
         q[:, :, None], kt, vt, attn_mask=mask[:, None, None])
+
+
+def _mla_flash_case(torch, gen, dtype, B, T, H, valid=None, softcap=0.0,
+                    Hkv=None, causal=True):
+    """MLA's prefill (deepseek-v2-236b): q and k 192 wide (nope 128 + rope
+    64), v 128, Hq = Hkv (the broadcast k_rope) unless ``Hkv``, scale
+    192^-0.5, explicit positions as ``attend`` passes them, keys valid
+    below ``valid`` (a ragged bucket)."""
+    dt = getattr(torch, dtype)
+    Hkv = Hkv or H
+    q = torch.randn(B, T, H, 192, generator=gen, device="cuda").to(dt)
+    k = torch.randn(B, T, Hkv, 192, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, T, Hkv, 128, generator=gen, device="cuda").to(dt)
+    pos = torch.arange(T, device="cuda", dtype=torch.int32)[None].expand(B, T)
+    kw = dict(causal=causal, softcap=softcap, q_positions=pos,
+              kv_positions=pos, sm_scale=192 ** -0.5)
+    if valid is not None:
+        kw["kv_valid_len"] = torch.full((B,), valid, device="cuda",
+                                        dtype=torch.int32)
+    # what the data needs: q, k, v and o once, the positions, and the
+    # products over the pairs the masks keep
+    n = valid if valid is not None else T
+    qp, kp = np.arange(T)[:, None], np.arange(T)[None, :]
+    keep = (kp < n) & ((kp <= qp) if causal else True)
+    pairs = int(keep.sum()) * B * H
+    e = q.element_size()
+    nbytes = (B * T * H * (192 + 128) + B * T * Hkv * (192 + 128)) * e \
+        + 2 * 4 * B * T
+    return (q, k, v), kw, nbytes, 2 * (192 + 128) * pairs
+
+
+def _sdpa_library(torch, F, call):
+    """The first of SDPA's backends that takes ``call`` (values narrower
+    than keys; one KV head under many query heads): cuDNN, the
+    memory-efficient kernel, then the math one.  Returns (its name, a
+    timed closure).  Only the library yardstick picks a backend: the
+    port's kernels are not involved."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        def run(backend=backend):
+            with sdpa_kernel(backend):
+                return call()
+        try:
+            run()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return backend.name, run
+    fail("no SDPA backend takes the MLA shape")
+
+
+def _sdpa_mla_flash(torch, F, args, kw):
+    """Library yardstick of MLA's prefill: one causal SDPA over the same
+    q, k and v (192/192/128 wide), no mask tensor."""
+    q, k, v = (x.transpose(1, 2) for x in args)
+    return _sdpa_library(torch, F, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=kw["causal"], scale=kw["sm_scale"],
+        enable_gqa=k.shape[1] != q.shape[1]))
+
+
+def _mla_decode_case(torch, gen, dtype, B, S, Hq=128, fix=None,
+                     softcap=0.0, own_v=False):
+    """MLA's absorbed decode (deepseek-v2-236b): q [B, Hq, 576] (q_lat and
+    q_rope), one KV head of keys [c_kv, k_rope] 576 wide and values c_kv
+    (their first 512 columns, a copy, as ``_decode_step_mla`` passes
+    ``cache["c_kv"]``; ``own_v`` draws values of their own), lengths
+    36-543 unless ``fix``."""
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, Hq, 576, generator=gen, device="cuda").to(dt)
+    k = torch.randn(B, S, 1, 576, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, S, 1, 512, generator=gen, device="cuda").to(dt) \
+        if own_v else k[..., :512].contiguous()
+    clen = torch.randint(36, 544, (B,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    for row, n in (fix or {}).items():
+        clen[row] = n
+    kw = dict(softcap=softcap, sm_scale=192 ** -0.5)
+    # what the data needs: each row's valid keys (576 + 512 columns) once,
+    # q and o; 2·(576 + 512) FLOP a key and query head
+    toks = int(np.minimum(clen.long().cpu().numpy(), S).sum())
+    e = q.element_size()
+    nbytes = toks * (576 + 512) * e + B * Hq * (576 + 512) * e + 4 * B
+    return (q, k, v, clen), kw, nbytes, 2 * (576 + 512) * toks * Hq
+
+
+def _sdpa_mla_decode(torch, F, args, kw):
+    """Library yardstick of MLA's decode: SDPA with the single KV head
+    shared by ``enable_gqa``, an explicit length mask."""
+    q, k, v, clen = args
+    mask = torch.arange(k.shape[1], device="cuda")[None] < clen[:, None]
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    return _sdpa_library(torch, F, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask[:, None, None], scale=kw["sm_scale"],
+        enable_gqa=True))
 
 
 def _bwd_case(torch, gen, dtype, dims, causal=True, window=0, softcap=0.0,
@@ -1137,6 +1274,78 @@ def phase_kernels(torch, timer, card):
                 ref.decode_attention, args, kw, nb, fl,
                 _sdpa_dense(torch, F, args, kw),
                 key is not None and dtype == "bfloat16", key)
+            if empty:
+                out = decode_attention(*args, **kw)
+                check(bool((out[list(empty)] == 0).all()),
+                      f"decode_attention {label}: a row with no valid key "
+                      f"must give exactly 0")
+
+    # deepseek-v2-236b's MLA (phase 3i): the prefill's flash at q/k 192 and
+    # v 128 over its pow2 bucket (B 1, 128 heads, causal; timed at 512),
+    # ragged, with a softcap, GQA, non-causal; the absorbed decode at keys
+    # 576 and values 512 under one KV head at G 128 (timed at phase 3i's
+    # tick, B 8 over max_seq 1024 with lengths up to 543, and over 8 full
+    # caches of 4096), rows of 0, S and past S, a softcap, G 4 (the golden
+    # replay's), independent values; each timed shape against SDPA on the
+    # first backend that takes it
+    mla_flash = [
+        # label, (B, T, H), extra, the key the times go under
+        ("MLA B1/T512 H128 192/128", (1, 512, 128), {},
+         "flash_attention@deepseek"),
+        ("MLA B1/T64 H128 192/128", (1, 64, 128), {}, None),
+        ("MLA B1/T256 H128 192/128, 200 valid", (1, 256, 128),
+         {"valid": 200}, None),
+        ("MLA B2/T130 H8 192/128 softcap30", (2, 130, 8), {"softcap": 30.0},
+         None),
+        ("MLA B2/T70 H8 over 2 KV heads 192/128", (2, 70, 8), {"Hkv": 2},
+         None),
+        ("MLA B1/T40 H4 192/128 non-causal", (1, 40, 4), {"causal": False},
+         None),
+    ]
+    for dtype in ("bfloat16", "float32"):
+        for label, dims, extra, key in mla_flash:
+            args, kw, nb, fl = _mla_flash_case(torch, gen, dtype, *dims,
+                                               **extra)
+            timed = key is not None and dtype == "bfloat16"
+            lib = _sdpa_mla_flash(torch, F, args, kw) if timed else None
+            run("flash_attention", label, dtype, flash_attention, ref.mha,
+                args, kw, nb, fl, lib and lib[1], timed, key)
+            if timed:
+                results[key]["library"] = f"SDPA {lib[0]}"
+                print(f"[kernel] flash_attention {label}: library SDPA "
+                      f"backend {lib[0]}")
+    mla_decode = [
+        # label, B, S, extra, the key the times go under, empty rows
+        ("MLA B8/S1024 G128 576/512, lengths 36-543", 8, 1024, {},
+         "decode_attention@deepseek", ()),
+        ("MLA B8/S4096 G128 576/512 full caches", 8, 4096,
+         {"fix": {i: 4096 for i in range(8)}},
+         "decode_attention@deepseek_S4096", ()),
+        ("MLA B8/S1024 G128 lengths 0, 1, S and past S", 8, 1024,
+         {"fix": {0: 0, 1: 1, 2: 1024, 3: 1500, 4: 64, 5: 65}}, None,
+         (0,)),
+        ("MLA B4/S300 G128 softcap30", 4, 300,
+         {"softcap": 30.0, "fix": {0: 0, 1: 299, 2: 300, 3: 17}}, None,
+         (0,)),
+        ("MLA B2/S128 G4 golden shape", 2, 128,
+         {"Hq": 4, "fix": {0: 77, 1: 128}}, None, ()),
+        ("MLA B3/S200 G16 own values", 3, 200,
+         {"Hq": 16, "own_v": True, "fix": {0: 0, 1: 5, 2: 199}}, None,
+         (0,)),
+    ]
+    for dtype in ("bfloat16", "float32"):
+        for label, B, S, extra, key, empty in mla_decode:
+            args, kw, nb, fl = _mla_decode_case(torch, gen, dtype, B, S,
+                                                **extra)
+            timed = key is not None and dtype == "bfloat16"
+            lib = _sdpa_mla_decode(torch, F, args, kw) if timed else None
+            run("decode_attention", label, dtype, decode_attention,
+                ref.decode_attention, args, kw, nb, fl, lib and lib[1],
+                timed, key)
+            if timed:
+                results[key]["library"] = f"SDPA {lib[0]}"
+                print(f"[kernel] decode_attention {label}: library SDPA "
+                      f"backend {lib[0]}")
             if empty:
                 out = decode_attention(*args, **kw)
                 check(bool((out[list(empty)] == 0).all()),
@@ -2182,6 +2391,152 @@ def phase_mixtral(torch):
     torch.cuda.empty_cache()
     _mixtral_wrap_exactness(torch)
     print(f"[mixtral] phase 3h {time.monotonic() - t_phase:.1f}s")
+    return {k: launches[k] for k in ("flash_attention", "decode_attention")}, \
+        len(done)
+
+
+# ---------------------------------------------------------------------------
+# phase 3i: deepseek-v2-236b at full width
+# ---------------------------------------------------------------------------
+
+# the layers phase 3i keeps of deepseek-v2-236b's 60: the leading dense
+# one and 3 MoE layers, at full width with bf16 parameters: 13 302 912 000
+# of them, 26.6 GB (PERF.md §4)
+DEEPSEEK_CUT = 4
+
+
+def _latent_keys_range(torch):
+    """The absorbed decode's ``[c_kv, k_rope]`` copy wrapped in a
+    ``record_function`` range (the module attribute ``_decode_step_mla``
+    reads), for a profiled tick; returns the undo."""
+    from repro_torch.models import attention
+
+    saved = attention._latent_keys
+
+    def ranged(cache):
+        with torch.profiler.record_function("mla.kv_cat"):
+            return saved(cache)
+
+    attention._latent_keys = ranged
+    return lambda: setattr(attention, "_latent_keys", saved)
+
+
+def phase_deepseek(torch):
+    """deepseek-v2-236b at full width and cut depth (``DEEPSEEK_CUT``
+    layers: the dense one and 3 MoE, bf16 parameters, random weights from
+    a seed) on the dense-slot plane: 8 slots, ``max_seq`` 1024, phase 3's
+    10 prompts of 4-511 tokens, 32 new tokens each, each prompt prefilled
+    once, whole, in its pow2 bucket; every request completes, flash (q/k
+    192, v 128) launched layers x prefills and the dense decode kernel
+    (keys 576, values 512, G 128) layers x decode steps (no paged
+    kernel); tokens/s, TTFT, tick walls, peak memory at init and under
+    traffic, and a profiled decode tick with the expert GEMMs', the
+    latent-key copies' and the rest's device time.  Returns the launches
+    and the requests."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.serving.engine import ServingEngine
+
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config("deepseek-v2-236b")
+    m = full.mla
+    check(full.d_model == 5120 and full.num_heads == 128
+          and (m.q_lora_rank, m.kv_lora_rank, m.qk_nope_head_dim,
+               m.qk_rope_head_dim, m.v_head_dim) == (1536, 512, 128, 64, 128)
+          and full.moe.num_experts == 160 and full.moe.top_k == 6
+          and full.moe.num_shared_experts == 2
+          and full.moe.first_dense_layers == 1
+          and full.num_params() == 235_741_434_880,
+          f"deepseek-v2-236b config {full}")
+    cfg = dataclasses.replace(full, num_layers=DEEPSEEK_CUT,
+                              param_dtype="bfloat16")
+    L = cfg.num_layers
+    check(cfg.num_params() == 13_302_912_000,
+          f"deepseek cut to {L} layers: {cfg.num_params()} parameters")
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = ServingEngine(cfg, max_slots=8, max_seq=1024, seed=0,
+                        device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    eng.warmup()
+    check(not eng.paged and not eng._stateful,
+          "deepseek must serve on dense slots with bucketed prefill")
+    lat = eng.kv.caches["attn"]["c_kv"].shape
+    check(tuple(lat) == (L - 1, 8, 1024, 512)
+          and tuple(eng.kv.caches["attn_dense"]["k_rope"].shape)
+          == (1, 8, 1024, 64), f"deepseek's latent caches {lat}")
+    print(f"[deepseek] {L} of {full.num_layers} layers at full width (d5120,"
+          f" 128 heads of MLA: q_lora 1536, kv_lora 512, nope 128, rope 64, "
+          f"v 128; 1 dense layer of 12288, then 160 experts of 1536, top 6, "
+          f"2 shared), bf16 parameters ({cfg.num_params()} = "
+          f"{cfg.num_params() * 2} B; {full.active_params()} active of "
+          f"{full.num_params()} at full depth): init {init_s:.1f}s (peak "
+          f"{init_peak - start} B over the {start} B allocated before), "
+          f"warmup {eng.warmup_s:.2f}s over buckets {eng.buckets}, latent "
+          f"caches {eng.kv.capacity_bytes()} B for 8 slots")
+    rng = np.random.default_rng(0)
+    lens = [int(rng.integers(4, 512)) for _ in range(10)]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
+    counters = ((fa, "flash_attention"), (da, "decode_attention"),
+                (pda, "paged_decode_attention"))
+    for mod, fn in counters:
+        getattr(mod, fn).launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with eng:
+        handles = [eng.submit(p, max_new_tokens=32) for p in prompts]
+        done = [h.result(timeout=900) for h in handles]
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {fn: getattr(mod, fn).launches for mod, fn in counters}
+    st = eng.stats()
+    check(not eng.failed and st["failed"] == 0,
+          f"deepseek: failed requests "
+          f"{[r.error for r in eng.failed.values()]}")
+    check(len(done) == 10 and all(len(r.generated) == 32 for r in done),
+          "deepseek: every request must complete with 32 tokens")
+    chunks, steps = st["prefill_chunks"], st["decode_steps"]
+    check(chunks == len(prompts),
+          f"deepseek: {chunks} prefills for {len(prompts)} prompts (each "
+          "must prefill once, whole)")
+    want = {"flash_attention": L * chunks, "decode_attention": L * steps,
+            "paged_decode_attention": 0}
+    check(launches == want and steps > 0,
+          f"deepseek launches {launches} != {want} ({chunks} prefills, "
+          f"{steps} decode steps)")
+    vocab = {t for r in done for t in r.generated}
+    check(all(0 <= t < cfg.vocab_size for t in vocab),
+          "deepseek: a token outside the vocabulary")
+    toks = sum(len(r.generated) for r in done)
+    print(f"[deepseek] {len(done)} requests, {toks} tokens in {wall:.2f}s "
+          f"({toks / wall:.1f} tok/s); prompts {lens}; peak memory under "
+          f"traffic {torch.cuda.max_memory_allocated()} B")
+    print(f"[deepseek] ttft p50 {st['p50_ttft_s'] * 1e3:.1f} ms p95 "
+          f"{st['p95_ttft_s'] * 1e3:.1f} ms; decode tick p50 "
+          f"{st['p50_decode_tick_s'] * 1e3:.2f} ms p95 "
+          f"{st['p95_decode_tick_s'] * 1e3:.2f} ms; prefill tick p50 "
+          f"{st['p50_prefill_tick_s'] * 1e3:.2f} ms")
+    print(f"[deepseek] {chunks} prefills, {steps} decode steps, launches "
+          f"{launches} (exact)")
+    undo = (_moe_ranges(torch), _latent_keys_range(torch))
+    try:
+        profile_decode(torch, eng, rng, label="deepseek decode",
+                       ranges=("moe.dispatch", "moe.expert_ffn",
+                               "moe.combine", "mla.kv_cat", "aten::bmm"))
+    finally:
+        for u in undo:
+            u()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[deepseek] phase 3i {time.monotonic() - t_phase:.1f}s")
     return {k: launches[k] for k in ("flash_attention", "decode_attention")}, \
         len(done)
 
@@ -3369,6 +3724,54 @@ def phase_golden(torch):
           f"last-position logits max rel err {worst:.3e} (bound 2e-4)")
     check(worst < 2e-4, f"golden mixtral logits {worst} >= 2e-4")
 
+    # deepseek: reduced fp32 at the published MLA widths (kv_lora 512,
+    # nope 128, rope 64, v 128; a dense block, then a MoE block with the
+    # shared expert), prompts of 40-90 tokens on two dense slots, served
+    # by the JAX engine; the streams token for token and the logits,
+    # through the fp32 flash kernel at (192, 128) and the fp32 dense
+    # decode kernel at (576, 512)
+    pre = "deepseek_"
+    dcfg = ModelConfig.from_dict(json.loads(str(g[pre + "config"])))
+    dm = dcfg.mla
+    check((dm.kv_lora_rank, dm.qk_nope_head_dim + dm.qk_rope_head_dim,
+           dm.v_head_dim) == (512, 192, 128)
+          and dcfg.cdtype == torch.float32,
+          f"golden deepseek: config {dcfg}")
+    dparams = tree(pre + "params/", dcfg)
+    before = (fa.flash_attention.launches, da.decode_attention.launches)
+    deng = ServingEngine(dcfg, params=dparams, device="cuda",
+                         **json.loads(str(g[pre + "engine"])))
+    dprompts = [p[:n] for p, n in zip(g[pre + "prompts"],
+                                      g[pre + "prompt_lens"])]
+    for p in dprompts:
+        deng.submit(p, max_new_tokens=int(g[pre + "max_new"]))
+    got = [r.generated for r in sorted(deng.run_until_drained(),
+                                       key=lambda r: r.rid)]
+    check(not deng.failed and got == g[pre + "streams"].tolist(),
+          f"golden deepseek streams differ:\n{got}\n"
+          f"{g[pre + 'streams'].tolist()}")
+    moved = (fa.flash_attention.launches - before[0],
+             da.decode_attention.launches - before[1])
+    check(moved[0] == dcfg.num_layers * len(dprompts)
+          and moved[1] == dcfg.num_layers * deng.decode_steps,
+          f"golden deepseek: flash and dense decode launches {moved}")
+    worst = 0.0
+    with torch.no_grad():
+        for p, want in zip(dprompts, g[pre + "last_logits"]):
+            lg = deng.model.forward(dparams, {"tokens": torch.tensor(
+                p[None].astype(np.int64), device="cuda")})[0, -1]
+            w = torch.tensor(want, device="cuda")
+            worst = max(worst, float((lg - w).abs().max() / w.abs().max()))
+    print(f"[golden] deepseek-v2-236b reduced ({dcfg.num_layers}L "
+          f"d{dcfg.d_model}, {dcfg.num_heads} heads of MLA at kv_lora "
+          f"{dm.kv_lora_rank}, q/k {dm.qk_nope_head_dim}+"
+          f"{dm.qk_rope_head_dim}, v {dm.v_head_dim}, fp32): the JAX "
+          f"engine's {len(got)} streams over prompts of "
+          f"{[len(p) for p in dprompts]} tokens reproduced on the card "
+          f"(launches: flash {moved[0]}, dense decode {moved[1]}); "
+          f"last-position logits max rel err {worst:.3e} (bound 2e-4)")
+    check(worst < 2e-4, f"golden deepseek logits {worst} >= 2e-4")
+
     # the encoder: reduced fp32 edge-cv-heavy at head dims 48 and 80, JAX
     # Model.forward's logits and masked loss, through the fp32 kernel
 
@@ -3925,19 +4328,21 @@ KERNELS = {
 # the paths each kernel's launch count comes from, and each path's unit
 DENSE_PATHS = ("gemma", "gemma_spec", "command-r", "chameleon", "nemotron")
 PATH_OF = {"flash_attention": ("serve", "edge", "fleet", "hubert",
-                               "hubert_train", "mixtral") + DENSE_PATHS,
+                               "hubert_train", "mixtral", "deepseek")
+           + DENSE_PATHS,
            "paged_decode_attention": ("serve", "edge", "fleet")
            + DENSE_PATHS,
            "paged_verify_attention": ("spec", "gemma_spec"),
            "decode_attention": ("spec", "zamba2", "edge", "gemma_spec",
-                                "mixtral"),
+                                "mixtral", "deepseek"),
            "flash_attention_bwd_dq": ("train", "hubert_train"),
            "flash_attention_bwd_dkv": ("train", "hubert_train"),
            "ssd_scan": ("mamba2",), "rmsnorm": ("mamba2",)}
 UNIT_OF = {"serve": "request", "spec": "request", "train": "step",
            "mamba2": "request", "zamba2": "request", "edge": "dispatch",
            "fleet": "request", "hubert": "batch", "hubert_train": "step",
-           "mixtral": "request", **{p: "request" for p in DENSE_PATHS}}
+           "mixtral": "request", "deepseek": "request",
+           **{p: "request" for p in DENSE_PATHS}}
 
 
 def _path_rate(paths: dict, name: str, tag: str) -> dict:
@@ -3974,6 +4379,7 @@ def main() -> int:
              "hubert": phase_hubert(torch)}
     paths.update(phase_dense_variants(torch))
     paths["mixtral"] = phase_mixtral(torch)
+    paths["deepseek"] = phase_deepseek(torch)
     phase_consistency(torch)
     phase_ssm_consistency(torch)
     phase_spec_exactness(torch)
@@ -4009,6 +4415,8 @@ def main() -> int:
                          {**{key: kernels[k][key] for key in (
                              "shape", "ms", "plain_ms", "bound_ms",
                              "bound_by", "library_ms")},
+                          **({"library": kernels[k]["library"]}
+                             if "library" in kernels[k] else {}),
                           **_path_rate(paths, name, k.split("@")[1])}
                          for k in sorted(kernels)
                          if k.startswith(f"{name}@") and k != f"{name}@train"],

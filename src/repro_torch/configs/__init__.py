@@ -1,7 +1,7 @@
 """Config registry: ``get_config("mamba2-2.7b")`` → ModelConfig.
 
-Same names as ``repro.configs``; architectures the port has not reached
-raise ``KeyError``.
+Same names as ``repro.configs``, every one of them ported; an unknown
+name raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ _MODULES = {
     "chameleon-34b": "repro_torch.configs.chameleon_34b",
     "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
@@ -26,15 +27,8 @@ _MODULES = {
 
 _ATTR = {"edge-cv-heavy": "CV_HEAVY", "edge-stream-light": "STREAM_LIGHT"}
 
-# registered in ``repro.configs`` but not ported yet: MLA (ROADMAP Queue
-# A item 11.4)
-_NOT_PORTED = {"deepseek-v2-236b": "11.4"}
-
 
 def get_config(name: str) -> ModelConfig:
-    if name in _NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not ported yet "
-                       f"(ROADMAP Queue A item {_NOT_PORTED[name]})")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     return getattr(importlib.import_module(_MODULES[name]),

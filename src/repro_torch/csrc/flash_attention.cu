@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel `src/repro/kernels/flash_attention.py:
 // flash_attention` (`_kernel`, launched at :142).  Same function: q
-// [B,Tq,Hq,D] against k [B,Tk,Hkv,D] and v [B,Tk,Hkv,D] over GQA heads,
+// [B,Tq,Hq,D] against k [B,Tk,Hkv,D] and v [B,Tk,Hkv,Dv] over GQA heads
+// (Dv = D, or Dv 128 under D 192 for DeepSeek's MLA prefill),
 // explicit int32 query and key positions, the masks `kp <= qp` (causal),
 // `qp - kp < window` and `kp < kv_valid_len`, the logit softcap
 // `tanh(s/c)*c` after scaling, an f32 accumulator, an output of 0 for a
@@ -29,6 +30,11 @@
 //    few hundred MFLOP over about a MB, under a microsecond either way:
 //    what bounds it is latency.  32 blocks of 64 rows for 132 SMs, each
 //    walking its key tiles one after the other.
+//  - MLA's prefill (deepseek-v2-236b: a prompt of one pow2 bucket, up to
+//    512 tokens in the smoke, B 1, Hq = Hkv = 128, q and k 192 wide, v
+//    128, causal): about 84 MB of q, k, v and o against 10.8 GFLOP on the
+//    pairs the mask keeps at T 512, 0.025 ms of bytes against 0.011 ms of
+//    operations: bytes.
 //
 // What the design does about it (bf16):
 //  - Tensor cores.  One warpgroup of 128 threads a block and 64 query
@@ -41,6 +47,11 @@
 //    tile as an MN-major B: p never touches shared memory.  The scale
 //    multiplies the f32 sum, never the bf16 operand, so the logits `lse`
 //    describes are the ones the backward recomputes.
+//  - Values narrower than keys (MLA's 192 and 128): s = q·kᵀ walks the 192
+//    key columns in 12 k16 steps from a K tile of its own width, and the
+//    output columns follow V's 128, so one warpgroup holds them all (64
+//    floats a thread, as at D 128).  Shared memory: q and two stages of K
+//    at 24 KB and V at 16 KB each, 105 KB.
 //  - D 192 and 256 (nemotron-4-340b, gemma-2b).  One warpgroup's whole
 //    [64, D] accumulator would be D/2 floats a thread (128 at D 256) on
 //    top of s, p and the addressing: past the 255-register cap.  So a
@@ -116,19 +127,19 @@ constexpr int kRows = kWarps * kRowsPerWarp;   // query rows per block
 
 // q, K transposed and V tiles, the key and row positions, a class byte a
 // 32-key tile
-template <int D>
+template <int DK, int DV>
 size_t smem_bytes(int n_tiles) {
-  return sizeof(float) * (kRows * D + 2 * kBK * D) +
+  return sizeof(float) * (kRows * DK + kBK * DK + kBK * DV) +
          sizeof(int) * (kBK + kRows) + n_tiles;
 }
 
 // One block per (32-row query tile, KV head [, head group], batch); its
 // rows are `32/GB` positions times GB heads of one KV head.  In a tile
 // each lane owns one key for the logits of its warp's 4 rows and the
-// output columns lane, lane + 32, ... below D for p·v (`kLaneCols`), where
+// output columns lane, lane + 32, ... below DV for p·v (`kLaneCols`), where
 // each V value read serves all 4 rows and the probabilities pass by
-// shuffles.
-template <int D>
+// shuffles.  Keys are DK wide, values DV (DV < DK for MLA's prefill).
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
@@ -137,17 +148,18 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const int* __restrict__ valid_len, int Tq, int Tk, int Hq,
                  int Hkv, int G, int GB, int tq_per_block, int causal,
                  int window, float softcap, float sm_scale) {
-  constexpr int C = kLaneCols<D>;       // output columns per lane
+  constexpr int C = kLaneCols<DV>;      // output columns per lane
   constexpr int RW = kRowsPerWarp;
   constexpr int VEC = 4;                // elements per 16-byte load
-  constexpr int RV = D / VEC;           // loads per key row
-  constexpr int TV = kBK * RV;          // loads per tile (K or V)
+  constexpr int RK = DK / VEC, RV = DV / VEC;   // loads per K and V row
+  constexpr int TK = kBK * RK, TV = kBK * RV;   // loads per K and V tile
+  constexpr int NK = (TK + kThreads - 1) / kThreads;
   constexpr int NV = (TV + kThreads - 1) / kThreads;
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);   // [kRows][D], pre-scaled
-  float* kT_s = q_s + kRows * D;              // [D][kBK], K transposed
-  float* v_s = kT_s + kBK * D;                // [kBK][D]
-  int* kp_s = reinterpret_cast<int*>(v_s + kBK * D);   // [kBK]
+  float* q_s = reinterpret_cast<float*>(smem4);   // [kRows][DK], pre-scaled
+  float* kT_s = q_s + kRows * DK;             // [DK][kBK], K transposed
+  float* v_s = kT_s + kBK * DK;               // [kBK][DV]
+  int* kp_s = reinterpret_cast<int*>(v_s + kBK * DV);  // [kBK]
   int* qp_s = kp_s + kBK;                     // [kRows]
   uint8_t* cls = reinterpret_cast<uint8_t*>(qp_s + kRows);   // [n_tiles]
 
@@ -162,11 +174,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   auto row_live = [&](int r) {
     return r < nrows && t0 + r / GB < Tq && row_head(r) < G;
   };
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-    const int r = i / D, d = i % D;
+  for (int i = threadIdx.x; i < kRows * DK; i += kThreads) {
+    const int r = i / DK, d = i % DK;
     float x = 0.f;
     if (row_live(r))
-      x = q[(((size_t)b * Tq + t0 + r / GB) * Hq + h * G + row_head(r)) * D +
+      x = q[(((size_t)b * Tq + t0 + r / GB) * Hq + h * G + row_head(r)) * DK +
             d] * sm_scale;
     q_s[i] = x;
   }
@@ -190,19 +202,25 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // The next tile, staged in registers while the current one is computed.
   // K is spread key-fastest over the threads (its transposed store then
   // hits 32 banks), V chunk-fastest (whole rows per thread group).
-  uint4 kreg[NV], vreg[NV];
+  uint4 kreg[NK], vreg[NV];
   int kpreg = 0;
-  auto row_off = [&](int kj) { return (((size_t)b * Tk + kj) * Hkv + h) * D; };
+  auto row_off = [&](int kj) { return ((size_t)b * Tk + kj) * Hkv + h; };
   auto fetch = [&](int k0) {
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      const int idx = threadIdx.x + n * kThreads;
+      const int kk = k0 + idx % kBK;
+      kreg[n] = make_uint4(0, 0, 0, 0);
+      if (idx < TK && kk < n_keys)
+        kreg[n] = load16(k + row_off(kk) * DK + (idx / kBK) * VEC);
+    }
 #pragma unroll
     for (int n = 0; n < NV; ++n) {
       const int idx = threadIdx.x + n * kThreads;
-      const int kk = k0 + idx % kBK, vk = k0 + idx / RV;
-      kreg[n] = vreg[n] = make_uint4(0, 0, 0, 0);
-      if (idx < TV && kk < n_keys)
-        kreg[n] = load16(k + row_off(kk) + (idx / kBK) * VEC);
+      const int vk = k0 + idx / RV;
+      vreg[n] = make_uint4(0, 0, 0, 0);
       if (idx < TV && vk < n_keys)
-        vreg[n] = load16(v + row_off(vk) + (idx % RV) * VEC);
+        vreg[n] = load16(v + row_off(vk) * DV + (idx % RV) * VEC);
     }
     if (threadIdx.x < kBK) {
       const int kj = k0 + threadIdx.x;
@@ -211,16 +229,22 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   };
   auto stash = [&]() {
 #pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      const int idx = threadIdx.x + n * kThreads;
+      if (idx >= TK) continue;
+      const int kc = (idx / kBK) * VEC, kj = idx % kBK;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        kT_s[(kc + e) * kBK + kj] = elem<float>(kreg[n], e);
+    }
+#pragma unroll
     for (int n = 0; n < NV; ++n) {
       const int idx = threadIdx.x + n * kThreads;
       if (idx >= TV) continue;
-      const int kc = (idx / kBK) * VEC, kj = idx % kBK;
       const int vj = idx / RV, vc = (idx % RV) * VEC;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        kT_s[(kc + e) * kBK + kj] = elem<float>(kreg[n], e);
-        v_s[vj * D + vc + e] = elem<float>(vreg[n], e);
-      }
+      for (int e = 0; e < VEC; ++e)
+        v_s[vj * DV + vc + e] = elem<float>(vreg[n], e);
     }
     if (threadIdx.x < kBK) kp_s[threadIdx.x] = kpreg;
   };
@@ -248,13 +272,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int kp = kp_s[lane];
     float s[RW];
     bool ok[RW];
-    qk_tile<D, RW>(q_s + warp * RW * D, kT_s, s);
+    qk_tile<DK, RW>(q_s + warp * RW * DK, kT_s, s);
 #pragma unroll
     for (int rr = 0; rr < RW; ++rr) {
       s[rr] = softcap_logit(s[rr], softcap);
       ok[rr] = full || (in_range && mk.ok(qp_s[warp * RW + rr], kp));
     }
-    softmax_pv_tile<D, RW, false>(s, ok, 1.f, v_s, m, l, acc);
+    softmax_pv_tile<DV, RW, false>(s, ok, 1.f, v_s, m, l, acc);
     n = next;
   }
 
@@ -267,8 +291,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const bool empty = l[rr] == 0.f;
 #pragma unroll
     for (int c = 0; c < C; ++c)
-      if (col_ok<D>(c, lane))
-        o[row * D + c * 32 + lane] = empty ? 0.f : acc[rr][c] / l[rr];
+      if (col_ok<DV>(c, lane))
+        o[row * DV + c * 32 + lane] = empty ? 0.f : acc[rr][c] / l[rr];
     if (lse != nullptr && lane == 0)
       lse[row] = m[rr] + logf(empty ? 1.f : l[rr]);
   }
@@ -284,17 +308,20 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 namespace wg {
 namespace {
 
-// Warpgroups a block: one up to D 128; above it each of kGroups<D> owns
-// D / kGroups<D> output columns, whole 64-column blocks of the tile (64 at
-// D 192, 128 at D 256), so no thread holds more than 64 accumulators.
-template <int D>
-constexpr int kGroups = D <= 128 ? 1 : D % 128 == 0 ? D / 128 : D / 64;
+// Warpgroups a block, by the value width DV: one up to DV 128; above it
+// each of kGroups<DV> owns DV / kGroups<DV> output columns, whole 64-column
+// blocks of the tile (64 at DV 192, 128 at DV 256), so no thread holds
+// more than 64 accumulators.
+template <int DV>
+constexpr int kGroups = DV <= 128 ? 1 : DV % 128 == 0 ? DV / 128 : DV / 64;
 
-// The q tile, then K and V of two stages, from a 1024-byte aligned base;
-// 2 x 64 key positions and a class byte a key tile.
-template <int D>
+// The q tile, then K and V of two stages, from a 1024-byte aligned base
+// (every tile is whole KB); 2 x 64 key positions and a class byte a key
+// tile.
+template <int DK, int DV>
 size_t smem_bytes(int n_tiles) {
-  return 1024 + 5 * Tile<D>::BYTES + 2 * kT * sizeof(int) + n_tiles;
+  return 1024 + 3 * Tile<DK>::BYTES + 2 * Tile<DV>::BYTES +
+         2 * kT * sizeof(int) + n_tiles;
 }
 
 // One online-softmax step over a 64-key tile in the accumulator map.  The
@@ -369,13 +396,15 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&o)[N],
 // One block per (64-row query tile, KV head [, head group], batch), the
 // last query tile first (under a causal mask it has the most keys); rows
 // `r` are position t0 + r / GB of head h·G + hg·GB + r % GB.  q is loaded
-// once; the block loops over the 64-key tiles it does not skip.  Above D
+// once; the block loops over the 64-key tiles it does not skip.  Above DV
 // 128 each warpgroup computes the whole s = q·kᵀ and its softmax (the
 // same numbers in each) and o += p·v for its own columns only: twice the
 // q·kᵀ products at D 256 and three times at D 192, in place of a p and a
-// rescale passed through shared memory.
-template <int D>
-__global__ void __launch_bounds__(kWG * kGroups<D>)
+// rescale passed through shared memory.  Keys are DK wide and values DV:
+// at MLA's (192, 128) q·kᵀ takes 12 k16 steps and one warpgroup owns all
+// 128 output columns, as at D 128.
+template <int DK, int DV>
+__global__ void __launch_bounds__(kWG * kGroups<DV>)
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o,
                        float* __restrict__ lse,
@@ -385,15 +414,17 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        int Hq, int Hkv, int G, Div gb, int tq_per_block,
                        int causal, int window, float softcap,
                        float sm_scale) {
-  using L = Tile<D>;
-  constexpr int NWG = kGroups<D>, DW = D / NWG, THREADS = kWG * NWG;
+  using LK = Tile<DK>;
+  using LV = Tile<DV>;
+  constexpr int NWG = kGroups<DV>, DW = DV / NWG, THREADS = kWG * NWG;
+  constexpr uint32_t STAGE = LK::BYTES + LV::BYTES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = aligned_smem(smem_raw);
   const uint32_t q_s = smem_u32(sm);
-  auto k_s = [&](int st) { return q_s + (1 + 2 * st) * L::BYTES; };
-  auto v_s = [&](int st) { return k_s(st) + L::BYTES; };
-  int* kp_s = reinterpret_cast<int*>(sm + 5 * L::BYTES);     // [2][64]
-  uint8_t* cls = sm + 5 * L::BYTES + 2 * kT * sizeof(int);   // [n_tiles]
+  auto k_s = [&](int st) { return q_s + LK::BYTES + st * STAGE; };
+  auto v_s = [&](int st) { return k_s(st) + LK::BYTES; };
+  int* kp_s = reinterpret_cast<int*>(sm + LK::BYTES + 2 * STAGE);  // [2][64]
+  uint8_t* cls = reinterpret_cast<uint8_t*>(kp_s + 2 * kT);    // [n_tiles]
 
   const int b = blockIdx.z;
   const int h = blockIdx.y % Hkv, hg = blockIdx.y / Hkv;
@@ -414,8 +445,8 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto row_pos = [&](int r) {
     return q_pos[(size_t)b * Tq + t0 + gb.div(r)];
   };
-  cp_tile<D, THREADS>(q_s, [&](int r) {
-    return row_live(r) ? q + row_index(r) * D : nullptr; }, q);
+  cp_tile<DK, THREADS>(q_s, [&](int r) {
+    return row_live(r) ? q + row_index(r) * DK : nullptr; }, q);
   cp_commit();
 
   // this thread's warpgroup, its output columns [wgi·DW, wgi·DW + DW) (a
@@ -423,7 +454,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // accumulator rows
   const int wgi = NWG == 1 ? 0 : (int)threadIdx.x / kWG;
   const int wt = NWG == 1 ? (int)threadIdx.x : (int)threadIdx.x % kWG;
-  const uint32_t v_col = (wgi * DW / L::W) * (kT * L::SW);
+  const uint32_t v_col = (wgi * DW / LV::W) * (kT * LV::SW);
   auto my_row = [&](int i) {
     return 16 * (wt / 32) + (wt % 32) / 4 + 8 * i;
   };
@@ -449,8 +480,10 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // thread keeps one column and its rows step by THREADS·8/D, written so
   // that the compiler keeps one row and one column (the register count of
   // those instances depends on it); at D 48 and 80 (6 and 10 chunks a
-  // row) the columns vary.
-  constexpr int CPR = D / 8, NC = kT * CPR / THREADS;
+  // row) the columns vary.  With DV < DK (MLA) K's chunks (24 a row at
+  // DK 192 over one warpgroup, 12 a thread) are worked out as they are
+  // issued and V's (16 a row) are kept as above.
+  constexpr int CPR = DV / 8, NC = kT * CPR / THREADS;
   static_assert(NC * THREADS == kT * CPR, "a tile is whole rounds of chunks");
   constexpr bool one_col = THREADS % CPR == 0;
   int row[NC], col[NC];
@@ -461,19 +494,31 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     row[it] = one_col ? threadIdx.x / CPR + it * (THREADS / CPR)
                       : idx / CPR;
     col[it] = (one_col ? threadIdx.x % CPR : idx % CPR) * 8;
-    dst[it] = L::offset(row[it], col[it]);
+    dst[it] = LV::offset(row[it], col[it]);
   }
-  const size_t kv0 = ((size_t)b * Tk * Hkv + h) * D;
-  const int stride = Hkv * D;
+  const size_t kv0 = (size_t)b * Tk * Hkv + h;     // (key 0, h)'s row
   auto load_keys = [&](int n, int st) {
     const int k0 = n * kT;
 #pragma unroll
     for (int it = 0; it < NC; ++it) {
       const int j = k0 + row[it];
       const bool in = j < n_keys;
-      const size_t off = kv0 + (size_t)(in ? j : 0) * stride + col[it];
-      cp_async16(k_s(st) + dst[it], k + off, in);
-      cp_async16(v_s(st) + dst[it], v + off, in);
+      const size_t r = kv0 + (size_t)(in ? j : 0) * Hkv;
+      if constexpr (DK == DV)
+        cp_async16(k_s(st) + dst[it], k + r * DK + col[it], in);
+      cp_async16(v_s(st) + dst[it], v + r * DV + col[it], in);
+    }
+    if constexpr (DK != DV) {
+      constexpr int CPK = DK / 8, NCK = kT * CPK / THREADS;
+      static_assert(NCK * THREADS == kT * CPK, "whole rounds of chunks");
+#pragma unroll
+      for (int it = 0; it < NCK; ++it) {
+        const int idx = threadIdx.x + it * THREADS;
+        const int j = k0 + idx / CPK, c = (idx % CPK) * 8;
+        const bool in = j < n_keys;
+        const size_t r = kv0 + (size_t)(in ? j : 0) * Hkv;
+        cp_async16(k_s(st) + LK::offset(idx / CPK, c), k + r * DK + c, in);
+      }
     }
     if (threadIdx.x < kT) {
       const int j = k0 + threadIdx.x;
@@ -504,8 +549,8 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // s = q·kᵀ, [64 rows, 64 keys]
     wg_fence();
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
-      wgmma_ss_n64(s, L::kmajor(q_s, ks), L::kmajor(k_s(st), ks), ks > 0);
+    for (int ks = 0; ks < DK / 16; ++ks)
+      wgmma_ss_n64(s, LK::kmajor(q_s, ks), LK::kmajor(k_s(st), ks), ks > 0);
     wg_commit();
     wg_wait<0>();
     fence_regs(s);
@@ -536,7 +581,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wg_fence();
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks)
-      wgmma_rs(acc, a[ks], L::mnmajor(v_s(st) + v_col, ks));
+      wgmma_rs(acc, a[ks], LV::mnmajor(v_s(st) + v_col, ks));
     wg_commit();
     wg_wait<0>();
     fence_regs(acc);
@@ -556,7 +601,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const size_t row = row_index(my_row(i));
     const bool empty = l[i] == 0.f;             // no kept key: exact zeros
     const float inv = empty ? 0.f : 1.f / l[i];
-    bf16* out = o + row * D + wgi * DW;
+    bf16* out = o + row * DV + wgi * DW;
 #pragma unroll
     for (int j = 0; j < DW / 8; ++j)
       *reinterpret_cast<uint32_t*>(out + acc_col(j, 0)) =
@@ -591,27 +636,28 @@ struct Args {
       static_cast<const int*>(a.kv_pos),                                   \
       static_cast<const int*>(a.valid_len), a.Tq, a.Tk, a.Hq, a.Hkv
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch_f32(const Args& a) {
   const RowMap m(a.Hq, a.Hkv, f32::kRows);
-  const size_t smem = f32::smem_bytes<D>((a.Tk + kBK - 1) / kBK);
-  cudaError_t err = set_smem(f32::flash_fwd_kernel<D>, smem);
+  const size_t smem = f32::smem_bytes<DK, DV>((a.Tk + kBK - 1) / kBK);
+  cudaError_t err = set_smem(f32::flash_fwd_kernel<DK, DV>, smem);
   if (err != cudaSuccess) return err;
-  f32::flash_fwd_kernel<D>
+  f32::flash_fwd_kernel<DK, DV>
       <<<m.grid(a.B, a.Tq, a.Hkv), f32::kThreads, smem, a.stream>>>(
           FWD_ARGS(float), m.G, m.GB, m.tq_per_block, a.causal, a.window,
           a.softcap, a.sm_scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch_bf16(const Args& a) {
   const RowMap m(a.Hq, a.Hkv, wg::kT);
-  const size_t smem = wg::smem_bytes<D>((a.Tk + wg::kT - 1) / wg::kT);
-  cudaError_t err = set_smem(wg::flash_fwd_wgmma_kernel<D>, smem);
+  const size_t smem =
+      wg::smem_bytes<DK, DV>((a.Tk + wg::kT - 1) / wg::kT);
+  cudaError_t err = set_smem(wg::flash_fwd_wgmma_kernel<DK, DV>, smem);
   if (err != cudaSuccess) return err;
-  wg::flash_fwd_wgmma_kernel<D>
-      <<<m.grid(a.B, a.Tq, a.Hkv), wg::kWG * wg::kGroups<D>, smem,
+  wg::flash_fwd_wgmma_kernel<DK, DV>
+      <<<m.grid(a.B, a.Tq, a.Hkv), wg::kWG * wg::kGroups<DV>, smem,
          a.stream>>>(
           FWD_ARGS(bf16), m.G, divisor(m.GB), m.tq_per_block, a.causal,
           a.window, a.softcap, a.sm_scale);
@@ -621,18 +667,22 @@ cudaError_t launch_bf16(const Args& a) {
 #undef FWD_ARGS
 
 // bf16 takes the tensor-core kernel, fp32 the CUDA-core one
-template <int D>
+template <int DK, int DV = DK>
 cudaError_t launch(const Args& a, int dtype) {
   switch (dtype) {
-    case 0: return launch_f32<D>(a);
-    case 1: return launch_bf16<D>(a);
+    case 0: return launch_f32<DK, DV>(a);
+    case 1: return launch_bf16<DK, DV>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-int run(const Args& a, int D, int dtype) {
+// values as wide as keys at every head dim; narrower at MLA's (192, 128)
+int run(const Args& a, int D, int Dv, int dtype) {
   if (a.Hkv <= 0 || a.Hq % a.Hkv != 0) return (int)cudaErrorInvalidValue;
   if (a.B == 0 || a.Tq == 0) return (int)cudaSuccess;
+  if (Dv != D)
+    return D == 192 && Dv == 128 ? (int)launch<192, 128>(a, dtype)
+                                 : (int)cudaErrorInvalidValue;
   switch (D) {
     case 32: return (int)launch<32>(a, dtype);
     case 48: return (int)launch<48>(a, dtype);
@@ -649,7 +699,8 @@ int run(const Args& a, int D, int dtype) {
 }  // namespace flash
 
 // Plain C entry point, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
-// q_pos [B,Tq] int32 is required; kv_pos [B,Tk] int32 may be null (positions
+// q [B,Tq,Hq,D], k [B,Tk,Hkv,D], v [B,Tk,Hkv,Dv], o [B,Tq,Hq,Dv], with
+// Dv = D or (D, Dv) = (192, 128).  q_pos [B,Tq] int32 is required; kv_pos [B,Tk] int32 may be null (positions
 // = indices); valid_len [B] int32 and lse [B,Tq,Hq] f32 may be null.  All
 // tensors contiguous, q/k/v 16-byte aligned.  Returns cudaGetLastError()
 // after the launch.
@@ -657,11 +708,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse,
                                    const void* q_pos, const void* kv_pos,
                                    const void* valid_len, int B, int Tq,
-                                   int Tk, int Hq, int Hkv, int D, int dtype,
-                                   int causal, int window, float softcap,
-                                   float sm_scale, void* stream) {
+                                   int Tk, int Hq, int Hkv, int D, int Dv,
+                                   int dtype, int causal, int window,
+                                   float softcap, float sm_scale,
+                                   void* stream) {
   const flash::Args a{q, k, v, o, lse, q_pos, kv_pos, valid_len, B, Tq, Tk,
                       Hq, Hkv, causal, window, softcap, sm_scale,
                       static_cast<cudaStream_t>(stream)};
-  return flash::run(a, D, dtype);
+  return flash::run(a, D, Dv, dtype);
 }

@@ -8,9 +8,12 @@ container-class executor (``serving.router.make_engine_builder``).  Every
 prompt is submitted up front to the background engine loop, which
 overlaps one request's prefill chunks with the others' decode.  The
 engine picks its data plane: paged KV for the dense decoder, dense slots
-for ``mamba2-2.7b``, ``zamba2-1.2b`` and ``mixtral-8x7b`` (sliding-window
+for ``mamba2-2.7b``, ``zamba2-1.2b``, ``mixtral-8x7b`` (sliding-window
 rings, exact-length prefill; at full depth its 93 GB of bf16 weights
-exceed one card, so run it ``--reduced``).  ``--save-state`` writes the
+exceed one card, so run it ``--reduced``) and ``deepseek-v2-236b`` (MLA's
+latent cache, pow2-bucketed whole-prompt prefill; at full depth its
+235 741 434 880 parameters are 471 GB in bf16, six cards' worth, so run
+it ``--reduced``).  ``--save-state`` writes the
 applied specs and quotas (``EdgeSystem.restore`` re-applies them).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\

@@ -1,5 +1,5 @@
-"""Full and sliding-window attention: the serving path of
-``repro.models.attention``.
+"""Full, sliding-window and DeepSeek's latent (MLA) attention: the
+serving path of ``repro.models.attention``.
 
 Layouts are the JAX package's: projections ``w_q [d, H, hd]``,
 ``w_k``/``w_v [d, Hkv, hd]``, ``w_o [H, hd, d]``; pools
@@ -12,7 +12,11 @@ its staging cache for chunked prefill).  Sliding-window attention
 (``attn_type == "swa"``) keeps a ring of ``cache_capacity`` slots: a
 position's KV lives at ``position % S``, prefill attends with the
 window, and decode reads the whole valid ring with no window (the ring
-already bounds it), as in JAX.  MLA is not ported.  The projections
+already bounds it), as in JAX.  MLA (``attn_type == "mla"``) keeps a
+latent cache per layer, ``c_kv [B, S, kv_lora]`` and ``k_rope [B, S,
+rope]`` (no ring), expands it through ``w_uk``/``w_uv`` in prefill and
+decodes in latent space with the weights absorbed into the query and the
+output (``_decode_step_mla``); it never pages.  The projections
 carry the JAX options: biases (``attn_bias``: ``b_q [H, hd]``,
 ``b_k``/``b_v [Hkv, hd]``, ``b_o [d]``) and an RMSNorm of q and k over
 the head dim (``qk_norm``: ``q_norm``, ``k_norm [hd]``) between the
@@ -35,10 +39,29 @@ Pool = Dict[str, torch.Tensor]
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig):
-    """The JAX leaves (``attention.py:61-69``): zero biases and unit
-    qk-norm scales where the config has them."""
+    """The JAX leaves (``attention.py:33-69``): MLA's low-rank projections
+    and unit norm scales, or the full projections with zero biases and
+    unit qk-norm scales where the config has them."""
     d, hd = cfg.d_model, cfg.head_dim_
     dt, dev = cfg.pdtype, gen.device
+    if cfg.attn_type == "mla":
+        m, H = cfg.mla, cfg.num_heads
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        return {
+            "w_dq": dense_init(gen, (d, m.q_lora_rank), dt),
+            "q_norm": torch.ones((m.q_lora_rank,), dtype=dt, device=dev),
+            "w_uq": dense_init(gen, (m.q_lora_rank, H, qk), dt,
+                               fan_in=m.q_lora_rank),
+            "w_dkv": dense_init(gen, (d, m.kv_lora_rank), dt),
+            "kv_norm": torch.ones((m.kv_lora_rank,), dtype=dt, device=dev),
+            "w_kr": dense_init(gen, (d, m.qk_rope_head_dim), dt),
+            "w_uk": dense_init(gen, (m.kv_lora_rank, H, m.qk_nope_head_dim),
+                               dt, fan_in=m.kv_lora_rank),
+            "w_uv": dense_init(gen, (m.kv_lora_rank, H, m.v_head_dim), dt,
+                               fan_in=m.kv_lora_rank),
+            "w_o": dense_init(gen, (H, m.v_head_dim, d), dt,
+                              fan_in=H * m.v_head_dim),
+        }
     p = {
         "w_q": dense_init(gen, (d, cfg.num_heads, hd), dt),
         "w_k": dense_init(gen, (d, cfg.num_kv_heads, hd), dt),
@@ -89,13 +112,20 @@ def cache_capacity(cfg: ModelConfig, max_seq: int) -> int:
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> Pool:
     """Per-layer dense cache ``[batch, S, Hkv, D]`` with ``S =
-    cache_capacity(cfg, max_seq)``, zero-filled.  MLA's latent cache is
-    not ported."""
-    if cfg.attn_type not in ("full", "swa"):
+    cache_capacity(cfg, max_seq)``, zero-filled; for MLA the latent cache
+    ``c_kv [batch, S, kv_lora]`` and ``k_rope [batch, S, rope]`` (JAX
+    ``attention.py:82-87``)."""
+    if cfg.attn_type not in ("full", "swa", "mla"):
         raise NotImplementedError(f"dense caches of attn_type "
                                   f"{cfg.attn_type!r} are not ported (ROADMAP "
-                                  f"Queue A item 11.4)")
+                                  f"Queue A item 11)")
     device = resolve_device(device)
+    if cfg.attn_type == "mla":
+        S, m = cache_capacity(cfg, max_seq), cfg.mla
+        return {"c_kv": torch.zeros((batch, S, m.kv_lora_rank), dtype=dtype,
+                                    device=device),
+                "k_rope": torch.zeros((batch, S, m.qk_rope_head_dim),
+                                      dtype=dtype, device=device)}
     shape = (batch, cache_capacity(cfg, max_seq), cfg.num_kv_heads,
              cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -141,16 +171,69 @@ def _out_proj(params, o, cfg: ModelConfig):
     return out
 
 
+def _mla_q(params, x, cfg: ModelConfig, positions):
+    """MLA's queries (JAX ``attention.py:161-169``): the low-rank
+    projection, its RMSNorm, the up-projection to every head, and RoPE on
+    the last ``rope`` columns → (q_nope [B,T,H,nope], q_rope
+    [B,T,H,rope])."""
+    dt, m = cfg.cdtype, cfg.mla
+    cq = rms_norm_simple(x @ params["w_dq"].to(dt), params["q_norm"],
+                         cfg.norm_eps)
+    q = _proj(cq, params["w_uq"], dt)
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    return q[..., :m.qk_nope_head_dim], q_rope
+
+
+def _mla_kv_compressed(params, x, cfg: ModelConfig, positions):
+    """The latent KV (JAX ``attention.py:172-179``): the normed ``c_kv``
+    [B,T,kv_lora] and the shared ``k_rope`` [B,T,rope], roped through a
+    dummy head axis."""
+    dt = cfg.cdtype
+    c_kv = rms_norm_simple(x @ params["w_dkv"].to(dt), params["kv_norm"],
+                           cfg.norm_eps)
+    k_rope = apply_rope((x @ params["w_kr"].to(dt))[:, :, None, :],
+                        positions, cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
 # ---------------------------------------------------------------------------
 # full-sequence attention (train / prefill)
 # ---------------------------------------------------------------------------
+
+def _attend_mla(params, x, cfg: ModelConfig, positions, causal, cache):
+    """MLA over the sequence (JAX ``attention.py:199-218``): keys and
+    values expanded from the latent ``c_kv`` through ``w_uk``/``w_uv``,
+    the shared ``k_rope`` broadcast over the heads (so Hkv = Hq), flash at
+    q/k width nope + rope and v width ``v_head_dim``, scaled by (nope +
+    rope)^-0.5; ``cache`` takes the latent pair."""
+    dt, m = cfg.cdtype, cfg.mla
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)
+    c_kv, k_rope = _mla_kv_compressed(params, x, cfg, positions)
+    k_nope = _proj(c_kv, params["w_uk"], dt)
+    v = _proj(c_kv, params["w_uv"], dt)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        *k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)
+    o = ops.flash_attention(q, k, v, causal=causal, window=0,
+                            softcap=cfg.attn_logit_softcap,
+                            q_positions=positions, kv_positions=positions,
+                            sm_scale=(m.qk_nope_head_dim
+                                      + m.qk_rope_head_dim) ** -0.5)
+    if cache is not None:
+        _fill_cache_mla(cache, c_kv, k_rope, positions)
+    H, hv, d = params["w_o"].shape
+    return o.flatten(-2) @ params["w_o"].to(dt).reshape(H * hv, d)
+
 
 def attend(params, x, cfg: ModelConfig, *, positions, causal: bool = True,
            cache: Optional[Pool] = None):
     """[B, T, d] → [B, T, d] over the sequence itself, with the sliding
     window for ``attn_type == "swa"``; with ``cache`` (the dense prefill)
-    the sequence's KV is also written into it."""
+    the sequence's KV (MLA: its latent pair) is also written into it."""
     x = x.to(cfg.cdtype)
+    if cfg.attn_type == "mla":
+        return _attend_mla(params, x, cfg, positions, causal, cache)
     q, k, v = _qkv(params, x, cfg, positions)
     window = cfg.sliding_window if cfg.attn_type == "swa" else 0
     o = ops.flash_attention(q, k, v, causal=causal, window=window,
@@ -178,6 +261,17 @@ def _fill_cache(cache: Pool, k, v, positions):
     bidx = torch.arange(k.shape[0], device=k.device)[:, None]
     cache["k"][bidx, slots] = k.to(cache["k"].dtype)
     cache["v"][bidx, slots] = v.to(cache["v"].dtype)
+
+
+def _fill_cache_mla(cache: Pool, c_kv, k_rope, positions):
+    """Write the latent pair [B, T, ·] at ``positions % S``, in place (JAX
+    ``attention.py:244-251``).  A prefill's bucket is at most ``max_seq``
+    = S positions, so no write repeats a slot."""
+    S = cache["c_kv"].shape[1]
+    slots = positions.long() % S
+    bidx = torch.arange(c_kv.shape[0], device=c_kv.device)[:, None]
+    cache["c_kv"][bidx, slots] = c_kv.to(cache["c_kv"].dtype)
+    cache["k_rope"][bidx, slots] = k_rope.to(cache["k_rope"].dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +344,11 @@ def prefill_chunk_dense(params, x, cfg: ModelConfig, cache: Pool, positions,
     valid below ``new_len``.  The key positions are the cache indices
     (``kv_positions=None``), so the flash kernel stops its key loop at the
     last key a query tile sees.  Returns out [B, T, d]; the cache is
-    updated."""
+    updated.  MLA has no chunked prefill (nor has JAX): its prompts
+    prefill whole, through ``attend``."""
+    if cfg.attn_type == "mla":
+        raise ValueError("MLA prefills a whole prompt at once (attend with "
+                         "a cache); it has no chunked prefill")
     x = x.to(cfg.cdtype)
     q, k, v = _qkv(params, x, cfg, positions)
     _fill_cache(cache, k, v, positions)
@@ -304,12 +402,51 @@ def decode_step(params, x, cfg: ModelConfig, cache: Pool, cache_len):
     """Single-token decode: write the token's KV at ``cache_len`` (its ring
     slot), then run the dense decode kernel over the valid slots with no
     window: a sliding-window ring of ``window`` slots holds exactly the
-    keys the window keeps (JAX ``attention.py:419-424``)."""
+    keys the window keeps (JAX ``attention.py:419-424``).  MLA decodes
+    in latent space (``_decode_step_mla``)."""
     x = x.to(cfg.cdtype)
     positions = cache_len[:, None]
+    if cfg.attn_type == "mla":
+        return _decode_step_mla(params, x, cfg, cache, cache_len, positions)
     q, k, v = _qkv(params, x, cfg, positions)
     _fill_cache(cache, k, v, positions)
     valid = torch.clamp(cache_len + 1, max=cache["k"].shape[1])
     o = ops.decode_attention(q[:, 0], cache["k"], cache["v"], valid,
                              softcap=cfg.attn_logit_softcap)
     return _out_proj(params, o[:, None], cfg)
+
+
+def _latent_keys(cache: Pool):
+    """The absorbed decode's key operand ``[c_kv, k_rope]`` [B, S, L+R]:
+    a copy of the layer's whole latent cache, made every step as JAX
+    makes it (a profile can time it through this function)."""
+    return torch.cat([cache["c_kv"], cache["k_rope"]], dim=-1)
+
+
+def _decode_step_mla(params, x, cfg: ModelConfig, cache: Pool, cache_len,
+                     positions):
+    """Weight-absorbed MLA decode (JAX ``attention.py:429-454``): the
+    attention runs entirely in latent space, as one KV head of
+    ``kv_lora + rope`` key columns and ``kv_lora`` value columns that all
+    H query heads share (G = H).
+
+        q_lat[b,h,l] = Σ_k q_nope[b,h,k] w_uk[l,h,k]
+        logit[b,h,s] = q_lat·c_kv[b,s] + q_rope[b,h]·k_rope[b,s]
+        out[b,h,v]   = (Σ_s p[b,h,s] c_kv[b,s,l]) w_uv[l,h,v]
+    """
+    dt, m = cfg.cdtype, cfg.mla
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)       # [B,1,H,·]
+    c_kv_new, k_rope_new = _mla_kv_compressed(params, x, cfg, positions)
+    _fill_cache_mla(cache, c_kv_new, k_rope_new, positions)
+    valid = torch.clamp(cache_len + 1, max=cache["c_kv"].shape[1])
+    q_lat = torch.einsum("bhk,lhk->bhl", q_nope[:, 0],
+                         params["w_uk"].to(dt))
+    q_cat = torch.cat([q_lat, q_rope[:, 0]], dim=-1)          # [B,H,L+R]
+    kv_cat = _latent_keys(cache)
+    o_lat = ops.decode_attention(
+        q_cat, kv_cat[:, :, None, :], cache["c_kv"][:, :, None, :], valid,
+        softcap=cfg.attn_logit_softcap,
+        sm_scale=(m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
+    o = torch.einsum("bhl,lhv->bhv", o_lat, params["w_uv"].to(dt))
+    out = torch.einsum("bhv,hvd->bd", o, params["w_o"].to(dt))
+    return out[:, None, :]

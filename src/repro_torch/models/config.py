@@ -148,8 +148,7 @@ class ModelConfig:
         its prediction head, and the ``audio_frames`` frontend its
         projection and mask embedding; a moe layer its router and every
         routed and shared expert, DeepSeek's leading dense layers their
-        MLP; MLA its low-rank projections and their two norms (counted,
-        though its attention is not ported yet: item 11.4)."""
+        MLP; MLA its low-rank projections and their two norms."""
         d, V, hd, L = self.d_model, self.vocab_size, self.head_dim_, \
             self.num_layers
         n = V * d                                          # embed
@@ -283,13 +282,17 @@ def check_ported(cfg: ModelConfig) -> None:
     attention-free SSM family (Mamba2), the encoder-only family
     (LayerNorm, the ``audio_frames`` frontend, non-causal attention), and
     the moe family with sliding-window attention (Mixtral: ring caches,
-    the routed experts' local path).  MLA and DeepSeek's leading dense
-    layers wait on ROADMAP Queue A item 11.4; a combination that no
-    registered config uses is refused as such."""
-    if cfg.attn_type == "mla":
+    the routed experts' local path) or with MLA and leading dense layers
+    (DeepSeek-V2: the latent cache, the weight-absorbed decode).  A
+    combination that no registered config uses is refused as such: MLA
+    outside the moe family, a moe model with full attention, leading
+    dense layers beside sliding-window attention."""
+    if cfg.attn_type == "mla" and (cfg.family != "moe" or cfg.mla is None):
         raise NotImplementedError(
-            "attn_type 'mla' (DeepSeek's latent attention) is not ported "
-            "yet (ROADMAP Queue A item 11.4)")
+            f"attn_type 'mla' in a {cfg.family} model with mla={cfg.mla!r}: "
+            "the port runs MLA in the moe family only, as deepseek-v2-236b "
+            "has it; no registered config has it elsewhere (ROADMAP Queue A "
+            "item 11)")
     if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encoder"):
         raise NotImplementedError(
             f"family {cfg.family!r}: only the dense decoder, moe, ssm, "
@@ -300,20 +303,22 @@ def check_ported(cfg: ModelConfig) -> None:
             "the port runs encoder_only as the encoder family only "
             "(ROADMAP Queue A item 11)")
     if cfg.family == "moe":
-        if cfg.moe is None or cfg.attn_type != "swa" \
-                or cfg.sliding_window <= 0:
+        swa = cfg.attn_type == "swa" and cfg.sliding_window > 0
+        mla = cfg.attn_type == "mla" and cfg.sliding_window == 0
+        if cfg.moe is None or not (swa or mla):
             raise NotImplementedError(
                 f"a moe model with moe={cfg.moe!r}, attn_type "
                 f"{cfg.attn_type!r} and sliding_window "
                 f"{cfg.sliding_window}: the port runs the moe family with "
-                "sliding-window attention only, as mixtral-8x7b has it (a "
-                "full-attention moe is in no registered config; DeepSeek's "
-                "MLA is ROADMAP Queue A item 11)")
-        if cfg.moe.first_dense_layers:
+                "sliding-window attention, as mixtral-8x7b has it, or with "
+                "MLA, as deepseek-v2-236b has it (a full-attention moe is "
+                "in no registered config; ROADMAP Queue A item 11)")
+        if swa and cfg.moe.first_dense_layers:
             raise NotImplementedError(
-                f"first_dense_layers={cfg.moe.first_dense_layers} "
-                "(DeepSeek's leading dense blocks) is not ported yet "
-                "(ROADMAP Queue A item 11.4)")
+                f"first_dense_layers={cfg.moe.first_dense_layers} beside "
+                "sliding-window attention: no registered config has "
+                "leading dense layers without MLA (deepseek-v2-236b's), so "
+                "the port refuses them (ROADMAP Queue A item 11)")
     elif cfg.family != "ssm" and (cfg.attn_type != "full"
                                   or cfg.sliding_window > 0):
         raise NotImplementedError(

@@ -3,7 +3,9 @@
 Layouts (the JAX ones):
   dense / encoder : L × [attn + MLP] (the encoder's attention non-causal;
            with ``parallel_block`` one norm feeds both, x + attn + MLP)
-  moe    : L × [attn + MoE] (sliding-window attention; each layer's
+  moe    : n_dense × [attn + MLP of ``first_dense_d_ff``] (DeepSeek's
+           leading dense blocks, ``dense_blocks``), then (L − n_dense) ×
+           [attn + MoE] (sliding-window attention or MLA; each layer's
            load-balancing loss summed into the stack's ``aux``)
   ssm    : L × [mamba2]
   hybrid : ⌊L/e⌋ super-blocks of (e × mamba2, then one application of a
@@ -39,9 +41,11 @@ Params = Dict[str, Any]
 
 
 def init_attn_block(gen: torch.Generator, cfg: ModelConfig,
+                    d_ff: Optional[int] = None,
                     use_moe: bool = False) -> Params:
-    """A parallel block has no ``norm2`` (JAX ``transformer.py:46``); a
-    moe block has ``moe`` in place of ``mlp``."""
+    """A parallel block has no ``norm2`` (JAX ``transformer.py:40-49``); a
+    moe block has ``moe`` in place of ``mlp``; ``d_ff`` sets the MLP's
+    width (DeepSeek's leading dense blocks)."""
     p = {"attn": attention.init_attention(gen, cfg),
          "norm1": init_norm(cfg, gen.device)}
     if not cfg.parallel_block:
@@ -49,7 +53,7 @@ def init_attn_block(gen: torch.Generator, cfg: ModelConfig,
     if use_moe:
         p["moe"] = moe.init_moe(gen, cfg)
     else:
-        p["mlp"] = init_mlp(gen, cfg)
+        p["mlp"] = init_mlp(gen, cfg, d_ff=d_ff)
     return p
 
 
@@ -91,11 +95,20 @@ def _hybrid_split(cfg: ModelConfig):
 def init_stack(gen: torch.Generator, cfg: ModelConfig) -> Params:
     check_ported(cfg)
     final = init_norm(cfg, gen.device)
-    if cfg.family in ("dense", "encoder", "moe"):
-        use_moe = cfg.family == "moe"
-        blocks = _stack([init_attn_block(gen, cfg, use_moe)
+    if cfg.family in ("dense", "encoder"):
+        blocks = _stack([init_attn_block(gen, cfg)
                          for _ in range(cfg.num_layers)])
         return {"blocks": blocks, "final_norm": final}
+    if cfg.family == "moe":
+        nd = cfg.moe.first_dense_layers
+        p = {"blocks": _stack([init_attn_block(gen, cfg, use_moe=True)
+                               for _ in range(cfg.num_layers - nd)]),
+             "final_norm": final}
+        if nd:
+            p["dense_blocks"] = _stack([
+                init_attn_block(gen, cfg, d_ff=cfg.moe.first_dense_d_ff)
+                for _ in range(nd)])
+        return p
     if cfg.family == "ssm":
         blocks = _stack([init_mamba_block(gen, cfg)
                          for _ in range(cfg.num_layers)])
@@ -135,7 +148,9 @@ def init_cache_tree(cfg: ModelConfig, batch: int, max_seq: int,
                     dtype=torch.bfloat16, device=None) -> Params:
     """Dense caches stacked along the layer axis: ``attn`` [L, B, S, H, D]
     for the dense and moe families (a sliding-window ring of ``S =
-    attention.cache_capacity`` slots); ``mamba`` states (conv f32 and ssm
+    attention.cache_capacity`` slots; MLA's latent pair ``c_kv``/``k_rope``
+    [L, B, S, ·], with ``attn_dense`` [n_dense, B, S, ·] for the leading
+    dense blocks, ``attn`` then holding the moe blocks'); ``mamba`` states (conv f32 and ssm
     f32, as the JAX ``init_mamba2_state`` makes them) [L, B, ...] for ssm
     (the encoder takes the dense family's tree, as in JAX); for the
     hybrid ``mamba`` [n_super, e, B, ...], ``attn`` [n_super, B, S, H, D]
@@ -144,7 +159,11 @@ def init_cache_tree(cfg: ModelConfig, batch: int, max_seq: int,
     device = resolve_device(device)
     if cfg.family in ("dense", "encoder", "moe"):
         one = attention.init_cache(cfg, batch, max_seq, dtype, "meta")
-        return {"attn": _stack_tree(one, cfg.num_layers, device)}
+        nd = cfg.moe.first_dense_layers if cfg.family == "moe" else 0
+        c = {"attn": _stack_tree(one, cfg.num_layers - nd, device)}
+        if nd:
+            c["attn_dense"] = _stack_tree(one, nd, device)
+        return c
     mstate = mamba2.init_mamba2_state(cfg, batch, device="meta")
     if cfg.family == "ssm":
         return {"mamba": _stack_tree(mstate, cfg.num_layers, device)}
@@ -252,13 +271,20 @@ def forward_stack(params: Params, x, cfg: ModelConfig, *, positions,
               kernel_norm=kn)
     aux = None
     if dense or fam == "moe":
-        blocks = unstack(params["blocks"])
-        pools = unstack(caches["attn"]) if caches else [None] * len(blocks)
-        for bp, cache in zip(blocks, pools, strict=True):
-            x, a = attn_block(bp, x, cfg, cache=cache, page_table=page_table,
-                              chunked=chunked, **kw)
-            if a is not None:
-                aux = a if aux is None else aux + a
+        # DeepSeek's leading dense blocks first, over their own caches
+        stacks = [("blocks", "attn")]
+        if "dense_blocks" in params:
+            stacks.insert(0, ("dense_blocks", "attn_dense"))
+        for pkey, ckey in stacks:
+            blocks = unstack(params[pkey])
+            pools = unstack(caches[ckey]) if caches \
+                else [None] * len(blocks)
+            for bp, cache in zip(blocks, pools, strict=True):
+                x, a = attn_block(bp, x, cfg, cache=cache,
+                                  page_table=page_table, chunked=chunked,
+                                  **kw)
+                if a is not None:
+                    aux = a if aux is None else aux + a
     elif fam == "ssm":
         x = _mamba_blocks(params["blocks"], x, cfg, mode=mode,
                           states=caches["mamba"] if caches else None,

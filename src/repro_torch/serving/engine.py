@@ -16,8 +16,10 @@ batch-1 staging cache of their own (their SSM state must not see pad
 tokens); a sliding-window arch (mixtral's ring caches) prefills the
 whole prompt at once at its exact length (pad KV would land in the ring,
 and pad tokens would change the experts' capacity and so which pairs
-drop); the dense decoder prefills the whole prompt at once, right-padded
-to a pow2 bucket.  A finished prefill is copied into the slot, and
+drop); the dense decoder and MLA (deepseek-v2-236b's latent cache, its
+leading dense blocks' ``attn_dense`` beside the moe blocks' ``attn``)
+prefill the whole prompt at once, right-padded to a pow2 bucket, as the
+JAX engine does (``engine.py:918-925``).  A finished prefill is copied into the slot, and
 decode advances every slot together (the states of idle slots move on
 stale tokens, and the next ``insert`` overwrites them).  A failed chunk
 wrote only its own staging cache, so it fails only its own request.
@@ -40,8 +42,7 @@ eagerly and updates the pools, slot caches, page table and lengths in
 place; the tensors live on the engine's device (``cuda`` unless
 ``device="cpu"``).  The dense slot tree is in the compute dtype from the
 start (the JAX engine's starts in bf16 and takes the compute dtype at its
-first decode; ROADMAP Queue C).  MLA models raise
-``NotImplementedError`` naming their ROADMAP item.  An encoder
+first decode; ROADMAP Queue C).  An encoder
 raises ``ValueError`` at construction: it serves through the container's
 ``generic`` entry point (the JAX engine takes the config and fails at its
 first prefill; ROADMAP Queue C).

@@ -182,6 +182,29 @@ WIDE_DECODE_CASES = [
     (2, 8, 1, 256, 96, 40, 20.0),
     (1, 4, 4, 192, 70, 16, 0.0),
 ]
+# MLA (deepseek-v2-236b): the prefill's flash at q/k 192 and v 128 (Hq =
+# Hkv, the broadcast k_rope; the smoke's 512-token bucket at 128 heads),
+# G 2, a softcap, ragged valid lengths, non-causal; the absorbed decode's
+# keys 576 and values 512 under one KV head at G 128 (the serving shape,
+# B 8 over max_seq 1024 and full caches of 4096), G 4 (the golden
+# replay's) and G 16, with empty rows, lengths of S and a softcap
+MLA_FLASH_CASES = [
+    # B, Tq, Tk, Hq, Hkv, causal, softcap, valid
+    (1, 64, 64, 4, 4, True, 0.0, False),
+    (2, 70, 70, 8, 8, True, 0.0, True),
+    (1, 512, 512, 128, 128, True, 0.0, False),
+    (2, 130, 130, 4, 2, True, 30.0, False),
+    (1, 40, 40, 4, 4, False, 0.0, False),
+]
+MLA_DECODE_CASES = [
+    # B, Hq, S, lengths (None: 36-543), softcap
+    (8, 128, 1024, None, 0.0),
+    (8, 128, 4096, [4096] * 8, 0.0),
+    (2, 4, 128, [77, 128], 0.0),
+    (3, 16, 200, [0, 5, 199], 0.0),
+    (4, 128, 300, [0, 1, 299, 300], 30.0),
+    (1, 128, 64, [64], 0.0),
+]
 # the SSD scan: T 1, 63, 64, 100, 257 and 511 around the chunk and the
 # kernel's 64-row tiles (its bounds mask stands in for the JAX padding),
 # chunk 100 (a partial second tile), P 16/32/64, N 16/32/64/128, groups 1
@@ -547,6 +570,85 @@ def test_backward_still_refuses_wide_head_dims(D, cuda):
         out = ops.flash_attention(q, k, k)
     torch.cuda.synchronize()
     assert _rel(ref.mha(q, k, k), out) < TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("case", MLA_FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_mla_widths(case, dtype, cuda):
+    """Keys 192 wide, values 128: the output is 128 wide, and so is the
+    log-sum-exp the same as the plain version's."""
+    B, Tq, Tk, Hq, Hkv, causal, softcap, valid = case
+    g = torch.Generator(device=cuda).manual_seed(Tq + Hq)
+    q = torch.randn(B, Tq, Hq, 192, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, Tk, Hkv, 192, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, Tk, Hkv, 128, generator=g, device=cuda).to(dtype)
+    vl = torch.randint(1, Tk + 1, (B,), generator=g, device=cuda) \
+        if valid else None
+    kw = dict(causal=causal, softcap=softcap, kv_valid_len=vl,
+              sm_scale=192 ** -0.5)
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    got, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    want, want_lse = ref.mha(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (B, Tq, Hq, 128) and got.dtype == dtype
+    assert _rel(want, got) < TOL[dtype]
+    live = want_lse > ref.NEG_INF
+    assert torch.allclose(lse[live], want_lse[live], atol=1e-4, rtol=1e-5)
+    assert _rel(want, ops.flash_attention(q, k, v, **kw)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("case", MLA_DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_at_mla_widths(case, dtype, cuda):
+    """Keys 576 wide (the latent c_kv and k_rope), values their first 512
+    columns as the absorbed decode passes them, and independent values;
+    a row with no valid key gives exactly 0."""
+    B, Hq, S, lengths, softcap = case
+    g = torch.Generator(device=cuda).manual_seed(S + Hq)
+    q, k, _, clen = _dense_inputs(g, B, Hq, 1, 576, S, lengths, dtype, cuda)
+    for v in (k[..., :512].contiguous(),
+              torch.randn(B, S, 1, 512, generator=g,
+                          device=cuda).to(dtype)):
+        kw = dict(softcap=softcap, sm_scale=192 ** -0.5)
+        got = ops.decode_attention(q, k, v, clen, **kw)
+        want = ref.decode_attention(q, k, v, clen, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == (B, Hq, 512) and got.dtype == dtype
+        assert bool(torch.isfinite(got).all())
+        assert _rel(want, got) < TOL[dtype]
+        assert bool((got[clen == 0] == 0).all())
+
+
+def test_unlisted_key_and_value_widths_raise(cuda):
+    """Each wrapper takes its listed (key, value) widths only, and the
+    backward still takes values as wide as keys only: its wrappers raise,
+    and a grad-mode ``flash_mha`` at MLA's widths raises before its
+    forward launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    def t(*shape):
+        return torch.randn(*shape, device=cuda).to(torch.bfloat16)
+
+    for dk, dv in ((192, 64), (128, 64), (256, 128), (576, 512)):
+        with pytest.raises(ValueError, match="head dims"):
+            fa.flash_attention(t(1, 8, 2, dk), t(1, 8, 2, dk), t(1, 8, 2, dv))
+    clen = torch.tensor([5], device=cuda, dtype=torch.int32)
+    for dk, dv in ((576, 256), (512, 512), (192, 128), (576, 576)):
+        with pytest.raises(ValueError, match="head dims"):
+            decode_attention(t(1, 4, dk), t(1, 16, 1, dk), t(1, 16, 1, dv),
+                             clen)
+    q, k, v = t(1, 64, 4, 192), t(1, 64, 4, 192), t(1, 64, 4, 128)
+    lse = torch.zeros(1, 64, 4, device=cuda)
+    for kernel in (fab.flash_attention_bwd_dq, fab.flash_attention_bwd_dkv):
+        with pytest.raises(ValueError, match="bad shapes"):
+            kernel(q, k, v, lse, t(1, 64, 4, 128), lse)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="head dim"):
+        fab.flash_mha(q.clone().requires_grad_(), k, v)
+    assert fa.flash_attention.launches == before
 
 
 def test_decode_kernel_takes_cuda_tensors_only():

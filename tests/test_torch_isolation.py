@@ -70,6 +70,11 @@ def test_port_runs_with_jax_unimportable(tmp_path):
                                 max_slots=2, max_seq=64, device="cpu")
         r = moe_eng.submit(np.arange(40), max_new_tokens=2).result(timeout=60)
         assert len(r.generated) == 2
+        import repro_torch.configs.deepseek_v2_236b
+        mla_eng = ServingEngine(get_reduced_config("deepseek-v2-236b"),
+                                max_slots=2, max_seq=64, device="cpu")
+        r = mla_eng.submit(np.arange(20), max_new_tokens=2).result(timeout=60)
+        assert len(r.generated) == 2
         assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
@@ -108,6 +113,7 @@ def test_entry_points_refuse_a_missing_gpu():
                  lambda: ServingEngine(ssm),
                  lambda: Model(get_reduced_config("zamba2-1.2b")),
                  lambda: Model(get_reduced_config("mixtral-8x7b")),
+                 lambda: Model(get_reduced_config("deepseek-v2-236b")),
                  lambda: serve.main(["--arch", "mamba2-2.7b", "--reduced",
                                      "--requests", "1"]),
                  lambda: init_paged_cache_tree(cfg, 3, 16),

@@ -50,8 +50,14 @@ def test_config_dict_round_trip_and_reduced():
     assert tcfg.q_groups == jcfg.q_groups == 8
     assert tcfg.kv_bytes_per_token() == jcfg.kv_bytes_per_token()
     assert tcfg.cdtype == torch.bfloat16 and tcfg.pdtype == torch.float32
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("deepseek-v2-236b")
+    # every registered arch is ported (deepseek-v2-236b the last); an
+    # unknown name raises
+    from repro.configs import list_archs
+
+    for arch in list_archs():
+        assert get_config(arch).to_dict() == jget(arch).to_dict()
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
 
 
 # ---------------------------------------------------------------------------

@@ -349,20 +349,19 @@ def test_param_counts_match_jax(arch):
 
 
 def test_unported_moe_variants_raise():
-    """MLA and DeepSeek's leading dense layers name item 11.4, a
-    full-attention MoE is in no registered config, and the trainer refuses
-    the moe family (item 17)."""
+    """DeepSeek (MLA with its leading dense layer) is ported now
+    (``tests/test_torch_mla.py``); its leading dense layers beside
+    sliding-window attention and a full-attention MoE are in no registered
+    config, and the trainer refuses the moe family (item 17)."""
     from repro_torch.launch import train
     from repro_torch.train.trainer import Trainer
 
     ds = ModelConfig.from_dict(jax_config("deepseek-v2-236b").to_dict())
-    with pytest.raises(NotImplementedError, match=r"item 11\.4"):
-        check_ported(ds)
-    with pytest.raises(KeyError, match=r"item 11\.4"):
-        get_config("deepseek-v2-236b")
+    check_ported(ds)
+    assert get_config("deepseek-v2-236b") == ds
     mix = get_config("mixtral-8x7b")
     no_mla = dataclasses.replace(ds, attn_type="swa", sliding_window=64)
-    with pytest.raises(NotImplementedError, match=r"item 11\.4"):
+    with pytest.raises(NotImplementedError, match="no registered config"):
         check_ported(no_mla)
     with pytest.raises(NotImplementedError, match="no registered config"):
         check_ported(dataclasses.replace(mix, attn_type="full",

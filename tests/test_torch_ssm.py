@@ -201,8 +201,8 @@ def test_configs_and_param_counts_match_jax():
     with pytest.raises(NotImplementedError, match="item 11"):
         check_ported(dataclasses.replace(get_config("zamba2-1.2b"),
                                          sliding_window=64))
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("deepseek-v2-236b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("mamba3-2.7b")
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])

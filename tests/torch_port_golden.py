@@ -62,6 +62,17 @@ its greedy streams and each prompt's last-position logits.
 ``chip_smoke.py`` replays them on the card through the fp32 windowed
 flash and dense decode kernels.
 
+DeepSeek rides along (``deepseek_*``): reduced fp32 ``deepseek-v2-236b``
+(2 layers: the leading dense block with an MLP of 256, then one MoE block
+of 4 experts of 128, top 2, with the shared expert; 4 heads) at the
+published MLA widths (``kv_lora_rank`` 512, nope 128, rope 64, v 128;
+``q_lora_rank`` 64), from ``Model.init`` with its norm scales seeded,
+four prompts of 40-90 tokens served at once on two dense slots by the
+warmed JAX engine (whole-prompt prefill in pow2 buckets), its greedy
+streams and each prompt's last-position logits.  ``chip_smoke.py``
+replays them on the card through the fp32 flash kernel at q/k 192 and v
+128 and the dense decode kernel at keys 576 and values 512.
+
 The same waves are served again speculatively, with a random 1-layer,
 1-head draft (seed 0, ``spec_k_max=3``), once over pages in the compute
 dtype (``spec_streams_auto``) and once over int8 pages
@@ -109,6 +120,10 @@ DENSE_VARIANTS = {"gemma-2b": dict(head_dim=256), "command-r-35b": {},
                   "chameleon-34b": {}, "nemotron-4-340b": dict(head_dim=192)}
 MIXTRAL_ENGINE = dict(max_slots=2, max_seq=128, prefill_chunk=16)
 MIXTRAL_MAX_NEW = 12
+# MLA at its published widths over the reduced model (reduced() gives
+# kv_lora_rank 32 and heads of 32 + 16)
+DEEPSEEK_MLA = dict(q_lora_rank=64, kv_lora_rank=512, qk_nope_head_dim=128,
+                    qk_rope_head_dim=64, v_head_dim=128)
 # leaves that init makes zero or one, which a test could not tell from
 # missing: biases (and LayerNorm's) and norm scales
 _SEEDED = {"b_q": 0.0, "b_k": 0.0, "b_v": 0.0, "b_o": 0.0, "bias": 0.0,
@@ -359,6 +374,44 @@ def _mixtral() -> dict:
     return out
 
 
+def _deepseek() -> dict:
+    """The deepseek streams and logits of the module docstring."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_reduced_config
+    from repro.models.config import MLAConfig
+    from repro.models.model import build_model
+    from repro.serving.engine import ServingEngine
+
+    cfg = dataclasses.replace(
+        get_reduced_config("deepseek-v2-236b",
+                           mla=MLAConfig(**DEEPSEEK_MLA)),
+        compute_dtype="float32")
+    params = jax.tree.map(jnp.asarray, seeded(
+        build_model(cfg).init(jax.random.key(12)), seed=12))
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, 256, size=int(n))
+               for n in rng.integers(40, 91, size=4)]
+    eng = ServingEngine(cfg, params=params, **MIXTRAL_ENGINE).warmup()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=MIXTRAL_MAX_NEW)
+    eng.run_until_drained()
+    done = sorted(eng.completed.values(), key=lambda r: r.rid)
+    padded, lens = _padded(prompts)
+    out = {"config": np.array(json.dumps(cfg.to_dict(), sort_keys=True)),
+           "engine": np.array(json.dumps(MIXTRAL_ENGINE, sort_keys=True)),
+           "prompts": padded, "prompt_lens": lens,
+           "max_new": np.array(MIXTRAL_MAX_NEW, np.int32),
+           "streams": np.array([r.generated for r in done], np.int32),
+           "last_logits": np.stack([np.asarray(eng.model.forward(
+               params, {"tokens": jnp.asarray(p[None], jnp.int32)})[0])[0, -1]
+               for p in prompts]).astype(np.float32)}
+    out = {"deepseek_" + k: v for k, v in out.items()}
+    out.update(_flat_params("deepseek_params/", params))
+    return out
+
+
 def make() -> dict:
     """Regenerate the fixture's arrays with the JAX package."""
     import jax
@@ -405,6 +458,7 @@ def make() -> dict:
     out.update(_encoder())
     out.update(_dense_variants())
     out.update(_mixtral())
+    out.update(_deepseek())
     return out
 
 
