@@ -13,8 +13,8 @@ continues:
    so must every bf16 instance of the paged and dense decode attention
    kernels and every wgmma instance of the flash forward and of the
    flash backward's dq and dk/dv kernels, one for each head dim they
-   take (the forward 32, 48, 64, 80, 128, 192 and 256, and keys of 192
-   over values of 128; the backward up to 128; registers and spills
+   take (the forward's and the backward's 32, 48, 64, 80, 128, 192 and
+   256, and keys of 192 over values of 128; registers and spills
    printed), and MLA's absorbed-decode wgmma kernel (keys 576, values
    512), and no fp32 one; the paged,
    verify and dense decode kinds at D 192 and 256 in bf16 and fp32, over
@@ -68,7 +68,16 @@ continues:
    explicit, packed and index positions; the forward's lse with them),
    timed at hubert-xlarge's train shape (B 8, T 500, 16 heads of 80,
    non-causal, G 1: the forward with lse, dq and dk/dv, against one
-   maskless SDPA forward and backward), the SSD scan
+   maskless SDPA forward and backward), the backward (and the forward's
+   lse) at (key, value) head dims (256, 256), (192, 192) and (192, 128):
+   causal and non-causal, a window, a softcap, an empty row and ragged
+   lengths, Tq < Tk, packed and index positions, G 1, gemma-2b's G 8
+   over one KV head, nemotron-4-340b's G 12 and deepseek's Hq = Hkv =
+   128, timed at gemma-2b's train shape (B 2, T 1024, 8 heads over 1, D
+   256), nemotron's heads (B 1, T 1024, 96 over 8, D 192) and deepseek's
+   (B 2, T 512, 128 heads, 192/128) against SDPA's forward and backward
+   on the first of its cuDNN, flash, memory-efficient and math backends
+   that takes the shape (named), the SSD scan
    at the SSM prefill's (mamba2's 64-token chunk with the carried state
    and zamba2's H 64 N 64, both timed, a 511-token prompt whole, 511 and
    4096 tokens as 64-token calls that carry the state, groups 2, one
@@ -223,6 +232,29 @@ continues:
    median step, frames/s, the phase's peak memory, a profiled step; then
    edge-cv-heavy (B 8 x T 64) restarted from its checkpoint gives the
    loss of a run that did not stop;
+6c. mixtral-8x7b training: first an fp32 MoE layer at full width
+   (capacity factor 0.25, pairs drop) whose backward, run twice, repeats
+   bit for bit; then ``Trainer`` on 2 of 32 layers at full width (fp32
+   parameters and moments, the cut config's ``default_train_config``),
+   B 4 x T 1024, 4 steps: losses and grad norms finite, ``aux`` > 0,
+   w_o still after step 1 and moved after step 2, the flash forward, dq
+   and dk/dv launched 2 x 4 times, a router gradient in every MoE layer
+   and an expert gradient exactly where a pair was kept; median step,
+   tokens/s, peak memory, a profiled step (the tensor-core kernels once
+   a layer) split into flash forward and backward, expert GEMMs,
+   dispatch and combine, the optimizer and the rest; then
+   ``launch/train.py --arch mixtral-8x7b --reduced`` restarted from its
+   checkpoint gives the loss of a run that did not stop;
+6d. deepseek-v2-236b training the same way: its MoE layer's backward
+   repeats (160 experts, top 6, 2 shared, fp32), then the dense layer
+   and one MoE layer at full width (bf16 parameters, the full arch's
+   int8 moments), B 2 x T 512, flash and the backward at q/k 192 over v
+   128; the reduced launcher's restart (flash and its backward at q/k
+   48 over v 32);
+6e. gemma-2b training at full width and depth (18 layers, fp32
+   parameters and moments), B 2 x T 1024, the backward at D 256 over one
+   KV head, as 6c without the MoE checks; the reduced launcher's
+   restart;
 7. train consistency: fp32 at full width, 2 layers, every gradient leaf of
    ``Model.loss`` through the kernels against the plain path within 2e-4
    relative; a reduced fp32 model trained 30 steps through the kernels
@@ -232,10 +264,14 @@ continues:
    replayed through the kernels from its step-0 state: losses and grad
    norms within 1e-4 relative, final parameters within 1e-4; the same
    for the fixture's encoder runs (reduced edge-cv-heavy at head dims 48
-   and 80, masked prediction);
+   and 80, masked prediction); and its MoE and wide-head runs (reduced
+   mixtral past its window of 32, deepseek at the published MLA widths
+   and capacity factor 0.25, gemma-2b at head dim 256): losses and grad
+   norms within 2e-5 relative, parameters within 2e-4;
 9. the kernels line (each kernel's launches from the paths that run it:
-   per request for serving, per step for training (tinyllama's and
-   hubert-xlarge's), per dispatch on the
+   per request for serving, per step for training (tinyllama's,
+   hubert-xlarge's, mixtral's, deepseek's and gemma-2b's), per dispatch
+   on the
    edge path, per request on the fleet, per batch for hubert, per request
    of each dense variant's path and of mixtral's and deepseek's; the SSD
    scan and RMSNorm from mamba2's serve, the dense
@@ -461,23 +497,23 @@ def phase_device_and_build(torch):
     print(f"[build] decode_attention MLA (576/512): " + ", ".join(
         f"{k} {mla.get(k, 0)} HMMA/HGMMA, {r} regs, {b} B spilled"
         for k, (r, b) in sorted(res.items())))
-    # flash backward: the dq and dk/dv kernels at every head dim the
-    # wrapper takes (D 48 and 80 for encoder training), the wgmma
-    # instances with tensor-core instructions (and, as above, no spill),
-    # the fp32 instances without
+    # flash backward: the dq and dk/dv kernels at every (key, value) head
+    # dims the wrapper takes (D 48 and 80 for encoder training, 192 and
+    # 256, and MLA's 192 over 128), the wgmma instances with tensor-core
+    # instructions (and, as above, no spill), the fp32 instances without
     ops = tc_ops["flash_attention_bwd"]
     res = {k: (r, b) for k, r, b in
            _kernel_resources(logs["flash_attention_bwd"])}
-    for D in fab.HEAD_DIMS:
+    for D, Dv in fab.HEAD_DIMS:
         for part in ("dq", "dkv"):
-            wk = f"flash_bwd_{part}_wgmma_kernel<{D}>"
-            fk = f"flash_bwd_{part}_kernel<{D}>"
+            wk = f"flash_bwd_{part}_wgmma_kernel<{D},{Dv}>"
+            fk = f"flash_bwd_{part}_kernel<{D},{Dv}>"
             check(ops.get(wk, 0) > 0 and ops.get(fk, -1) == 0,
-                  f"flash_attention_bwd D {D}: {wk} without or {fk} with "
-                  f"tensor-core instructions: {ops}")
+                  f"flash_attention_bwd D {D}/{Dv}: {wk} without or {fk} "
+                  f"with tensor-core instructions: {ops}")
             (wr, wb), (fr, fb) = res.get(wk, ("n/a", 0)), res.get(fk,
                                                                   ("n/a", 0))
-            print(f"[build] flash_attention_bwd D {D} {part}: {wk} "
+            print(f"[build] flash_attention_bwd D {D}/{Dv} {part}: {wk} "
                   f"{ops[wk]} HGMMA, {wr} regs, {wb} B spilled; {fk} {fr} "
                   f"regs, {fb} B spilled, no HMMA")
     for name in ("paged_decode_attention", "paged_verify_attention",
@@ -788,21 +824,24 @@ def _sdpa_mla_decode(torch, F, args, kw):
 
 
 def _bwd_case(torch, gen, dtype, dims, causal=True, window=0, softcap=0.0,
-              valid=False, index_kv=False, packed=False):
+              valid=False, index_kv=False, packed=False, Dv=None,
+              sm_scale=None):
     """Inputs of the backward kernels as the train step gives them:
     q/k/v/do random, ``out`` and ``lse`` from the forward kernel, the
     query positions the last Tq of Tk, the key positions explicit (the
     train-mode forward passes them; ``index_kv`` leaves them None), with
     ``valid`` batch row 0 sees no key and the others the first 3/4;
-    ``packed`` makes the positions two documents, 0..99 then 0..Tk-101."""
+    ``packed`` makes the positions two documents, 0..99 then 0..Tk-101;
+    values (and do) ``Dv`` wide, by default as wide as the keys."""
     from repro_torch.kernels.flash_attention import flash_attention
 
     dt = getattr(torch, dtype)
     B, Tq, Tk, Hq, Hkv, D = dims
+    Dv = Dv or D
     q = torch.randn(B, Tq, Hq, D, generator=gen, device="cuda").to(dt)
     k = torch.randn(B, Tk, Hkv, D, generator=gen, device="cuda").to(dt)
-    v = torch.randn(B, Tk, Hkv, D, generator=gen, device="cuda").to(dt)
-    do = torch.randn(B, Tq, Hq, D, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, Tk, Hkv, Dv, generator=gen, device="cuda").to(dt)
+    do = torch.randn(B, Tq, Hq, Dv, generator=gen, device="cuda").to(dt)
     kp = np.arange(Tk)
     if packed:
         kp = np.concatenate([np.arange(100), np.arange(Tk - 100)])
@@ -814,6 +853,8 @@ def _bwd_case(torch, gen, dtype, dims, causal=True, window=0, softcap=0.0,
 
     kw = dict(causal=causal, window=window, softcap=softcap,
               q_positions=positions(qp, Tq))
+    if sm_scale is not None:
+        kw["sm_scale"] = sm_scale
     if not index_kv:
         kw["kv_positions"] = positions(kp, Tk)
     vl = np.array([0] + [3 * Tk // 4] * (B - 1)) if valid else np.full(B, Tk)
@@ -829,14 +870,19 @@ def _bwd_case(torch, gen, dtype, dims, causal=True, window=0, softcap=0.0,
     if window:
         keep &= qp[:, None] - kp[None, :] < window
     pairs = sum(int((keep & (kp[None, :] < n)).sum()) for n in vl) * Hq
+    # q and dq, k and dk D wide; do and out, v and dv Dv wide.  The dq
+    # kernel's products: s (D), do·vᵀ (Dv), ds·k (D); the dk/dv kernel's
+    # also pᵀ·do (Dv) and dsᵀ·q (D)
     e = q.element_size()
-    qbytes, kbytes = B * Tq * Hq * D * e, B * Tk * Hkv * D * e
-    common = 2 * qbytes + 2 * kbytes + 8 * B * Tq * Hq + 4 * B * (Tq + Tk)
-    nbytes = {"dq": common + qbytes, "dkv": common + 2 * kbytes,
-              "fwd": 2 * qbytes + 2 * kbytes + 4 * B * Tq * Hq
+    qb, ob = B * Tq * Hq * D * e, B * Tq * Hq * Dv * e
+    kb, vb = B * Tk * Hkv * D * e, B * Tk * Hkv * Dv * e
+    common = qb + ob + kb + vb + 8 * B * Tq * Hq + 4 * B * (Tq + Tk)
+    nbytes = {"dq": common + qb, "dkv": common + kb + vb,
+              "fwd": qb + kb + vb + ob + 4 * B * Tq * Hq
               + 4 * B * (Tq + Tk)}
-    flops = {"dq": 3 * 2 * D * pairs, "dkv": 4 * 2 * D * pairs,
-             "fwd": 2 * 2 * D * pairs}
+    flops = {"dq": 2 * (2 * D + Dv) * pairs,
+             "dkv": 2 * (2 * D + 2 * Dv) * pairs,
+             "fwd": 2 * (D + Dv) * pairs}
     return (q, k, v, lse, do, dsum), kw, out, nbytes, flops
 
 
@@ -885,6 +931,41 @@ def _sdpa_bwd(torch, F, q, k, v, do, causal=True):
     dot = do.transpose(1, 2)
     return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                        retain_graph=True)
+
+
+def _sdpa_train_named(torch, F, q, k, v, do, causal, scale):
+    """Library yardsticks at a wide train shape: SDPA's forward and its
+    backward (``torch.autograd.grad``, dq, dk and dv in one call) on the
+    first of its cuDNN, flash, memory-efficient and math backends that
+    takes the shape (values narrower than keys rule out flash), the KV
+    heads expanded to the query heads beforehand (untimed).  Returns
+    (the backend's name, the forward closure, the backward closure)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.transpose(1, 2).repeat_interleave(G, dim=1).detach()
+              .requires_grad_() for x in (k, v))
+    dot = do.transpose(1, 2)
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        def fwd(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, scale=scale)
+        try:
+            out = fwd()
+            torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        def fwd_only(fwd=fwd):
+            with torch.no_grad():
+                return fwd()
+        return (backend.name, fwd_only,
+                lambda out=out: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                    retain_graph=True))
+    fail("no SDPA backend takes the wide train shape")
 
 
 def _ssd_case(torch, gen, dtype, T, H, P, N, G=1, chunk=256, init=True):
@@ -1405,7 +1486,62 @@ def phase_kernels(torch, timer, card):
          {"causal": False, "packed": True}, False),
         ("B2/T200 D80 index positions", (2, 200, 200, 8, 2, 80),
          {"index_kv": True, "valid": True}, False),
+        # the wide pairs: timed at gemma-2b's train shape (D 256, G 8 over
+        # one KV head), nemotron-4-340b's heads (D 192, G 12) and
+        # deepseek-v2-236b's (q/k 192 over v 128, Hq = Hkv = 128), then
+        # causal and non-causal, a window, a softcap, an empty row and
+        # ragged lengths, Tq < Tk, packed and index positions, G 1
+        ("gemma B2/T1024 H8/1 D256 train", (2, 1024, 1024, 8, 1, 256), {},
+         "gemma_train"),
+        ("nemotron B1/T1024 H96/8 D192", (1, 1024, 1024, 96, 8, 192), {},
+         "nemotron_train"),
+        ("deepseek B2/T512 H128 D192/128", (2, 512, 512, 128, 128, 192),
+         {"Dv": 128, "sm_scale": 192 ** -0.5}, "deepseek_train"),
+        ("B2/T129 D256 G8 non-causal", (2, 129, 129, 8, 1, 256),
+         {"causal": False}, False),
+        ("B2/T256 D256 window128 softcap30", (2, 256, 256, 8, 1, 256),
+         {"window": 128, "softcap": 30.0}, False),
+        ("B2/T200 D256 valid(row 0 empty)", (2, 200, 200, 8, 1, 256),
+         {"valid": True}, False),
+        ("B2/Tq96/Tk256 D256 chunk", (2, 96, 256, 8, 1, 256), {}, False),
+        ("B2/T256 D256 packed", (2, 256, 256, 8, 1, 256), {"packed": True},
+         False),
+        ("B2/T129 D256 G1", (2, 129, 129, 4, 4, 256), {}, False),
+        ("B2/T200 D192 G12 valid", (2, 200, 200, 24, 2, 192),
+         {"valid": True}, False),
+        ("B2/T129 D192 G1 non-causal softcap30", (2, 129, 129, 8, 8, 192),
+         {"causal": False, "softcap": 30.0}, False),
+        ("B2/T256 D192 G12 packed window64", (2, 256, 256, 12, 1, 192),
+         {"packed": True, "window": 64}, False),
+        ("B2/Tq96/Tk256 D192 index positions", (2, 96, 256, 12, 1, 192),
+         {"index_kv": True, "valid": True}, False),
+        ("B2/T129 D192/128 H128 valid", (2, 129, 129, 128, 128, 192),
+         {"Dv": 128, "valid": True, "sm_scale": 192 ** -0.5}, False),
+        ("B2/T200 D192/128 non-causal softcap30", (2, 200, 200, 16, 16, 192),
+         {"Dv": 128, "causal": False, "softcap": 30.0}, False),
+        ("B2/T256 D192/128 G4 window100", (2, 256, 256, 16, 4, 192),
+         {"Dv": 128, "window": 100}, False),
+        ("B2/Tq96/Tk256 D192/128 packed", (2, 96, 256, 16, 16, 192),
+         {"Dv": 128, "packed": True}, False),
+        # the reduced deepseek config's MLA widths (q/k 32 + 16, v 32),
+        # which launch/train.py --reduced trains on the card: its shape
+        # timed, then the masks
+        ("B4/T64 D48/32 H4 (reduced deepseek train)", (4, 64, 64, 4, 4, 48),
+         {"Dv": 32, "sm_scale": 48 ** -0.5}, "deepseek_reduced_train"),
+        ("B4/T64 D48/32 G2 valid", (4, 64, 64, 4, 2, 48),
+         {"Dv": 32, "valid": True}, False),
+        ("B2/T129 D48/32 G4 valid", (2, 129, 129, 8, 2, 48),
+         {"Dv": 32, "valid": True}, False),
+        ("B2/T200 D48/32 non-causal softcap30", (2, 200, 200, 4, 4, 48),
+         {"Dv": 32, "causal": False, "softcap": 30.0}, False),
+        ("B2/Tq96/Tk256 D48/32 packed window40", (2, 96, 256, 4, 4, 48),
+         {"Dv": 32, "packed": True, "window": 40}, False),
     ]
+    # the wide train shapes and the reduced deepseek launcher's, timed
+    # beside SDPA's backward on its first backend that takes them
+    # (nemotron's is not trained on one card: ROADMAP item 13)
+    wide_train = ("gemma_train", "nemotron_train", "deepseek_train",
+                  "deepseek_reduced_train")
     for dtype in ("bfloat16", "float32"):
         for label, dims, extra, timed in bwd_cases:
             if timed and dtype == "float32":
@@ -1413,8 +1549,14 @@ def phase_kernels(torch, timer, card):
             args, kw, out, nb, fl = _bwd_case(torch, gen, dtype, dims,
                                               **extra)
             causal = kw["causal"]
-            library = _sdpa_bwd(torch, F, *args[:3], args[4], causal) \
-                if timed else None
+            lib_name = lib_fwd = None
+            if timed in wide_train:
+                lib_name, lib_fwd, library = _sdpa_train_named(
+                    torch, F, *args[:3], args[4], causal,
+                    kw.get("sm_scale"))
+            else:
+                library = _sdpa_bwd(torch, F, *args[:3], args[4], causal) \
+                    if timed else None
             # where the times go: the train step's under the kernels'
             # own names, another shape's under "<name>@<tag>"
             at = "" if timed in (False, "train") else f"@{timed}"
@@ -1438,8 +1580,8 @@ def phase_kernels(torch, timer, card):
             # on its own
             run("flash_attention", f"{label} (train forward)", dtype, fwd,
                 plain_fwd, args, kw, nb["fwd"], fl["fwd"],
-                _sdpa_causal(torch, F, *args[:3], causal) if timed
-                else None, bool(timed),
+                lib_fwd or (_sdpa_causal(torch, F, *args[:3], causal)
+                            if timed else None), bool(timed),
                 key=f"flash_attention@{timed or 'train'}")
             check_lse(f"{label} (train forward)", dtype, args[3],
                       ref.mha(*args[:3], return_lse=True, **kw)[1])
@@ -1469,6 +1611,11 @@ def phase_kernels(torch, timer, card):
                 dkv_r = results[f"flash_attention_bwd_dkv{at}"]
                 fwd_r = results[f"flash_attention@{timed}"]
                 both = dq_r["ms"] + dkv_r["ms"]
+                if lib_name:
+                    for r in (dq_r, dkv_r, fwd_r):
+                        r["library"] = f"SDPA {lib_name}"
+                    print(f"[kernel] {label}: library SDPA backend "
+                          f"{lib_name}")
                 qp = kw["q_positions"][0].cpu().numpy()
                 kp = kw["kv_positions"][0].cpu().numpy()
                 share = _tile_share(qp, kp, dims[3] // dims[4],
@@ -3805,14 +3952,18 @@ def phase_golden(torch):
               f"{lerr}")
 
 
-def phase_golden_train(torch, pre: str = "train_"):
+def phase_golden_train(torch, pre: str = "train_", loss_tol: float = 1e-4,
+                       param_tol: float = 1e-4):
     """A JAX training run of the fixture (fp32, 5 steps of
     ``build_train_step``; ``pre`` names it: ``train_`` the decoder's on
     the bigram stream, ``encoder_train_48_`` and ``encoder_train_80_``
-    the encoder's on masked-prediction batches) replayed on the card
-    through the kernels from its step-0 parameters and AdamW state,
-    restored by ``Trainer`` from a checkpoint: each step's loss and grad
-    norm within 1e-4 relative, the final parameters within 1e-4."""
+    the encoder's on masked-prediction batches, ``mixtral_train_``,
+    ``deepseek_train_`` and ``dense_gemma-2b_train_`` the MoE and
+    wide-head ones, whose step-0 parameters are the fixture's serving
+    parameters named by ``params0_from``) replayed on the card through
+    the kernels from its step-0 parameters and AdamW state, restored by
+    ``Trainer`` from a checkpoint: each step's loss and grad norm within
+    ``loss_tol`` relative, the final parameters within ``param_tol``."""
     from repro_torch.checkpointing import checkpoint as ck
     from repro_torch.data.tokens import make_encoder_iterator, make_lm_iterator
     from repro_torch.launch import programs
@@ -3825,6 +3976,10 @@ def phase_golden_train(torch, pre: str = "train_"):
     with np.load(os.path.join(ROOT, "tests", "data",
                               "torch_port_golden.npz")) as f:
         g = {k[len(pre):]: f[k] for k in f.files if k.startswith(pre)}
+        src = str(g["params0_from"]) if "params0_from" in g else None
+        if src:
+            g.update({"params0/" + k[len(src):]: f[k] for k in f.files
+                      if k.startswith(src)})
     cfg = ModelConfig.from_dict(json.loads(str(g["config"])))
     setup = json.loads(str(g["setup"]))
 
@@ -3863,9 +4018,11 @@ def phase_golden_train(torch, pre: str = "train_"):
     print(f"[golden-train] {pre[:-1]} (head dim {cfg.head_dim_}): the JAX "
           f"trainer's {setup['steps']} fp32 steps "
           f"replayed on the card through the kernels: loss max rel err "
-          f"{loss_err:.3e}, grad norm {norm_err:.3e} (bound 1e-4), final "
-          f"params max abs err {param_err:.3e} (bound 1e-4)")
-    check(loss_err < 1e-4 and norm_err < 1e-4 and param_err < 1e-4,
+          f"{loss_err:.3e}, grad norm {norm_err:.3e} (bound {loss_tol:.0e}), "
+          f"final params max abs err {param_err:.3e} (bound "
+          f"{param_tol:.0e})")
+    check(loss_err < loss_tol and norm_err < loss_tol
+          and param_err < param_tol,
           f"the golden training run {pre[:-1]} does not replay")
 
 
@@ -4148,6 +4305,362 @@ def phase_encoder_train(torch):
 
 
 # ---------------------------------------------------------------------------
+# phases 6c-6e: MoE and wide-head training at full width
+# ---------------------------------------------------------------------------
+
+# the layers phases 6c and 6d keep: mixtral-8x7b's 2 of 32 (3 164 688 384
+# parameters; fp32 with fp32 AdamW moments, 16 B each: 51 GB) and
+# deepseek-v2-236b's dense layer and one MoE layer of 60 (5 358 679 040;
+# bf16 with int8 moments: about 32 GB); gemma-2b trains whole (PERF.md
+# §4)
+MIXTRAL_TRAIN_CUT = 2
+DEEPSEEK_TRAIN_CUT = 2
+
+
+def _moe_train_spies(torch):
+    """For a MoE training phase: the experts each dispatch kept a pair for
+    (one entry a MoE layer, in layer order), and per MoE layer, from the
+    gradients AdamW is given, whether its router got a gradient and
+    which experts' w_gate, w_up and w_down did.  Returns (the records,
+    the undo)."""
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw
+
+    rec = {"kept": [], "grads": []}
+    dispatch, apply = moe._dispatch, adamw.apply_updates
+
+    def spy_dispatch(xt, gate, idx, capacity, cfg):
+        buf, meta = dispatch(xt, gate, idx, capacity, cfg)
+        keep, order = meta[1], meta[4]
+        kept = torch.zeros(cfg.moe.num_experts, dtype=torch.bool,
+                           device=idx.device)
+        kept[idx.reshape(-1)[order][keep]] = True
+        rec["kept"].append(kept)
+        return buf, meta
+
+    def spy_apply(params, grads, state, cfg, lr_scale=1.0):
+        g = grads["stack"]["blocks"]["moe"]
+        rec["grads"].append((
+            g["router"].flatten(1).abs().amax(1) > 0,
+            {n: g[n].flatten(2).abs().amax(2) > 0
+             for n in ("w_gate", "w_up", "w_down") if n in g}))
+        return apply(params, grads, state, cfg, lr_scale)
+
+    moe._dispatch, adamw.apply_updates = spy_dispatch, spy_apply
+
+    def undo():
+        moe._dispatch, adamw.apply_updates = dispatch, apply
+    return rec, undo
+
+
+def _profile_split(torch, tr, batch, label: str):
+    """One profiled ``tr.train_step(batch)`` split by where its device time
+    goes: the flash forward and backward kernels (by name), the expert
+    GEMMs (the ``moe.expert_ffn`` range and the ``bmm`` backward, the only
+    ``bmm`` a train step runs), the dispatch and combine (their forward
+    ranges; their index backward falls in the rest), the optimizer (a
+    range around AdamW's update) and the rest.  The ranges' own
+    device-side rows (spans, not kernels) are left out of the sums."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim import adamw
+
+    undo_moe = _moe_ranges(torch)
+    apply = adamw.apply_updates
+
+    def ranged(*a, **kw):
+        with torch.profiler.record_function("optimizer"):
+            return apply(*a, **kw)
+
+    adamw.apply_updates = ranged
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tr.train_step(batch)
+            torch.cuda.synchronize()
+    finally:
+        adamw.apply_updates = apply
+        undo_moe()
+    # each kernel to the range whose device-side span holds its start (a
+    # range's own row is a span, not a kernel); the bmm backward by its
+    # autograd node's kernels
+    spans = {n: [] for n in ("moe.expert_ffn", "moe.dispatch",
+                             "moe.combine", "optimizer")}
+    kernels, bmm_bwd = [], 0.0
+    for ev in prof.events():
+        if str(ev.device_type).endswith("CUDA"):
+            t = ev.time_range
+            (spans[ev.name] if ev.name in spans else kernels).append(
+                (ev.name, t.start, t.end) if ev.name not in spans
+                else (t.start, t.end))
+        elif ev.name == ("autograd::engine::evaluate_function: "
+                         "BmmBackward0"):
+            bmm_bwd += (getattr(ev, "device_time_total", None)
+                        or getattr(ev, "cuda_time_total", 0.0)) / 1e3
+    ms = dict.fromkeys(spans, 0.0)
+    for name, t0, t1 in kernels:
+        for rng, ss in spans.items():
+            if any(a <= t0 < b for a, b in ss):
+                ms[rng] += (t1 - t0) / 1e3
+                break
+    busy = sum(t1 - t0 for _, t0, t1 in kernels) / 1e3
+    parts = {
+        "flash forward": sum(t1 - t0 for n, t0, t1 in kernels
+                             if "flash_fwd" in n) / 1e3,
+        "flash backward": sum(t1 - t0 for n, t0, t1 in kernels
+                              if "flash_bwd" in n) / 1e3,
+        "expert GEMMs": ms["moe.expert_ffn"] + bmm_bwd,
+        "dispatch + combine (forward)": ms["moe.dispatch"]
+        + ms["moe.combine"],
+        "optimizer": ms["optimizer"]}
+    parts["the rest"] = busy - sum(parts.values())
+    print(f"[profile] {label} step split ({busy:.1f} ms of kernels; "
+          f"{'measured' if kernels else 'no device time seen'}): "
+          + ", ".join(f"{k} {v:.1f} ms ({100 * v / max(busy, 1e-9):.1f}%)"
+                      for k, v in parts.items()))
+    return parts
+
+
+def _train_wide(torch, label, cfg, tcfg, B, T, steps, ckpt):
+    """``Trainer`` on ``cfg`` at full width: ``steps`` counted steps (the
+    first at lr 0) on the bigram stream at B x T, every loss and grad
+    norm finite (and ``aux`` > 0 for the moe family), the first layer's
+    w_o still after step 1 and moved after step 2, the flash forward, dq and
+    dk/dv launched layers x steps; for the moe family a gradient on every
+    router and on exactly the experts whose dispatch kept a pair; the
+    median step, tokens/s and the phase's peak memory; ``_profile_train
+    _step``'s check of the tensor-core kernels and the step's split.
+    Returns the launches and the steps."""
+    from repro_torch.data.tokens import make_lm_iterator
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    moe = cfg.family == "moe"
+    tr = Trainer(cfg, "cuda", tcfg, TrainerConfig(
+        ckpt_dir=ckpt, ckpt_every=0)).initialize(restore=False)
+    n_params = sum(p.numel() for p in leaves(tr.params))
+    check(n_params == cfg.num_params(),
+          f"{label}: {n_params} parameters, not {cfg.num_params()}")
+    data = make_lm_iterator(cfg, B, T, seed=0)
+    batches = [next(data) for _ in range(steps + 1)]
+    init_s = time.monotonic() - t_phase
+    counters = _train_counters()
+    for fn, _ in counters:
+        fn.launches = 0
+    rec, undo = _moe_train_spies(torch) if moe else (None, lambda: None)
+    L, hist = cfg.num_layers, []
+    n_moe = L - (cfg.moe.first_dense_layers if moe else 0)
+    try:
+        for i in range(steps):
+            # the first layer's attention output projection: bf16 values
+            # near zero move even at the warmup's first learning rates
+            w_o = tr.params["stack"]["blocks"]["attn"]["w_o"][0]
+            before = w_o.detach().clone()
+            m = tr.train_step(batches[i])
+            hist.append(m)
+            check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+                  and (m["aux"] > 0 if moe else m["aux"] == 0),
+                  f"{label} step {i + 1}: loss {m['loss']} grad norm "
+                  f"{m['grad_norm']} aux {m['aux']}")
+            moved = not bool(torch.equal(before, w_o))
+            check(moved == (i > 0), f"{label} step {i + 1}: the parameters "
+                  f"{'moved' if moved else 'did not move'} (step 1 trains "
+                  f"at lr 0)")
+            if moe:
+                kept = torch.stack(rec["kept"][-n_moe:]).cpu()
+                router, experts = rec["grads"][-1]
+                off = [int((e.cpu() != kept).sum())
+                       for e in experts.values()]
+                check(bool(router.all()) and not any(off),
+                      f"{label} step {i + 1}: router gradients "
+                      f"{router.tolist()}; expert gradients differ from the "
+                      f"experts that got a token in {off} places")
+        launches = {name: fn.launches for fn, name in counters}
+        for name, n in launches.items():
+            check(n == L * steps, f"{label}: {name} launched {n} times, not "
+                  f"{L} x {steps} steps")
+        secs = sorted(m["step_time_s"] for m in hist)
+        med = secs[len(secs) // 2]
+        peak = torch.cuda.max_memory_allocated() - start
+        print(f"[{label}] {steps} steps: losses "
+              f"{[round(m['loss'], 4) for m in hist]}, ce "
+              f"{[round(m['ce'], 4) for m in hist]}, aux "
+              f"{[round(m['aux'], 5) for m in hist]}, grad norms "
+              f"{[round(m['grad_norm'], 3) for m in hist]}, lr "
+              f"{[m['lr'] for m in hist]}")
+        if moe:
+            kept = torch.stack(rec["kept"][-n_moe:])
+            print(f"[{label}] the last step's experts with a kept pair: "
+                  f"{kept.sum(1).tolist()} of {cfg.moe.num_experts} a MoE "
+                  f"layer, each with its gradient; a router gradient in "
+                  f"every MoE layer")
+        print(f"[{label}] step time median {med * 1e3:.1f} ms (all "
+              f"{[round(m['step_time_s'] * 1e3, 1) for m in hist]} ms), "
+              f"{B * T / med:.0f} tokens/s; peak {peak} B allocated by the "
+              f"phase ({start} B before it); init {init_s:.1f}s; launches "
+              f"{launches}")
+    finally:
+        undo()
+    _profile_train_step(torch, tr, batches[steps], med, label)
+    _profile_split(torch, tr, batches[steps], label)
+    del tr, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{label}] {time.monotonic() - t_phase:.1f}s")
+    return launches, steps
+
+
+def _restart_through_launcher(torch, arch, label):
+    """``launch/train.py --arch <arch> --reduced`` on the card: 3 steps,
+    then one more from their checkpoint (the stream replayed), against 4
+    steps that did not stop: the same last loss."""
+    from repro_torch.launch import train
+
+    ckpt = os.path.join(ROOT, "build", f"chip_smoke_{label}_restart")
+    for d in (ckpt + "_a", ckpt + "_b"):
+        shutil.rmtree(d, ignore_errors=True)
+    args = ["--arch", arch, "--reduced", "--batch", "4", "--seq", "64"]
+    _, whole = train.main(args + ["--steps", "4", "--ckpt-dir",
+                                  ckpt + "_a"])
+    train.main(args + ["--steps", "3", "--ckpt-dir", ckpt + "_b"])
+    again, rest = train.main(args + ["--steps", "1", "--ckpt-dir",
+                                     ckpt + "_b"])
+    a, b = whole["loss"][-1], rest["loss"][-1]
+    print(f"[{label}] launch/train.py --arch {arch} --reduced (B 4 x T 64) "
+          f"on the card: 4 steps losses {[round(x, 6) for x in whole['loss']]}"
+          f"; 3 steps, a restart from step {again.step - 1}, one more: "
+          f"{b:.6f} against {a:.6f}")
+    check(again.step == 4 and np.isfinite(a)
+          and abs(a - b) <= 1e-6 * abs(a),
+          f"the restarted {arch} run's loss differs")
+    del again
+    for d in (ckpt + "_a", ckpt + "_b"):
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _moe_backward_repeats(torch, cfg, n_tok: int, label: str):
+    """The MoE layer's gradient repeats on the card: one fp32 MoE layer of
+    ``cfg`` at full width (capacity factor 0.25, so that pairs drop) run
+    forward and backward twice on the same tokens: dL/dx and every leaf's
+    gradient equal bit for bit (the dispatch's gather and the combine's
+    scatter have deterministic backward passes)."""
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(
+        cfg, param_dtype="float32", compute_dtype="float32",
+        moe=dataclasses.replace(cfg.moe, capacity_factor=0.25))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    p = moe.init_moe(gen, cfg)
+    x = torch.randn(1, n_tok, cfg.d_model, generator=gen, device="cuda")
+    r = torch.randn(1, n_tok, cfg.d_model, generator=gen, device="cuda")
+    flat = [t.requires_grad_() for t in
+            (p["router"], p["w_gate"], p["w_up"], p["w_down"])]
+    if "shared" in p:
+        flat += [t.requires_grad_() for t in p["shared"].values()]
+    runs = []
+    for _ in range(2):
+        xi = x.clone().requires_grad_()
+        out, aux = moe.apply_moe(p, xi, cfg)
+        runs.append(torch.autograd.grad((out * r).sum() + aux,
+                                        [xi] + flat))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"[{label}] fp32 MoE layer at full width ({cfg.moe.num_experts} "
+          f"experts of {cfg.moe.d_expert}, top {cfg.moe.top_k}, capacity "
+          f"factor 0.25), {n_tok} tokens: two backward passes "
+          f"{'equal bit for bit' if same else 'DIFFER'} over dL/dx and "
+          f"{len(flat)} leaves")
+    check(same, f"{label}: the MoE layer's backward does not repeat")
+    del p, x, r, flat, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_mixtral_train(torch):
+    """Phase 6c: mixtral-8x7b trained at full width and cut depth
+    (``MIXTRAL_TRAIN_CUT`` of 32 layers: d 4096, 32 heads of 128 over 8
+    KV heads, window 4096, 8 experts of 14336, top 2), fp32 parameters
+    and the cut config's ``default_train_config`` (fp32 moments, under 30
+    B parameters), B 4 x T 1024 (``_train_wide``); then the MoE layer's
+    gradient repeats and the launcher's restart on reduced mixtral."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import programs
+
+    full = get_config("mixtral-8x7b")
+    check(full.d_model == 4096 and full.num_heads == 32
+          and full.num_kv_heads == 8 and full.head_dim_ == 128
+          and full.sliding_window == 4096 and full.moe.num_experts == 8
+          and full.moe.d_expert == 14336 and full.moe.top_k == 2
+          and full.param_dtype == "float32",
+          f"mixtral-8x7b config {full}")
+    cfg = dataclasses.replace(full, num_layers=MIXTRAL_TRAIN_CUT)
+    check(cfg.num_params() == 3_164_688_384,
+          f"mixtral cut to {cfg.num_layers} layers: {cfg.num_params()}")
+    tcfg = programs.default_train_config(cfg)
+    check(tcfg.adamw.state_dtype == "float32", "mixtral: fp32 moments")
+    _moe_backward_repeats(torch, full, 2048, "mixtral-train")
+    out = _train_wide(torch, "mixtral-train", cfg, tcfg, 4, 1024, 4,
+                      os.path.join(ROOT, "build", "chip_smoke_mixtral_ckpt"))
+    _restart_through_launcher(torch, "mixtral-8x7b", "mixtral-train")
+    return out
+
+
+def phase_deepseek_train(torch):
+    """Phase 6d: deepseek-v2-236b trained at full width and cut depth
+    (``DEEPSEEK_TRAIN_CUT``: the dense layer and one MoE layer of 160
+    experts of 1536, top 6, 2 shared; MLA with q/k 192 over v 128), bf16
+    parameters as phase 3i serves them, the full arch's
+    ``default_train_config`` (int8 moments) passed as ``tcfg``, B 2 x T
+    512 (``_train_wide``), after the MoE layer's gradient repeats; then the
+    launcher's restart on reduced deepseek (flash and its backward at q/k
+    48 over v 32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import programs
+
+    full = get_config("deepseek-v2-236b")
+    cfg = dataclasses.replace(full, num_layers=DEEPSEEK_TRAIN_CUT,
+                              param_dtype="bfloat16")
+    check(cfg.num_params() == 5_358_679_040
+          and cfg.moe.first_dense_layers == 1,
+          f"deepseek cut to {cfg.num_layers} layers: {cfg.num_params()}")
+    tcfg = programs.default_train_config(full)
+    check(tcfg.adamw.state_dtype == "int8", "deepseek: int8 moments")
+    _moe_backward_repeats(torch, full, 1024, "deepseek-train")
+    out = _train_wide(torch, "deepseek-train", cfg, tcfg, 2, 512, 4,
+                      os.path.join(ROOT, "build",
+                                   "chip_smoke_deepseek_ckpt"))
+    _restart_through_launcher(torch, "deepseek-v2-236b", "deepseek-train")
+    return out
+
+
+def phase_gemma_train(torch):
+    """Phase 6e: gemma-2b trained at full width and depth (18 layers, 8
+    heads of 256 over one KV head, vocabulary 256 000), fp32 parameters
+    and moments, B 2 x T 1024 (``_train_wide``); then the launcher's
+    restart on reduced gemma."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import programs
+
+    cfg = get_config("gemma-2b")
+    check(cfg.num_layers == 18 and cfg.head_dim_ == 256
+          and cfg.num_kv_heads == 1 and cfg.num_params() == 2_506_172_416,
+          f"gemma-2b config {cfg}")
+    tcfg = programs.default_train_config(cfg)
+    check(tcfg.adamw.state_dtype == "float32", "gemma: fp32 moments")
+    out = _train_wide(torch, "gemma-train", cfg, tcfg, 2, 1024, 4,
+                      os.path.join(ROOT, "build", "chip_smoke_gemma_ckpt"))
+    _restart_through_launcher(torch, "gemma-2b", "gemma-train")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: training consistency, fp32
 # ---------------------------------------------------------------------------
 
@@ -4327,32 +4840,41 @@ KERNELS = {
 }
 # the paths each kernel's launch count comes from, and each path's unit
 DENSE_PATHS = ("gemma", "gemma_spec", "command-r", "chameleon", "nemotron")
+WIDE_TRAIN_PATHS = ("mixtral_train", "deepseek_train", "gemma_train")
 PATH_OF = {"flash_attention": ("serve", "edge", "fleet", "hubert",
                                "hubert_train", "mixtral", "deepseek")
-           + DENSE_PATHS,
+           + DENSE_PATHS + WIDE_TRAIN_PATHS,
            "paged_decode_attention": ("serve", "edge", "fleet")
            + DENSE_PATHS,
            "paged_verify_attention": ("spec", "gemma_spec"),
            "decode_attention": ("spec", "zamba2", "edge", "gemma_spec",
                                 "mixtral", "deepseek"),
-           "flash_attention_bwd_dq": ("train", "hubert_train"),
-           "flash_attention_bwd_dkv": ("train", "hubert_train"),
+           "flash_attention_bwd_dq": ("train", "hubert_train")
+           + WIDE_TRAIN_PATHS,
+           "flash_attention_bwd_dkv": ("train", "hubert_train")
+           + WIDE_TRAIN_PATHS,
            "ssd_scan": ("mamba2",), "rmsnorm": ("mamba2",)}
 UNIT_OF = {"serve": "request", "spec": "request", "train": "step",
            "mamba2": "request", "zamba2": "request", "edge": "dispatch",
            "fleet": "request", "hubert": "batch", "hubert_train": "step",
            "mixtral": "request", "deepseek": "request",
-           **{p: "request" for p in DENSE_PATHS}}
+           **{p: "request" for p in DENSE_PATHS},
+           **{p: "step" for p in WIDE_TRAIN_PATHS}}
 
 
 def _path_rate(paths: dict, name: str, tag: str) -> dict:
-    """A timed shape named after a serving path (``@mixtral``): that
-    path's launches of the kernel per 10 requests."""
-    if tag not in paths or UNIT_OF.get(tag) != "request" \
-            or name not in paths[tag][0]:
+    """A timed shape named after a serving or training path
+    (``@mixtral``, ``@gemma_train``): that path's launches of the kernel
+    per 10 requests or per step."""
+    if tag not in paths or name not in paths[tag][0]:
         return {}
     launches, n = paths[tag]
-    return {"path": tag, "launches_per_10_requests": 10 * launches[name] / n}
+    if UNIT_OF.get(tag) == "request":
+        return {"path": tag,
+                "launches_per_10_requests": 10 * launches[name] / n}
+    if UNIT_OF.get(tag) == "step":
+        return {"path": tag, "launches_per_step": launches[name] / n}
+    return {}
 
 
 def main() -> int:
@@ -4386,10 +4908,16 @@ def main() -> int:
     phase_golden(torch)
     paths["train"] = phase_train(torch)
     paths["hubert_train"] = phase_encoder_train(torch)
+    paths["mixtral_train"] = phase_mixtral_train(torch)
+    paths["deepseek_train"] = phase_deepseek_train(torch)
+    paths["gemma_train"] = phase_gemma_train(torch)
     phase_train_consistency(torch)
     phase_encoder_train_consistency(torch)
     for pre in ("train_", "encoder_train_48_", "encoder_train_80_"):
         phase_golden_train(torch, pre)
+    for pre in ("mixtral_train_", "deepseek_train_",
+                "dense_gemma-2b_train_"):
+        phase_golden_train(torch, pre, loss_tol=2e-5, param_tol=2e-4)
     line = []
     for name, meta in KERNELS.items():
         k = kernels[name]

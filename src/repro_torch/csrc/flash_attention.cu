@@ -4,7 +4,8 @@
 // Replaces the TPU kernel `src/repro/kernels/flash_attention.py:
 // flash_attention` (`_kernel`, launched at :142).  Same function: q
 // [B,Tq,Hq,D] against k [B,Tk,Hkv,D] and v [B,Tk,Hkv,Dv] over GQA heads
-// (Dv = D, or Dv 128 under D 192 for DeepSeek's MLA prefill),
+// (Dv = D, or Dv 128 under D 192 for DeepSeek's MLA prefill and Dv 32
+// under D 48 for its reduced config),
 // explicit int32 query and key positions, the masks `kp <= qp` (causal),
 // `qp - kp < window` and `kp < kv_valid_len`, the logit softcap
 // `tanh(s/c)*c` after scaling, an f32 accumulator, an output of 0 for a
@@ -402,7 +403,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&o)[N],
 // q·kᵀ products at D 256 and three times at D 192, in place of a p and a
 // rescale passed through shared memory.  Keys are DK wide and values DV:
 // at MLA's (192, 128) q·kᵀ takes 12 k16 steps and one warpgroup owns all
-// 128 output columns, as at D 128.
+// 128 output columns, as at D 128; at the reduced MLA config's (48, 32)
+// q·kᵀ takes 3 and p·v is m64n32.
 template <int DK, int DV>
 __global__ void __launch_bounds__(kWG * kGroups<DV>)
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -677,12 +679,15 @@ cudaError_t launch(const Args& a, int dtype) {
 }
 
 // values as wide as keys at every head dim; narrower at MLA's (192, 128)
+// and the reduced MLA config's (48, 32)
 int run(const Args& a, int D, int Dv, int dtype) {
   if (a.Hkv <= 0 || a.Hq % a.Hkv != 0) return (int)cudaErrorInvalidValue;
   if (a.B == 0 || a.Tq == 0) return (int)cudaSuccess;
-  if (Dv != D)
-    return D == 192 && Dv == 128 ? (int)launch<192, 128>(a, dtype)
-                                 : (int)cudaErrorInvalidValue;
+  if (Dv != D) {
+    if (D == 192 && Dv == 128) return (int)launch<192, 128>(a, dtype);
+    if (D == 48 && Dv == 32) return (int)launch<48, 32>(a, dtype);
+    return (int)cudaErrorInvalidValue;
+  }
   switch (D) {
     case 32: return (int)launch<32>(a, dtype);
     case 48: return (int)launch<48>(a, dtype);
@@ -700,7 +705,7 @@ int run(const Args& a, int D, int Dv, int dtype) {
 
 // Plain C entry point, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
 // q [B,Tq,Hq,D], k [B,Tk,Hkv,D], v [B,Tk,Hkv,Dv], o [B,Tq,Hq,Dv], with
-// Dv = D or (D, Dv) = (192, 128).  q_pos [B,Tq] int32 is required; kv_pos [B,Tk] int32 may be null (positions
+// Dv = D or (D, Dv) = (192, 128) or (48, 32).  q_pos [B,Tq] int32 is required; kv_pos [B,Tk] int32 may be null (positions
 // = indices); valid_len [B] int32 and lse [B,Tq,Hq] f32 may be null.  All
 // tensors contiguous, q/k/v 16-byte aligned.  Returns cudaGetLastError()
 // after the launch.

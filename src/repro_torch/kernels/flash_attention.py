@@ -21,9 +21,10 @@ from repro_torch.kernels import build
 # (nemotron-4-340b) and 256 (gemma-2b).  Each kernel wrapper keeps its
 # own set.  Values are as wide as keys at these, and narrower at the
 # (key, value) pairs of ``NARROW_V``: MLA's prefill (deepseek-v2-236b,
-# q/k nope 128 + rope 64, v 128).
+# q/k nope 128 + rope 64, v 128), and the reduced deepseek config's q/k
+# 32 + 16 over v 32.
 HEAD_DIMS = (32, 48, 64, 80, 128, 192, 256)
-NARROW_V = ((192, 128),)
+NARROW_V = ((192, 128), (48, 32))
 DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + NARROW_V
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None

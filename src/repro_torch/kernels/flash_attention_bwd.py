@@ -14,11 +14,12 @@ both is ``kernels.ref.flash_attention_bwd``.
 grad mode is on and an input needs a gradient, asks it for ``lse`` and
 saves what the backward recomputes from; its backward launches the dq
 and dk/dv kernels (on the CPU their plain version).  The backward
-kernels take the forward's head dims up to 128 (32, 48, 64, 80, 128);
-the forward's 192 and 256 (serving nemotron-4-340b and gemma-2b) have
-no backward yet (ROADMAP Queue B part 1), so on the card a grad-mode
-call at those widths raises before the forward runs: a grad-mode
-forward always has its backward.
+kernels take every (key, value) head-dim pair of the forward
+(``HEAD_DIMS``): D 32, 48, 64, 80, 128, 192 (nemotron-4-340b) and 256
+(gemma-2b) with values as wide as keys, and keys of 192 over values of
+128 (deepseek-v2-236b's MLA) or of 48 over 32 (its reduced config).  Any other pair raises ``ValueError``, and
+a grad-mode call on the card at one raises before the forward runs: a
+grad-mode forward always has its backward.
 """
 from __future__ import annotations
 
@@ -33,9 +34,11 @@ from repro_torch.kernels.flash_attention import (_DTYPE_CODE, _aligned,
 from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_fwd
 
-# the head dims the dq and dk/dv kernels instantiate: the forward's up to
-# 128
-HEAD_DIMS = (32, 48, 64, 80, 128)
+# the (key, value) head dims the dq and dk/dv kernels instantiate: the
+# forward's pairs, values as wide as keys at every D it takes, and MLA's
+# keys of 192 over values of 128 (48 over 32 in the reduced config)
+HEAD_DIMS = tuple((d, d) for d in (32, 48, 64, 80, 128, 192, 256)) \
+    + ((192, 128), (48, 32))
 _fns = {}
 
 
@@ -45,7 +48,7 @@ def _entry(name: str):
         f = getattr(build.load("flash_attention_bwd"), name)
         p, i = ctypes.c_void_p, ctypes.c_int
         n_out = 1 if name.endswith("_dq") else 2
-        f.argtypes = ([p] * (9 + n_out) + [i] * 9
+        f.argtypes = ([p] * (9 + n_out) + [i] * 10
                       + [ctypes.c_float, ctypes.c_float, p])
         f.restype = i
         _fns[name] = f
@@ -65,16 +68,18 @@ def _prepare(q, k, v, lse, do, dsum, q_positions, kv_positions,
         raise ValueError(f"flash_attention_bwd takes float32 or bfloat16 "
                          f"q/k/v/do of one dtype, got {q.dtype}/{k.dtype}/"
                          f"{v.dtype}/{do.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
-            or do.shape != q.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3] or do.shape[:3] != q.shape[:3] \
+            or do.shape[3] != v.shape[3]:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} do{tuple(do.shape)}")
     B, Tq, Hq, D = q.shape
-    Tk, Hkv = k.shape[1], k.shape[2]
+    Tk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"q{tuple(q.shape)} and k{tuple(k.shape)} disagree")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"head dims ({D}, {Dv}) of keys and values not "
+                         f"in {HEAD_DIMS}")
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
     if lse.shape != (B, Tq, Hq) or dsum.shape != (B, Tq, Hq):
@@ -88,17 +93,17 @@ def _prepare(q, k, v, lse, do, dsum, q_positions, kv_positions,
         q_pos=_int32(q_positions, (B, Tq), dev),
         kv_pos=_int32(kv_positions, (B, Tk), dev),
         valid=_int32(kv_valid_len, (B,), dev),
-        dims=(B, Tq, Tk, Hq, Hkv, D))
+        dims=(B, Tq, Tk, Hq, Hkv, D, Dv))
 
 
 def _launch(name: str, a: dict, outs, causal, window, softcap, sm_scale):
-    B, Tq, Tk, Hq, Hkv, D = a["dims"]
+    B, Tq, Tk, Hq, Hkv, D, Dv = a["dims"]
     scale = sm_scale if sm_scale is not None else D ** -0.5
     stream = torch.cuda.current_stream(a["q"].device).cuda_stream
     err = _entry(name)(
         *(_ptr(a[n]) for n in ("q", "k", "v", "do", "lse", "dsum", "q_pos",
                                "kv_pos", "valid")),
-        *(_ptr(o) for o in outs), B, Tq, Tk, Hq, Hkv, D,
+        *(_ptr(o) for o in outs), B, Tq, Tk, Hq, Hkv, D, Dv,
         _DTYPE_CODE[a["q"].dtype], int(causal), int(window), float(softcap),
         float(scale), ctypes.c_void_p(stream))
     if err != 0:
@@ -110,7 +115,8 @@ def flash_attention_bwd_dq(q, k, v, lse, do, dsum, *, causal=True, window=0,
                            softcap=0.0, q_positions=None, kv_positions=None,
                            kv_valid_len=None, sm_scale=None) -> torch.Tensor:
     """Launch the dq kernel on CUDA tensors (raises on anything else):
-    ``dq [B,Tq,Hq,D]`` in q's dtype from ``dsum = rowsum(do·out)``."""
+    ``dq [B,Tq,Hq,D]`` in q's dtype from ``do [B,Tq,Hq,Dv]`` and ``dsum =
+    rowsum(do·out)``."""
     a = _prepare(q, k, v, lse, do, dsum, q_positions, kv_positions,
                  kv_valid_len)
     if 0 in a["dims"]:
@@ -127,8 +133,8 @@ def flash_attention_bwd_dkv(q, k, v, lse, do, dsum, *, causal=True,
                             kv_positions=None, kv_valid_len=None,
                             sm_scale=None):
     """Launch the dk/dv kernel on CUDA tensors (raises on anything else):
-    ``(dk, dv) [B,Tk,Hkv,D]`` in k's dtype, each summed over the G query
-    heads of its KV head."""
+    ``dk [B,Tk,Hkv,D]`` and ``dv [B,Tk,Hkv,Dv]`` in k's dtype, each
+    summed over the G query heads of its KV head."""
     a = _prepare(q, k, v, lse, do, dsum, q_positions, kv_positions,
                  kv_valid_len)
     if 0 in a["dims"]:
@@ -200,16 +206,16 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               kv_positions: Optional[torch.Tensor] = None,
               kv_valid_len: Optional[torch.Tensor] = None,
               sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Differentiable flash attention, ``[B,Tq,Hq,D] x [B,Tk,Hkv,D] ->
-    [B,Tq,Hq,D]``: the CUDA kernels on CUDA tensors, the plain versions
-    on CPU tensors.  Under ``torch.no_grad()`` (serving) it launches the
-    forward kernel alone, without ``lse``, and saves nothing.  Positions
-    and valid lengths get no gradient."""
+    """Differentiable flash attention, ``[B,Tq,Hq,D] x [B,Tk,Hkv,D] x
+    [B,Tk,Hkv,Dv] -> [B,Tq,Hq,Dv]``: the CUDA kernels on CUDA tensors,
+    the plain versions on CPU tensors.  Under ``torch.no_grad()``
+    (serving) it launches the forward kernel alone, without ``lse``, and
+    saves nothing.  Positions and valid lengths get no gradient."""
     save = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
-    if save and q.is_cuda and q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]}: the backward kernels "
-                         f"take {HEAD_DIMS} (ROADMAP Queue B part 1); "
-                         f"call it under torch.no_grad() to serve")
+    dims = (q.shape[-1], v.shape[-1])
+    if save and q.is_cuda and dims not in HEAD_DIMS:
+        raise ValueError(f"head dims {dims}: the backward kernels take "
+                         f"{HEAD_DIMS}")
     return _FlashMHA.apply(q, k, v, save, causal, window, softcap,
                            q_positions, kv_positions, kv_valid_len, sm_scale)

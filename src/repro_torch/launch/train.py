@@ -14,9 +14,12 @@ PyTorch path.  An encoder-only arch (``edge-cv-heavy``,
 ``make_encoder_iterator`` (``--seq`` frames a row), a decoder on the
 bigram token stream; after a restore either stream skips the batches the
 restored steps consumed.  ``--mesh single|multi`` and ``--distributed``
-need the sharded trainer, not ported yet (ROADMAP Queue A item 13); a
-moe arch (``mixtral-8x7b``) raises in ``Trainer`` (item 17, MoE
-training).  ``main`` returns the ``Trainer`` and the ``fit`` history.
+need the sharded trainer, not ported yet (ROADMAP Queue A item 13).  A
+moe arch (``mixtral-8x7b``, ``deepseek-v2-236b``) trains as a decoder
+does, its loss the cross-entropy plus the MoE layers' load-balancing
+term (``ce`` and ``aux`` in the step's metrics).  At full depth neither
+fits one card; with ``--reduced`` both train on the card and on the CPU.
+``main`` returns the ``Trainer`` and the ``fit`` history.
 """
 from __future__ import annotations
 

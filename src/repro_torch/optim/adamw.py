@@ -106,12 +106,60 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
+# int8 moments are dequantized, stepped and quantized again in chunks of
+# whole quantization blocks, so that a leaf's f32 temporaries never pass
+# this many elements: a deepseek-v2-236b expert leaf holds 1.26 G, whose
+# update whole would hold some 40 GB of them
+_CHUNK = 1 << 26
+
+
+def _adam_step(p, ndim: int, g, mf, vf, cfg: AdamWConfig, b1c, b2c, lr):
+    """The moments ``mf``, ``vf`` (f32) and the parameter ``p`` (a leaf,
+    or a chunk of one whose leaf has ``ndim`` dimensions) stepped in
+    place by the clipped gradient ``g``."""
+    mf.mul_(cfg.b1).add_((1.0 - cfg.b1) * g)
+    vf.mul_(cfg.b2).add_((1.0 - cfg.b2) * torch.square(g))
+    delta = (mf / b1c) / (torch.sqrt(vf / b2c) + cfg.eps)
+    pf = p.to(torch.float32)
+    if ndim >= 2 and cfg.weight_decay > 0:      # decay matrices only
+        delta.add_(cfg.weight_decay * pf)
+    p.copy_(pf - lr * delta)
+
+
+def _step_int8(p, g, m: QuantMoment, v: QuantMoment, cfg: AdamWConfig,
+               clip, b1c, b2c, lr) -> Tuple[QuantMoment, QuantMoment]:
+    """One leaf's step with int8 moments, ``_CHUNK`` elements at a time:
+    every op is elementwise or within a quantization block, so the
+    numbers are those of the whole leaf at once."""
+    block, n = cfg.quant_block, p.numel()
+    rows, step = m.q.shape[0], max(_CHUNK // cfg.quant_block, 1)
+    flat, gflat = p.view(-1), g.reshape(-1)
+    out_m = QuantMoment(torch.empty_like(m.q), torch.empty_like(m.scale))
+    out_v = QuantMoment(torch.empty_like(v.q), torch.empty_like(v.scale))
+    for r0 in range(0, rows, step):
+        r1 = min(r0 + step, rows)
+        e0, e1 = r0 * block, min(r1 * block, n)
+        shape = (e1 - e0,)
+        mf = _dequantize(QuantMoment(m.q[r0:r1], m.scale[r0:r1]), shape)
+        vf = _dequantize_log(QuantMoment(v.q[r0:r1], v.scale[r0:r1]),
+                             shape)
+        _adam_step(flat[e0:e1], p.dim(),
+                   gflat[e0:e1].to(torch.float32) * clip, mf, vf, cfg,
+                   b1c, b2c, lr)
+        for out, qm in ((out_m, _quantize(mf, block)),
+                        (out_v, _quantize_log(vf, block))):
+            out.q[r0:r1] = qm.q
+            out.scale[r0:r1] = qm.scale
+    return out_m, out_v
+
+
 @torch.no_grad()
 def apply_updates(params: Params, grads: Params, state: Dict[str, Any],
                   cfg: AdamWConfig, lr_scale=1.0):
     """One AdamW step.  Returns ``(params, state, metrics)``: the same
     parameter tensors and fp32 moments, updated in place (int8 moments
-    are quantized anew), and metrics ``grad_norm`` and ``lr``."""
+    are quantized anew, chunk by chunk), and metrics ``grad_norm`` and
+    ``lr``."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -121,23 +169,13 @@ def apply_updates(params: Params, grads: Params, state: Dict[str, Any],
     b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, **f32), stepf)
     b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, **f32), stepf)
     lr = cfg.lr * torch.as_tensor(lr_scale, **f32)
-    is_q = cfg.state_dtype == "int8"
 
     def upd(p, g, m, v):
-        g = g.to(torch.float32) * clip
-        mf = _dequantize(m, p.shape) if is_q else m
-        vf = _dequantize_log(v, p.shape) if is_q else v
-        mf.mul_(cfg.b1).add_((1.0 - cfg.b1) * g)
-        vf.mul_(cfg.b2).add_((1.0 - cfg.b2) * torch.square(g))
-        delta = (mf / b1c) / (torch.sqrt(vf / b2c) + cfg.eps)
-        pf = p.to(torch.float32)
-        if p.dim() >= 2 and cfg.weight_decay > 0:   # decay matrices only
-            delta.add_(cfg.weight_decay * pf)
-        p.copy_(pf - lr * delta)
-        if is_q:
-            return _quantize(mf, cfg.quant_block), \
-                _quantize_log(vf, cfg.quant_block)
-        return mf, vf
+        if cfg.state_dtype == "int8":
+            return _step_int8(p, g, m, v, cfg, clip, b1c, b2c, lr)
+        _adam_step(p, p.dim(), g.to(torch.float32) * clip, m, v, cfg, b1c,
+                   b2c, lr)
+        return m, v
 
     out = tree_map(upd, params, grads, state["m"], state["v"])
     new_state = {"step": step,

@@ -9,8 +9,9 @@ Every step is timed through a ``StragglerMonitor``; checkpoints are
 atomic and async (one outstanding host write).  The JAX trainer runs on
 a mesh and polls a ``FailureDetector`` for elastic restart; both come
 with sharding (ROADMAP Queue A item 13).  Parameters are leaf tensors
-that require grad, updated in place by the optimizer.  The moe family
-serves but does not train yet (ROADMAP Queue A item 17).
+that require grad, updated in place by the optimizer.  Every ported
+family trains, the moe family (mixtral-8x7b, deepseek-v2-236b) through
+the MoE layer's local path on one device.
 """
 from __future__ import annotations
 
@@ -52,12 +53,6 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, device=None,
                  tcfg: Optional[programs.TrainConfig] = None,
                  run_cfg: Optional[TrainerConfig] = None):
-        if cfg.family == "moe":
-            # a full-width mixtral layer is 1.45 B parameters: 16 B each
-            # of fp32 AdamW state puts 8 layers at 186 GB
-            raise NotImplementedError(
-                f"training the moe family ({cfg.name}) is not ported yet "
-                "(ROADMAP Queue A item 17, MoE training)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tcfg = tcfg or programs.default_train_config(cfg)

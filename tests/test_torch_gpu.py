@@ -545,31 +545,44 @@ def test_wide_decode_kernel_matches_plain(case, dtype, cuda):
 
 
 @pytest.mark.parametrize("D", [192, 256])
-def test_backward_still_refuses_wide_head_dims(D, cuda):
-    """The flash forward takes D 192 and 256 for serving; the dq and
-    dk/dv kernels do not (ROADMAP Queue B part 1): their wrappers raise,
-    and so does a grad-mode ``flash_mha`` before its forward launches."""
+def test_backward_takes_wide_head_dims(D, cuda):
+    """The dq and dk/dv kernels take D 192 and 256 (nemotron-4-340b and
+    gemma-2b train): a grad-mode ``flash_mha`` launches the forward and
+    both backward kernels once each, its gradients those of autograd
+    through ``ref.mha``; an unlisted width still raises in both wrappers
+    and, before its forward, in a grad-mode ``flash_mha``."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
 
     g = torch.Generator(device=cuda).manual_seed(D)
-    q = torch.randn(1, 64, 8, D, generator=g, device=cuda) \
-        .to(torch.bfloat16)
-    k = torch.randn(1, 64, 1, D, generator=g, device=cuda) \
+    q, k, v = (torch.randn(1, 64, h, D, generator=g, device=cuda)
+               .to(torch.bfloat16) for h in (8, 1, 1))
+    counts = [f.launches for f in (fa.flash_attention,
+                                   fab.flash_attention_bwd_dq,
+                                   fab.flash_attention_bwd_dkv)]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(fab.flash_mha(*leaves).float().square().sum(),
+                              leaves)
+    ref_leaves = [t.clone().float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.mha(*ref_leaves).square().sum(),
+                               ref_leaves)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(
+        (fa.flash_attention, fab.flash_attention_bwd_dq,
+         fab.flash_attention_bwd_dkv), counts)] == [1, 1, 1]
+    for w, x in zip(want, got):
+        assert _rel(w, x) < TOL[torch.bfloat16]
+    bad = torch.randn(1, 64, 8, 96, generator=g, device=cuda) \
         .to(torch.bfloat16)
     lse = torch.zeros(1, 64, 8, device=cuda)
     for kernel in (fab.flash_attention_bwd_dq, fab.flash_attention_bwd_dkv):
-        with pytest.raises(ValueError, match="head dim"):
-            kernel(q, k, k, lse, q, lse)
-    from repro_torch.kernels import flash_attention as fa
-
+        with pytest.raises(ValueError, match="head dims"):
+            kernel(bad, bad[:, :, :1], bad[:, :, :1], lse, bad, lse)
     before = fa.flash_attention.launches
-    with pytest.raises(ValueError, match="head dim"):
-        fab.flash_mha(q.clone().requires_grad_(), k, k)
+    with pytest.raises(ValueError, match="head dims"):
+        fab.flash_mha(bad.clone().requires_grad_(), bad[:, :, :1],
+                      bad[:, :, :1])
     assert fa.flash_attention.launches == before
-    with torch.no_grad():
-        out = ops.flash_attention(q, k, k)
-    torch.cuda.synchronize()
-    assert _rel(ref.mha(q, k, k), out) < TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("case", MLA_FLASH_CASES)
@@ -621,10 +634,10 @@ def test_decode_kernel_at_mla_widths(case, dtype, cuda):
 
 
 def test_unlisted_key_and_value_widths_raise(cuda):
-    """Each wrapper takes its listed (key, value) widths only, and the
-    backward still takes values as wide as keys only: its wrappers raise,
-    and a grad-mode ``flash_mha`` at MLA's widths raises before its
-    forward launches."""
+    """Each wrapper takes its listed (key, value) widths only: the
+    backward takes MLA's (192, 128) now, and at an unlisted pair such as
+    (128, 64) its wrappers raise, and so does a grad-mode ``flash_mha``
+    before its forward launches."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels.decode_attention import decode_attention
@@ -640,13 +653,15 @@ def test_unlisted_key_and_value_widths_raise(cuda):
         with pytest.raises(ValueError, match="head dims"):
             decode_attention(t(1, 4, dk), t(1, 16, 1, dk), t(1, 16, 1, dv),
                              clen)
-    q, k, v = t(1, 64, 4, 192), t(1, 64, 4, 192), t(1, 64, 4, 128)
+    q, k, v = t(1, 64, 4, 128), t(1, 64, 4, 128), t(1, 64, 4, 64)
     lse = torch.zeros(1, 64, 4, device=cuda)
     for kernel in (fab.flash_attention_bwd_dq, fab.flash_attention_bwd_dkv):
+        with pytest.raises(ValueError, match="head dims"):
+            kernel(q, k, v, lse, t(1, 64, 4, 64), lse)
         with pytest.raises(ValueError, match="bad shapes"):
             kernel(q, k, v, lse, t(1, 64, 4, 128), lse)
     before = fa.flash_attention.launches
-    with pytest.raises(ValueError, match="head dim"):
+    with pytest.raises(ValueError, match="head dims"):
         fab.flash_mha(q.clone().requires_grad_(), k, v)
     assert fa.flash_attention.launches == before
 
@@ -889,15 +904,88 @@ def test_flash_bwd_kernels_match_plain(case, dtype, positions, cuda):
         assert bool((got[0][-1, 3:] != 0).any())
 
 
+# the wide (key, value) pairs: B, Tq, Tk, Hq, Hkv, Dk, Dv, causal, window,
+# softcap, valid.  Each pair causal with an empty row and a ragged
+# length, non-causal, with a window and a softcap, at G 1, gemma's G 8
+# over one KV head, nemotron's G 12 and deepseek's Hq = Hkv, over T
+# around the 64-row tile and Tq < Tk
+WIDE_BWD_CASES = [
+    (2, 65, 65, 8, 1, 256, 256, True, 0, 0.0, True),
+    (1, 70, 70, 8, 1, 256, 256, False, 0, 0.0, False),
+    (2, 129, 129, 4, 4, 256, 256, True, 40, 30.0, False),
+    (2, 48, 96, 8, 1, 256, 256, True, 0, 0.0, False),
+    (2, 65, 65, 24, 2, 192, 192, True, 0, 0.0, True),
+    (1, 70, 70, 4, 4, 192, 192, False, 0, 20.0, False),
+    (2, 129, 129, 12, 1, 192, 192, True, 32, 0.0, False),
+    (2, 96, 130, 12, 1, 192, 192, True, 0, 0.0, True),
+    (2, 65, 65, 8, 8, 192, 128, True, 0, 0.0, True),
+    (1, 129, 129, 16, 16, 192, 128, False, 0, 30.0, False),
+    (2, 70, 70, 8, 2, 192, 128, True, 24, 0.0, False),
+    (2, 48, 96, 16, 16, 192, 128, True, 0, 0.0, True),
+    (2, 65, 65, 4, 4, 48, 32, True, 0, 0.0, True),
+    (1, 129, 129, 8, 2, 48, 32, False, 0, 30.0, False),
+    (2, 70, 70, 4, 4, 48, 32, True, 24, 0.0, False),
+]
+
+
+def _wide_bwd_inputs(case, dtype, cuda, positions=None):
+    """``_bwd_inputs`` at a (key, value) pair: v and do Dv wide."""
+    B, Tq, Tk, Hq, Hkv, Dk, Dv, causal, window, softcap, valid = case
+    q, k, _, _, kw = _bwd_inputs((B, Tq, Tk, Hq, Hkv, Dk, causal, window,
+                                  softcap, valid), dtype, cuda, positions)
+    g = torch.Generator(device=cuda).manual_seed(Tq + Dv)
+    v = torch.randn(B, Tk, Hkv, Dv, generator=g, device=cuda).to(dtype)
+    do = torch.randn(B, Tq, Hq, Dv, generator=g, device=cuda).to(dtype)
+    return q, k, v, do, kw
+
+
+# each case with implicit positions, offset ones where Tq <= Tk, packed
+# ones (two documents) where Tq = Tk > 100
+WIDE_BWD_RUNS = [(c, p) for c in WIDE_BWD_CASES
+                 for p in (None, "offset", "packed")
+                 if p is None or (p == "offset" and c[1] <= c[2])
+                 or c[1] == c[2] > 100]
+
+
+@pytest.mark.parametrize("case, positions", WIDE_BWD_RUNS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_flash_bwd_kernels_match_plain(case, positions, dtype, cuda):
+    """The dq and dk/dv kernels at (192, 192), (256, 256), (192, 128) and
+    (48, 32) against ``ref.flash_attention_bwd`` on the forward kernel's own
+    ``out`` and ``lse``, whose ``lse`` is held against ``ref.mha``'s:
+    dq and dk Dk wide, dv Dv wide."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v, do, kw = _wide_bwd_inputs(case, dtype, cuda, positions)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    want_out, want_lse = ref.mha(q, k, v, return_lse=True, **kw)
+    got = fab.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = ref.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert _rel(want_out, out) < TOL[dtype]
+    assert torch.allclose(lse, want_lse, atol=1e-4, rtol=1e-5)
+    for name, w, x in zip(("dq", "dk", "dv"), want, got):
+        assert x.dtype == dtype and x.shape == w.shape, name
+        assert bool(torch.isfinite(x).all()), name
+        assert float(w.abs().max()) > 0, name
+        assert _rel(w, x) < TOL[dtype], (name, positions, _rel(w, x))
+    assert got[2].shape[-1] == case[6] and got[1].shape[-1] == case[5]
+    if "kv_valid_len" in kw:       # the empty row has no gradient at all
+        assert bool((got[0][0] == 0).all())
+
+
 @pytest.mark.parametrize("case", [BWD_CASES[4], BWD_CASES[12],
-                                  BWD_CASES[15]])
+                                  BWD_CASES[15]] + [WIDE_BWD_CASES[i]
+                                                    for i in (0, 4, 8)])
 def test_flash_bwd_kernels_bf16_repeat_bit_equal(case, cuda):
     """No atomics: two bf16 runs give the same dq, dk and dv, bit for
     bit."""
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels.flash_attention import flash_attention
 
-    q, k, v, do, kw = _bwd_inputs(case, torch.bfloat16, cuda, "offset")
+    inputs = _wide_bwd_inputs if len(case) == 11 else _bwd_inputs
+    q, k, v, do, kw = inputs(case, torch.bfloat16, cuda, "offset")
     out, lse = flash_attention(q, k, v, return_lse=True, **kw)
     first = fab.flash_attention_bwd(q, k, v, out, lse, do, **kw)
     again = fab.flash_attention_bwd(q, k, v, out, lse, do, **kw)

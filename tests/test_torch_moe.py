@@ -16,8 +16,11 @@ window 32) and in fp32.
   prefill and again in decode); the golden fixture's ``mixtral_*``
   entries, which ``chip_smoke.py`` replays on the card.
 - ``launch/serve.py --arch mixtral-8x7b --reduced --device cpu``.
-- ``num_params``/``active_params`` of mixtral and DeepSeek, and what the
-  port still refuses: MLA, ``first_dense_layers``, MoE training.
+- ``num_params``/``active_params`` of mixtral and DeepSeek, what the
+  port still refuses (leading dense layers or a full-attention MoE in no
+  registered config), and that ``Trainer`` and ``launch/train.py`` take a
+  moe arch (``tests/test_torch_moe_train.py`` holds MoE training against
+  JAX).
 
 Tolerances: 2e-4 relative for logits (``tests/test_decode_consistency.py
 :42``), 2e-5 for fp32 MoE outputs and 3.5e-2 for bf16 relative to the
@@ -349,12 +352,13 @@ def test_param_counts_match_jax(arch):
 
 
 def test_unported_moe_variants_raise():
-    """DeepSeek (MLA with its leading dense layer) is ported now
+    """DeepSeek (MLA with its leading dense layer) is ported
     (``tests/test_torch_mla.py``); its leading dense layers beside
     sliding-window attention and a full-attention MoE are in no registered
-    config, and the trainer refuses the moe family (item 17)."""
+    config.  The trainer and the train launcher take the moe family: one
+    CPU step each on reduced mixtral."""
     from repro_torch.launch import train
-    from repro_torch.train.trainer import Trainer
+    from repro_torch.train.trainer import Trainer, TrainerConfig
 
     ds = ModelConfig.from_dict(jax_config("deepseek-v2-236b").to_dict())
     check_ported(ds)
@@ -366,11 +370,21 @@ def test_unported_moe_variants_raise():
     with pytest.raises(NotImplementedError, match="no registered config"):
         check_ported(dataclasses.replace(mix, attn_type="full",
                                          sliding_window=0))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        Trainer(get_reduced_config("mixtral-8x7b"), "cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        train.main(["--arch", "mixtral-8x7b", "--reduced", "--device",
-                    "cpu", "--steps", "1"])
+    import tempfile
+
+    from repro_torch.data.tokens import make_lm_iterator
+
+    cfg = get_reduced_config("mixtral-8x7b")
+    with tempfile.TemporaryDirectory() as d:
+        tr = Trainer(cfg, "cpu", run_cfg=TrainerConfig(ckpt_dir=d))
+        m = tr.initialize(restore=False).train_step(
+            next(make_lm_iterator(cfg, 2, 16)))
+        assert np.isfinite(m["loss"]) and m["aux"] > 0 and tr.step == 1
+        _, hist = train.main(["--arch", "mixtral-8x7b", "--reduced",
+                              "--device", "cpu", "--steps", "1",
+                              "--batch", "2", "--seq", "16",
+                              "--ckpt-dir", d + "/launch"])
+        assert len(hist["loss"]) == 1 and np.isfinite(hist["loss"][0])
     with pytest.raises(ValueError, match="speculative decoding needs"):
         ServingEngine(get_reduced_config("mixtral-8x7b"), device="cpu",
                       draft_cfg=get_reduced_config("mixtral-8x7b"))

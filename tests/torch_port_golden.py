@@ -73,6 +73,20 @@ streams and each prompt's last-position logits.  ``chip_smoke.py``
 replays them on the card through the fp32 flash kernel at q/k 192 and v
 128 and the dense decode kernel at keys 576 and values 512.
 
+MoE and wide-head training rides along (``mixtral_train_*``,
+``deepseek_train_*``, ``dense_gemma-2b_train_*``): 5 fp32 steps of JAX
+``build_train_step`` on the seeded bigram stream from the parameters the
+file already holds for reduced mixtral (``mixtral_params/``: batches of
+48 tokens, past its window of 32), deepseek at the published MLA widths
+(``deepseek_params/``, whose q/k 192 over v 128 reach the backward's
+narrow-value pair, at capacity factor 0.25 so that pairs drop in the
+dispatch) and gemma-2b at head dim 256 (``dense_gemma-2b_params/``),
+with fresh AdamW state; each step's loss and grad norm, and the final
+parameters.  ``params0_from`` names the prefix the step-0 parameters are
+read from.  ``chip_smoke.py`` replays them on the card through the flash
+forward and backward kernels at head dims 128 (windowed), 192/128 and
+256.
+
 The same waves are served again speculatively, with a random 1-layer,
 1-head draft (seed 0, ``spec_k_max=3``), once over pages in the compute
 dtype (``spec_streams_auto``) and once over int8 pages
@@ -124,6 +138,15 @@ MIXTRAL_MAX_NEW = 12
 # kv_lora_rank 32 and heads of 32 + 16)
 DEEPSEEK_MLA = dict(q_lora_rank=64, kv_lora_rank=512, qk_nope_head_dim=128,
                     qk_rope_head_dim=64, v_head_dim=128)
+# the MoE and wide-head training runs: the arch's stored parameters
+# (the prefix), the config override and the steps' setup
+MOE_TRAIN = dict(batch=4, seq=48, seed=7, steps=5,
+                 adamw=dict(lr=3e-3, grad_clip_norm=1.0),
+                 sched=dict(warmup_steps=2, decay_steps=200))
+MOE_TRAIN_RUNS = {"mixtral_train_": "mixtral_params/",
+                  "deepseek_train_": "deepseek_params/",
+                  "dense_gemma-2b_train_": "dense_gemma-2b_params/"}
+DEEPSEEK_TRAIN_CAPACITY = 0.25
 # leaves that init makes zero or one, which a test could not tell from
 # missing: biases (and LayerNorm's) and norm scales
 _SEEDED = {"b_q": 0.0, "b_k": 0.0, "b_v": 0.0, "b_o": 0.0, "bias": 0.0,
@@ -179,11 +202,14 @@ def _flat_params(prefix: str, params) -> dict:
             for path, leaf in flat}
 
 
-def _train_run(pre: str, cfg, setup: dict, data, key: int) -> dict:
+def _train_run(pre: str, cfg, setup: dict, data, key: int,
+               params=None, params_from: str = None) -> dict:
     """``setup["steps"]`` fp32 steps of JAX ``build_train_step`` on
-    ``data`` from ``Model.init(key)``: the config and setup, the step-0
-    parameters and AdamW moments, each step's loss and grad norm, and the
-    final parameters, under keys that start with ``pre``."""
+    ``data`` from ``Model.init(key)``, or from ``params`` that the
+    fixture already holds under ``params_from``: the config and setup,
+    the step-0 parameters (or ``params0_from``) and AdamW moments, each
+    step's loss and grad norm, and the final parameters, under keys that
+    start with ``pre``."""
     import jax
 
     from repro.launch import programs
@@ -193,12 +219,15 @@ def _train_run(pre: str, cfg, setup: dict, data, key: int) -> dict:
     tcfg = programs.TrainConfig(
         adamw=adamw.AdamWConfig(**setup["adamw"]),
         sched=schedule.ScheduleConfig(**setup["sched"]))
-    params = build_model(cfg).init(jax.random.key(key))
-    opt = adamw.init_state(params, tcfg.adamw)
     out = {pre + "config": np.array(json.dumps(cfg.to_dict(),
                                                sort_keys=True)),
            pre + "setup": np.array(json.dumps(setup, sort_keys=True))}
-    out.update(_flat_params(pre + "params0/", params))
+    if params is None:
+        params = build_model(cfg).init(jax.random.key(key))
+        out.update(_flat_params(pre + "params0/", params))
+    else:
+        out[pre + "params0_from"] = np.array(params_from)
+    opt = adamw.init_state(params, tcfg.adamw)
     out.update(_flat_params(pre + "opt0/m/", opt["m"]))
     out.update(_flat_params(pre + "opt0/v/", opt["v"]))
     step = jax.jit(programs.build_train_step(cfg, tcfg))
@@ -235,6 +264,44 @@ def _train() -> dict:
                                                     e["seq"],
                                                     seed=e["seed"]),
                               key=hd))
+    return out
+
+
+def moe_train() -> dict:
+    """The MoE and wide-head training runs of the module docstring, from
+    the parameters ``_mixtral``, ``_deepseek`` and ``_dense_variants``
+    store."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_reduced_config
+    from repro.data.tokens import make_lm_iterator
+    from repro.models.config import MLAConfig
+    from repro.models.model import build_model
+
+    mix = dataclasses.replace(get_reduced_config("mixtral-8x7b"),
+                              compute_dtype="float32")
+    ds = dataclasses.replace(
+        get_reduced_config("deepseek-v2-236b",
+                           mla=MLAConfig(**DEEPSEEK_MLA)),
+        compute_dtype="float32")
+    gemma = dataclasses.replace(
+        get_reduced_config("gemma-2b", **DENSE_VARIANTS["gemma-2b"]),
+        compute_dtype="float32")
+    runs = {"mixtral_train_": (mix, 11, mix),
+            "deepseek_train_": (ds, 12, dataclasses.replace(
+                ds, moe=dataclasses.replace(
+                    ds.moe, capacity_factor=DEEPSEEK_TRAIN_CAPACITY))),
+            "dense_gemma-2b_train_": (gemma, list(DENSE_VARIANTS).index(
+                "gemma-2b"), gemma)}
+    out, t = {}, MOE_TRAIN
+    for pre, (cfg, seed, train_cfg) in runs.items():
+        params = jax.tree.map(jnp.asarray, seeded(
+            build_model(cfg).init(jax.random.key(seed)), seed=seed))
+        out.update(_train_run(
+            pre, train_cfg, t, make_lm_iterator(train_cfg, t["batch"],
+                                                t["seq"], seed=t["seed"]),
+            key=seed, params=params, params_from=MOE_TRAIN_RUNS[pre]))
     return out
 
 
@@ -459,6 +526,7 @@ def make() -> dict:
     out.update(_dense_variants())
     out.update(_mixtral())
     out.update(_deepseek())
+    out.update(moe_train())
     return out
 
 
