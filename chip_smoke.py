@@ -255,6 +255,21 @@ continues:
    parameters and moments), B 2 x T 1024, the backward at D 256 over one
    KV head, as 6c without the MoE checks; the reduced launcher's
    restart;
+6f. training on a device mesh at world size 1: an NCCL group of one
+   over a ``FileStore`` and the 1 x 1 ``make_test_mesh`` on cuda; gemma-2b
+   at full width and depth through the mesh ``Trainer``, 3 steps at each
+   ``remat_policy`` (none, minimal, full): losses within 1e-6 of each
+   other and of phase 6e's, the forward's activation bytes full <
+   minimal < none; deepseek-v2-236b as phase 6d (int8 moments placed by
+   ``opt_state_shardings``, remat full), 2 steps against 6d's losses; a
+   sharded decode image captured and replayed equal to the eager step;
+   ``hierarchical_psum`` on a (1, 1, 1) pod mesh equal to one int8
+   round trip; two spawned gloo ranks sharing the card train reduced
+   mixtral on a (1, 2) mesh as one rank does; ``launch/train.py
+   --distributed`` under ``torch.distributed.run`` restarts to the
+   unbroken loss and ``--mesh single`` exits naming world size 256.
+   Every train phase runs its config's remat (the flash forward twice a
+   layer and step under "minimal" and "full");
 7. train consistency: fp32 at full width, 2 layers, every gradient leaf of
    ``Model.loss`` through the kernels against the plain path within 2e-4
    relative; a reduced fp32 model trained 30 steps through the kernels
@@ -270,7 +285,8 @@ continues:
    norms within 2e-5 relative, parameters within 2e-4;
 9. the kernels line (each kernel's launches from the paths that run it:
    per request for serving, per step for training (tinyllama's,
-   hubert-xlarge's, mixtral's, deepseek's and gemma-2b's), per dispatch
+   hubert-xlarge's, mixtral's, deepseek's, gemma-2b's and the mesh
+   phase's), per dispatch
    on the
    edge path, per request on the fleet, per batch for hubert, per request
    of each dense variant's path and of mixtral's and deepseek's; the SSD
@@ -4006,7 +4022,8 @@ def phase_golden_train(torch, pre: str = "train_", loss_tol: float = 1e-4,
     ms = [tr.train_step(next(data)) for _ in range(setup["steps"])]
     moved = [fn.launches - b for (fn, _), b in zip(_train_counters(), before)]
     shutil.rmtree(ckpt, ignore_errors=True)
-    check(moved == [cfg.num_layers * setup["steps"]] * 3,
+    check(moved == [_train_launches(name, cfg) * setup["steps"]
+                    for _, name in _train_counters()],
           f"golden training did not run through the kernels: {moved}")
     loss_err = max(abs(m["loss"] - w) / abs(w)
                    for m, w in zip(ms, g["losses"]))
@@ -4037,6 +4054,15 @@ def _train_counters():
     return ((fa.flash_attention, "flash_attention"),
             (fab.flash_attention_bwd_dq, "flash_attention_bwd_dq"),
             (fab.flash_attention_bwd_dkv, "flash_attention_bwd_dkv"))
+
+
+def _train_launches(name: str, cfg) -> int:
+    """A train step's launches of the kernel ``name``: one a layer, and a
+    second flash forward a layer under any ``remat_policy`` but "none"
+    (the block's forward runs again in the backward pass; JAX recomputes
+    its Pallas flash under remat too)."""
+    again = name == "flash_attention" and cfg.remat_policy != "none"
+    return cfg.num_layers * (2 if again else 1)
 
 
 def _profile_train_step(torch, tr, batch, med_s: float, label: str):
@@ -4081,13 +4107,16 @@ def _profile_train_step(torch, tr, batch, med_s: float, label: str):
     for name, (ms, n) in sorted(by_kernel.items(), key=lambda x: -x[1][0])[:12]:
         print(f"[profile]   {ms:9.3f} ms {n:5d}x  {name[:90]}")
     # bf16 attention runs on the tensor-core kernels, once a layer each
-    for kname in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
-                  "flash_bwd_dkv_wgmma_kernel"):
+    # (the forward twice under remat)
+    for kname, wrapper in (("flash_fwd_wgmma_kernel", "flash_attention"),
+                           ("flash_bwd_dq_wgmma_kernel", "dq"),
+                           ("flash_bwd_dkv_wgmma_kernel", "dkv")):
         ms = sum(t for name, (t, _) in by_kernel.items() if kname in name)
         n = sum(c for name, (_, c) in by_kernel.items() if kname in name)
+        want = _train_launches(wrapper, tr.cfg)
         print(f"[profile]   {kname}: {ms:.3f} ms over {n} launches")
-        check(n == tr.cfg.num_layers, f"the profiled {label} step ran "
-              f"{kname} {n} times, not {tr.cfg.num_layers}")
+        check(n == want, f"the profiled {label} step ran {kname} {n} "
+              f"times, not {want}")
 
 
 def phase_train(torch):
@@ -4135,10 +4164,10 @@ def phase_train(torch):
             check(not bool(torch.equal(w, w0)),
                   "the parameters must move after step 2")
     launches = {name: fn.launches for fn, name in counters}
-    L = cfg.num_layers
     for name, n in launches.items():
-        check(n == L * steps, f"{name} launched {n} times, not {L} x "
-              f"{steps} steps")
+        want = _train_launches(name, cfg) * steps
+        check(n == want, f"{name} launched {n} times, not {want} "
+              f"({steps} steps, remat {cfg.remat_policy!r})")
     secs = sorted(m["step_time_s"] for m in hist)
     med = secs[len(secs) // 2]
     peak = torch.cuda.max_memory_allocated()
@@ -4256,14 +4285,14 @@ def phase_encoder_train(torch):
           "hubert step 1 trains at lr 0: the parameters must not move")
     check(not bool(torch.equal(w_q[0][0], w_q[1][1])),
           "hubert: the parameters must move after step 2")
-    L = cfg.num_layers
     for name, n in launches.items():
-        check(n == L * steps, f"hubert training launched {name} {n} times, "
-              f"not {L} x {steps} steps")
+        want = _train_launches(name, cfg) * steps
+        check(n == want, f"hubert training launched {name} {n} times, "
+              f"not {want} ({steps} steps, remat {cfg.remat_policy!r})")
     secs = sorted(m["step_time_s"] for m in hist)
     med = secs[len(secs) // 2]
     print(f"[encoder-train] hubert-xlarge through launch/train.py "
-          f"({L}L d{cfg.d_model}, {cfg.num_params()} parameters, fp32 "
+          f"({cfg.num_layers}L d{cfg.d_model}, {cfg.num_params()} parameters, fp32 "
           f"params + AdamW, bf16 compute) on [{B}, {T}, "
           f"{cfg.frontend_dim}] masked-prediction batches: losses "
           f"{[round(m['loss'], 4) for m in hist]}, grad norms "
@@ -4315,6 +4344,9 @@ def phase_encoder_train(torch):
 # §4)
 MIXTRAL_TRAIN_CUT = 2
 DEEPSEEK_TRAIN_CUT = 2
+# each wide training phase's losses, by label, for phase 6f to hold its
+# mesh runs against
+TRAIN_LOSSES = {}
 
 
 def _moe_train_spies(torch):
@@ -4338,13 +4370,13 @@ def _moe_train_spies(torch):
         rec["kept"].append(kept)
         return buf, meta
 
-    def spy_apply(params, grads, state, cfg, lr_scale=1.0):
+    def spy_apply(params, grads, state, cfg, lr_scale=1.0, **kw):
         g = grads["stack"]["blocks"]["moe"]
         rec["grads"].append((
             g["router"].flatten(1).abs().amax(1) > 0,
             {n: g[n].flatten(2).abs().amax(2) > 0
              for n in ("w_gate", "w_up", "w_down") if n in g}))
-        return apply(params, grads, state, cfg, lr_scale)
+        return apply(params, grads, state, cfg, lr_scale, **kw)
 
     moe._dispatch, adamw.apply_updates = spy_dispatch, spy_apply
 
@@ -4484,8 +4516,10 @@ def _train_wide(torch, label, cfg, tcfg, B, T, steps, ckpt):
                       f"experts that got a token in {off} places")
         launches = {name: fn.launches for fn, name in counters}
         for name, n in launches.items():
-            check(n == L * steps, f"{label}: {name} launched {n} times, not "
-                  f"{L} x {steps} steps")
+            want = _train_launches(name, cfg) * steps
+            check(n == want, f"{label}: {name} launched {n} times, not "
+                  f"{want} ({steps} steps, remat {cfg.remat_policy!r})")
+        TRAIN_LOSSES[label] = [m["loss"] for m in hist]
         secs = sorted(m["step_time_s"] for m in hist)
         med = secs[len(secs) // 2]
         peak = torch.cuda.max_memory_allocated() - start
@@ -4661,6 +4695,387 @@ def phase_gemma_train(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 6f: training on a device mesh
+# ---------------------------------------------------------------------------
+
+def _mesh_trainer_run(torch, mesh, label, cfg, tcfg, B, T, steps):
+    """``Trainer`` on ``mesh`` at ``cfg``: ``steps`` steps on the bigram
+    stream (seed 0, the batches of phases 6c-6e); per step the bytes the
+    forward leaves allocated for the backward (allocated just after
+    ``Model.loss`` returns less just before it ran); the losses, the
+    median step and the peak."""
+    from repro_torch.data.tokens import make_lm_iterator
+    from repro_torch.models.model import Model
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tr = Trainer(cfg, mesh, tcfg, TrainerConfig(
+        ckpt_dir=os.path.join(ROOT, "build", "chip_smoke_mesh_ckpt"),
+        ckpt_every=0)).initialize(restore=False)
+    data = make_lm_iterator(cfg, B, T, seed=0)
+    act, loss = [], Model.loss
+
+    def measured(self, params, batch):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        out = loss(self, params, batch)
+        torch.cuda.synchronize()
+        act.append(torch.cuda.memory_allocated() - before)
+        return out
+
+    Model.loss = measured
+    try:
+        hist = [tr.train_step(next(data)) for _ in range(steps)]
+    finally:
+        Model.loss = loss
+    peak = torch.cuda.max_memory_allocated() - base
+    secs = sorted(m["step_time_s"] for m in hist)
+    out = {"losses": [m["loss"] for m in hist],
+           "grad_norms": [m["grad_norm"] for m in hist],
+           "median_ms": secs[len(secs) // 2] * 1e3, "peak": peak,
+           "activations": max(act)}
+    check(all(np.isfinite(out["losses"])) and all(np.isfinite(
+        out["grad_norms"])), f"{label}: {out}")
+    print(f"[mesh-train] {label}: losses {out['losses']}, median step "
+          f"{out['median_ms']:.1f} ms (all "
+          f"{[round(m['step_time_s'] * 1e3, 1) for m in hist]}), peak "
+          f"{peak} B allocated by the run, the forward's activations "
+          f"{out['activations']} B (steps {act})")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_launcher(torch, label):
+    """``launch/train.py --arch gemma-2b --reduced --mesh test
+    --distributed`` under ``torch.distributed.run`` (one rank, NCCL): 3
+    steps, then a restart for one more, whose parameters equal bit for
+    bit those of 4 steps that did not stop (run in this process: at world
+    size 1 every collective is the identity, so the 1 x 1 mesh computes
+    what one device does); and ``--mesh single`` exits non-zero naming
+    the world size it needs."""
+    from repro_torch.checkpointing import checkpoint as ck
+    from repro_torch.launch import train
+    from repro_torch.tree import flatten_with_path
+
+    ckpt = os.path.join(ROOT, "build", f"chip_smoke_{label}_launch")
+    for d in (ckpt + "_a", ckpt + "_b"):
+        shutil.rmtree(d, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    args = ["--arch", "gemma-2b", "--reduced", "--batch", "4", "--seq", "64"]
+
+    def run(*more):
+        r = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "repro_torch.launch.train",
+             *args, *more], capture_output=True, text=True, env=env,
+            cwd=ROOT, timeout=300)
+        return r, [float(x) for x in re.findall(r"final loss ([0-9.]+)",
+                                                r.stdout)]
+
+    t0 = time.monotonic()
+    whole, hist = train.main(args + ["--steps", "4", "--ckpt-dir",
+                                     ckpt + "_a"])
+    first, _ = run("--mesh", "test", "--distributed", "--steps", "3",
+                   "--ckpt-dir", ckpt + "_b")
+    again, b = run("--mesh", "test", "--distributed", "--steps", "1",
+                   "--ckpt-dir", ckpt + "_b")
+    for r in (first, again):
+        check(r.returncode == 0, f"the launcher under torchrun failed: "
+              f"{r.stderr[-2000:]}")
+    check("mesh {'data': 1, 'model': 1}" in again.stdout,
+          f"the launcher's mesh: {again.stdout[-500:]}")
+    tree, _ = ck.restore(ckpt + "_b", 4)
+    want = dict(flatten_with_path(whole.params))
+    got = dict(flatten_with_path(tree["params"]))
+    same = sorted(want) == sorted(got) and all(
+        torch.equal(want[k].detach().cpu(), got[k]) for k in want)
+    print(f"[mesh-train] torchrun launch/train.py --arch gemma-2b --reduced "
+          f"--mesh test --distributed (NCCL, one rank): 3 steps, a restart, "
+          f"one more: final loss {b} against 4 unbroken steps' "
+          f"{hist['loss'][-1]:.6f}; parameters "
+          f"{'bit-equal' if same else 'DIFFER'}")
+    check(same and len(b) == 1 and abs(b[0] - hist["loss"][-1]) <= 1e-4,
+          "the restarted launcher differs from the unbroken run")
+    del whole
+    refused, _ = run("--mesh", "single", "--distributed", "--steps", "1",
+                     "--ckpt-dir", ckpt + "_c")
+    msg = [line for line in refused.stderr.splitlines()
+           if "world size 256" in line]
+    check(refused.returncode != 0 and msg, f"--mesh single at world size "
+          f"1: exit {refused.returncode}, {refused.stderr[-1000:]}")
+    print(f"[mesh-train] --mesh single at world size 1 exits "
+          f"{refused.returncode}: {msg[0].strip()[:200]}; the launches took "
+          f"{time.monotonic() - t0:.1f}s")
+    for d in (ckpt + "_a", ckpt + "_b", ckpt + "_c"):
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _mesh_image(torch, mesh):
+    """A decode step of full-width edge-stream-light built as an
+    ``ExecutableImage`` with ``in_shardings`` on the 1 x 1 mesh: captured
+    (a CUDA graph), replayed twice, each replay's logits, cache and
+    lengths equal to the eager step's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.executor import ExecutableImage
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.launch import programs
+    from repro_torch.models.model import Model
+
+    cfg = get_config("edge-stream-light")
+    rules = programs.rules_for(mesh)
+    model = Model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    B, S = 4, 256
+    caches = model.init_caches(B, S)
+    cache_len = torch.tensor([3, 17, 0, 100], dtype=torch.int32,
+                             device="cuda")
+    tokens = torch.arange(B, dtype=torch.int32, device="cuda") + 5
+    specs = (shlib.param_partition_specs(params, rules),
+             rules.resolve(("batch",), (B,)),
+             shlib.cache_partition_specs(caches, rules),
+             rules.resolve(("batch",), (B,)))
+    step = programs.build_decode_step(cfg, "cuda")
+    eager = [step(params, tokens, {k: {n: t.clone() for n, t in v.items()}
+                                   for k, v in caches.items()}, cache_len)]
+    img = ExecutableImage.build("mesh-decode", step,
+                                (params, tokens, caches, cache_len),
+                                donate_argnums=(2,), in_shardings=specs,
+                                mesh=mesh)
+    check(img.captured, "the sharded decode image was not captured")
+    same = []
+    for _ in range(2):
+        fresh = {k: {n: t.clone() for n, t in v.items()}
+                 for k, v in caches.items()}
+        out = img(*img.place((params, tokens, fresh, cache_len)))
+        torch.cuda.synchronize()
+        same.append(bool(torch.equal(out[0], eager[0][0]))
+                    and bool(torch.equal(out[1]["attn"]["k"],
+                                         eager[0][1]["attn"]["k"]))
+                    and bool(torch.equal(out[2], eager[0][2])))
+    print(f"[mesh-train] sharded decode image (edge-stream-light, B {B} x "
+          f"S {S}, in_shardings on the 1 x 1 mesh): captured "
+          f"{img.captured_launches}, replays {img.replays}, equal to the "
+          f"eager step: {same}")
+    check(all(same), "the sharded image's replay differs from the eager "
+          "step")
+    del img, params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _mixtral_mesh_step(torch, mesh):
+    """Two train steps (the first at lr 0) of reduced fp32 mixtral at
+    capacity factor E (no pair drops on any rank) on ``mesh``, from seed
+    0, B 4 x T 64: each step's loss, grad norm and aux, and the whole
+    parameters after them on the CPU."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data.tokens import make_lm_iterator
+    from repro_torch.launch import programs
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig, gather
+    from repro_torch.tree import flatten_with_path
+
+    cfg = dataclasses.replace(get_reduced_config("mixtral-8x7b"),
+                              compute_dtype="float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    tcfg = programs.TrainConfig(adamw=adamw.AdamWConfig(eps=1e-5))
+    tr = Trainer(cfg, mesh, tcfg, TrainerConfig(
+        ckpt_dir=os.path.join(ROOT, "build", "chip_smoke_mesh_ckpt"),
+        ckpt_every=0)).initialize(restore=False)
+    data = make_lm_iterator(cfg, 4, 64, seed=0)
+    hist = [tr.train_step(next(data)) for _ in range(2)]
+    whole = gather(tr.params, tr.param_specs(), tr.comm)
+    return ([{k: m[k] for k in ("loss", "grad_norm", "aux")} for m in hist],
+            {p: v.detach().float().cpu() for p, v in flatten_with_path(whole)})
+
+
+def _two_rank_worker(rank: int, store: str) -> None:
+    """One of two ranks on the one card: a gloo group over a
+    ``FileStore``, the (1, 2) mesh on cuda, ``_mixtral_mesh_step``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    out = _mixtral_mesh_step(torch, make_test_mesh(1, 2))
+    if rank == 0:
+        torch.save(out, store + ".out")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _two_ranks_on_one_card(torch, want):
+    """The (1, 2) mesh of two gloo ranks whose tensors both live on the
+    one card (experts and heads over a model axis of 2): reduced mixtral's
+    two steps against the one-rank run ``want``, metrics within 1e-5
+    relative and parameters within 1e-5 of each leaf's largest
+    (``tests/test_torch_mesh_train.py``'s bounds)."""
+    import multiprocessing as mp
+
+    store = os.path.join(ROOT, "build", "chip_smoke_two_rank_store")
+    for f in (store, store + ".out"):
+        if os.path.exists(f):
+            os.remove(f)
+    t0 = time.monotonic()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_two_rank_worker, args=(r, store))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    check(not alive and all(p.exitcode == 0 for p in procs),
+          f"the two ranks on one card: exit codes "
+          f"{[p.exitcode for p in procs]}")
+    metrics, params = torch.load(store + ".out")
+    err = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(metrics, want[0])
+              for k in ("loss", "grad_norm", "aux"))
+    perr, where = 0.0, ""
+    for path, w in want[1].items():
+        e = float((params[path] - w).abs().max() / max(
+            float(w.abs().max()), 1e-6))
+        if e > perr:
+            perr, where = e, path
+    print(f"[mesh-train] reduced fp32 mixtral on a (1, 2) mesh of two gloo "
+          f"ranks on the one card: losses {[m['loss'] for m in metrics]} "
+          f"against one rank's {[m['loss'] for m in want[0]]}; metrics "
+          f"within {err:.2e} relative, parameters within {perr:.2e} of a "
+          f"leaf (worst {where}); {time.monotonic() - t0:.1f}s")
+    check(err <= 1e-5 and perr <= 1e-5, f"two ranks against one: metrics "
+          f"{err}, parameters {perr} ({where})")
+    for f in (store, store + ".out"):
+        if os.path.exists(f):
+            os.remove(f)
+
+
+def phase_mesh_train(torch):
+    """Phase 6f: training on a device mesh at world size 1 over NCCL (a
+    ``FileStore`` under ``build/``, the 1 x 1 ``make_test_mesh`` on
+    cuda; no other backend is tried): gemma-2b at full width and depth
+    (fp32, B 2 x T 1024, phase 6e's seed and batches) through the mesh
+    ``Trainer``, 3 steps at each ``remat_policy`` (none, minimal: the
+    config's, full): the three runs' losses within 1e-6 relative, "none"'s
+    against phase 6e's, and the forward's activation bytes in the order
+    full < minimal < none; deepseek-v2-236b at ``DEEPSEEK_TRAIN_CUT``
+    (bf16 parameters, int8 moments placed by ``opt_state_shardings``,
+    remat "full"), 2 steps against phase 6d's losses within 2e-5; the
+    launcher under torchrun and its exact restart; a sharded decode
+    image; ``hierarchical_psum`` on a (1, 1, 1) pod mesh equal to one
+    int8 round trip; and two gloo ranks on the one card training reduced
+    mixtral on a (1, 2) mesh as one rank does.  Returns the launches (the
+    in-process runs') and the steps."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import programs
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t_phase = time.monotonic()
+    store_path = os.path.join(ROOT, "build", "chip_smoke_mesh_store")
+    if os.path.exists(store_path):
+        os.remove(store_path)
+    dist.init_process_group("nccl", store=dist.FileStore(store_path, 1),
+                            rank=0, world_size=1)
+    try:
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        mesh = make_test_mesh(1, 1)
+        check(mesh.device_type == "cuda", f"mesh on {mesh.device_type}")
+        before = launch_counts()
+        gemma = get_config("gemma-2b")
+        check(gemma.remat_policy == "minimal", gemma.remat_policy)
+        runs = {}
+        for policy in ("none", "minimal", "full"):
+            cfg = dataclasses.replace(gemma, remat_policy=policy)
+            runs[policy] = _mesh_trainer_run(
+                torch, mesh, f"gemma-2b remat {policy}", cfg,
+                programs.default_train_config(cfg), 2, 1024, 3)
+        ref = runs["none"]["losses"]
+        for policy in ("minimal", "full"):
+            got = runs[policy]["losses"]
+            check(all(abs(a - b) <= 1e-6 * abs(a) for a, b in zip(ref, got)),
+                  f"remat {policy}: losses {got} against {ref}")
+        e6 = TRAIN_LOSSES["gemma-train"][:3]
+        check(all(abs(a - b) <= 1e-6 * abs(b) for a, b in zip(ref, e6)),
+              f"the mesh Trainer's losses {ref} against phase 6e's {e6}")
+        act = {p: r["activations"] for p, r in runs.items()}
+        print(f"[mesh-train] gemma-2b on the 1 x 1 NCCL mesh: losses "
+              f"{'bit-equal to' if ref == e6 else 'within 1e-6 of'} phase "
+              f"6e's {e6}; across remat policies "
+              f"{'bit-equal' if all(r['losses'] == ref for r in runs.values()) else 'within 1e-6'}"
+              f"; forward activations {act} B; peaks "
+              f"{ {p: r['peak'] for p, r in runs.items()} } B; median steps "
+              f"{ {p: round(r['median_ms'], 1) for p, r in runs.items()} } ms")
+        check(act["full"] < act["minimal"] < act["none"],
+              f"activation bytes not full < minimal < none: {act}")
+
+        full = get_config("deepseek-v2-236b")
+        cfg = dataclasses.replace(full, num_layers=DEEPSEEK_TRAIN_CUT,
+                                  param_dtype="bfloat16")
+        tcfg = programs.default_train_config(full)
+        check(tcfg.adamw.state_dtype == "int8"
+              and cfg.remat_policy == "full", "deepseek: int8, remat full")
+        ds = _mesh_trainer_run(torch, mesh, "deepseek-v2-236b cut",
+                               cfg, tcfg, 2, 512, 2)
+        d6 = TRAIN_LOSSES["deepseek-train"][:2]
+        check(all(abs(a - b) <= 2e-5 * abs(b)
+                  for a, b in zip(ds["losses"], d6)),
+              f"deepseek on the mesh: {ds['losses']} against phase 6d's "
+              f"{d6}")
+        print(f"[mesh-train] deepseek-v2-236b cut, int8 moments on the "
+              f"mesh: losses {ds['losses']} "
+              f"{'bit-equal to' if ds['losses'] == d6 else 'within 2e-5 of'}"
+              f" phase 6d's {d6}")
+        _mesh_image(torch, mesh)
+        launches = {k: v - before[k] for k, v in launch_counts().items()}
+
+        pods = init_device_mesh("cuda", (1, 1, 1),
+                                mesh_dim_names=("pod", "data", "model"))
+        x = torch.randn(8, 1000, device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(3))
+        got = collectives.hierarchical_psum(x, mesh=pods)
+        want = collectives.dequantize_block(
+            *collectives.quantize_block(x), x.shape)
+        err = float((got - x).abs().max() / x.abs().max())
+        check(bool(torch.equal(got, want)),
+              "hierarchical_psum on a (1, 1, 1) mesh is not one int8 "
+              "round trip")
+        print(f"[mesh-train] hierarchical_psum(int8_cross_pod=True) on a "
+              f"(1, 1, 1) pod mesh: equal to dequantize(quantize(x)) "
+              f"({err:.2e} of max|x| from x)")
+        one_rank = _mixtral_mesh_step(torch, mesh)
+    finally:
+        dist.destroy_process_group()
+    _two_ranks_on_one_card(torch, one_rank)
+    _mesh_launcher(torch, "mesh-train")
+    for name in ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "decode_attention"):
+        check(launches[name] > 0, f"phase 6f never launched {name}")
+    print(f"[mesh-train] launches {launches}; phase 6f "
+          f"{time.monotonic() - t_phase:.1f}s")
+    return launches, 3 * 3 + 2 + 2
+
+
+# ---------------------------------------------------------------------------
 # phase 7: training consistency, fp32
 # ---------------------------------------------------------------------------
 
@@ -4709,8 +5124,9 @@ def phase_train_consistency(torch):
     before = [fn.launches for fn, _ in counters]
     loss_k, g_k = grads()
     moved = [fn.launches - b for (fn, _), b in zip(counters, before)]
-    check(moved == [2, 2, 2], f"2 layers must launch each kernel twice: "
-          f"{moved}")
+    want = [_train_launches(name, cfg) for _, name in counters]
+    check(moved == want, f"2 layers must launch each kernel twice (the "
+          f"forward again under remat): {moved}, not {want}")
     plain = ops.flash_mha
     ops.flash_mha = ref.mha                   # autograd through the plain
     try:
@@ -4784,8 +5200,9 @@ def phase_encoder_train_consistency(torch):
     before = [fn.launches for fn, _ in counters]
     loss_k, g_k = grads()
     moved = [fn.launches - b for (fn, _), b in zip(counters, before)]
-    check(moved == [1, 1, 1], f"one layer must launch each kernel once: "
-          f"{moved}")
+    want = [_train_launches(name, cfg) for _, name in counters]
+    check(moved == want, f"one layer must launch each kernel once (the "
+          f"forward again under remat): {moved}, not {want}")
     plain = ops.flash_mha
     ops.flash_mha = ref.mha                   # autograd through the plain
     try:
@@ -4840,7 +5257,8 @@ KERNELS = {
 }
 # the paths each kernel's launch count comes from, and each path's unit
 DENSE_PATHS = ("gemma", "gemma_spec", "command-r", "chameleon", "nemotron")
-WIDE_TRAIN_PATHS = ("mixtral_train", "deepseek_train", "gemma_train")
+WIDE_TRAIN_PATHS = ("mixtral_train", "deepseek_train", "gemma_train",
+                    "mesh_train")
 PATH_OF = {"flash_attention": ("serve", "edge", "fleet", "hubert",
                                "hubert_train", "mixtral", "deepseek")
            + DENSE_PATHS + WIDE_TRAIN_PATHS,
@@ -4848,7 +5266,7 @@ PATH_OF = {"flash_attention": ("serve", "edge", "fleet", "hubert",
            + DENSE_PATHS,
            "paged_verify_attention": ("spec", "gemma_spec"),
            "decode_attention": ("spec", "zamba2", "edge", "gemma_spec",
-                                "mixtral", "deepseek"),
+                                "mixtral", "deepseek", "mesh_train"),
            "flash_attention_bwd_dq": ("train", "hubert_train")
            + WIDE_TRAIN_PATHS,
            "flash_attention_bwd_dkv": ("train", "hubert_train")
@@ -4911,6 +5329,7 @@ def main() -> int:
     paths["mixtral_train"] = phase_mixtral_train(torch)
     paths["deepseek_train"] = phase_deepseek_train(torch)
     paths["gemma_train"] = phase_gemma_train(torch)
+    paths["mesh_train"] = phase_mesh_train(torch)
     phase_train_consistency(torch)
     phase_encoder_train_consistency(torch)
     for pre in ("train_", "encoder_train_48_", "encoder_train_80_"):

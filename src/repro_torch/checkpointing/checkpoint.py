@@ -12,7 +12,11 @@ stored as raw bytes and read back by viewing the bytes as
 ``torch.bfloat16``.  The port has no JAX treedef: it rebuilds the tree
 from each entry's ``path`` (JAX's ``keystr`` form), so it restores
 checkpoints written by the JAX package, parameters and optimizer state
-alike.  Its own manifests carry no ``treedef``.
+alike.  Its own manifests carry no ``treedef``.  A checkpoint holds whole
+leaves whatever mesh wrote it (a sharded trainer gathers them first), and
+``restore(shardings=(mesh, specs))`` cuts each leaf to this rank's shard
+of any mesh: the elastic restart onto the mesh ``plan_elastic_mesh``
+plans.
 """
 from __future__ import annotations
 
@@ -176,12 +180,42 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def _spec_paths(spec_tree, prefix: str = "") -> Dict[str, Any]:
+    """``{leaf path: spec}`` of a spec tree, the paths in the form
+    ``flatten_with_path`` gives the tree the specs describe."""
+    from repro_torch.distributed.sharding import is_spec
+
+    if is_spec(spec_tree):
+        return {prefix: spec_tree}
+    if isinstance(spec_tree, dict):
+        out = {}
+        for k, v in spec_tree.items():
+            out.update(_spec_paths(v, f"{prefix}[{k!r}]"))
+        return out
+    return {p: s for f in spec_tree._fields
+            for p, s in _spec_paths(getattr(spec_tree, f),
+                                    f"{prefix}.{f}").items()}
+
+
 def restore(ckpt_dir: str, step: Optional[int] = None, device="cpu",
-            target_tree: Any = None):
+            target_tree: Any = None, shardings=None):
     """Load a committed checkpoint (the latest when ``step`` is None) as
     a tree of tensors on ``device``.  ``target_tree``: a tree whose leaf
     paths the checkpoint's must equal (``ValueError`` otherwise).
-    Returns ``(tree, manifest_extra)``."""
+    ``shardings``: ``(mesh, spec tree)``, each leaf cut to this rank's
+    shard of its spec on the mesh (a leaf the tree has no spec for stays
+    whole).  Returns ``(tree, manifest_extra)``."""
+    cut = None
+    if shardings is not None:
+        from repro_torch.distributed import spmd
+
+        mesh, specs = shardings
+        comm, by_path = spmd.comm_of(mesh), _spec_paths(specs)
+
+        def cut(path, leaf):
+            spec = by_path.get(path)
+            return leaf if spec is None else \
+                spmd.shard_of(leaf, spec, comm).contiguous()
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -206,6 +240,8 @@ def restore(ckpt_dir: str, step: Optional[int] = None, device="cpu",
                 volumes[vi] = np.load(os.path.join(final, f"shard_{vi}.npz"))
             leaf = _decode(volumes[vi][item["key"]], item["dtype"],
                            item["shape"])
+            if cut is not None:
+                leaf = cut(item["path"], leaf)
             items.append((item["path"], leaf.to(device)))
     finally:
         for v in volumes.values():

@@ -34,7 +34,8 @@ import torch
 
 from repro_torch.core.workload import Workload
 from repro_torch.device import same_device
-from repro_torch.tree import flatten_with_path, leaves, tree_map
+from repro_torch.tree import (flatten_with_path, leaves, tree_map,
+                               unflatten_like)
 
 
 class ExecutorClass(str, enum.Enum):
@@ -124,6 +125,7 @@ class ExecutableImage:
         self.static_out: Any = None
         self.captured_launches: Dict[str, int] = {}
         self.replays = 0
+        self.placement: Optional[_Placement] = None   # on a device mesh
         self.copied_bytes = 0          # argument bytes copied in by calls
         self._lock = threading.Lock()
         self._static: List[torch.Tensor] = []     # static_args' leaves
@@ -146,14 +148,26 @@ class ExecutableImage:
     def build(cls, name: str, fn: Callable, args: Tuple,
               donate_argnums: Tuple[int, ...] = (),
               in_shardings: Any = None, mesh=None) -> "ExecutableImage":
-        """``mesh`` is the placement handle (a ``torch.device`` the
-        arguments must live on, or ``None``); sharded images come with the
-        mesh (ROADMAP Queue A item 13)."""
-        if in_shardings is not None or not (
-                mesh is None or isinstance(mesh, (str, torch.device))):
-            raise NotImplementedError(
-                "sharded images (in_shardings, a device mesh) are not "
-                "ported yet (ROADMAP Queue A item 13)")
+        """``mesh`` is the placement handle: a ``torch.device`` the
+        arguments must live on, ``None``, or a device mesh (a
+        ``DeviceMesh`` with named dims, or a ``LocalMesh``).  On a mesh
+        the arguments given here are whole tensors on this rank's device:
+        ``in_shardings`` (a tree of specs shaped like ``args``; every leaf
+        replicated without it) cuts each to this rank's shard, the image
+        is built (and on the card captured) over the shards, and ``fn``
+        runs under the mesh's default rules.  Its calls take placed
+        arguments (``place``)."""
+        placement = None
+        if in_shardings is not None or _is_mesh(mesh):
+            if not _is_mesh(mesh):
+                raise TypeError(f"image {name!r}: in_shardings need a device "
+                                f"mesh as the placement handle, got {mesh!r}")
+            placement = _Placement(mesh, in_shardings)
+            args, fn = placement.place(args), placement.wrap(fn)
+            mesh = placement.device
+        elif not (mesh is None or isinstance(mesh, (str, torch.device))):
+            raise TypeError(f"image {name!r}: unknown placement handle "
+                            f"{mesh!r} (a device, a device mesh or None)")
         t0 = time.monotonic()
         args = tuple(args)
         spec = arg_spec(args)
@@ -166,6 +180,7 @@ class ExecutableImage:
             raise ValueError(f"image {name!r}: arguments on {dev}, "
                              f"placement handle {mesh}")
         img = cls(name, fn, spec, dev, donate_argnums)
+        img.placement = placement
         img.arg_bytes = tree_bytes(args)
         if dev.type == "cuda":
             img._capture(args)
@@ -175,6 +190,14 @@ class ExecutableImage:
             img.output_bytes = tree_bytes(out)
         img.build_time_s = time.monotonic() - t0
         return img
+
+    def place(self, args: Tuple) -> Tuple:
+        """Whole arguments cut to this rank's shards, as ``build`` cut
+        them (the arguments themselves for an image built without a
+        mesh)."""
+        if self.placement is None:
+            return tuple(args)
+        return self.placement.place(args)
 
     def _capture(self, args: Tuple) -> None:
         from repro_torch.kernels import launch_counts
@@ -274,6 +297,48 @@ class ExecutableImage:
             out = tree_map(hand_out, self.static_out)
             self._resident = resident
             return out
+
+
+def _is_mesh(mesh) -> bool:
+    from repro_torch.launch.mesh import LocalMesh
+
+    return hasattr(mesh, "mesh_dim_names") or isinstance(mesh, LocalMesh)
+
+
+class _Placement:
+    """An image's device mesh and argument specs: cuts whole arguments to
+    this rank's shards and runs the function under the mesh's rules."""
+
+    def __init__(self, mesh, in_shardings):
+        from repro_torch.distributed import spmd
+        from repro_torch.launch.mesh import mesh_device
+
+        self.mesh, self.specs = mesh, in_shardings
+        self.comm = spmd.comm_of(mesh)
+        self.device = mesh_device(mesh)
+
+    def place(self, args: Tuple) -> Tuple:
+        from repro_torch.distributed import spmd
+        from repro_torch.launch.programs import flat_specs
+
+        args = tuple(args)
+        flat = leaves(args)
+        specs = flat_specs(self.specs) if self.specs is not None \
+            else [()] * len(flat)
+        if len(specs) != len(flat):
+            raise ValueError(f"in_shardings has {len(specs)} specs for "
+                             f"{len(flat)} argument leaves")
+        return unflatten_like(args, [
+            spmd.shard_of(a, s, self.comm).contiguous()
+            for a, s in zip(flat, specs)])
+
+    def wrap(self, fn: Callable) -> Callable:
+        from repro_torch.distributed.sharding import use_rules
+
+        def run(*args):
+            with use_rules(self.mesh):
+                return fn(*args)
+        return run
 
 
 def _version(t: torch.Tensor) -> Optional[int]:

@@ -30,6 +30,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import spmd
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gather_pages
 from repro_torch.models.config import ModelConfig
@@ -142,20 +143,63 @@ def _proj(x, w, dt):
     return (x @ w.to(dt).reshape(d, H * hd)).unflatten(-1, (H, hd))
 
 
+def local_kv_heads(cfg: ModelConfig, tp: int, rank: int) -> list:
+    """The KV heads that rank ``rank``'s query heads read when the query
+    heads are sharded over a model axis of ``tp`` and the KV heads are
+    not (they do not divide it): the global pairing, query head h with KV
+    head h // G, kept under the kernel's local pairing (local query head
+    i with local KV head i // G_local).  A contiguous run of whole groups
+    when the rank's heads cover them, the one head they share when they
+    sit inside one group, else one KV head per query head."""
+    H, G = cfg.num_heads, cfg.num_heads // cfg.num_kv_heads
+    h_loc = H // tp
+    q0 = rank * h_loc
+    if h_loc % G == 0:
+        return list(range(q0 // G, q0 // G + h_loc // G))
+    if G % h_loc == 0:
+        return [q0 // G]
+    return [(q0 + i) // G for i in range(h_loc)]
+
+
+def _kv_leaves(params, cfg: ModelConfig, group, tp, rank):
+    """(w_k, w_v, b_k, b_v) as this rank's heads use them: the leaves as
+    they are, or, with query heads sharded over ``model`` and KV heads
+    replicated, the ``local_kv_heads`` of the replicated leaves, which
+    enter through ``spmd.copy_to`` (each rank's gradient covers only its
+    heads)."""
+    names = ("w_k", "w_v", "b_k", "b_v")
+    got = [params.get(n) for n in names]
+    if group is None or params["w_k"].shape[1] < cfg.num_kv_heads:
+        return got
+    idx = torch.tensor(local_kv_heads(cfg, tp, rank),
+                       device=params["w_k"].device)
+    return [None if w is None else
+            spmd.copy_to(w, group).index_select(0 if n[0] == "b" else 1,
+                                                idx)
+            for n, w in zip(names, got)]
+
+
 def _qkv(params, x, cfg: ModelConfig, positions):
     """The JAX order (``attention.py:140-150``): projections, biases, the
-    qk RMSNorm over the head dim, RoPE; each step in the compute dtype."""
+    qk RMSNorm over the head dim, RoPE; each step in the compute dtype.
+    Under rules that shard the heads over ``model``, this rank's heads:
+    x and the replicated leaves enter through ``spmd.copy_to``."""
     dt = cfg.cdtype
+    group, tp, rank = spmd.model_split("heads", cfg.num_heads)
+    x = spmd.copy_to(x, group)
+    w_k, w_v, b_k, b_v = _kv_leaves(params, cfg, group, tp, rank)
     q = _proj(x, params["w_q"], dt)
-    k = _proj(x, params["w_k"], dt)
-    v = _proj(x, params["w_v"], dt)
+    k = _proj(x, w_k, dt)
+    v = _proj(x, w_v, dt)
     if cfg.attn_bias:
         q = q + params["b_q"].to(dt)
-        k = k + params["b_k"].to(dt)
-        v = v + params["b_v"].to(dt)
+        k = k + b_k.to(dt)
+        v = v + b_v.to(dt)
     if cfg.qk_norm:
-        q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
-        k = rms_norm_simple(k, params["k_norm"], cfg.norm_eps)
+        q = rms_norm_simple(q, spmd.copy_to(params["q_norm"], group),
+                            cfg.norm_eps)
+        k = rms_norm_simple(k, spmd.copy_to(params["k_norm"], group),
+                            cfg.norm_eps)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -163,9 +207,12 @@ def _qkv(params, x, cfg: ModelConfig, positions):
 
 
 def _out_proj(params, o, cfg: ModelConfig):
-    """einsum("bthk,hkd->btd"), then ``b_o`` (JAX ``attention.py:156``)."""
+    """einsum("bthk,hkd->btd"), then ``b_o`` (JAX ``attention.py:156``);
+    a rank's heads give a partial sum, summed over ``model`` first."""
     H, hd, d = params["w_o"].shape
     out = o.flatten(-2) @ params["w_o"].to(cfg.cdtype).reshape(H * hd, d)
+    out = spmd.reduce_from(
+        out, spmd.model_split("heads", cfg.num_heads)[0])
     if cfg.attn_bias:
         out = out + params["b_o"].to(cfg.cdtype)
     return out
@@ -179,6 +226,7 @@ def _mla_q(params, x, cfg: ModelConfig, positions):
     dt, m = cfg.cdtype, cfg.mla
     cq = rms_norm_simple(x @ params["w_dq"].to(dt), params["q_norm"],
                          cfg.norm_eps)
+    cq = spmd.copy_to(cq, spmd.model_split("heads", cfg.num_heads)[0])
     q = _proj(cq, params["w_uq"], dt)
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
                         cfg.rope_theta)
@@ -208,12 +256,14 @@ def _attend_mla(params, x, cfg: ModelConfig, positions, causal, cache):
     q/k width nope + rope and v width ``v_head_dim``, scaled by (nope +
     rope)^-0.5; ``cache`` takes the latent pair."""
     dt, m = cfg.cdtype, cfg.mla
+    group = spmd.model_split("heads", cfg.num_heads)[0]
     q_nope, q_rope = _mla_q(params, x, cfg, positions)
     c_kv, k_rope = _mla_kv_compressed(params, x, cfg, positions)
-    k_nope = _proj(c_kv, params["w_uk"], dt)
-    v = _proj(c_kv, params["w_uv"], dt)
+    k_nope = _proj(spmd.copy_to(c_kv, group), params["w_uk"], dt)
+    v = _proj(spmd.copy_to(c_kv, group), params["w_uv"], dt)
+    k_rope_h = spmd.copy_to(k_rope, group)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+    k = torch.cat([k_nope, k_rope_h[:, :, None, :].expand(
         *k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)
     o = ops.flash_attention(q, k, v, causal=causal, window=0,
                             softcap=cfg.attn_logit_softcap,
@@ -223,7 +273,8 @@ def _attend_mla(params, x, cfg: ModelConfig, positions, causal, cache):
     if cache is not None:
         _fill_cache_mla(cache, c_kv, k_rope, positions)
     H, hv, d = params["w_o"].shape
-    return o.flatten(-2) @ params["w_o"].to(dt).reshape(H * hv, d)
+    return spmd.reduce_from(
+        o.flatten(-2) @ params["w_o"].to(dt).reshape(H * hv, d), group)
 
 
 def attend(params, x, cfg: ModelConfig, *, positions, causal: bool = True,
@@ -232,6 +283,8 @@ def attend(params, x, cfg: ModelConfig, *, positions, causal: bool = True,
     window for ``attn_type == "swa"``; with ``cache`` (the dense prefill)
     the sequence's KV (MLA: its latent pair) is also written into it."""
     x = x.to(cfg.cdtype)
+    if cache is not None:
+        _refuse_seq_sharded_cache(cfg)
     if cfg.attn_type == "mla":
         return _attend_mla(params, x, cfg, positions, causal, cache)
     q, k, v = _qkv(params, x, cfg, positions)
@@ -406,6 +459,7 @@ def decode_step(params, x, cfg: ModelConfig, cache: Pool, cache_len):
     in latent space (``_decode_step_mla``)."""
     x = x.to(cfg.cdtype)
     positions = cache_len[:, None]
+    _refuse_seq_sharded_cache(cfg)
     if cfg.attn_type == "mla":
         return _decode_step_mla(params, x, cfg, cache, cache_len, positions)
     q, k, v = _qkv(params, x, cfg, positions)
@@ -414,6 +468,22 @@ def decode_step(params, x, cfg: ModelConfig, cache: Pool, cache_len):
     o = ops.decode_attention(q[:, 0], cache["k"], cache["v"], valid,
                              softcap=cfg.attn_logit_softcap)
     return _out_proj(params, o[:, None], cfg)
+
+
+def _refuse_seq_sharded_cache(cfg: ModelConfig) -> None:
+    """Under rules that shard heads over ``model``, a decode reads the
+    rank's KV heads from its cache shard; when the cache is sharded along
+    the sequence instead (KV heads that do not divide the axis, MLA's
+    latent cache: ``cache_partition_specs``), each rank would hold a part
+    of every head's keys, which needs a cross-rank softmax merge that the
+    decode does not have (ROADMAP Queue A)."""
+    if spmd.model_split("heads", cfg.num_heads)[0] is None:
+        return
+    if cfg.attn_type == "mla" or spmd.model_split(
+            "kv_heads", cfg.num_kv_heads)[0] is None:
+        raise NotImplementedError(
+            "decode over a KV cache sharded along the sequence over the "
+            "model axis (context-parallel decode) is not ported")
 
 
 def _latent_keys(cache: Pool):

@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import spmd
 from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ModelConfig
 
@@ -34,21 +35,40 @@ F32_LEAVES = frozenset({"dt_bias", "a_log", "d_skip", "router"})
 # initializers (same distributions as the JAX package; different numbers)
 # ---------------------------------------------------------------------------
 
+class MetaGenerator:
+    """A generator stand-in whose draws are ``meta`` tensors: ``init``
+    given one builds the abstract parameter tree (shapes and dtypes, no
+    storage), which the sharding specs are resolved on."""
+    device = torch.device("meta")
+
+
+def randn(gen, shape) -> torch.Tensor:
+    """f32 N(0, 1) draws on the generator's device (``meta``: none)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device)
+
+
+def rand(gen, shape) -> torch.Tensor:
+    """f32 U[0, 1) draws on the generator's device (``meta``: none)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.rand(shape, generator=gen, dtype=torch.float32,
+                      device=gen.device)
+
+
 def dense_init(gen: torch.Generator, shape, dtype, fan_in: Optional[int] = None):
     """N(0, 1/fan_in) drawn in f32 and scaled in place (one f32 copy of
     the leaf at a time: nemotron-4-340b's head is 18.9 GB of it), then
     cast to ``dtype``."""
     fan = fan_in if fan_in is not None else shape[0]
     std = 1.0 / math.sqrt(max(fan, 1))
-    x = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return x.mul_(std).to(dtype)
+    return randn(gen, shape).mul_(std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype):
-    x = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return x.mul_(0.02).to(dtype)
+    return randn(gen, shape).mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -187,9 +207,15 @@ def init_mlp(gen, cfg: ModelConfig, d_ff: Optional[int] = None):
     return p
 
 
-def apply_mlp(p, x, cfg: ModelConfig):
+def apply_mlp(p, x, cfg: ModelConfig, d_ff: Optional[int] = None):
+    """``d_ff``: the MLP's global width (``cfg.d_ff`` by default).  Under
+    a mesh whose rules shard ``ffn`` over ``model`` the leaves are this
+    rank's columns (rows of ``w_down``): the input enters through
+    ``spmd.copy_to`` and the partial output is summed over the axis
+    before ``b_down``."""
     dt = cfg.cdtype
-    x = x.to(dt)
+    group = spmd.model_split("ffn", d_ff or cfg.d_ff)[0]
+    x = spmd.copy_to(x.to(dt), group)
     if cfg.activation == "swiglu":
         h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
     elif cfg.activation == "geglu":
@@ -203,7 +229,7 @@ def apply_mlp(p, x, cfg: ModelConfig):
         raise ValueError(cfg.activation)
     if "b_up" in p:
         h = h + p["b_up"].to(dt)
-    out = h @ p["w_down"].to(dt)
+    out = spmd.reduce_from(h @ p["w_down"].to(dt), group)
     if "b_down" in p:
         out = out + p["b_down"].to(dt)
     return out
@@ -219,7 +245,20 @@ def init_embedding(gen, cfg: ModelConfig):
 
 
 def apply_embedding(p, tokens, cfg: ModelConfig):
-    x = p["embedding"][tokens].to(cfg.cdtype)
+    """The rows of ``tokens``.  Under a vocabulary sharded over ``model``
+    each rank holds ``V / tp`` rows: it looks up the tokens in its range,
+    zeros the rest, and the ranks' rows are summed."""
+    group, _, r = spmd.model_split("vocab", cfg.vocab_size)
+    if group is None:
+        x = p["embedding"][tokens]
+    else:
+        emb = p["embedding"]
+        t = tokens - r * emb.shape[0]
+        ok = (t >= 0) & (t < emb.shape[0])
+        rows = emb[torch.clamp(t, 0, emb.shape[0] - 1)]
+        x = spmd.reduce_from(torch.where(ok[..., None], rows,
+                                         torch.zeros_like(rows)), group)
+    x = x.to(cfg.cdtype)
     if cfg.embed_scale:
         # the scale is rounded to the compute dtype first, as in JAX
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype,
@@ -228,7 +267,11 @@ def apply_embedding(p, tokens, cfg: ModelConfig):
 
 
 def apply_lm_head(embed_params, head_params, x, cfg: ModelConfig):
+    """Logits [..., V]; under a vocabulary sharded over ``model`` this
+    rank's ``V / tp`` columns of them (``Model.loss`` reduces over the
+    axis)."""
     dt = cfg.cdtype
+    x = spmd.copy_to(x, spmd.model_split("vocab", cfg.vocab_size)[0])
     if cfg.tie_embeddings or head_params is None:
         logits = x @ embed_params["embedding"].to(dt).T
     else:

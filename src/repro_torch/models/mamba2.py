@@ -23,7 +23,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 # F32_LEAVES (Mamba2's f32 leaves among them) is re-exported here
 from repro_torch.models.layers import (F32_LEAVES, dense_init,  # noqa: F401
-                                       rms_norm_simple)
+                                       rand, randn, rms_norm_simple)
 
 
 def _dims(cfg: ModelConfig):
@@ -46,15 +46,13 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig):
     d, dt, dev = cfg.d_model, cfg.pdtype, gen.device
     proj_dim = 2 * di + 2 * s.n_groups * s.d_state + H   # z, x, B, C, dt
     in_proj = dense_init(gen, (d, proj_dim), dt)
-    conv_w = torch.randn((conv_dim, s.d_conv), generator=gen,
-                         dtype=torch.float32, device=dev) * s.d_conv ** -0.5
-    u = torch.rand((H,), generator=gen, dtype=torch.float32, device=dev)
+    conv_w = randn(gen, (conv_dim, s.d_conv)) * s.d_conv ** -0.5
+    u = rand(gen, (H,))
     lo, hi = math.log(s.dt_min), math.log(s.dt_max)
     dt_init = torch.exp(u * (hi - lo) + lo)
     dt_bias = dt_init + torch.log(-torch.expm1(-dt_init))   # inverse softplus
     a_lo, a_hi = s.a_init_range
-    A = torch.rand((H,), generator=gen, dtype=torch.float32,
-                   device=dev) * (a_hi - a_lo) + a_lo
+    A = rand(gen, (H,)) * (a_hi - a_lo) + a_lo
     return {
         "in_proj": in_proj,
         "conv_w": conv_w.to(dt),

@@ -37,11 +37,13 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import spmd
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig, check_ported
-from repro_torch.models.layers import (F32_LEAVES, apply_embedding,
-                                       apply_lm_head, dense_init,
-                                       init_embedding, init_lm_head)
+from repro_torch.models.layers import (F32_LEAVES, MetaGenerator,
+                                       apply_embedding, apply_lm_head,
+                                       dense_init, init_embedding,
+                                       init_lm_head)
 
 Params = Dict[str, Any]
 
@@ -69,6 +71,14 @@ class Model:
         """Random parameters with ``dense_init``/``embed_init``'s
         distributions, drawn on the generator's device and moved to the
         model's.  The numbers differ from JAX's for the same seed."""
+        return to_device(self._init(gen), self.device)
+
+    def init_abstract(self) -> Params:
+        """The parameter tree as ``meta`` tensors (shapes and dtypes, no
+        storage), as the JAX ``init_abstract`` gives it."""
+        return self._init(MetaGenerator())
+
+    def _init(self, gen) -> Params:
         cfg = self.cfg
         p: Params = {"embed": init_embedding(gen, cfg),
                      "stack": transformer.init_stack(gen, cfg)}
@@ -81,7 +91,7 @@ class Model:
                                                cfg.d_model), cfg.pdtype),
                 "mask_embed": torch.zeros((cfg.d_model,), dtype=cfg.pdtype,
                                           device=gen.device)}
-        return to_device(p, self.device)
+        return p
 
     def unread_leaves(self) -> tuple:
         """The paths (``tree.flatten_with_path`` form) of the leaves that
@@ -150,7 +160,13 @@ class Model:
         the gold logit taken in the logits' dtype (a gather, the same
         number as JAX's one-hot contraction), over ``max(Σ weights, 1)``,
         plus the moe layers' auxiliary loss.  Returns ``(loss, metrics)``
-        with metrics ``loss``, ``ce``, ``aux`` and ``tokens``."""
+        with metrics ``loss``, ``ce``, ``aux`` and ``tokens``.
+
+        Under a mesh's rules the batch is this rank's rows and the logits
+        its vocabulary columns: the log-sum-exp and the gold logit are
+        reduced over ``model``, the token count over the batch axes, and
+        ``loss`` is this rank's share of the global loss (the shares over
+        the batch axes sum to it; the metrics are the global values)."""
         logits, aux = self.forward_with_aux(params, batch)
         if self.cfg.encoder_only:
             targets = batch["targets"].long()
@@ -161,13 +177,21 @@ class Model:
             labels = batch["labels"].long()
             weights = (labels >= 0).float()
             targets = torch.clamp(labels, min=0)
-        lse = torch.logsumexp(logits.float(), dim=-1)
-        gold = torch.gather(logits, -1, targets[..., None])[..., 0].float()
+        lse, gold = _lse_and_gold(logits, targets, self.cfg)
         nll = (lse - gold) * weights
         tokens = weights.sum()
+        dpg = spmd.dp_group()
+        if dpg is None:
+            ce = nll.sum() / torch.clamp(tokens, min=1.0)
+            loss = ce + aux
+            return loss, {"loss": loss, "ce": ce, "aux": aux,
+                          "tokens": tokens}
+        tokens = spmd.all_reduce(tokens, dpg)
         ce = nll.sum() / torch.clamp(tokens, min=1.0)
         loss = ce + aux
-        return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": tokens}
+        metrics = {k: spmd.all_reduce(v, dpg)
+                   for k, v in (("loss", loss), ("ce", ce), ("aux", aux))}
+        return loss, {**metrics, "tokens": tokens}
 
     # -------------------------------------------------------------- serving
     def init_paged_caches(self, num_pages: int, page_size: int,
@@ -267,6 +291,30 @@ class Model:
             caches=caches, cache_len=cache_len)
         logits = apply_lm_head(params["embed"], params.get("head"), x, cfg)
         return logits[:, 0]
+
+
+def _lse_and_gold(logits, targets, cfg: ModelConfig):
+    """The f32 log-sum-exp of the logits over the vocabulary and each
+    target's logit (gathered in the logits' dtype).  Over a vocabulary
+    sharded on ``model``: the max and the sum of exponentials reduced
+    across the axis, and the gold logit from the rank that holds it."""
+    group, _, r = spmd.model_split("vocab", cfg.vocab_size)
+    if group is None:
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        return lse, gold.float()
+    lf = logits.float()
+    m = spmd.all_reduce(lf.amax(dim=-1, keepdim=True), group,
+                        torch.distributed.ReduceOp.MAX)
+    lse = m[..., 0] + torch.log(spmd.reduce_from(
+        torch.exp(lf - m).sum(dim=-1), group))
+    v_loc = logits.shape[-1]
+    t = targets - r * v_loc
+    ok = (t >= 0) & (t < v_loc)
+    g = torch.gather(logits, -1, torch.clamp(t, 0, v_loc - 1)[..., None])
+    gold = spmd.reduce_from(torch.where(ok, g[..., 0],
+                                        torch.zeros_like(g[..., 0])), group)
+    return lse, gold.float()
 
 
 def to_device(tree, device):

@@ -14,7 +14,17 @@ Layouts (the JAX ones):
 Parameters keep the JAX layout: every block leaf is stacked along a
 leading layer axis (``[L, ...]``; the hybrid's super-blocks
 ``[n_super, e, ...]``), so the weight bridge is a plain copy.  The
-``lax.scan`` over layers becomes a Python loop over those slices.
+``lax.scan`` over layers (``cfg.scan_layers``) stays a Python loop over
+those slices, whatever the flag says: eager PyTorch has no scan to trade
+compile time against.  In train mode each block runs under ``_remat``,
+the JAX ``jax.checkpoint`` policies: ``"full"`` saves only the block's
+inputs and recomputes the rest in the backward pass, ``"minimal"``
+(``dots_with_no_batch_dims_saveable``) also saves the outputs of the
+products without a batch dim (``aten.mm``/``aten.addmm``: the
+projections) and recomputes the rest, flash attention included, and
+``"none"`` saves everything; the numbers are the same under all three.
+``shard`` marks the residual stream's logical dims at the JAX points (a
+no-op on the local view the sharded step runs).
 Modes: ``train`` (full sequence, no cache), ``prefill`` (one paged chunk,
 a whole prompt into a dense cache, or with ``chunked`` one exact-length
 chunk resuming a dense staging cache), ``decode`` (one token, paged or
@@ -28,11 +38,14 @@ everywhere, trained through the JAX custom VJP's backward
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (current_rules, shard,
+                                              with_rules)
 from repro_torch.models import attention, mamba2, moe
 from repro_torch.models.config import ModelConfig, check_ported
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
@@ -186,6 +199,7 @@ def attn_block(bp: Params, x, cfg: ModelConfig, *, positions, mode: str,
     parallel block (command-r) adds the attention and the MLP of the same
     normed input to x (JAX ``transformer.py:94-96``).  ``aux`` is a moe
     block's load-balancing loss, ``None`` for an MLP block."""
+    x = shard(x, "batch", "act_seq", "embed")
     h = apply_norm(bp["norm1"], x, cfg, kernel=kernel_norm)
     p = bp["attn"]
     if mode == "verify":
@@ -207,20 +221,26 @@ def attn_block(bp: Params, x, cfg: ModelConfig, *, positions, mode: str,
         attn_out = attention.attend(p, h, cfg, positions=positions,
                                     causal=not cfg.encoder_only,
                                     cache=cache)
+    d_ff = cfg.moe.first_dense_d_ff if cfg.family == "moe" else cfg.d_ff
+    aux = None
     if cfg.parallel_block:
-        return x + attn_out + apply_mlp(bp["mlp"], h, cfg), None
-    x = x + attn_out
-    h2 = apply_norm(bp["norm2"], x, cfg, kernel=kernel_norm)
-    if "moe" in bp:
-        ff, aux = moe.apply_moe(bp["moe"], h2, cfg)
-        return x + ff, aux
-    return x + apply_mlp(bp["mlp"], h2, cfg), None
+        x = x + attn_out + apply_mlp(bp["mlp"], h, cfg, d_ff)
+    else:
+        x = x + attn_out
+        h2 = apply_norm(bp["norm2"], x, cfg, kernel=kernel_norm)
+        if "moe" in bp:
+            ff, aux = moe.apply_moe(bp["moe"], h2, cfg)
+        else:
+            ff = apply_mlp(bp["mlp"], h2, cfg, d_ff)
+        x = x + ff
+    return shard(x, "batch", "act_seq", "embed"), aux
 
 
 def mamba_block(bp: Params, x, cfg: ModelConfig, *, mode: str, state=None,
                 kernel_norm: bool = False):
     """One pre-norm Mamba2 block; ``state`` (this layer's views of the
     cache, ``None`` in train mode) is advanced in place."""
+    x = shard(x, "batch", "act_seq", "embed")
     h = apply_norm(bp["norm"], x, cfg, kernel=kernel_norm)
     if mode == "decode":
         out, new = mamba2.decode_step_mamba2(bp["mamba"], h, cfg, state,
@@ -234,13 +254,48 @@ def mamba_block(bp: Params, x, cfg: ModelConfig, *, mode: str, state=None,
     return x + out
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """``"minimal"``'s policy: keep what a product without a batch dim
+    returns, recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig, mode: str):
+    """``fn`` (one block) under ``cfg.remat_policy`` in train mode (JAX
+    ``transformer.py:234-241``); as it is otherwise."""
+    if mode != "train" or cfg.remat_policy == "none":
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    kw = {}
+    if cfg.remat_policy == "minimal":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+    def run(*args, **kwargs):
+        rules = current_rules()
+
+        def block(*a, **k):        # the recompute may run on another thread
+            with with_rules(rules):
+                return fn(*a, **k)
+        return checkpoint(block, *args, use_reentrant=False, **kw, **kwargs)
+    return run
+
+
 def _mamba_blocks(blocks: Params, x, cfg: ModelConfig, *, mode: str,
                   states: Optional[Params], kernel_norm: bool):
     layers = unstack(blocks)
     views = unstack(states) if states is not None else [None] * len(layers)
+    block = _remat(mamba_block, cfg, mode)
     for bp, st in zip(layers, views, strict=True):
-        x = mamba_block(bp, x, cfg, mode=mode, state=st,
-                        kernel_norm=kernel_norm)
+        x = block(bp, x, cfg, mode=mode, state=st, kernel_norm=kernel_norm)
     return x
 
 
@@ -270,6 +325,7 @@ def forward_stack(params: Params, x, cfg: ModelConfig, *, positions,
     kw = dict(positions=positions, mode=mode, cache_len=cache_len,
               kernel_norm=kn)
     aux = None
+    block = _remat(attn_block, cfg, mode)
     if dense or fam == "moe":
         # DeepSeek's leading dense blocks first, over their own caches
         stacks = [("blocks", "attn")]
@@ -280,9 +336,8 @@ def forward_stack(params: Params, x, cfg: ModelConfig, *, positions,
             pools = unstack(caches[ckey]) if caches \
                 else [None] * len(blocks)
             for bp, cache in zip(blocks, pools, strict=True):
-                x, a = attn_block(bp, x, cfg, cache=cache,
-                                  page_table=page_table, chunked=chunked,
-                                  **kw)
+                x, a = block(bp, x, cfg, cache=cache, page_table=page_table,
+                             chunked=chunked, **kw)
                 if a is not None:
                     aux = a if aux is None else aux + a
     elif fam == "ssm":
@@ -297,8 +352,8 @@ def forward_stack(params: Params, x, cfg: ModelConfig, *, positions,
         for sp, ms, ac in zip(supers, mstates, acaches, strict=True):
             x = _mamba_blocks(sp, x, cfg, mode=mode, states=ms,
                               kernel_norm=kn)
-            x, _ = attn_block(params["shared_attn"], x, cfg, cache=ac,
-                              chunked=chunked, **kw)
+            x, _ = block(params["shared_attn"], x, cfg, cache=ac,
+                         chunked=chunked, **kw)
         if "tail_blocks" in params:
             x = _mamba_blocks(params["tail_blocks"], x, cfg, mode=mode,
                               states=caches["mamba_tail"] if caches

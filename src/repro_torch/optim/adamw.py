@@ -12,8 +12,12 @@ norm scales, as in JAX.
 Unlike the JAX function, ``apply_updates`` updates the parameters and the
 fp32 moments in place, under ``torch.no_grad()``: at full tinyllama width
 they are 4.4 GB each, and a functional update would hold two copies of
-each at once.  ``state_partition_specs`` comes with sharding (ROADMAP
-Queue A item 13).
+each at once.  On a mesh (``placement``) each rank steps its shards: fp32
+moments share their parameter's spec, so the update is elementwise on the
+shard; int8 moments are blocked over the whole flattened leaf and their
+block axis is sharded on its own (``launch.programs.opt_state
+_shardings``), so a rank gathers the leaf and its gradient, steps its
+rows of blocks and the ranks gather the stepped rows back.
 """
 from __future__ import annotations
 
@@ -127,11 +131,14 @@ def _adam_step(p, ndim: int, g, mf, vf, cfg: AdamWConfig, b1c, b2c, lr):
 
 
 def _step_int8(p, g, m: QuantMoment, v: QuantMoment, cfg: AdamWConfig,
-               clip, b1c, b2c, lr) -> Tuple[QuantMoment, QuantMoment]:
+               clip, b1c, b2c, lr, ndim=None) -> Tuple[QuantMoment,
+                                                       QuantMoment]:
     """One leaf's step with int8 moments, ``_CHUNK`` elements at a time:
     every op is elementwise or within a quantization block, so the
-    numbers are those of the whole leaf at once."""
+    numbers are those of the whole leaf at once.  ``p`` may be the flat
+    run of a leaf of ``ndim`` dimensions that ``m``'s blocks cover."""
     block, n = cfg.quant_block, p.numel()
+    ndim = p.dim() if ndim is None else ndim
     rows, step = m.q.shape[0], max(_CHUNK // cfg.quant_block, 1)
     flat, gflat = p.view(-1), g.reshape(-1)
     out_m = QuantMoment(torch.empty_like(m.q), torch.empty_like(m.scale))
@@ -143,7 +150,7 @@ def _step_int8(p, g, m: QuantMoment, v: QuantMoment, cfg: AdamWConfig,
         mf = _dequantize(QuantMoment(m.q[r0:r1], m.scale[r0:r1]), shape)
         vf = _dequantize_log(QuantMoment(v.q[r0:r1], v.scale[r0:r1]),
                              shape)
-        _adam_step(flat[e0:e1], p.dim(),
+        _adam_step(flat[e0:e1], ndim,
                    gflat[e0:e1].to(torch.float32) * clip, mf, vf, cfg,
                    b1c, b2c, lr)
         for out, qm in ((out_m, _quantize(mf, block)),
@@ -153,15 +160,46 @@ def _step_int8(p, g, m: QuantMoment, v: QuantMoment, cfg: AdamWConfig,
     return out_m, out_v
 
 
+def _step_int8_sharded(p, g, m: QuantMoment, v: QuantMoment,
+                       cfg: AdamWConfig, clip, b1c, b2c, lr, placement):
+    """``_step_int8`` of one leaf on a mesh: ``p`` and ``g`` are this
+    rank's shards (``pspec``), ``m`` and ``v`` its rows of the whole
+    leaf's blocks (``mspec``).  The leaf and its gradient are gathered,
+    this rank's rows stepped, and the stepped rows gathered back."""
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import spec_axes
+
+    comm, pspec, mspec = placement
+    whole = spmd.gather_of(p, pspec, comm)
+    gwhole = spmd.gather_of(g, pspec, comm)
+    block, n, rows = cfg.quant_block, whole.numel(), m.q.shape[0]
+    axes = spec_axes(mspec[0]) if mspec and mspec[0] is not None else ()
+    e0 = comm.index(axes) * rows * block
+    e1 = min(e0 + rows * block, n)
+    piece = whole.reshape(-1)[e0:e1].clone()
+    out = _step_int8(piece, gwhole.reshape(-1)[e0:e1], m, v, cfg, clip,
+                     b1c, b2c, lr, ndim=whole.dim())
+    piece = torch.nn.functional.pad(piece, (0, rows * block - piece.numel()))
+    flat = spmd.all_gather_dim(piece, 0, comm.group(axes))[:n]
+    p.copy_(spmd.shard_of(flat.reshape(whole.shape), pspec, comm))
+    return out
+
+
 @torch.no_grad()
 def apply_updates(params: Params, grads: Params, state: Dict[str, Any],
-                  cfg: AdamWConfig, lr_scale=1.0):
+                  cfg: AdamWConfig, lr_scale=1.0, *, gnorm=None,
+                  placement=None):
     """One AdamW step.  Returns ``(params, state, metrics)``: the same
     parameter tensors and fp32 moments, updated in place (int8 moments
     are quantized anew, chunk by chunk), and metrics ``grad_norm`` and
-    ``lr``."""
+    ``lr``.  ``gnorm``: the gradients' global norm, where the caller has
+    it (a sharded step reduces it over the mesh).  ``placement``: ``(comm,
+    parameter specs, moment specs)`` in leaf order, for a step on a mesh
+    of more than one rank (``_step_int8_sharded``)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
+    specs = iter(zip(*placement[1:])) if placement is not None else None
     clip = torch.clamp(cfg.grad_clip_norm / torch.clamp(gnorm, min=1e-9),
                        max=1.0) if cfg.grad_clip_norm > 0 else 1.0
     f32 = dict(dtype=torch.float32, device=step.device)
@@ -171,6 +209,9 @@ def apply_updates(params: Params, grads: Params, state: Dict[str, Any],
     lr = cfg.lr * torch.as_tensor(lr_scale, **f32)
 
     def upd(p, g, m, v):
+        if cfg.state_dtype == "int8" and specs is not None:
+            return _step_int8_sharded(p, g, m, v, cfg, clip, b1c, b2c, lr,
+                                      (placement[0], *next(specs)))
         if cfg.state_dtype == "int8":
             return _step_int8(p, g, m, v, cfg, clip, b1c, b2c, lr)
         _adam_step(p, p.dim(), g.to(torch.float32) * clip, m, v, cfg, b1c,

@@ -4,8 +4,10 @@ and int8 error-feedback compression.
 ``accumulate_grads`` takes the gradients of the parameter leaves with
 ``torch.autograd.grad``; the ``lax.scan`` over microbatches becomes a
 Python loop with the same sums in the same order.  ``compress_decompress``
-is the quantize → dequantize round trip of the cross-pod gradient payload;
-sending it across pods waits for sharding (ROADMAP Queue A item 13).
+is the quantize → dequantize round trip of the gradient payload, which
+the train step applies to whole leaves under ``TrainConfig.compress_grads``
+(``launch.programs``); ``distributed.collectives`` sends an int8 payload
+across pods.
 """
 from __future__ import annotations
 

@@ -252,11 +252,14 @@ def test_two_streams_through_one_image_keep_their_state():
 
 
 def test_images_refuse_sharding():
+    """Sharded images need a device mesh as their placement handle:
+    ``in_shardings`` on a plain device or an unknown handle are refused
+    (``tests/test_torch_mesh_moe.py`` builds one on two ranks)."""
     args = (torch.zeros(2),)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="device mesh"):
         tcore.ExecutableImage.build("x", lambda a: a, args,
-                                    in_shardings=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
+                                    in_shardings=((None,),))
+    with pytest.raises(TypeError, match="placement handle"):
         tcore.ExecutableImage.build("x", lambda a: a, args, mesh=object())
     with pytest.raises(TypeError):
         tcore.ExecutableImage.build("x", lambda a: a, (3,))

@@ -53,6 +53,21 @@ def test_port_runs_with_jax_unimportable(tmp_path):
         torch.set_num_threads(1)
         import repro_torch.launch.serve
         import repro_torch.launch.train
+        import repro_torch.launch.mesh, repro_torch.launch.shapes
+        import repro_torch.launch.programs
+        import repro_torch.distributed.sharding, repro_torch.distributed.spmd
+        import repro_torch.distributed.collectives
+        import repro_torch.distributed.fault_tolerance
+        from repro_torch.configs import get_config
+        from repro_torch.distributed import collectives
+        from repro_torch.launch import programs
+        class ShapeOnly:                   # a mesh that is only its shape
+            shape = {"data": 16, "model": 16}
+        specs = programs.program_shardings(get_config("nemotron-4-340b"),
+                                           "train_4k", ShapeOnly())[0]
+        assert specs[0]["embed"]["embedding"] == ("model", "data")
+        q, s = collectives.quantize_block(torch.ones(300))
+        assert q.dtype == torch.int8 and s.shape == (2, 1)
         import repro_torch.kernels.build
         import repro_torch.core
         import repro_torch.serving.router
@@ -122,6 +137,7 @@ def test_entry_points_refuse_a_missing_gpu():
                  lambda: serve.main(["--reduced", "--requests", "1"]),
                  lambda: Trainer(cfg),
                  lambda: Trainer(cfg, device="cuda"),
+                 lambda: Trainer(cfg, "cuda"),
                  lambda: train.main(["--reduced", "--steps", "1"]),
                  # the control plane: builders, nodes and launch/serve.py
                  lambda: router.make_container_builder(cfg),

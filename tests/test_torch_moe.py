@@ -144,13 +144,27 @@ def test_router_topk_ties_go_to_the_lower_expert():
 
 
 def test_apply_moe_refuses_a_multi_rank_group(monkeypatch):
-    """JAX shards the MoE over a mesh; the port has one card."""
+    """Under rules over a mesh of more than one rank the MoE layer takes
+    its sharded paths, which need the mesh's process group: a mesh that is
+    only a shape (no devices, no group) is refused.  Outside a rules
+    context it runs the local path, as JAX does, even in a process group
+    of two ranks."""
+    from repro_torch.distributed import sharding as tsh
+
     _, tcfg = _mixtral()
     tp = tmoe.init_moe(torch.Generator().manual_seed(0), tcfg)
+    x = torch.zeros(1, 3, tcfg.d_model)
+
+    class ShapeOnly:
+        shape = {"data": 1, "model": 2}
+
+    with tsh.use_rules(ShapeOnly(), tsh.single_pod_rules()):
+        with pytest.raises(ValueError, match="process group"):
+            tmoe.apply_moe(tp, x, tcfg)
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tmoe.apply_moe(tp, torch.zeros(1, 3, tcfg.d_model), tcfg)
+    out, _ = tmoe.apply_moe(tp, x, tcfg)
+    assert torch.equal(out, tmoe._apply_moe_local(tp, x, tcfg)[0])
 
 
 # ---------------------------------------------------------------------------

@@ -485,9 +485,12 @@ def test_train_launcher_runs_on_cpu(tmp_path, capsys):
                 "--ckpt-dir", str(tmp_path)])
     assert "final loss" in capsys.readouterr().out
     assert ck.latest_step(str(tmp_path)) == 3
-    for flags in (["--mesh", "single"], ["--mesh", "multi"],
-                  ["--distributed"]):
-        with pytest.raises(NotImplementedError, match="item 13"):
+    # a production mesh names the world size it needs; --distributed
+    # needs torchrun's environment
+    for flags, msg in ((["--mesh", "single"], "world size 256"),
+                       (["--mesh", "multi"], "world size 512"),
+                       (["--distributed"], "torchrun")):
+        with pytest.raises(RuntimeError, match=msg):
             train.main(["--reduced", "--device", "cpu", *flags])
 
 
