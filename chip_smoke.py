@@ -52,6 +52,11 @@ continues:
    full caches of 4096; lengths 0, S and past S, a softcap, G 4 and 16,
    values of their own), each timed shape against SDPA on the first of
    its cuDNN, memory-efficient and math backends that takes it (named);
+   the dense decode kernels asked also for each row's log-sum-exp, at
+   gemma-2b's and deepseek's blocks of a cache split over two ranks
+   (timed; outputs bit-equal to the plain call's, lse within 1e-4 +
+   1e-5·|lse|, an empty block's rows 0 and NEG_INF) and over 1024 MLA
+   slots (the split merge);
    flash attention
    non-causal at G 1 at the encoders' shapes, each timed against one
    non-causal SDPA: the cv frame (B 1, T 32, 12 heads of 64), a hubert
@@ -270,6 +275,17 @@ continues:
    unbroken loss and ``--mesh single`` exits naming world size 256.
    Every train phase runs its config's remat (the flash forward twice a
    layer and step under "minimal" and "full");
+6g. the dry-run against the card and decode over caches split along the
+   sequence: phase 6e's gemma-2b train step counted on meta
+   (``programs.lower_program``) and on the card under the same counting
+   mode, FLOPs and argument bytes equal, the predicted peak within 10% of
+   the allocator's, the roofline floor at most the median step;
+   nemotron-4-340b train_4k on 256 fake ranks and gemma-2b decode_32k on
+   512 through ``launch/dryrun.py``, each ending ok; gemma-2b (bf16) and
+   deepseek-v2-236b's dense and one MoE layer (fp32) at full width
+   decoded on a (1, 2) mesh of two gloo ranks sharing the card, their
+   caches split along the sequence, against one rank (logits, tokens,
+   the log-sum-exp decode kernel's launches); under 150 s;
 7. train consistency: fp32 at full width, 2 layers, every gradient leaf of
    ``Model.loss`` through the kernels against the plain path within 2e-4
    relative; a reduced fp32 model trained 30 steps through the kernels
@@ -1448,6 +1464,87 @@ def phase_kernels(torch, timer, card):
                 check(bool((out[list(empty)] == 0).all()),
                       f"decode_attention {label}: a row with no valid key "
                       f"must give exactly 0")
+    # the log-sum-exp variant, as phase 6g's decode over a cache split
+    # along the sequence runs it (every query head over one rank's block):
+    # at gemma-2b's (B 4, G 8 over one KV head, D 256, blocks of 512) and
+    # deepseek-v2-236b's (B 2, G 128, keys 576 over values 512, blocks of
+    # 64) shapes, timed, and over 1024 slots (MLA's split merge): its
+    # output equal to decode_attention's bit for bit and within the
+    # tolerance of the plain version's, its lse within lse_atol +
+    # lse_rtol·|lse| of the plain one, a block with no valid key giving 0
+    # and NEG_INF
+    from repro_torch.kernels.decode_attention import decode_attention_lse
+
+    def lse_plain(*a, **k):
+        return ref.decode_attention(*a, return_lse=True, **k)[0]
+
+    def lse_kernel(*a, **k):
+        return decode_attention_lse(*a, **k)[0]
+
+    gemma_cp = {"D": 256, "B": 4, "Hq": 8, "Hkv": 1}
+    worst_dec_lse = {}
+    cp_cases = [
+        # label, the case, the key the times go under, empty rows
+        ("D256 B4/S512 G8 a full block, an empty one", lambda dt:
+         _dense_case(torch, gen, dt, 512, **gemma_cp,
+                     fix={0: 512, 1: 0, 2: 300, 3: 512}),
+         "decode_attention_lse", (1,)),
+        ("D256 B4/S512 G8 the decode block filling", lambda dt:
+         _dense_case(torch, gen, dt, 512, **gemma_cp,
+                     fix={0: 1, 1: 16, 2: 0, 3: 9}), None, (2,)),
+        ("D256 B4/S512 G8 softcap30", lambda dt:
+         _dense_case(torch, gen, dt, 512, **gemma_cp, softcap=30.0),
+         None, ()),
+        ("MLA B2/S64 G128 576/512 a full block, an empty one", lambda dt:
+         _mla_decode_case(torch, gen, dt, 2, 64, fix={0: 64, 1: 0}),
+         "decode_attention_lse@deepseek_cp", (1,)),
+        ("MLA B2/S64 G128 the decode block filling", lambda dt:
+         _mla_decode_case(torch, gen, dt, 2, 64, fix={0: 1, 1: 16}),
+         None, ()),
+        ("MLA B2/S1024 G128 split keys merged, softcap30", lambda dt:
+         _mla_decode_case(torch, gen, dt, 2, 1024, softcap=30.0,
+                          fix={0: 1024, 1: 0}), None, (1,)),
+    ]
+    for dtype in ("bfloat16", "float32"):
+        for label, case, key, empty in cp_cases:
+            args, kw, nb, fl = case(dtype)
+            nb += 4 * args[0].shape[0] * args[0].shape[1]    # lse written
+            timed = key is not None and dtype == "bfloat16"
+            mla = args[0].shape[-1] == 576
+            lib = backend = None
+            if timed and mla:
+                backend, lib = _sdpa_mla_decode(torch, F, args, kw)
+            elif timed:
+                lib = _sdpa_dense(torch, F, args, kw)
+            run("decode_attention_lse", label, dtype, lse_kernel, lse_plain,
+                args, kw, nb, fl, lib, timed, key)
+            if backend is not None:
+                results[key]["library"] = f"SDPA {backend}"
+                print(f"[kernel] decode_attention_lse {label}: library SDPA "
+                      f"backend {backend}")
+            out, lse = decode_attention_lse(*args, **kw)
+            _, want = ref.decode_attention(*args, return_lse=True, **kw)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(out, decode_attention(*args, **kw))),
+                  f"decode_attention_lse {label}: its output differs from "
+                  f"decode_attention's")
+            rows = [i for i in range(lse.shape[0]) if i not in empty]
+            diff = (lse[rows] - want[rows]).abs()
+            err = float(diff.max())
+            print(f"[kernel] decode_attention_lse {label} lse {dtype}: "
+                  f"max_abs_err={err:.3e} (limit {lse_atol:.0e} + "
+                  f"{lse_rtol:.0e}·|lse|)")
+            check(bool((diff <= lse_atol + lse_rtol * want[rows].abs())
+                       .all()), f"decode_attention_lse {label}: lse off by "
+                  f"{err}")
+            if empty:
+                e = list(empty)
+                check(bool((out[e] == 0).all())
+                      and bool((lse[e] == ref.NEG_INF).all()),
+                      f"decode_attention_lse {label}: an empty block's rows "
+                      f"must give 0 and NEG_INF")
+            worst_dec_lse[dtype] = max(worst_dec_lse.get(dtype, 0.0), err)
+
     # the training path's backward kernels: timed at the train step's
     # shape, checked in every variant the path and the JAX tests take
     from repro_torch.kernels.flash_attention_bwd import (
@@ -1742,6 +1839,8 @@ def phase_kernels(torch, timer, card):
         res["err_by_dtype"] = by_dtype
         if name.split("@")[0] == "flash_attention":
             res["lse_max_abs_err"] = worst_lse
+        if name.split("@")[0] == "decode_attention_lse":
+            res["lse_max_abs_err"] = worst_dec_lse
     print(f"[kernel] flash_attention lse worst max_abs_err {worst_lse}")
     return results
 
@@ -5076,6 +5175,368 @@ def phase_mesh_train(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 6g: the dry-run against the card, and decode over caches split
+# along the sequence
+# ---------------------------------------------------------------------------
+
+# the context-parallel decodes of phase 6g: (batch, prompt, decode steps,
+# cache slots, dtype), the cache split in two blocks over a model axis of
+# 2, the prompt filling the first and the decode steps writing the second.
+# deepseek runs in fp32: in bf16 a rounding flips a top-6 routing of 160
+# experts between the two runs (on an H100 80GB HBM3 at 700 W its logits
+# came 8.5e-2 off one rank's at a step), which no split of the cache
+# causes
+CP_CASES = {"gemma-2b": (4, 512, 16, 1024, "bfloat16"),
+            "deepseek-v2-236b": (2, 64, 16, 128, "float32")}
+
+
+def _cp_config(name: str):
+    """gemma-2b whole; deepseek-v2-236b's dense layer and one MoE layer
+    (``DEEPSEEK_TRAIN_CUT``) at capacity factor E (no pair drops on either
+    side); parameters and compute in the case's dtype."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(
+            cfg, num_layers=DEEPSEEK_TRAIN_CUT, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    dtype = CP_CASES[name][4]
+    return dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+
+
+def _zero_launch_counts() -> None:
+    import importlib
+
+    from repro_torch.kernels import _WRAPPERS
+
+    for mod, fn in _WRAPPERS.values():
+        getattr(importlib.import_module(f"repro_torch.kernels.{mod}"),
+                fn).launches = 0
+
+
+def _cp_run(torch, arch, comm, rules, mesh):
+    """One rank's part of ``arch``'s context-parallel decode: the one-rank
+    prefill and greedy decode (no rules), then the same on this rank's
+    shards under the (1, 2) mesh's rules, fed the one-rank tokens; the
+    sharded run's launches counted from 0."""
+    from repro_torch.distributed import sharding as shlib, spmd
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import programs
+    from repro_torch.models.model import Model
+    from repro_torch.tree import leaves, unflatten_like
+
+    B, P, steps, S, _ = CP_CASES[arch]
+    cfg = _cp_config(arch)
+    model = Model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (B, P), device="cuda",
+                         dtype=torch.int32,
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+    pre = programs.build_prefill_step(cfg, "cuda")
+    dec = programs.build_decode_step(cfg, "cuda")
+    want, tokens = [], []
+    with torch.no_grad():
+        caches = model.init_caches(B, S, cfg.cdtype)
+        logits, caches, clen = pre(params, {"tokens": toks}, caches)
+        for i in range(steps + 1):
+            want.append(logits.float())
+            tokens.append(logits.argmax(-1).to(torch.int32))
+            if i < steps:
+                logits, caches, clen = dec(params, tokens[-1], caches, clen)
+        del caches
+        # this rank's parameters as views of the whole ones
+        pspec = shlib.param_partition_specs(params, rules)
+        local = unflatten_like(params, [
+            spmd.shard_of(p, sp, comm) for p, sp in zip(
+                leaves(params), programs.flat_specs(pspec))])
+        whole = model.init_caches(B, S, cfg.cdtype)
+        cspec = shlib.cache_partition_specs(whole, rules)
+        lc = unflatten_like(whole, [
+            spmd.shard_of(c, sp, comm).contiguous()
+            for c, sp in zip(leaves(whole), programs.flat_specs(cspec))])
+        del whole
+        lspec = rules.resolve(("batch", "vocab"), (B, cfg.vocab_size))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        _zero_launch_counts()
+        got = []
+        with shlib.use_rules(mesh, rules.rules):
+            logits, lc, clen = pre(local, {"tokens": toks}, lc)
+            got.append(spmd.gather_of(logits, lspec, comm).float())
+            for i in range(steps):
+                logits, lc, clen = dec(local, tokens[i], lc, clen)
+                got.append(spmd.gather_of(logits, lspec, comm).float())
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        secs = time.monotonic() - t0
+    # a token may differ from the one rank's only where that rank's top
+    # two logits lie within the two runs' difference on that row
+    errs, ties, differ = [], 0, []
+    for i, (w, g) in enumerate(zip(want, got)):
+        errs.append(float((g - w).abs().max() / w.abs().max()))
+        top2 = w.topk(2, dim=-1).values
+        for b in range(B):
+            if int(g[b].argmax()) == int(tokens[i][b]):
+                continue
+            gap = float(top2[b, 0] - top2[b, 1])
+            diff = float((g[b] - w[b]).abs().max())
+            if gap > diff:
+                differ.append((i, b, gap, diff))
+            else:
+                ties += 1
+    out = {"rel_err": max(errs), "ties": ties, "differ": differ,
+           "launches": launches, "secs": secs, "steps": steps,
+           "layers": cfg.num_layers, "cache_spec": str(cspec),
+           "tokens": [t.tolist() for t in tokens]}
+    del params, local, lc, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cp_worker(rank: int, store: str) -> None:
+    """One of two gloo ranks sharing the card: each ``CP_CASES`` arch on
+    the (1, 2) mesh (``_cp_run``); the results to ``<store>.<rank>``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import spmd
+    from repro_torch.launch import programs
+    from repro_torch.launch.mesh import make_test_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    mesh = make_test_mesh(1, 2)
+    comm, rules = spmd.comm_of(mesh), programs.rules_for(mesh)
+    out = {arch: _cp_run(torch, arch, comm, rules, mesh)
+           for arch in CP_CASES}
+    torch.save(out, f"{store}.{rank}")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _cp_decode(torch):
+    """Phase 6g (a): gemma-2b (whole, 8 heads over one KV head; bf16) and
+    deepseek-v2-236b (the dense and one MoE layer, the latent cache;
+    fp32) at full width, a prompt and 16 greedy decode steps on a (1, 2)
+    mesh of two spawned gloo ranks sharing the card, each cache split
+    along the sequence over the model axis: logits within 3.5e-2 (bf16)
+    or 2e-4 (fp32, the models' bound) of one rank's, greedy tokens equal
+    (but at a top-2 tie
+    within the runs' difference), the flash forward launched once a layer
+    and rank, the log-sum-exp decode kernel once a layer, step and rank,
+    and the plain decode kernel never.  Returns the launches over both
+    ranks and the decode steps."""
+    import multiprocessing as mp
+
+    store = os.path.join(ROOT, "build", "chip_smoke_cp_store")
+    for f in (store, store + ".0", store + ".1"):
+        if os.path.exists(f):
+            os.remove(f)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_cp_worker, args=(r, store))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(240)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    check(not alive and all(p.exitcode == 0 for p in procs),
+          f"the context-parallel ranks: exit codes "
+          f"{[p.exitcode for p in procs]}")
+    ranks = [torch.load(f"{store}.{r}") for r in range(2)]
+    launches = dict.fromkeys(ranks[0][next(iter(CP_CASES))]["launches"], 0)
+    n_steps = 0
+    for arch, (B, P, steps, S, dtype) in CP_CASES.items():
+        tol = 3.5e-2 if dtype == "bfloat16" else 2e-4
+        r0 = ranks[0][arch]
+        L = r0["layers"]
+        for r in ranks:
+            got = r[arch]["launches"]
+            want = {"flash_attention": L, "decode_attention_lse": L * steps,
+                    "decode_attention": 0}
+            check(all(got[k] == v for k, v in want.items()),
+                  f"{arch} on two ranks launched {got}, not {want}")
+            for k, v in got.items():
+                launches[k] += v
+        n_steps += steps
+        print(f"[cp-decode] {arch} at full width, {dtype}, B {B}, a "
+              f"{P}-token prompt and {steps} greedy steps over {S} cache "
+              f"slots split along the sequence over a model axis of 2 "
+              f"({r0['cache_spec']}): logits within {r0['rel_err']:.3e} of "
+              f"one rank's (bound {tol:.1e}); tokens equal but at "
+              f"{r0['ties']} top-2 ties; the sharded run {r0['secs']:.2f}s; "
+              f"launches a rank "
+              f"{ {k: v for k, v in r0['launches'].items() if v} }")
+        check(r0["rel_err"] <= tol and not r0["differ"],
+              f"{arch}: two ranks against one: logits {r0['rel_err']}, "
+              f"tokens differing past a tie {r0['differ']}")
+        check(ranks[1][arch]["tokens"] == r0["tokens"],
+              f"{arch}: the two ranks' one-rank runs differ")
+    for f in (store, store + ".0", store + ".1"):
+        if os.path.exists(f):
+            os.remove(f)
+    return launches, n_steps
+
+
+def _count_train_step(torch):
+    """Phase 6g (b): phase 6e's gemma-2b train step (B 2 x T 1024, remat
+    "minimal", fp32 state) counted on ``meta`` at world size 1
+    (``programs.lower_program``, the kernels' formulas) and the same step
+    counted on the card under the same mode: FLOPs and argument bytes
+    equal, the predicted peak within 10% of what the allocator saw over
+    the step (its arguments and its temporaries; what else the process
+    holds taken off), and the roofline floor (the larger of the compute
+    and fused memory terms) at most the median step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import make_lm_iterator
+    from repro_torch.launch import programs
+    from repro_torch.launch.mesh import LocalMesh
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.roofline import analysis
+    from repro_torch.tree import leaves
+
+    cfg = get_config("gemma-2b")
+    tcfg = programs.default_train_config(cfg)
+    shape = ShapeSpec("gemma_6e", 1024, 2, "train")
+    t0 = time.monotonic()
+    meta = programs.lower_program(cfg, shape, LocalMesh("meta"), tcfg,
+                                  attn_impl="kernel")
+    lower_s = time.monotonic() - t0
+    mc, mm = meta.cost(), meta.memory()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    for p in leaves(params):
+        p.requires_grad_(True)
+    opt = adamw.init_state(params, tcfg.adamw)
+    batch = {k: torch.tensor(np.asarray(v), dtype=torch.int32,
+                             device="cuda")
+             for k, v in next(make_lm_iterator(cfg, 2, 1024, seed=0)).items()}
+    args = (params, opt, batch)
+    step = programs.build_train_step(cfg, tcfg, "cuda")
+    step(*args)                              # kernels loaded, workspaces
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    card = analysis.count(step, args, attn_impl="kernel")
+    torch.cuda.synchronize()
+    seen = torch.cuda.max_memory_allocated()
+    cc, cm = card.cost(), card.memory()
+    measured = seen - (held - cm["argument_bytes"])
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        step(*args)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t)
+    med = sorted(times)[1]
+    roof = analysis.analyze(
+        flops_per_device=mc["flops"], bytes_per_device=mc["bytes"],
+        bytes_fused_per_device=mc["bytes_fused"], attn_io_bytes=mc["attn_io"],
+        collective=mc["collectives"], num_devices=1,
+        model_flops=analysis.model_flops_estimate(cfg, shape))
+    floor = roof.floor_s()
+    print(f"[dryrun-card] gemma-2b train step B 2 x T 1024 (remat "
+          f"{cfg.remat_policy}): meta {mc['flops']:.6e} FLOP, argument "
+          f"{mm['argument_bytes']} B, predicted peak {mm['peak_bytes']} B "
+          f"(temp {mm['temp_bytes']}), lowered in {lower_s:.1f}s; card "
+          f"{cc['flops']:.6e} FLOP, argument {cm['argument_bytes']} B, "
+          f"peak {measured} B over the step ({seen} B seen, {held} B held "
+          f"before it); kernels {mc['kernels']}")
+    print(f"[dryrun-card] roofline: compute {roof.compute_s * 1e3:.3f} ms, "
+          f"memory fused {roof.memory_fused_s * 1e3:.3f} ms (raw "
+          f"{roof.memory_s * 1e3:.3f}), floor {floor * 1e3:.3f} ms against "
+          f"the median step {med * 1e3:.1f} ms (all "
+          f"{[round(t * 1e3, 1) for t in times]}): {floor / med:.1%} of it")
+    print(f"[dryrun-card] bytes raw / fused: meta {mc['bytes']:.6e} / "
+          f"{mc['bytes_fused']:.6e}, card {cc['bytes']:.6e} / "
+          f"{cc['bytes_fused']:.6e}")
+    check(cc["flops"] == mc["flops"], f"the card's step counted "
+          f"{cc['flops']} FLOP, meta {mc['flops']}")
+    check(cm["argument_bytes"] == mm["argument_bytes"],
+          f"argument bytes {cm['argument_bytes']} on the card, "
+          f"{mm['argument_bytes']} on meta")
+    check(abs(mm["peak_bytes"] - measured) <= 0.10 * measured,
+          f"predicted peak {mm['peak_bytes']} B against {measured} B")
+    check(floor <= med, f"the roofline floor {floor} s exceeds the step "
+          f"{med} s")
+    del args, params, opt, batch, step, model, card
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _dryrun_cells():
+    """Phase 6g (c): two production cells through ``launch/dryrun.py``,
+    each in a process of its own, started at once: nemotron-4-340b
+    train_4k on the 16 x 16 mesh (256 fake ranks) and gemma-2b decode_32k
+    on the 2 x 16 x 16 (512; its cache split along the sequence).  Returns
+    the function that waits for both and checks each ended ok."""
+    cells = (("nemotron-4-340b", "train_4k", "single"),
+             ("gemma-2b", "decode_32k", "multi"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for arch, shape, mesh in cells:
+        out = os.path.join(ROOT, "build", f"chip_smoke_dryrun_{arch}.json")
+        if os.path.exists(out):
+            os.remove(out)
+        procs.append((out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out", out],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    return lambda: _dryrun_records(cells, procs)
+
+
+def _dryrun_records(cells, procs) -> None:
+    for (arch, shape, mesh), (out, proc) in zip(cells, procs):
+        log, _ = proc.communicate(timeout=240)
+        check(proc.returncode == 0 and os.path.exists(out),
+              f"dryrun {arch} {shape} {mesh}: exit {proc.returncode}\n"
+              f"{log[-3000:]}")
+        with open(out) as f:
+            rec = json.load(f)
+        r, m = rec["roofline"], rec["memory"]
+        check(rec["ok"] and rec["chips"] == (512 if mesh == "multi"
+                                             else 256), f"record {rec}")
+        print(f"[dryrun] {arch} {shape} on {rec['mesh']} ({rec['chips']} "
+              f"ranks, lowered in {rec['lower_s']}s): a rank's argument "
+              f"{m['argument_bytes']} B, temp {m['temp_bytes']} B; "
+              f"compute {r['compute_s']:.4f} s, memory (fused) "
+              f"{r['memory_fused_s']:.4f} s, collective "
+              f"{r['collective_s']:.4f} s; bottleneck {r['bottleneck']}")
+
+
+def phase_dryrun(torch):
+    """Phase 6g: the gemma-2b train step counted on meta and on the card
+    (b), the two production cells (c) and the context-parallel decodes on
+    two ranks (a).  Returns (a)'s launches and steps."""
+    t_phase = time.monotonic()
+    cells = _dryrun_cells()                  # on the host's cores meanwhile
+    _count_train_step(torch)
+    cells()
+    out = _cp_decode(torch)
+    secs = time.monotonic() - t_phase
+    print(f"[dryrun] phase 6g {secs:.1f}s")
+    check(secs < 150, f"phase 6g took {secs:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: training consistency, fp32
 # ---------------------------------------------------------------------------
 
@@ -5242,6 +5703,11 @@ KERNELS = {
         route="cuda", source="src/repro_torch/csrc/paged_attention.cuh",
         entry="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:99"),
+    # the same kernels asked also for each row's log-sum-exp
+    "decode_attention_lse": dict(
+        route="cuda", source="src/repro_torch/csrc/paged_attention.cuh",
+        entry="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:99"),
     "flash_attention_bwd_dq": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention_bwd.py:198"),
@@ -5261,12 +5727,13 @@ WIDE_TRAIN_PATHS = ("mixtral_train", "deepseek_train", "gemma_train",
                     "mesh_train")
 PATH_OF = {"flash_attention": ("serve", "edge", "fleet", "hubert",
                                "hubert_train", "mixtral", "deepseek")
-           + DENSE_PATHS + WIDE_TRAIN_PATHS,
+           + DENSE_PATHS + WIDE_TRAIN_PATHS + ("cp_decode",),
            "paged_decode_attention": ("serve", "edge", "fleet")
            + DENSE_PATHS,
            "paged_verify_attention": ("spec", "gemma_spec"),
            "decode_attention": ("spec", "zamba2", "edge", "gemma_spec",
                                 "mixtral", "deepseek", "mesh_train"),
+           "decode_attention_lse": ("cp_decode",),
            "flash_attention_bwd_dq": ("train", "hubert_train")
            + WIDE_TRAIN_PATHS,
            "flash_attention_bwd_dkv": ("train", "hubert_train")
@@ -5277,7 +5744,8 @@ UNIT_OF = {"serve": "request", "spec": "request", "train": "step",
            "fleet": "request", "hubert": "batch", "hubert_train": "step",
            "mixtral": "request", "deepseek": "request",
            **{p: "request" for p in DENSE_PATHS},
-           **{p: "step" for p in WIDE_TRAIN_PATHS}}
+           **{p: "step" for p in WIDE_TRAIN_PATHS},
+           "cp_decode": "step"}
 
 
 def _path_rate(paths: dict, name: str, tag: str) -> dict:
@@ -5330,6 +5798,7 @@ def main() -> int:
     paths["deepseek_train"] = phase_deepseek_train(torch)
     paths["gemma_train"] = phase_gemma_train(torch)
     paths["mesh_train"] = phase_mesh_train(torch)
+    paths["cp_decode"] = phase_dryrun(torch)
     phase_train_consistency(torch)
     phase_encoder_train_consistency(torch)
     for pre in ("train_", "encoder_train_48_", "encoder_train_80_"):

@@ -8,9 +8,9 @@
 // key.  Two serving paths call it: the speculative draft at every draft
 // decode step over its slot cache (`serving/spec_decode.py`; tinyllama's
 // G 8), and zamba2's shared attention block at every decode step over its
-// dense slots (`models/attention.py:decode_step`; G 1).  Values as wide as
-// keys only (Dv == D); the MLA absorbed decode, whose values are
-// narrower, is not ported.
+// dense slots (`models/attention.py:decode_step`; G 1).  The template
+// takes values as wide as keys (Dv == D); MLA's absorbed decode, whose
+// values are narrower, runs the kernels of namespace `mla` below.
 //
 // What bounds it on an H100: bytes.  Each (sequence, KV head) reads its
 // valid K and V once and does 4·G·D FLOP per key: 2 FLOP per byte at the
@@ -63,6 +63,10 @@
 //    output, max in base 2 and sum) go to an f32 workspace that a second
 //    kernel merges by the log-sum-exp rule.  A row with no valid key
 //    gives exactly 0.
+//  - Each entry can also write every row's log-sum-exp in f32 (the
+//    merged row's, for MLA): a decode over a cache split along the
+//    sequence across ranks merges their partials by it
+//    (`models/attention.py`).
 
 #include <type_traits>
 
@@ -77,6 +81,7 @@ namespace wg = flash::wg;
 
 constexpr int DK = 576, DV = 512;
 constexpr int kSplitKeys = 256;      // the least share of S a split takes
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kSMs = 132;
 
 // The key range [lo, hi) of split `split` of `nsplit` over sequence b:
@@ -190,6 +195,7 @@ mla_dense_decode_wgmma_kernel(const bf16* __restrict__ q,
                               const bf16* __restrict__ k,
                               const bf16* __restrict__ v,
                               bf16* __restrict__ o, float* __restrict__ ws,
+                              float* __restrict__ lse,
                               const int* __restrict__ clen, int S, int Hq,
                               int Hkv, int G, int window, float softcap,
                               float sm_scale) {
@@ -315,6 +321,9 @@ mla_dense_decode_wgmma_kernel(const bf16* __restrict__ q,
     const int c0 = wgi * DW;
     if (ws == nullptr) {                  // one split: the output itself
       const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
+      if (lse != nullptr && wgi == 0 && threadIdx.x % 4 == 0)
+        lse[row] = l[i] == 0.f ? kNegInf
+                               : fmaxf(m[i] * f, kNegInf) * kLn2 + logf(l[i]);
       bf16* out = o + row * DV + c0;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
@@ -362,6 +371,7 @@ mla_dense_decode_f32_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
                             float* __restrict__ o, float* __restrict__ ws,
+                            float* __restrict__ lse,
                             const int* __restrict__ clen, int S, int Hq,
                             int Hkv, int G, int window, float softcap,
                             float sm_scale) {
@@ -426,6 +436,8 @@ mla_dense_decode_f32_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int c = 0; c < C; ++c)
         o[row * DV + c * 32 + lane] = l[rr] == 0.f ? 0.f : acc[rr][c] / l[rr];
+      if (lse != nullptr && lane == 0)         // natural units here
+        lse[row] = l[rr] == 0.f ? kNegInf : m[rr] + logf(l[rr]);
       continue;
     }
     float* po = partial_o(ws, row, split, nsplit);
@@ -440,17 +452,21 @@ mla_dense_decode_f32_kernel(const float* __restrict__ q,
 }  // namespace f32
 
 // The partials of a row's splits merged by the log-sum-exp rule: M = max
-// m_s, L = Σ l_s·2^(m_s − M), o = Σ o_s·2^(m_s − M) / L, 0 where L = 0.
+// m_s, L = Σ l_s·2^(m_s − M), o = Σ o_s·2^(m_s − M) / L, 0 where L = 0;
+// with `lse`, the row's M·ln 2 + ln L (NEG_INF where L = 0).
 template <typename T>
 __global__ void __launch_bounds__(128)
 mla_dense_decode_combine_kernel(const float* __restrict__ ws,
-                                T* __restrict__ o, int rows, int nsplit) {
+                                T* __restrict__ o, float* __restrict__ lse,
+                                int rows, int nsplit) {
   const size_t row = blockIdx.x;
   const float* ml = partial_ml(const_cast<float*>(ws), rows, row, 0, nsplit);
   float M = kNegInf;
   for (int sp = 0; sp < nsplit; ++sp) M = fmaxf(M, ml[2 * sp]);
   float L = 0.f;
   for (int sp = 0; sp < nsplit; ++sp) L += ml[2 * sp + 1] * exp2f(ml[2 * sp] - M);
+  if (lse != nullptr && threadIdx.x == 0)
+    lse[row] = L == 0.f ? kNegInf : M * kLn2 + logf(L);
   const float* po = partial_o(const_cast<float*>(ws), row, 0, nsplit);
   for (int d = threadIdx.x; d < DV; d += blockDim.x) {
     float A = 0.f;
@@ -475,7 +491,8 @@ int splits(int B, int S, int Hq, int Hkv, int dtype) {
 template <typename T, typename Kernel>
 cudaError_t launch(Kernel kernel, size_t smem, int threads, int rows_a_block,
                    const void* q, const void* k, const void* v, void* o,
-                   void* ws, const void* clen, int B, int S, int Hq, int Hkv,
+                   void* ws, void* lse, const void* clen, int B, int S,
+                   int Hq, int Hkv,
                    int nsplit, int window, float softcap, float sm_scale,
                    cudaStream_t stream) {
   cudaError_t err = flash::set_smem(kernel, smem);
@@ -485,12 +502,13 @@ cudaError_t launch(Kernel kernel, size_t smem, int threads, int rows_a_block,
   kernel<<<dim3(nsplit, Hkv * RG, B), threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), w,
+      w == nullptr ? static_cast<float*>(lse) : nullptr,
       static_cast<const int*>(clen), S, Hq, Hkv, G, window, softcap,
       sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || w == nullptr) return err;
   mla_dense_decode_combine_kernel<T><<<B * Hq, 128, 0, stream>>>(
-      w, static_cast<T*>(o), B * Hq, nsplit);
+      w, static_cast<T*>(o), static_cast<float*>(lse), B * Hq, nsplit);
   return cudaGetLastError();
 }
 
@@ -499,10 +517,13 @@ cudaError_t launch(Kernel kernel, size_t smem, int threads, int rows_a_block,
 
 // Plain C entry points, loaded with ctypes.  dtype: 0 = float32,
 // 1 = bfloat16, the same for q and the caches.  q [B,Hq,D], k/v caches
-// [B,S,Hkv,D], cache_len [B] int32.  All tensors contiguous, the caches
-// 16-byte aligned.  Returns cudaGetLastError() after the launch.
+// [B,S,Hkv,D], cache_len [B] int32.  `lse` is f32 [B,Hq], each row's
+// log-sum-exp of its scaled (and capped) logits, or nullptr (none
+// written; the output is the same either way).  All tensors contiguous,
+// the caches 16-byte aligned.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int decode_attention_fwd(const void* q, const void* k_cache,
-                                    const void* v_cache, void* o,
+                                    const void* v_cache, void* o, void* lse,
                                     const void* cache_len, int B, int S,
                                     int Hq, int Hkv, int D, int dtype,
                                     int window, float softcap,
@@ -510,19 +531,21 @@ extern "C" int decode_attention_fwd(const void* q, const void* k_cache,
   return paged::run<dense_decode>(
       {q, k_cache, v_cache, nullptr, nullptr, o, nullptr, cache_len, B, 1,
        Hq, Hkv, D, S, 1, dtype, 0, window, softcap, sm_scale,
-       static_cast<cudaStream_t>(stream)});
+       static_cast<cudaStream_t>(stream), lse});
 }
 
 // MLA's shape: q [B,Hq,576], k [B,S,Hkv,576], v [B,S,Hkv,512], o
 // [B,Hq,512].  `mla_decode_splits` gives the number of key shares the
 // call takes; with more than one, `ws` must hold B·Hq·nsplit·514 floats.
+// `lse` as for `decode_attention_fwd`: the merged row's.
 extern "C" int mla_decode_splits(int B, int S, int Hq, int Hkv, int dtype) {
   return mla::splits(B, S, Hq, Hkv, dtype);
 }
 
 extern "C" int mla_decode_attention_fwd(const void* q, const void* k_cache,
                                         const void* v_cache, void* o,
-                                        void* ws, const void* cache_len,
+                                        void* ws, void* lse,
+                                        const void* cache_len,
                                         int B, int S, int Hq, int Hkv,
                                         int nsplit, int dtype, int window,
                                         float softcap, float sm_scale,
@@ -536,12 +559,12 @@ extern "C" int mla_decode_attention_fwd(const void* q, const void* k_cache,
       return (int)mla::launch<float>(
           mla::f32::mla_dense_decode_f32_kernel, mla::f32::kSmem,
           mla::f32::kThreads, mla::f32::kRows, q, k_cache, v_cache, o, ws,
-          cache_len, B, S, Hq, Hkv, nsplit, window, softcap, sm_scale, st);
+          lse, cache_len, B, S, Hq, Hkv, nsplit, window, softcap, sm_scale, st);
     case 1:
       return (int)mla::launch<__nv_bfloat16>(
           mla::tc::mla_dense_decode_wgmma_kernel, mla::tc::kSmem,
           mla::tc::kThreads, mla::tc::kRows, q, k_cache, v_cache, o, ws,
-          cache_len, B, S, Hq, Hkv, nsplit, window, softcap, sm_scale, st);
+          lse, cache_len, B, S, Hq, Hkv, nsplit, window, softcap, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

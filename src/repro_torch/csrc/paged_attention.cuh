@@ -53,7 +53,10 @@
 //   one cluster barrier later each block merges its own rows by the
 //   log-sum-exp rule (m* = max m_i, l = Σ l_i·2^(m_i − m*), o = Σ acc_i·
 //   2^(m_i − m*) / l; the logits are kept in base 2, so p is one `ex2`)
-//   and writes them out.  No workspace, no atomic, no second pass.  A
+//   and writes them out (with its log-sum-exp, m*·ln 2 + ln l, where the
+//   caller asks for it: a decode over a cache split along the sequence
+//   merges ranks' partials by the same rule).  No workspace, no atomic,
+//   no second pass.  A
 //   share with no visible key for a row contributes m = NEG_INF and l = 0
 //   (weight 2^(NEG_INF − m*) = 0, or 1 times nothing when every share is
 //   empty), so a row whose l is 0 gives exactly 0.  Every block arrives
@@ -119,6 +122,7 @@ using flash::wg::smem_u32;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // The query rows of a block (a row group) when each warp takes NTW row
 // tiles of 8 and a tile's keys are split KW ways: 8, 16, 32 or 64.
@@ -167,6 +171,7 @@ struct Params {
   int K1, Hq, Hkv, G, R, RG, page, MP, window;
   int tab;                         // table entries a block copies, at most
   float softcap, sm_scale;
+  float* lse;                      // each row's log-sum-exp, or nullptr
 };  // a dense cache: page = S, MP = 1, no table
 
 // ---------------------------------------------------------------------------
@@ -657,6 +662,10 @@ __global__ void __launch_bounds__(kThreads,
       A = fmaf(part[d], w, A);
     }
     store(o + q_row(r) * D + d, Ls == 0.f ? 0.f : A / Ls);
+    // the row's natural log-sum-exp from its base-2 (M, Ls); NEG_INF for
+    // a row with no visible key
+    if (p.lse != nullptr && d == 0)
+      p.lse[q_row(r)] = Ls == 0.f ? kNegInf : M * kLn2 + logf(Ls);
   }
 }
 
@@ -671,6 +680,7 @@ struct Call {
   int B, K1, Hq, Hkv, D, page, MP, q_dtype, kv_dtype, window;
   float softcap, sm_scale;
   cudaStream_t stream;
+  void* lse;               // f32 [B·K1·Hq], or nullptr (none written)
 };
 
 // table entries a block's keys can span: at most `keys` in a row
@@ -801,6 +811,7 @@ int run(const Call& c) {
   p.window = c.window;
   p.softcap = c.softcap;
   p.sm_scale = c.sm_scale;
+  p.lse = static_cast<float*>(c.lse);
   cudaError_t err = c.q_dtype == 0   ? by_dim<Kind, float>(c, p)
                     : c.q_dtype == 1 ? by_dim<Kind, bf16>(c, p)
                                      : cudaErrorInvalidValue;

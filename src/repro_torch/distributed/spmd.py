@@ -152,6 +152,23 @@ def narrow_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return x.narrow(dim, r * k, k)
 
 
+def merge_partials(o: torch.Tensor, lse: torch.Tensor, group) -> torch.Tensor:
+    """The attention of every row over keys split across ``group``, from
+    each rank's partial: ``o [..., Dv]`` over its own keys and the f32
+    log-sum-exp ``lse [...]`` of its logits (``NEG_INF`` where it holds no
+    valid key).  The log-sum-exp rule with a max and a sum all-reduce:
+    ``m = max lse``, ``o = Σ o_r·e^(lse_r − m) / Σ e^(lse_r − m)``, in
+    f32, returned in o's dtype.  A rank without a key adds nothing; a row
+    no rank has a key for stays 0.  The identity on one rank.  No
+    autograd (decode needs none)."""
+    if group is None:
+        return o
+    m = all_reduce(lse, group, dist.ReduceOp.MAX)
+    w = torch.exp(lse - m)[..., None]
+    num = all_reduce(torch.cat([o.float() * w, w], dim=-1), group)
+    return (num[..., :-1] / num[..., -1:]).to(o.dtype)
+
+
 def _a2a(x: torch.Tensor, split: int, concat: int, group) -> torch.Tensor:
     """JAX's tiled ``all_to_all``: ``x`` cut into n pieces along ``split``,
     piece j sent to group rank j, the received pieces concatenated along

@@ -9,6 +9,7 @@ _WRAPPERS = {
     "paged_verify_attention": ("paged_verify_attention",
                                "paged_verify_attention"),
     "decode_attention": ("decode_attention", "decode_attention"),
+    "decode_attention_lse": ("decode_attention", "decode_attention_lse"),
     "flash_attention_bwd_dq": ("flash_attention_bwd",
                                "flash_attention_bwd_dq"),
     "flash_attention_bwd_dkv": ("flash_attention_bwd",

@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 from repro_torch.kernels.flash_attention import (_DTYPE_CODE, _aligned,
                                                  _int32, _ptr)
 from repro_torch.kernels.flash_attention import \
@@ -182,9 +182,14 @@ class _FlashMHA(torch.autograd.Function):
                   q_positions=q_positions, kv_positions=kv_positions,
                   kv_valid_len=kv_valid_len, sm_scale=sm_scale)
         fwd = _flash_fwd if q.is_cuda else ref.mha
+        index = (q_positions, kv_positions, kv_valid_len)
+        work = cost.flash_fwd(q, k, v, causal, window, save, index)
         if not save:
-            return fwd(q, k, v, **kw)
-        out, lse = fwd(q, k, v, return_lse=True, **kw)
+            return cost.region("flash_attention", *work,
+                               lambda: fwd(q, k, v, **kw), (q, k, v))
+        out, lse = cost.region(
+            "flash_attention", *work,
+            lambda: fwd(q, k, v, return_lse=True, **kw), (q, k, v))
         ctx.save_for_backward(q, k, v, out, lse, q_positions, kv_positions,
                               kv_valid_len)
         ctx.kw = dict(causal=causal, window=window, softcap=softcap,
@@ -195,8 +200,14 @@ class _FlashMHA(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse, q_pos, kv_pos, valid = ctx.saved_tensors
         bwd = flash_attention_bwd if q.is_cuda else ref.flash_attention_bwd
-        dq, dk, dv = bwd(q, k, v, out, lse, do, q_positions=q_pos,
-                         kv_positions=kv_pos, kv_valid_len=valid, **ctx.kw)
+        kw = ctx.kw
+        dq, dk, dv = cost.region(
+            "flash_attention_bwd",
+            *cost.flash_bwd(q, k, v, out, lse, do, kw["causal"],
+                            kw["window"], (q_pos, kv_pos, valid)),
+            lambda: bwd(q, k, v, out, lse, do, q_positions=q_pos,
+                        kv_positions=kv_pos, kv_valid_len=valid, **kw),
+            (q, k, v, do))
         return dq, dk, dv, None, None, None, None, None, None, None, None
 
 

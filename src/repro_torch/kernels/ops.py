@@ -6,13 +6,20 @@ through its autograd function on both devices, so the train-mode forward
 carries gradients (through the backward kernels on the card); the decode
 kernels, the SSD scan and RMSNorm are forward-only.  The SSD decode step
 has no kernel (as in the JAX package) and runs plain ops on both
-devices."""
+devices.
+
+Each entry runs its call through ``cost.region`` with the FLOPs and bytes
+of the kernel's work, so that a counting mode (``roofline.analysis``)
+counts a kernel the same on the card and on ``meta``."""
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import cost, ref
 from repro_torch.kernels.decode_attention import decode_attention as _da
+from repro_torch.kernels.decode_attention import \
+    decode_attention_lse as _da_lse
 from repro_torch.kernels.flash_attention_bwd import flash_mha
 from repro_torch.kernels.paged_decode_attention import \
     paged_decode_attention as _pda
@@ -42,10 +49,11 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, cache_len, *,
     gathered through ``page_table`` [B,MP]; int8 pools carry scales."""
     kw = dict(softcap=softcap, window=window, sm_scale=sm_scale,
               k_scale=k_scale, v_scale=v_scale)
-    if q.is_cuda:
-        return _pda(q, k_pages, v_pages, page_table, cache_len, **kw)
-    return ref.paged_decode_attention(q, k_pages, v_pages, page_table,
-                                      cache_len, **kw)
+    args = (q, k_pages, v_pages, page_table, cache_len)
+    fn = _pda if q.is_cuda else ref.paged_decode_attention
+    return cost.region("paged_decode_attention",
+                       *cost.paged(*args, k_scale, v_scale),
+                       lambda: fn(*args, **kw), args)
 
 
 def paged_verify_attention(q, k_pages, v_pages, page_table, cache_len, *,
@@ -56,10 +64,11 @@ def paged_verify_attention(q, k_pages, v_pages, page_table, cache_len, *,
     paged pool [P,page,Hkv,D] gathered through ``page_table`` [B,MP]."""
     kw = dict(softcap=softcap, window=window, sm_scale=sm_scale,
               k_scale=k_scale, v_scale=v_scale)
-    if q.is_cuda:
-        return _pva(q, k_pages, v_pages, page_table, cache_len, **kw)
-    return ref.paged_verify_attention(q, k_pages, v_pages, page_table,
-                                      cache_len, **kw)
+    args = (q, k_pages, v_pages, page_table, cache_len)
+    fn = _pva if q.is_cuda else ref.paged_verify_attention
+    return cost.region("paged_verify_attention",
+                       *cost.paged(*args, k_scale, v_scale),
+                       lambda: fn(*args, **kw), args)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, softcap: float = 0.0,
@@ -67,9 +76,25 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, softcap: float = 0.0,
     """One-token query [B,Hq,D] against a dense cache [B,S,Hkv,D] valid
     below ``cache_len``."""
     kw = dict(softcap=softcap, window=window, sm_scale=sm_scale)
-    if q.is_cuda:
-        return _da(q, k_cache, v_cache, cache_len, **kw)
-    return ref.decode_attention(q, k_cache, v_cache, cache_len, **kw)
+    args = (q, k_cache, v_cache, cache_len)
+    fn = _da if q.is_cuda else ref.decode_attention
+    return cost.region("decode_attention",
+                       *cost.dense_decode(*args, lse=False),
+                       lambda: fn(*args, **kw), args)
+
+
+def decode_attention_lse(q, k_cache, v_cache, cache_len, *,
+                         softcap: float = 0.0, window: int = 0,
+                         sm_scale: Optional[float] = None):
+    """``decode_attention``'s output and each row's f32 log-sum-exp [B,
+    Hq] (``NEG_INF`` for a row with no valid key)."""
+    kw = dict(softcap=softcap, window=window, sm_scale=sm_scale)
+    args = (q, k_cache, v_cache, cache_len)
+    fn = _da_lse if q.is_cuda else functools.partial(ref.decode_attention,
+                                                      return_lse=True)
+    return cost.region("decode_attention_lse",
+                       *cost.dense_decode(*args, lse=True),
+                       lambda: fn(*args, **kw), args)
 
 
 def ssd_scan(x, dt, A, B_, C, *, chunk: int = 64, initial_state=None,
@@ -79,9 +104,12 @@ def ssd_scan(x, dt, A, B_, C, *, chunk: int = 64, initial_state=None,
     last token with ``return_final_state``)."""
     kw = dict(chunk=chunk, initial_state=initial_state,
               return_final_state=return_final_state)
-    if x.is_cuda:
-        return _ssd(x, dt, A, B_, C, **kw)
-    return ref.ssd_scan(x, dt, A, B_, C, **kw)
+    args = (x, dt, A, B_, C)
+    fn = _ssd if x.is_cuda else ref.ssd_scan
+    return cost.region("ssd_scan",
+                       *cost.ssd_scan(*args, chunk, initial_state,
+                                      return_final_state),
+                       lambda: fn(*args, **kw), args)
 
 
 def ssd_decode_step(x, dt, A, B_, C, state):
@@ -92,6 +120,6 @@ def ssd_decode_step(x, dt, A, B_, C, state):
 def rmsnorm(x, scale, *, eps: float = 1e-6):
     """Row-wise ``x·rsqrt(mean x² + eps)·scale``, statistics in f32 and the
     products in x's dtype."""
-    if x.is_cuda:
-        return _rms(x, scale, eps=eps)
-    return ref.rmsnorm(x, scale, eps)
+    fn = _rms if x.is_cuda else ref.rmsnorm
+    return cost.region("rmsnorm", *cost.rmsnorm(x, scale),
+                       lambda: fn(x, scale, eps=eps), (x, scale))

@@ -153,7 +153,12 @@ def decode_attention(
     softcap: float = 0.0,
     window: int = 0,
     sm_scale: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
+    """``out [B,Hq,Dv]`` in q's dtype, and with ``return_lse`` each row's
+    f32 log-sum-exp ``[B,Hq]`` of its valid logits as ``mha`` gives it
+    (``m + log l``, ``l = 0`` read as 1, so a row with no valid key has
+    ``lse = NEG_INF``)."""
     B, Hq, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     groups = Hq // Hkv
@@ -173,7 +178,13 @@ def decode_attention(
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.where(mask, torch.softmax(logits, dim=-1), 0.0)
     out = torch.einsum("bhgs,bhsd->bhgd", probs, vf)
-    return out.reshape(B, Hq, vf.shape[-1]).to(q.dtype)
+    out = out.reshape(B, Hq, vf.shape[-1]).to(q.dtype)
+    if not return_lse:
+        return out
+    m = logits.amax(dim=-1)
+    l = torch.where(mask, torch.exp(logits - m[..., None]), 0.0).sum(-1)
+    lse = m + torch.log(torch.where(l == 0.0, 1.0, l))
+    return out, lse.reshape(B, Hq)
 
 
 def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:

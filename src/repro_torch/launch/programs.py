@@ -12,8 +12,10 @@ under the mesh's rules (the model-sharded heads, ``ffn``, vocabulary and
 experts computed locally, ``distributed.spmd``), sums the gradients over
 the batch axes, cuts them back to the shards and steps AdamW on the
 shards; on a one-rank mesh every collective is the identity and the
-step is the single-device one.  The JAX ``lower_program`` (its dry-run's
-compile) has no counterpart yet (ROADMAP Queue A item 14).
+step is the single-device one.  ``lower_program`` (the dry-run's) builds
+a cell's step on this rank's shards and runs it once on ``meta`` tensors
+under the rules and ``roofline.analysis``'s counting mode, where the JAX
+one lowers it for XLA.
 """
 from __future__ import annotations
 
@@ -93,9 +95,14 @@ def param_specs_abstract(cfg: ModelConfig):
     return build_model(cfg, "meta").init_abstract()
 
 
+def shape_of(shape) -> ShapeSpec:
+    """A shape given by name (``launch.shapes.SHAPES``) or as itself."""
+    return shape if isinstance(shape, ShapeSpec) else SHAPES[shape]
+
+
 def input_specs(cfg: ModelConfig, shape_name: str) -> Dict[str, Any]:
     """All (non-parameter) inputs of the step the shape runs, as specs."""
-    shape = SHAPES[shape_name]
+    shape = shape_of(shape_name)
     if shape.kind == "train":
         return {"batch": train_batch_specs(cfg, shape)}
     if shape.kind == "prefill":
@@ -171,8 +178,11 @@ def program_shardings(cfg: ModelConfig, shape_name: str, mesh,
                       rules_name: str = "default"):
     """Returns (in_specs, out_specs, arg_specs, step_fn, donate): spec
     trees of the step's arguments and results, its abstract arguments,
-    the step and the donated argument indices."""
-    shape = SHAPES[shape_name]
+    the step and the donated argument indices.  ``shape_name`` names a
+    ``SHAPES`` entry or is a ``ShapeSpec``.  The SSM families keep their
+    caches whole over ``model`` (their layers run replicated over it,
+    ``forward_rules``), where the JAX specs split them."""
+    shape = shape_of(shape_name)
     rules = rules_for(mesh, rules_name)
     abstract_params = param_specs_abstract(cfg)
     psh = shlib.param_partition_specs(abstract_params, rules)
@@ -191,17 +201,18 @@ def program_shardings(cfg: ModelConfig, shape_name: str, mesh,
     logit_sh = rules.resolve(("batch", "vocab"),
                              (shape.global_batch, cfg.vocab_size))
     tok_sh = rules.resolve(("batch",), (shape.global_batch,))
+    crules = shlib.ShardingRules(mesh, forward_rules(cfg, rules.rules))
     if shape.kind == "prefill":
         bspecs = prefill_batch_specs(cfg, shape)
         bsh = batch_shardings(bspecs, rules)
         cspecs = cache_specs(cfg, shape.global_batch, shape.seq_len)
-        csh = shlib.cache_partition_specs(cspecs, rules)
+        csh = shlib.cache_partition_specs(cspecs, crules)
         fn = build_prefill_step(cfg, "meta")
         return ((psh, bsh, csh), (logit_sh, csh, tok_sh),
                 (abstract_params, bspecs, cspecs), fn, (2,))
 
     aspecs = decode_arg_specs(cfg, shape)
-    csh = shlib.cache_partition_specs(aspecs["caches"], rules)
+    csh = shlib.cache_partition_specs(aspecs["caches"], crules)
     fn = build_decode_step(cfg, "meta")
     return ((psh, tok_sh, csh, tok_sh), (logit_sh, csh, tok_sh),
             (abstract_params, aspecs["tokens"], aspecs["caches"],
@@ -324,12 +335,14 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, device=None,
 def _gathered(model, step):
     """``step`` run on parameters gathered over the current mesh's data
     axes (a no-op outside a rules context or on one rank)."""
+    abstract = model.init_abstract()
+
     def run(params, *args):
         comm = spmd.current()
         if comm is None or comm.size(comm.names) == 1:
             return step(params, *args)
         rules = shlib.current_rules()
-        pspecs = shlib.param_partition_specs(model.init_abstract(), rules)
+        pspecs = shlib.param_partition_specs(abstract, rules)
         params = param_views(params, pspecs, comm,
                              view_axes(model.cfg, comm), grad=False)
         with shlib.use_rules(rules.mesh, forward_rules(model.cfg,
@@ -360,3 +373,51 @@ def build_decode_step(cfg: ModelConfig, device=None) -> Callable:
         return logits, caches, cache_len + 1
 
     return _gathered(model, decode_step)
+
+
+# ---------------------------------------------------------------------------
+# the dry-run's program
+# ---------------------------------------------------------------------------
+
+def _local_meta(arg, spec, comm: spmd.MeshComm, grad: bool):
+    """This rank's shard of every leaf of ``arg`` under the matching
+    ``spec`` tree, as a new ``meta`` tensor (a view of the whole one would
+    carry the whole one's storage)."""
+    if isinstance(arg, torch.Tensor):
+        shape = list(arg.shape)
+        for i, entry in enumerate(spec or ()):
+            shape[i] //= comm.size(shlib.spec_axes(entry))
+        t = torch.empty(shape, dtype=arg.dtype, device="meta")
+        return t.requires_grad_(grad and t.is_floating_point())
+    if isinstance(arg, dict):
+        return {k: _local_meta(v, spec[k], comm, grad)
+                for k, v in arg.items()}
+    if isinstance(arg, tuple) and hasattr(arg, "_fields"):
+        return type(arg)(*(_local_meta(getattr(arg, f), getattr(spec, f),
+                                       comm, grad) for f in arg._fields))
+    return arg
+
+
+def lower_program(cfg: ModelConfig, shape_name, mesh,
+                  tcfg: Optional[TrainConfig] = None,
+                  rules_name: str = "default",
+                  attn_impl: Optional[str] = None):
+    """The cell's step (``program_shardings``, ``build_*_step``) on this
+    rank's shards of ``mesh``, run once on ``meta`` tensors under the
+    mesh's rules and ``roofline.analysis``'s counting mode.  Returns what
+    it counted: ``.cost()`` (flops, bytes, bytes_fused, attn_io,
+    collectives, the kernels' calls) and ``.memory()`` (argument, output,
+    temp and alias bytes a rank).  ``attn_impl``: ``"kernel"`` (the
+    default: the hand-written kernels' formulas, what runs on the card)
+    or ``"ref"`` (the plain versions' aten ops, the JAX package's naive
+    baseline)."""
+    from repro_torch.roofline import analysis
+
+    in_sh, _, args, fn, _ = program_shardings(cfg, shape_name, mesh, tcfg,
+                                              rules_name=rules_name)
+    comm = spmd.comm_of(mesh)
+    train = shape_of(shape_name).kind == "train"
+    local = tuple(_local_meta(a, s, comm, grad=train and i == 0)
+                  for i, (a, s) in enumerate(zip(args, in_sh)))
+    with shlib.use_rules(mesh, rules_for(mesh, rules_name).rules):
+        return analysis.count(fn, local, attn_impl or "kernel")

@@ -22,6 +22,23 @@ carry the JAX options: biases (``attn_bias``: ``b_q [H, hd]``,
 the head dim (``qk_norm``: ``q_norm``, ``k_norm [hd]``) between the
 biases and RoPE; every path (train, paged, dense and verify) goes
 through ``_qkv`` and ``_out_proj``.
+
+Under sharding rules (``distributed.sharding``) a layer computes this
+rank's query heads when they divide the ``model`` axis.  A dense cache
+sharded along the sequence over ``model`` (``cache_partition_specs``:
+KV heads that do not divide the axis, and MLA's latent pair always) holds
+every KV head's keys for this rank's block of positions (``_seq_split``).
+A prefill then writes into its block the positions that fall in it, of
+every KV head (the KV leaves are whole over ``model`` whenever the cache
+is split so: each rank computes every KV head's keys itself), and a
+decode step writes the new token's keys on the rank that owns its slot,
+computes every query head's partial attention over its own block with
+its log-sum-exp (``ops.decode_attention_lse``; the query heads gathered
+over ``model`` first), merges the partials across the axis
+(``spmd.merge_partials``) and keeps its own heads: the one-device
+function, a block with no valid key adding nothing.  The rule assumes the
+cache's length divides over the axis (``cache_partition_specs``
+replicates it otherwise; every ``launch.shapes`` length divides).
 """
 from __future__ import annotations
 
@@ -31,6 +48,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import current_rules, spec_axes
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gather_pages
 from repro_torch.models.config import ModelConfig
@@ -179,15 +197,21 @@ def _kv_leaves(params, cfg: ModelConfig, group, tp, rank):
             for n, w in zip(names, got)]
 
 
-def _qkv(params, x, cfg: ModelConfig, positions):
+def _qkv(params, x, cfg: ModelConfig, positions, every_kv: bool = False):
     """The JAX order (``attention.py:140-150``): projections, biases, the
     qk RMSNorm over the head dim, RoPE; each step in the compute dtype.
     Under rules that shard the heads over ``model``, this rank's heads:
-    x and the replicated leaves enter through ``spmd.copy_to``."""
+    x and the replicated leaves enter through ``spmd.copy_to``.  With
+    ``every_kv`` (a cache split along the sequence, no gradient) k and v
+    hold every KV head, from the whole leaves."""
     dt = cfg.cdtype
     group, tp, rank = spmd.model_split("heads", cfg.num_heads)
     x = spmd.copy_to(x, group)
-    w_k, w_v, b_k, b_v = _kv_leaves(params, cfg, group, tp, rank)
+    if every_kv:
+        w_k, w_v, b_k, b_v = (params.get(n)
+                              for n in ("w_k", "w_v", "b_k", "b_v"))
+    else:
+        w_k, w_v, b_k, b_v = _kv_leaves(params, cfg, group, tp, rank)
     q = _proj(x, params["w_q"], dt)
     k = _proj(x, w_k, dt)
     v = _proj(x, w_v, dt)
@@ -271,7 +295,12 @@ def _attend_mla(params, x, cfg: ModelConfig, positions, causal, cache):
                             sm_scale=(m.qk_nope_head_dim
                                       + m.qk_rope_head_dim) ** -0.5)
     if cache is not None:
-        _fill_cache_mla(cache, c_kv, k_rope, positions)
+        split = _seq_split(cfg)
+        if split is None:
+            _fill_cache_mla(cache, c_kv, k_rope, positions)
+        else:
+            for name, val in (("c_kv", c_kv), ("k_rope", k_rope)):
+                _fill_block(cache[name], val, positions, split)
     H, hv, d = params["w_o"].shape
     return spmd.reduce_from(
         o.flatten(-2) @ params["w_o"].to(dt).reshape(H * hv, d), group)
@@ -283,16 +312,26 @@ def attend(params, x, cfg: ModelConfig, *, positions, causal: bool = True,
     window for ``attn_type == "swa"``; with ``cache`` (the dense prefill)
     the sequence's KV (MLA: its latent pair) is also written into it."""
     x = x.to(cfg.cdtype)
-    if cache is not None:
-        _refuse_seq_sharded_cache(cfg)
     if cfg.attn_type == "mla":
         return _attend_mla(params, x, cfg, positions, causal, cache)
-    q, k, v = _qkv(params, x, cfg, positions)
+    split = _seq_split(cfg) if cache is not None else None
+    q, k, v = _qkv(params, x, cfg, positions, every_kv=split is not None)
+    kl, vl = k, v
+    if split is not None:
+        # flash pairs this rank's query heads with its local KV heads
+        group, tp, rank = spmd.model_split("heads", cfg.num_heads)
+        if group is not None:
+            idx = torch.tensor(local_kv_heads(cfg, tp, rank),
+                               device=k.device)
+            kl, vl = k.index_select(2, idx), v.index_select(2, idx)
     window = cfg.sliding_window if cfg.attn_type == "swa" else 0
-    o = ops.flash_attention(q, k, v, causal=causal, window=window,
+    o = ops.flash_attention(q, kl, vl, causal=causal, window=window,
                             softcap=cfg.attn_logit_softcap,
                             q_positions=positions, kv_positions=positions)
-    if cache is not None:
+    if split is not None:
+        _fill_block(cache["k"], k, positions, split)
+        _fill_block(cache["v"], v, positions, split)
+    elif cache is not None:
         _fill_cache(cache, k, v, positions)
     return _out_proj(params, o, cfg)
 
@@ -314,6 +353,63 @@ def _fill_cache(cache: Pool, k, v, positions):
     bidx = torch.arange(k.shape[0], device=k.device)[:, None]
     cache["k"][bidx, slots] = k.to(cache["k"].dtype)
     cache["v"][bidx, slots] = v.to(cache["v"].dtype)
+
+
+def _seq_split(cfg: ModelConfig):
+    """``(group, tp, rank)`` of the ``model`` axis when the current rules
+    shard a dense cache of this config along the sequence over it (the
+    ``cache_partition_specs`` rule: KV heads that do not divide the
+    ``kv_heads`` axes, MLA's latent pair always); else None."""
+    rules = current_rules()
+    if rules is None or rules.shape.get("model", 1) == 1 or \
+            "model" not in spec_axes(rules.rules.get("kv_seq")):
+        return None
+    if cfg.attn_type != "mla" and cfg.num_kv_heads % max(
+            rules.mesh_axis_size(rules.rules.get("kv_heads")), 1) == 0:
+        return None
+    comm = spmd.current()
+    if comm is None:
+        return None
+    return comm.group(("model",)), comm.sizes["model"], comm.coord["model"]
+
+
+def _fill_block(buf: torch.Tensor, val, positions, split) -> None:
+    """Write ``val`` [B, T, ...] at ``positions % S`` into this rank's
+    block ``buf`` [B, S/tp, ...] of a cache of S slots split along the
+    sequence over ``tp`` ranks: the slots in ``[rank·S/tp, (rank+1)·S/tp)``,
+    each taking the latest position that lands on it (a ring keeps the
+    last S; positions increase along T, as every caller's do).  The block
+    is rewritten whole, the slots no position lands on with their own
+    values: a write of the positions outside the block would collide
+    with those inside, and which slots a row's positions fill is known on
+    the device only."""
+    _, tp, rank = split
+    B, S_loc = buf.shape[:2]
+    T = positions.shape[1]
+    li = positions.long() % (S_loc * tp) - rank * S_loc
+    own = (li >= 0) & (li < S_loc)
+    t = torch.arange(T, device=buf.device).expand(B, T)
+    last = torch.full((B, S_loc + 1), -1, dtype=torch.long,
+                      device=buf.device).scatter_reduce_(
+        1, torch.where(own, li, S_loc), t, "amax")[:, :S_loc]
+    tail = (1,) * (val.dim() - 2)
+    src = torch.gather(val, 1, last.clamp(min=0).view(B, S_loc, *tail)
+                       .expand(B, S_loc, *val.shape[2:]))
+    buf.copy_(torch.where((last >= 0).view(B, S_loc, *tail),
+                          src.to(buf.dtype), buf))
+
+
+def _write_token(buf: torch.Tensor, val, slot, tp: int, rank: int) -> None:
+    """One token's ``val`` [B, ...] at global slot ``slot`` [B] of a cache
+    split along the sequence, written by the rank whose block holds it;
+    every other rank writes a slot of its block back unchanged (one write
+    a row, so no two collide)."""
+    B, S_loc = buf.shape[:2]
+    li = slot.long() - rank * S_loc
+    own = ((li >= 0) & (li < S_loc)).view(B, *(1,) * (val.dim() - 1))
+    li = li.clamp(0, S_loc - 1)
+    bidx = torch.arange(B, device=buf.device)
+    buf[bidx, li] = torch.where(own, val.to(buf.dtype), buf[bidx, li])
 
 
 def _fill_cache_mla(cache: Pool, c_kv, k_rope, positions):
@@ -459,31 +555,48 @@ def decode_step(params, x, cfg: ModelConfig, cache: Pool, cache_len):
     in latent space (``_decode_step_mla``)."""
     x = x.to(cfg.cdtype)
     positions = cache_len[:, None]
-    _refuse_seq_sharded_cache(cfg)
     if cfg.attn_type == "mla":
         return _decode_step_mla(params, x, cfg, cache, cache_len, positions)
-    q, k, v = _qkv(params, x, cfg, positions)
-    _fill_cache(cache, k, v, positions)
-    valid = torch.clamp(cache_len + 1, max=cache["k"].shape[1])
-    o = ops.decode_attention(q[:, 0], cache["k"], cache["v"], valid,
-                             softcap=cfg.attn_logit_softcap)
+    split = _seq_split(cfg)
+    q, k, v = _qkv(params, x, cfg, positions, every_kv=split is not None)
+    if split is None:
+        _fill_cache(cache, k, v, positions)
+        valid = torch.clamp(cache_len + 1, max=cache["k"].shape[1])
+    else:
+        valid = _split_write({"k": k[:, 0], "v": v[:, 0]}, cache,
+                             cache_len, split)
+    o = _attend_cache(cfg, q[:, 0], cache["k"], cache["v"], valid, split,
+                      softcap=cfg.attn_logit_softcap)
     return _out_proj(params, o[:, None], cfg)
 
 
-def _refuse_seq_sharded_cache(cfg: ModelConfig) -> None:
-    """Under rules that shard heads over ``model``, a decode reads the
-    rank's KV heads from its cache shard; when the cache is sharded along
-    the sequence instead (KV heads that do not divide the axis, MLA's
-    latent cache: ``cache_partition_specs``), each rank would hold a part
-    of every head's keys, which needs a cross-rank softmax merge that the
-    decode does not have (ROADMAP Queue A)."""
-    if spmd.model_split("heads", cfg.num_heads)[0] is None:
-        return
-    if cfg.attn_type == "mla" or spmd.model_split(
-            "kv_heads", cfg.num_kv_heads)[0] is None:
-        raise NotImplementedError(
-            "decode over a KV cache sharded along the sequence over the "
-            "model axis (context-parallel decode) is not ported")
+def _split_write(new: Pool, cache: Pool, cache_len, split):
+    """The new token's ``new`` leaves [B, ...] written at slot
+    ``cache_len % S`` of a cache split along the sequence, by the rank
+    that owns it; returns the valid slots of this rank's block [B]."""
+    _, tp, rank = split
+    S_loc = next(iter(cache.values())).shape[1]
+    S = S_loc * tp
+    for name, val in new.items():
+        _write_token(cache[name], val, cache_len.long() % S, tp, rank)
+    return torch.clamp(torch.clamp(cache_len + 1, max=S) - rank * S_loc,
+                       min=0, max=S_loc)
+
+
+def _attend_cache(cfg: ModelConfig, q, k_cache, v_cache, valid, split,
+                  **kw):
+    """One query token [B, H_local, D] against a dense cache's ``valid``
+    slots: the dense decode kernel over the whole cache, or for a cache
+    split along the sequence every query head's partial attention over
+    this rank's block (``q`` gathered over the heads' group first), the
+    partials merged across ``model`` and this rank's heads kept → [B,
+    H_local, Dv]."""
+    if split is None:
+        return ops.decode_attention(q, k_cache, v_cache, valid, **kw)
+    hgroup = spmd.model_split("heads", cfg.num_heads)[0]
+    q_all = spmd.all_gather_dim(q, 1, hgroup)
+    o, lse = ops.decode_attention_lse(q_all, k_cache, v_cache, valid, **kw)
+    return spmd.narrow_dim(spmd.merge_partials(o, lse, split[0]), 1, hgroup)
 
 
 def _latent_keys(cache: Pool):
@@ -507,16 +620,24 @@ def _decode_step_mla(params, x, cfg: ModelConfig, cache: Pool, cache_len,
     dt, m = cfg.cdtype, cfg.mla
     q_nope, q_rope = _mla_q(params, x, cfg, positions)       # [B,1,H,·]
     c_kv_new, k_rope_new = _mla_kv_compressed(params, x, cfg, positions)
-    _fill_cache_mla(cache, c_kv_new, k_rope_new, positions)
-    valid = torch.clamp(cache_len + 1, max=cache["c_kv"].shape[1])
     q_lat = torch.einsum("bhk,lhk->bhl", q_nope[:, 0],
                          params["w_uk"].to(dt))
     q_cat = torch.cat([q_lat, q_rope[:, 0]], dim=-1)          # [B,H,L+R]
+    kw = dict(softcap=cfg.attn_logit_softcap,
+              sm_scale=(m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
+    split = _seq_split(cfg)
+    if split is None:
+        _fill_cache_mla(cache, c_kv_new, k_rope_new, positions)
+        valid = torch.clamp(cache_len + 1, max=cache["c_kv"].shape[1])
+    else:
+        valid = _split_write({"c_kv": c_kv_new[:, 0],
+                              "k_rope": k_rope_new[:, 0]}, cache, cache_len,
+                             split)
     kv_cat = _latent_keys(cache)
-    o_lat = ops.decode_attention(
-        q_cat, kv_cat[:, :, None, :], cache["c_kv"][:, :, None, :], valid,
-        softcap=cfg.attn_logit_softcap,
-        sm_scale=(m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
+    o_lat = _attend_cache(cfg, q_cat, kv_cat[:, :, None, :],
+                          cache["c_kv"][:, :, None, :], valid, split, **kw)
     o = torch.einsum("bhl,lhv->bhv", o_lat, params["w_uv"].to(dt))
     out = torch.einsum("bhv,hvd->bd", o, params["w_o"].to(dt))
+    # this rank's heads give a partial sum over ``model``
+    out = spmd.reduce_from(out, spmd.model_split("heads", cfg.num_heads)[0])
     return out[:, None, :]

@@ -161,3 +161,28 @@ def test_entry_points_refuse_a_missing_gpu():
     # a CPU node has no card to read: it must be given its capacity
     with pytest.raises(ValueError, match="capacity"):
         EdgeSystem().add_node("n0", mesh="cpu")
+
+
+def test_dryrun_runs_as_main_with_jax_unimportable(tmp_path):
+    """``launch/dryrun.py`` run as ``__main__`` (a reduced cell on the
+    256-rank mesh), and the modules of the dry-run and the roofline,
+    with JAX and the JAX package unimportable."""
+    code = textwrap.dedent("""
+        import runpy, sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import repro_torch.roofline.analysis, repro_torch.kernels.cost
+        import repro_torch.launch.sweep
+        sys.argv = ["dryrun", "--arch", "gemma-2b", "--shape", "decode_32k",
+                    "--mesh", "single", "--reduced", "--out", "rec.json"]
+        runpy.run_module("repro_torch.launch.dryrun", run_name="__main__")
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=tmp_path, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+    assert '"ok": true' in (tmp_path / "rec.json").read_text()

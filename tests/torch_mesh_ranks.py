@@ -317,3 +317,69 @@ def sharded_image(rank, world, tmp):
         "len_want": spmd.shard_of(want[2], tspec, comm).numpy(),
         "param_shape": tuple(placed[0]["embed"]["embedding"].shape),
         "param_whole": tuple(params["embed"]["embedding"].shape)})
+
+
+# ---------------------------------------------------------------------------
+# decode over caches split along the sequence
+# ---------------------------------------------------------------------------
+
+def cp_decode(rank, world, tmp):
+    """Every case of ``cp_cases.json``: the prompt prefilled and ``steps``
+    greedy tokens decoded on the case's mesh from the JAX parameters
+    (``cp_<name>.npz``), each rank on its shards of the parameters and of
+    the dense caches (``cache_partition_specs``); rank 0 keeps the
+    gathered logits of every step and the tokens."""
+    import torch
+
+    from repro_torch.distributed import sharding as shlib, spmd
+    from repro_torch.launch import programs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.model import Model
+    from repro_torch.models.weights import from_numpy_tree, unflatten
+    from repro_torch.tree import leaves, unflatten_like
+
+    with open(os.path.join(tmp, "cp_cases.json")) as f:
+        cases = json.load(f)
+    for case in cases:
+        name = case["name"]
+        with open(os.path.join(tmp, f"cp_{name}.json")) as f:
+            cfg = ModelConfig.from_dict(json.load(f))
+        arrays = np.load(os.path.join(tmp, f"cp_{name}.npz"))
+        params = from_numpy_tree(unflatten(
+            {k[2:]: arrays[k] for k in arrays.files if k.startswith("p/")}),
+            cfg, "cpu")
+        mesh = make_test_mesh(*case["mesh"], device="cpu")
+        comm, rules = spmd.comm_of(mesh), programs.rules_for(mesh)
+        B, S = case["B"], case["S"]
+        local = unflatten_like(params, [
+            spmd.shard_of(p, s, comm).clone() for p, s in zip(
+                leaves(params), programs.flat_specs(
+                    shlib.param_partition_specs(params, rules)))])
+        whole = Model(cfg, "cpu").init_caches(B, S, torch.float32)
+        cspec = shlib.cache_partition_specs(whole, rules)
+        caches = unflatten_like(whole, [
+            spmd.shard_of(c, s, comm).clone() for c, s in zip(
+                leaves(whole), programs.flat_specs(cspec))])
+        tspec = rules.resolve(("batch",), (B,))
+        lspec = rules.resolve(("batch", "vocab"), (B, cfg.vocab_size))
+        prompt = spmd.shard_of(torch.tensor(arrays["prompt"]),
+                               tspec + (None,), comm)
+        pre = programs.build_prefill_step(cfg, "cpu")
+        dec = programs.build_decode_step(cfg, "cpu")
+        logits_all, tokens = [], []
+        with torch.no_grad(), shlib.use_rules(mesh, rules.rules):
+            logits, caches, clen = pre(local, {"tokens": prompt}, caches)
+            for i in range(case["steps"] + 1):
+                whole_logits = spmd.gather_of(logits, lspec, comm)
+                logits_all.append(whole_logits.numpy())
+                tok = whole_logits.argmax(-1).to(torch.int32)
+                tokens.append(tok.numpy())
+                if i < case["steps"]:
+                    logits, caches, clen = dec(
+                        local, spmd.shard_of(tok, tspec, comm), caches, clen)
+        if rank == 0:
+            save(tmp, f"cp_{name}_out", {
+                "logits": np.stack(logits_all), "tokens": np.stack(tokens),
+                "cache_spec": {k: {n: s for n, s in v.items()}
+                               for k, v in cspec.items()}})
