@@ -286,7 +286,19 @@ continues:
    decoded on a (1, 2) mesh of two gloo ranks sharing the card, their
    caches split along the sequence, against one rank (logits, tokens,
    the log-sum-exp decode kernel's launches); under 150 s;
-7. train consistency: fp32 at full width, 2 layers, every gradient leaf of
+7. the static analyzer and the examples: ``python -m
+   repro_torch.analysis --check`` against ``analysis_baseline_torch.json``
+   exits 0 and its kernel lint finds a wrapper for every kernel of the
+   kernels line (the count printed); the five ``examples/torch_*.py``,
+   each a process on the card with a deadline, each checked by its
+   printed lines and the kernels its process launched: ``torch_edge_train.py
+   --preset 100m`` (12 layers, d 768, vocabulary 32 000) for 60 steps,
+   stream analytics, the hybrid edge scenario, the quickstart and the
+   elastic restart on 4 gloo ranks sharing the card, all at once; then
+   edge_train alone on the same directory for 60 more steps that print
+   ``resumed from step 60``; each example's wall, and edge_train's
+   median step and tokens/s;
+7b. train consistency: fp32 at full width, 2 layers, every gradient leaf of
    ``Model.loss`` through the kernels against the plain path within 2e-4
    relative; a reduced fp32 model trained 30 steps through the kernels
    lowers its loss by more than 0.3; one full-width fp32 hubert-xlarge
@@ -308,7 +320,8 @@ continues:
    of each dense variant's path and of mixtral's and deepseek's; the SSD
    scan and RMSNorm from mamba2's serve, the dense
    decode kernel from the speculative, zamba2's, mixtral's and
-   deepseek's serves and the edge path; a timed shape named after a serving path (``@mixtral``)
+   deepseek's serves and the edge path; per run of an example from the
+   examples' own processes (phase 7); a timed shape named after a serving path (``@mixtral``)
    with that path's launches per 10 requests; flash attention's times at
    the serving
    chunk, and as ``train_*`` at the train shape, the encoders' shapes
@@ -327,6 +340,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1162,6 +1176,12 @@ def phase_kernels(torch, timer, card):
         ("Tq64/Tk64 first chunk, 40 real", 64, 64, 0, 40, {}, None),
         ("Tq32/Tk128 tail@64", 32, 128, 64, 96, {}, None),
         ("Tq16/Tk128 tail@80, 13 real", 16, 128, 80, 93, {}, None),
+        # the quickstart example's prefills (phase 7: two heads of 32,
+        # G 1): prompts of 8 and 5 tokens in a 16-token bucket
+        ("quickstart D32 G1 Tq16/Tk16, 8 real", 16, 16, 0, 8,
+         {"heads": (2, 2, 32)}, None),
+        ("quickstart D32 G1 Tq16/Tk16 @4, 5 real", 16, 16, 4, 5,
+         {"heads": (2, 2, 32)}, None),
     ]
     # the dense variants' heads (phase 3g), each timed at its chunk after
     # 448 keys: gemma-2b's Hq 8 over one KV head at D 256, nemotron-4-340b's
@@ -1221,6 +1241,8 @@ def phase_kernels(torch, timer, card):
         ("B2/T130 H4 D80 causal", (2, 130, 4, 80), True, None),
         ("B1/T129 H8 D48", (1, 129, 8, 48), False, None),
         ("B2/T65 H16 D80", (2, 65, 16, 80), False, None),
+        # the hybrid example's cv frames (phase 7: 4 heads of 32)
+        ("hybrid cv frame B1/T32 H4 D32", (1, 32, 4, 32), False, None),
     ]
     for dtype in ("bfloat16", "float32"):
         for label, dims, causal, key in encoder_cases:
@@ -1253,6 +1275,10 @@ def phase_kernels(torch, timer, card):
         ("B4/MP8 lengths 1-16", {"B": 4, "MP": 8, "lens": (1, 17)}, None),
         ("B4/MP8 full rows of 128", {"B": 4, "MP": 8, "lens": (128, 129)},
          None),
+        # the quickstart example's decode ticks (phase 7): 2 slots over
+        # MP 4 (max_seq 64), two heads of 32, lengths 1-15
+        ("quickstart D32 G1 B2/MP4 lengths 1-15",
+         {"B": 2, "MP": 4, "lens": (1, 16), "heads": (2, 2, 32)}, None),
         ("B8/MP64 window256", {"window": 256}, None),
         ("B8/MP64 softcap30", {"softcap": 30.0}, None),
         ("B8/MP64 int8", {"int8": True}, None),
@@ -1583,6 +1609,11 @@ def phase_kernels(torch, timer, card):
         ("B1/T129 D128 G1", (1, 129, 129, 4, 4, 128), {}, False),
         ("B2/T256 G12", (2, 256, 256, 24, 2, 64), {"valid": True}, False),
         ("B1/T200 G96 D128", (1, 200, 200, 96, 1, 128), {}, False),
+        # the examples' train steps (phase 7): edge_train --preset 100m
+        # (12 heads over 4, G 3) and the quickstart's (2 heads of 32)
+        ("edge_train 100m B8/T64 H12/4 D64", (8, 64, 64, 12, 4, 64), {},
+         False),
+        ("quickstart B8/T32 H2/2 D32", (8, 32, 32, 2, 2, 32), {}, False),
         # the encoders' widths: D 48 and 80, non-causal and causal, G 1
         # and GQA, ragged T, an empty row, softcap, explicit and index
         # positions
@@ -5537,7 +5568,172 @@ def phase_dryrun(torch):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: training consistency, fp32
+# phase 7: the static analyzer and the examples
+# ---------------------------------------------------------------------------
+
+# each example as a process of its own: it runs as ``__main__`` and, at its
+# end, the launch counters of its process go to the file EXAMPLE_COUNTS
+# names (an example's spawned ranks count in their own processes)
+_EXAMPLE_RUNNER = """
+import json, os, runpy, sys
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+from repro_torch.kernels import launch_counts
+with open(os.environ["EXAMPLE_COUNTS"], "w") as f:
+    json.dump(launch_counts(), f)
+"""
+EXAMPLES_DIR = os.path.join(ROOT, "build", "chip_smoke_examples")
+# the kernels each example's own process must launch
+EXAMPLE_KERNELS = {
+    "stream_analytics": (),
+    "hybrid_edge_serving": ("flash_attention",),
+    "quickstart": ("flash_attention", "flash_attention_bwd_dq",
+                   "flash_attention_bwd_dkv", "paged_decode_attention"),
+    "elastic_restart": (),
+    "edge_train": ("flash_attention", "flash_attention_bwd_dq",
+                   "flash_attention_bwd_dkv"),
+}
+
+
+def _start_example(name: str, *flags: str, tag: str = "",
+                   deadline: float = 240.0):
+    """Start ``examples/torch_<name>.py`` on the card, killed if it runs
+    past ``deadline`` seconds; returns the function that waits for it,
+    checks its exit code and returns (stdout, wall seconds to its exit,
+    launch counts)."""
+    tag = tag or name
+    counts = os.path.join(EXAMPLES_DIR, f"{tag}.counts.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               EXAMPLE_COUNTS=counts)
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _EXAMPLE_RUNNER,
+         os.path.join(ROOT, "examples", f"torch_{name}.py"), *flags],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    done = {}
+
+    def reap():
+        try:
+            done["out"], done["err"] = proc.communicate(timeout=deadline)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            done["out"], done["err"] = proc.communicate()
+            done["late"] = True
+        done["wall"] = time.monotonic() - t0
+
+    reaper = threading.Thread(target=reap, daemon=True)
+    reaper.start()
+
+    def wait():
+        reaper.join()
+        out, err, wall = done["out"], done["err"], done["wall"]
+        check(not done.get("late"), f"example {tag} passed its "
+              f"{deadline:.0f} s deadline\n{out[-2000:]}{err[-3000:]}")
+        check(proc.returncode == 0 and os.path.exists(counts),
+              f"example {tag}: exit {proc.returncode}\n{out[-2000:]}"
+              f"{err[-3000:]}")
+        with open(counts) as f:
+            launched = json.load(f)
+        for k in EXAMPLE_KERNELS[name]:
+            check(launched.get(k, 0) > 0, f"example {tag} launched no {k}: "
+                  f"{launched}")
+        print(f"[examples] {tag}: {wall:.1f}s wall, launches "
+              f"{ {k: v for k, v in launched.items() if v} }")
+        return out, wall, launched
+    return wait
+
+
+def _analyzer() -> None:
+    """Phase 7 (a): ``python -m repro_torch.analysis --check`` against
+    ``analysis_baseline_torch.json``; its kernel lint must name every
+    kernel of the kernels line among the wrappers it found."""
+    report = os.path.join(EXAMPLES_DIR, "analysis_report.json")
+    t0 = time.monotonic()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--check",
+         "--baseline", "analysis_baseline_torch.json", "--json", report],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+        capture_output=True, text=True, timeout=120)
+    check(run.returncode == 0, f"the analyzer exits {run.returncode}:\n"
+          f"{run.stdout[-3000:]}{run.stderr[-2000:]}")
+    with open(report) as f:
+        rep = json.load(f)
+    wrappers = sorted(w["name"] for w in rep["kernel_wrappers"])
+    print(f"[analysis] {rep['modules']} modules, {len(rep['new'])} new and "
+          f"{len(rep['baselined'])} baselined findings in "
+          f"{time.monotonic() - t0:.1f}s; kernel wrappers (KL): "
+          f"{len(wrappers)}: {', '.join(wrappers)}")
+    check(len(wrappers) >= 8 and set(KERNELS) <= set(wrappers),
+          f"the kernel lint found {len(wrappers)} wrappers {wrappers}, "
+          f"not every kernel of {sorted(KERNELS)}")
+
+
+def phase_examples(torch, card: str):
+    """Phase 7: the analyzer (a), then the five examples, each a process
+    on the card with a deadline (b).  ``torch_edge_train.py --preset
+    100m`` (60 steps), stream analytics, the hybrid scenario, the
+    quickstart and the elastic restart run at once (their walls share
+    the card and the host; the first training run is a functional check
+    only); then edge_train alone for 60 more steps, resumed from its
+    step-60 checkpoint, whose median step and tokens/s are reported.  Returns the launches of the examples' own processes and
+    the number of runs."""
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    os.makedirs(EXAMPLES_DIR)
+    ckpt = os.path.join(EXAMPLES_DIR, "edge_train_ckpt")
+    train_args = ("--preset", "100m", "--steps", "60", "--ckpt-dir", ckpt)
+    waits = [_start_example("edge_train", *train_args),
+             _start_example("stream_analytics"),
+             _start_example("hybrid_edge_serving"),
+             _start_example("quickstart"),
+             _start_example("elastic_restart", "--ckpt-dir",
+                            os.path.join(EXAMPLES_DIR, "elastic_ckpt"),
+                            "--deadline", "200")]
+    _analyzer()
+    runs = [w() for w in waits]
+    stream, hybrid, quick, elastic = (r[0] for r in runs[1:])
+    check(len(re.findall(r"^batch \d", stream, re.M)) == 8
+          and "'hits': 1" in stream,
+          f"stream analytics: {stream[-1500:]}")
+    check(hybrid.count("-> heavy on") == 6 and hybrid.count("-> light on")
+          == 6 and "redeployed ['stream-analytics/0']" in hybrid
+          and "'stream-analytics': 3" in hybrid,
+          f"hybrid edge serving: {hybrid[-1500:]}")
+    check(len(re.findall(r"request \d+ on edge0: generated \[", quick)) == 2
+          and "served: 2 requests" in quick, f"quickstart: {quick[-1500:]}")
+    check(re.search(r"phase 1 \(2×2 mesh\): step=20 ", elastic) is not None
+          and re.search(r"phase 2 \(1×2 mesh, batch 8->4\): step=35 ",
+                        elastic) is not None
+          and "elastic restart complete" in elastic,
+          f"elastic restart: {elastic[-1500:]}")
+    train = [runs[0], _start_example("edge_train", *train_args,
+                                     tag="edge_train_resumed")()]
+    first, resumed = train[0][0], train[1][0]
+    check("resumed from step" not in first, f"edge_train: {first[-1500:]}")
+    check("resumed from step 60" in resumed
+          and re.search(r"^step  120 ", resumed, re.M) is not None,
+          f"edge_train resumed: {resumed[-1500:]}")
+    out, wall, _ = train[1]
+    params = re.search(r"model: ([\d,]+) params", out).group(1)
+    med, tps = re.search(r"median step ([\d.]+) ms, (\d+) tokens/s",
+                         out).groups()
+    print(f"[examples] edge_train --preset 100m ({params} params, B 8 x "
+          f"T 64), resumed to 120 alone: median step {med} ms, {tps} "
+          f"tokens/s, {wall:.1f}s wall on {card}")
+    total = {k: 0 for k in KERNELS}
+    for _, _, launched in runs + train[1:]:
+        for k in total:
+            total[k] += launched.get(k, 0)
+    secs = time.monotonic() - t_phase
+    print(f"[examples] phase 7 {secs:.1f}s on {card}")
+    return total, len(runs) + 1
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: training consistency, fp32
 # ---------------------------------------------------------------------------
 
 def _integration_cfg():
@@ -5727,17 +5923,17 @@ WIDE_TRAIN_PATHS = ("mixtral_train", "deepseek_train", "gemma_train",
                     "mesh_train")
 PATH_OF = {"flash_attention": ("serve", "edge", "fleet", "hubert",
                                "hubert_train", "mixtral", "deepseek")
-           + DENSE_PATHS + WIDE_TRAIN_PATHS + ("cp_decode",),
+           + DENSE_PATHS + WIDE_TRAIN_PATHS + ("cp_decode", "examples"),
            "paged_decode_attention": ("serve", "edge", "fleet")
-           + DENSE_PATHS,
+           + DENSE_PATHS + ("examples",),
            "paged_verify_attention": ("spec", "gemma_spec"),
            "decode_attention": ("spec", "zamba2", "edge", "gemma_spec",
                                 "mixtral", "deepseek", "mesh_train"),
            "decode_attention_lse": ("cp_decode",),
            "flash_attention_bwd_dq": ("train", "hubert_train")
-           + WIDE_TRAIN_PATHS,
+           + WIDE_TRAIN_PATHS + ("examples",),
            "flash_attention_bwd_dkv": ("train", "hubert_train")
-           + WIDE_TRAIN_PATHS,
+           + WIDE_TRAIN_PATHS + ("examples",),
            "ssd_scan": ("mamba2",), "rmsnorm": ("mamba2",)}
 UNIT_OF = {"serve": "request", "spec": "request", "train": "step",
            "mamba2": "request", "zamba2": "request", "edge": "dispatch",
@@ -5745,7 +5941,7 @@ UNIT_OF = {"serve": "request", "spec": "request", "train": "step",
            "mixtral": "request", "deepseek": "request",
            **{p: "request" for p in DENSE_PATHS},
            **{p: "step" for p in WIDE_TRAIN_PATHS},
-           "cp_decode": "step"}
+           "cp_decode": "step", "examples": "run"}
 
 
 def _path_rate(paths: dict, name: str, tag: str) -> dict:
@@ -5799,6 +5995,7 @@ def main() -> int:
     paths["gemma_train"] = phase_gemma_train(torch)
     paths["mesh_train"] = phase_mesh_train(torch)
     paths["cp_decode"] = phase_dryrun(torch)
+    paths["examples"] = phase_examples(torch, card)
     phase_train_consistency(torch)
     phase_encoder_train_consistency(torch)
     for pre in ("train_", "encoder_train_48_", "encoder_train_80_"):

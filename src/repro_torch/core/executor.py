@@ -254,7 +254,10 @@ class ExecutableImage:
         self._donated = [j for i in self.donated_argnums
                          for j in range(first[i], first[i + 1])]
         self._written = written | set(self._donated)
-        self._resident = [None] * len(self._static)
+        # the rest is set once here and only read after; ``_resident`` is
+        # what every call rewrites, under the lock that guards it there
+        with self._lock:
+            self._resident = [None] * len(self._static)
 
     # ------------------------------------------------------------------
     def matches(self, args: Tuple) -> bool:

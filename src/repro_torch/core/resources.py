@@ -15,6 +15,7 @@ must be given its capacity.  (The field names keep the JAX package's
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 from typing import Dict, Optional
 
@@ -46,6 +47,16 @@ class NodeCapacity:
     def __post_init__(self):
         if self.hbm_bytes is None:
             self.hbm_bytes = self.chips * card_memory()
+
+
+def host_capacity(device) -> Optional[NodeCapacity]:
+    """What the entry points give a node on ``device``: ``None`` on the
+    card (the node reads the card's memory), the host's memory on the CPU,
+    which has no card to read."""
+    if resolve_device(device).type == "cuda":
+        return None
+    return NodeCapacity(hbm_bytes=os.sysconf("SC_PAGE_SIZE")
+                        * os.sysconf("SC_PHYS_PAGES"))
 
 
 @dataclasses.dataclass

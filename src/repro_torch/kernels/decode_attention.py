@@ -155,7 +155,7 @@ def decode_attention(
 decode_attention.launches = 0
 
 
-def decode_attention_lse(
+def decode_attention_lse(  # analysis: oracle=decode_attention
     q: torch.Tensor,                  # [B, Hq, D]
     k_cache: torch.Tensor,            # [B, S, Hkv, D]
     v_cache: torch.Tensor,            # [B, S, Hkv, Dv]

@@ -74,7 +74,7 @@ def _int32(t: Optional[torch.Tensor], shape, device) -> Optional[torch.Tensor]:
     return t
 
 
-def flash_attention(
+def flash_attention(  # analysis: oracle=mha
     q: torch.Tensor,                  # [B, Tq, Hq, D]
     k: torch.Tensor,                  # [B, Tk, Hkv, D]
     v: torch.Tensor,                  # [B, Tk, Hkv, Dv]

@@ -25,14 +25,9 @@ on the card it is the card's.  ``main`` returns the ``EdgeSystem``.
 from __future__ import annotations
 
 import argparse
-import os
 import time
 
 import numpy as np
-
-
-def _host_memory() -> int:
-    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
 def main(argv=None):
@@ -54,9 +49,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config, get_reduced_config
-    from repro_torch.core import (EdgeSystem, ExecutorClass, NodeCapacity,
-                                  QoSClass, ServiceSpec, Workload,
-                                  WorkloadClass, WorkloadKind)
+    from repro_torch.core import (EdgeSystem, ExecutorClass, QoSClass,
+                                  ServiceSpec, Workload, WorkloadClass,
+                                  WorkloadKind)
+    from repro_torch.core.resources import host_capacity
     from repro_torch.device import resolve_device
     from repro_torch.serving.router import make_engine_builder
 
@@ -67,8 +63,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     system = EdgeSystem()
-    system.add_node("edge0", NodeCapacity(hbm_bytes=_host_memory())
-                    if device.type == "cpu" else None)
+    system.add_node("edge0", host_capacity(device))
     system.register_builder(
         "decode", WorkloadClass.HEAVY,
         make_engine_builder(cfg, max_slots=args.slots, max_seq=args.max_seq,

@@ -498,7 +498,7 @@ class ServingEngine:
 
     # ------------------------------------------------------- loop lifecycle
     @property
-    def loop_running(self) -> bool:
+    def loop_running(self) -> bool:  # analysis: unguarded-ok (racy fast path: single atomic bool/ref reads; lifecycle methods re-check under the lock)
         return self._running and self._thread is not None \
             and self._thread.is_alive()
 

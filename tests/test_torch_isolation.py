@@ -1,9 +1,10 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, the port runs with JAX
-made unimportable, and its entry points refuse a missing GPU instead of
-falling back to the CPU."""
+"""The port stands alone: no module of ``src/repro_torch``, no example
+``examples/torch_*.py`` and not ``chip_smoke.py`` imports JAX or the JAX
+package, the port runs with JAX made unimportable, and its entry points
+and examples refuse a missing GPU instead of falling back to the CPU."""
 import ast
 import os
+import runpy
 import subprocess
 import sys
 import textwrap
@@ -19,7 +20,12 @@ torch.set_num_threads(1)
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+        + _examples()
+
+
+def _examples():
+    return sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported_modules(path: Path):
@@ -35,6 +41,7 @@ def _imported_modules(path: Path):
 def test_no_jax_or_repro_imports():
     files = _port_files()
     assert len(files) > 15 and (ROOT / "chip_smoke.py").exists()
+    assert len(_examples()) == 5
     bad = []
     for f in files:
         for mod in _imported_modules(f):
@@ -161,6 +168,11 @@ def test_entry_points_refuse_a_missing_gpu():
     # a CPU node has no card to read: it must be given its capacity
     with pytest.raises(ValueError, match="capacity"):
         EdgeSystem().add_node("n0", mesh="cpu")
+    # the examples: on the card unless told --device cpu
+    for path in _examples():
+        example = runpy.run_path(str(path), run_name="example")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            example["main"]([])
 
 
 def test_dryrun_runs_as_main_with_jax_unimportable(tmp_path):
