@@ -12,18 +12,28 @@ continues:
    in its SASS (the bf16 SSD scan's must have some, the fp32 scan's none;
    so must every bf16 instance of the paged and dense decode attention
    kernels and every wgmma instance of the flash forward and of the
-   flash backward's dq and dk/dv kernels, one for each head dim they
-   take (the forward's and the backward's 32, 48, 64, 80, 128, 192 and
-   256, and keys of 192 over values of 128; registers and spills
-   printed), and MLA's absorbed-decode wgmma kernel (keys 576, values
-   512), and no fp32 one; the paged,
-   verify and dense decode kinds at D 192 and 256 in bf16 and fp32, over
-   int8 pools too for the paged kinds, registers and spills printed),
-   TF32 off for matmuls and cuDNN;
+   flash backward's dq and dk/dv kernels, one for each (key, value) head
+   dims of ``ATTENTION_DIMS["flash"]`` (16, 32, 48, 64, 80, 128, 192 and
+   256, keys of 192 over values of 128 and of 48 over 32; registers and
+   spills printed), and MLA's absorbed-decode wgmma kernel (keys 576,
+   values 512), and no fp32 one; the paged, verify and dense decode
+   kinds at every pair of their ``ATTENTION_DIMS`` entries in bf16 and
+   fp32, over int8 pools too for the paged kinds (dense decode also at
+   keys 48 over values 32), registers and spills printed at D 16, 48,
+   192 and 256), TF32 off for matmuls and cuDNN;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (bf16 and fp32, window and softcap variants,
    int8 pools for the paged kernels, K1 of 1, 2 and 5 for the verify
-   kernel, which at K1 = 1 is also held against the paged decode kernel;
+   kernel, which at K1 = 1 is also held against the paged decode kernel,
+   and K1 9, 13 and 16 at G 8 (D 64 and 256: row groups of 64 and 32),
+   timed at K1 16; head dim 16 at the JAX kernel tests' shapes (B 2, T
+   32, G 2 and G 8 over one KV head, a window of 8, a softcap of 15,
+   cross lengths 24 over 40, non-causal) for the forward, dq, dk/dv,
+   paged decode, verify and dense decode, and at the examples' (the
+   quickstart's train step and decode tick timed, its prefills,
+   the elastic restart's ranks); MLA's absorbed decode at the reduced
+   config's keys of 48 over values of 32 (G 4, B 8 over 1024 slots,
+   lengths 1-1023, timed; lengths 0, S and past S; the lse variant);
    both paged kernels timed at B 8 over 64 table entries, at B 1 with one
    543-token sequence and at B 8 over 256 entries with lengths 1024-4095,
    paged decode also at the fleet's 4 slots over 8 entries (phase 3e,
@@ -206,7 +216,11 @@ continues:
    each decode step against ``Model.forward``, within 2e-4 relative;
 4b. speculative exactness: fp32 at full width, 2 random layers, the first
    as the draft: speculative streams equal plain ones with pages in fp32
-   and in int8 (a token may differ only at a top-2 margin <= 1e-3);
+   and in int8 (a token may differ only at a top-2 margin <= 1e-3); then
+   ``spec_k_max`` 12 over fp32 pages, the second layer's write-backs
+   scaled by 0.02 so that the draft length climbs: the verify kernel at
+   K1 past 8 (104 rows of G 8 in two row groups), its launches 2 x the
+   verify rounds;
 5. golden: the JAX reference's token streams (``tests/data``), plain,
    speculative and dense-slot (reduced mamba2 and zamba2), and the dense
    variants' (reduced gemma-2b at head dim 256, command-r-35b,
@@ -220,6 +234,15 @@ continues:
    the JAX encoder logits of reduced
    edge-cv-heavy at head dims 48 and 80 through the fp32 flash kernel
    (within 2e-4 relative, argmax equal, the masked loss within 2e-4);
+   then the shapes the JAX examples and engine reach, every kernel's
+   launches counted from 0: the JAX quickstart's model (four heads of
+   16) served over the waves from its 3 trained steps' parameters
+   (flash and paged decode at D 16), reduced deepseek-v2-236b at its
+   default MLA widths, parameters drawn from the fixture's spec (flash
+   at q/k 48 over v 32, dense decode at keys 48 over values 32), and
+   ``spec_k_max`` 12 over the fixture's target with its second layer's
+   write-backs zeroed and its first layer as the draft (the verify
+   kernel at K1 up to 13), each token for token with its JAX run;
 6. train: ``Trainer`` at full tinyllama-1.1b width (fp32 parameters and
    AdamW moments, bf16 compute) on the bigram stream at B 8 x T 1024, 6
    steps: every loss and grad norm finite, the parameters still after
@@ -272,7 +295,7 @@ continues:
    round trip; two spawned gloo ranks sharing the card train reduced
    mixtral on a (1, 2) mesh as one rank does; ``launch/train.py
    --distributed`` under ``torch.distributed.run`` restarts to the
-   unbroken loss and ``--mesh single`` exits naming world size 256.
+   unbroken loss and ``--mesh single`` raises naming world size 256.
    Every train phase runs its config's remat (the flash forward twice a
    layer and step under "minimal" and "full");
 6g. the dry-run against the card and decode over caches split along the
@@ -294,8 +317,11 @@ continues:
    printed lines and the kernels its process launched: ``torch_edge_train.py
    --preset 100m`` (12 layers, d 768, vocabulary 32 000) for 60 steps,
    stream analytics, the hybrid edge scenario, the quickstart and the
-   elastic restart on 4 gloo ranks sharing the card, all at once; then
-   edge_train alone on the same directory for 60 more steps that print
+   elastic restart (both at the JAX examples' four heads of 16; rank 0
+   of each elastic phase prints its launches, which must include the
+   flash forward, dq and dk/dv) on 4 gloo ranks sharing the card, all
+   at once; then
+   edge_train alone on the same directory for 30 more steps that print
    ``resumed from step 60``; each example's wall, and edge_train's
    median step and tokens/s;
 7b. train consistency: fp32 at full width, 2 layers, every gradient leaf of
@@ -307,7 +333,9 @@ continues:
    replayed through the kernels from its step-0 state: losses and grad
    norms within 1e-4 relative, final parameters within 1e-4; the same
    for the fixture's encoder runs (reduced edge-cv-heavy at head dims 48
-   and 80, masked prediction); and its MoE and wide-head runs (reduced
+   and 80, masked prediction) and the quickstart's 3 steps (head dim 16,
+   step-0 parameters drawn from the fixture's spec); and its MoE and
+   wide-head runs (reduced
    mixtral past its window of 32, deepseek at the published MLA widths
    and capacity factor 0.25, gemma-2b at head dim 256): losses and grad
    norms within 2e-5 relative, parameters within 2e-4;
@@ -321,7 +349,9 @@ continues:
    scan and RMSNorm from mamba2's serve, the dense
    decode kernel from the speculative, zamba2's, mixtral's and
    deepseek's serves and the edge path; per run of an example from the
-   examples' own processes (phase 7); a timed shape named after a serving path (``@mixtral``)
+   examples' own processes (phase 7); per request of phase 5's runs at
+   the JAX examples' and engine's shapes (``shapes``) and of phase 4b's
+   ``spec_k_max`` 12 run (``spec_k12``); a timed shape named after a serving path (``@mixtral``)
    with that path's launches per 10 requests; flash attention's times at
    the serving
    chunk, and as ``train_*`` at the train shape, the encoders' shapes
@@ -513,12 +543,11 @@ def phase_device_and_build(torch):
     # the wrapper takes (D 48 and 80 for the encoders, MLA's 192 and 128),
     # tensor-core instructions in every one (its spills are checked
     # above), none in the fp32 kernel
-    from repro_torch.kernels import flash_attention_bwd as fab
-    from repro_torch.kernels.flash_attention import DIM_PAIRS
+    from repro_torch.kernels import ATTENTION_DIMS
 
     ops = tc_ops["flash_attention"]
     regs = {k: r for k, r, _ in _kernel_resources(logs["flash_attention"])}
-    for D, Dv in DIM_PAIRS:
+    for D, Dv in ATTENTION_DIMS["flash"]:
         wk = f"flash_fwd_wgmma_kernel<{D},{Dv}>"
         fk = f"flash_fwd_kernel<{D},{Dv}>"
         check(ops.get(wk, 0) > 0 and ops.get(fk, -1) == 0,
@@ -550,7 +579,7 @@ def phase_device_and_build(torch):
     ops = tc_ops["flash_attention_bwd"]
     res = {k: (r, b) for k, r, b in
            _kernel_resources(logs["flash_attention_bwd"])}
-    for D, Dv in fab.HEAD_DIMS:
+    for D, Dv in ATTENTION_DIMS["flash"]:
         for part in ("dq", "dkv"):
             wk = f"flash_bwd_{part}_wgmma_kernel<{D},{Dv}>"
             fk = f"flash_bwd_{part}_kernel<{D},{Dv}>"
@@ -575,24 +604,32 @@ def phase_device_and_build(torch):
         check(bf and all(bf) and f32 and not any(f32),
               f"{name}: bf16 instances without or fp32 instances with "
               f"tensor-core instructions: {inst}")
-        # the dense variants' widths: bf16 and fp32 instances at D 192 and
-        # 256, and over int8 pools for the paged kinds (the check above
-        # holds their tensor-core instructions; the spill check, spills)
-        have = {(a[1], a[2], a[3].replace("(int)", ""))
+        # every (key, value) pair of the kind's entry in ATTENTION_DIMS
+        # that the template takes (MLA's (576, 512) has kernels of its
+        # own, above): bf16 and fp32 instances, over int8 pools too for
+        # the paged kinds (the check above holds their tensor-core
+        # instructions; the spill check, spills); the value width is the
+        # last template argument
+        have = {(a[1], a[2], a[3].replace("(int)", ""),
+                 a[-1].replace("(int)", ""))
                 for a in map(_template_args, inst)}
         pools = ("", "signed char") if name != "decode_attention" else ("",)
-        for D in ("192", "256"):
+        kind = "decode" if name == "decode_attention" else "paged"
+        for D, Dv in ATTENTION_DIMS[kind]:
+            if (D, Dv) == (576, 512):
+                continue
             for tc in ("__nv_bfloat16", "float"):
                 for kv in pools:
-                    check((tc, kv or tc, D) in have,
+                    check((tc, kv or tc, str(D), str(Dv)) in have,
                           f"{name}: no {tc} instance over {kv or tc} "
-                          f"pools at D {D}: {sorted(have)}")
-        wide = [f"{k} {r} regs" + (f", {b} B spilled" if b else "")
-                for k, r, b in _kernel_resources(logs[name])
-                if re.search(r"<(192|256),", k)]
-        print(f"[build] {name} at D 192 and 256 (bf16 and fp32, "
+                          f"pools at D {D}/{Dv}: {sorted(have)}")
+        shown = [f"{k} {r} regs" + (f", {b} B spilled" if b else "")
+                 for k, r, b in _kernel_resources(logs[name])
+                 if re.search(r"<(16|48|192|256),", k)]
+        print(f"[build] {name} at D 16, 192 and 256 and keys 48 over "
+              f"values 32 (bf16 and fp32, "
               f"{'bf16, fp32 and int8 pools' if len(pools) > 1 else 'dense'}"
-              f"): {', '.join(wide)}")
+              f"): {', '.join(shown)}")
     return card
 
 
@@ -834,28 +871,32 @@ def _sdpa_mla_flash(torch, F, args, kw):
 
 
 def _mla_decode_case(torch, gen, dtype, B, S, Hq=128, fix=None,
-                     softcap=0.0, own_v=False):
+                     softcap=0.0, own_v=False, dims=(576, 512, 192),
+                     lens=(36, 544)):
     """MLA's absorbed decode (deepseek-v2-236b): q [B, Hq, 576] (q_lat and
     q_rope), one KV head of keys [c_kv, k_rope] 576 wide and values c_kv
     (their first 512 columns, a copy, as ``_decode_step_mla`` passes
-    ``cache["c_kv"]``; ``own_v`` draws values of their own), lengths
-    36-543 unless ``fix``."""
+    ``cache["c_kv"]``; ``own_v`` draws values of their own), the scale
+    192^-0.5 (nope + rope), lengths 36-543 unless ``fix``; ``dims`` (keys,
+    values, nope + rope) and ``lens`` change them: the reduced config's
+    (48, 32, 48)."""
+    DK, DV, DQ = dims
     dt = getattr(torch, dtype)
-    q = torch.randn(B, Hq, 576, generator=gen, device="cuda").to(dt)
-    k = torch.randn(B, S, 1, 576, generator=gen, device="cuda").to(dt)
-    v = torch.randn(B, S, 1, 512, generator=gen, device="cuda").to(dt) \
-        if own_v else k[..., :512].contiguous()
-    clen = torch.randint(36, 544, (B,), generator=gen, device="cuda",
+    q = torch.randn(B, Hq, DK, generator=gen, device="cuda").to(dt)
+    k = torch.randn(B, S, 1, DK, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, S, 1, DV, generator=gen, device="cuda").to(dt) \
+        if own_v else k[..., :DV].contiguous()
+    clen = torch.randint(*lens, (B,), generator=gen, device="cuda",
                          dtype=torch.int32)
     for row, n in (fix or {}).items():
         clen[row] = n
-    kw = dict(softcap=softcap, sm_scale=192 ** -0.5)
-    # what the data needs: each row's valid keys (576 + 512 columns) once,
-    # q and o; 2·(576 + 512) FLOP a key and query head
+    kw = dict(softcap=softcap, sm_scale=DQ ** -0.5)
+    # what the data needs: each row's valid keys (DK + DV columns) once,
+    # q and o; 2·(DK + DV) FLOP a key and query head
     toks = int(np.minimum(clen.long().cpu().numpy(), S).sum())
     e = q.element_size()
-    nbytes = toks * (576 + 512) * e + B * Hq * (576 + 512) * e + 4 * B
-    return (q, k, v, clen), kw, nbytes, 2 * (576 + 512) * toks * Hq
+    nbytes = toks * (DK + DV) * e + B * Hq * (DK + DV) * e + 4 * B
+    return (q, k, v, clen), kw, nbytes, 2 * (DK + DV) * toks * Hq
 
 
 def _sdpa_mla_decode(torch, F, args, kw):
@@ -1176,12 +1217,12 @@ def phase_kernels(torch, timer, card):
         ("Tq64/Tk64 first chunk, 40 real", 64, 64, 0, 40, {}, None),
         ("Tq32/Tk128 tail@64", 32, 128, 64, 96, {}, None),
         ("Tq16/Tk128 tail@80, 13 real", 16, 128, 80, 93, {}, None),
-        # the quickstart example's prefills (phase 7: two heads of 32,
+        # the quickstart example's prefills (phase 7: four heads of 16,
         # G 1): prompts of 8 and 5 tokens in a 16-token bucket
-        ("quickstart D32 G1 Tq16/Tk16, 8 real", 16, 16, 0, 8,
-         {"heads": (2, 2, 32)}, None),
-        ("quickstart D32 G1 Tq16/Tk16 @4, 5 real", 16, 16, 4, 5,
-         {"heads": (2, 2, 32)}, None),
+        ("quickstart D16 G1 Tq16/Tk16, 8 real", 16, 16, 0, 8,
+         {"heads": (4, 4, 16)}, None),
+        ("quickstart D16 G1 Tq16/Tk16 @4, 5 real", 16, 16, 4, 5,
+         {"heads": (4, 4, 16)}, None),
     ]
     # the dense variants' heads (phase 3g), each timed at its chunk after
     # 448 keys: gemma-2b's Hq 8 over one KV head at D 256, nemotron-4-340b's
@@ -1276,9 +1317,10 @@ def phase_kernels(torch, timer, card):
         ("B4/MP8 full rows of 128", {"B": 4, "MP": 8, "lens": (128, 129)},
          None),
         # the quickstart example's decode ticks (phase 7): 2 slots over
-        # MP 4 (max_seq 64), two heads of 32, lengths 1-15
-        ("quickstart D32 G1 B2/MP4 lengths 1-15",
-         {"B": 2, "MP": 4, "lens": (1, 16), "heads": (2, 2, 32)}, None),
+        # MP 4 (max_seq 64), four heads of 16, lengths 1-15, timed
+        ("quickstart D16 G1 B2/MP4 lengths 1-15",
+         {"B": 2, "MP": 4, "lens": (1, 16), "heads": (4, 4, 16)},
+         "paged_decode_attention@quickstart"),
         ("B8/MP64 window256", {"window": 256}, None),
         ("B8/MP64 softcap30", {"softcap": 30.0}, None),
         ("B8/MP64 int8", {"int8": True}, None),
@@ -1295,6 +1337,23 @@ def phase_kernels(torch, timer, card):
             (f"D{D} B8/MP64 window256+softcap30",
              dict(hd, window=256, softcap=30.0), None),
             (f"D{D} B1/MP64 one 543-token sequence", dict(hd, **one), None)]
+    # head dim 16 at the JAX kernel tests' shapes (B 2, 32-token caches,
+    # G 2 and G 8 over one KV head, a window of 8, a softcap of 15,
+    # lengths 24-40), over bf16 and int8 pools; the verify pass and the
+    # dense decode kernel take the same cases below
+    d16 = [("D16 B2/MP4 G2", {"heads": (4, 2, 16)}),
+           ("D16 B2/MP4 G8 over 1", {"heads": (8, 1, 16)}),
+           ("D16 B2/MP4 G2 window8", {"heads": (4, 2, 16), "window": 8}),
+           ("D16 B2/MP4 G2 softcap15", {"heads": (4, 2, 16),
+                                        "softcap": 15.0}),
+           ("D16 B2/MP4 G2 lengths 24-40", {"heads": (4, 2, 16),
+                                            "lens": (24, 41)})]
+    d16 = [(label, dict(extra, B=2, MP=4, **({} if "lens" in extra
+                                             else {"lens": (8, 33)})))
+           for label, extra in d16]
+    paged_cases += [(label, extra, None) for label, extra in d16] + [
+        (f"{label} int8", dict(extra, int8=True), None)
+        for label, extra in d16]
     for dtype in ("bfloat16", "float32"):
         for label, extra, key in paged_cases:
             args, kw, nb, fl = _paged_case(torch, gen, dtype, **extra)
@@ -1330,6 +1389,23 @@ def phase_kernels(torch, timer, card):
         (f"D256 B8/MP64 K1={k1}{name}", dict(hd, K1=k1, **extra), None)
         for k1 in (1, 2) for name, extra in (("", {}),
                                              (" int8", {"int8": True}))]
+    # the verify pass at any K1: K1 9, 13 and 16 (spec_k_max 8, 12 and 15)
+    # at tinyllama's G 8 (D 64: 72-128 rows in row groups of 64) and
+    # gemma-2b's (D 256: groups of 32), over bf16 and int8 pools, K1 16
+    # timed; then K1 5 at head dim 16
+    for heads, tag in (((32, 4, 64), "tinyllama"), (gemma, "gemma")):
+        D = heads[2]
+        verify_cases += [
+            (f"D{D} G8 B8/MP64 K1={k1}{name}",
+             dict(K1=k1, heads=heads, **extra),
+             f"paged_verify_attention@k1_16_{tag}"
+             if k1 == 16 and not name else None)
+            for k1 in (9, 13, 16)
+            for name, extra in (("", {}), (" int8", {"int8": True}))]
+    verify_cases += [(f"{label} K1=5", dict(extra, K1=5), None)
+                     for label, extra in d16] + [
+        (f"{label} K1=5 int8", dict(extra, K1=5, int8=True), None)
+        for label, extra in d16]
     for dtype in ("bfloat16", "float32"):
         for label, extra, key in verify_cases:
             args, kw, nb, fl = _paged_case(torch, gen, dtype, **extra)
@@ -1406,6 +1482,17 @@ def phase_kernels(torch, timer, card):
          dict(mixd, fix={0: 1, 1: 100, 2: 2000, 3: 4095, 4: 4096, 5: 0,
                          6: 3000, 7: 4500}), None, (5,)),
     ]
+    # head dim 16 at the JAX kernel tests' shapes (dense caches of 32 and
+    # 40 slots), and a row of 0
+    dense_cases += [
+        (f"D16 B2/S{S} {name}", S, dict(D=16, B=2, Hq=hq, Hkv=hkv,
+                                        fix={0: S, 1: n}, **extra), None,
+         (1,) if n == 0 else ())
+        for name, S, hq, hkv, n, extra in (
+            ("G2", 32, 4, 2, 24, {}), ("G8 over 1", 32, 8, 1, 17, {}),
+            ("G2 window8", 32, 4, 2, 30, {"window": 8}),
+            ("G2 softcap15", 40, 4, 2, 24, {"softcap": 15.0}),
+            ("G1 a cache_len 0 row", 40, 4, 4, 0, {}))]
     for dtype in ("bfloat16", "float32"):
         for label, S, extra, key, empty in dense_cases:
             args, kw, nb, fl = _dense_case(torch, gen, dtype, S, **extra)
@@ -1471,6 +1558,19 @@ def phase_kernels(torch, timer, card):
         ("MLA B3/S200 G16 own values", 3, 200,
          {"Hq": 16, "own_v": True, "fix": {0: 0, 1: 5, 2: 199}}, None,
          (0,)),
+        # the reduced config's absorbed decode (keys of 32 latent and 16
+        # rope columns over values of the 32 latent ones, G 4; phase 5's
+        # deepseek_reduced golden), timed at B 8 over 1024 slots with
+        # lengths 1-1023; lengths 0, S and past S, a softcap, G 16
+        ("MLA reduced B8/S1024 G4 48/32, lengths 1-1023", 8, 1024,
+         {"Hq": 4, "dims": (48, 32, 48), "lens": (1, 1024)},
+         "decode_attention@deepseek_reduced", ()),
+        ("MLA reduced B4/S300 G4 lengths 0, S, past S, softcap30", 4, 300,
+         {"Hq": 4, "dims": (48, 32, 48), "softcap": 30.0,
+          "fix": {0: 0, 1: 300, 2: 450, 3: 17}}, None, (0,)),
+        ("MLA reduced B3/S200 G16 own values", 3, 200,
+         {"Hq": 16, "dims": (48, 32, 48), "own_v": True,
+          "fix": {0: 1, 1: 64, 2: 199}}, None, ()),
     ]
     for dtype in ("bfloat16", "float32"):
         for label, B, S, extra, key, empty in mla_decode:
@@ -1530,13 +1630,17 @@ def phase_kernels(torch, timer, card):
         ("MLA B2/S1024 G128 split keys merged, softcap30", lambda dt:
          _mla_decode_case(torch, gen, dt, 2, 1024, softcap=30.0,
                           fix={0: 1024, 1: 0}), None, (1,)),
+        ("MLA reduced B2/S64 G4 48/32 a full block, an empty one",
+         lambda dt: _mla_decode_case(torch, gen, dt, 2, 64, Hq=4,
+                                     dims=(48, 32, 48), fix={0: 64, 1: 0}),
+         None, (1,)),
     ]
     for dtype in ("bfloat16", "float32"):
         for label, case, key, empty in cp_cases:
             args, kw, nb, fl = case(dtype)
             nb += 4 * args[0].shape[0] * args[0].shape[1]    # lse written
             timed = key is not None and dtype == "bfloat16"
-            mla = args[0].shape[-1] == 576
+            mla = args[0].shape[-1] in (576, 48)
             lib = backend = None
             if timed and mla:
                 backend, lib = _sdpa_mla_decode(torch, F, args, kw)
@@ -1610,10 +1714,28 @@ def phase_kernels(torch, timer, card):
         ("B2/T256 G12", (2, 256, 256, 24, 2, 64), {"valid": True}, False),
         ("B1/T200 G96 D128", (1, 200, 200, 96, 1, 128), {}, False),
         # the examples' train steps (phase 7): edge_train --preset 100m
-        # (12 heads over 4, G 3) and the quickstart's (2 heads of 32)
+        # (12 heads over 4, G 3) and the quickstart's and the elastic
+        # restart's (four heads of 16, G 1; timed), whose ranks on a
+        # model axis of 2 hold two heads each
         ("edge_train 100m B8/T64 H12/4 D64", (8, 64, 64, 12, 4, 64), {},
          False),
-        ("quickstart B8/T32 H2/2 D32", (8, 32, 32, 2, 2, 32), {}, False),
+        ("quickstart B8/T32 H4/4 D16", (8, 32, 32, 4, 4, 16), {},
+         "quickstart_train"),
+        ("elastic rank B4/T32 H2/2 D16", (4, 32, 32, 2, 2, 16), {}, False),
+        # the JAX kernel tests' D 16 cases (tests/test_kernels.py:206-211,
+        # :246-251): G 2 and G 8 over one KV head, a window of 8, a
+        # softcap of 15, cross lengths 24 over 40, non-causal
+        ("D16 B2/T32 H4/2", (2, 32, 32, 4, 2, 16), {}, False),
+        ("D16 B2/T32 H8/1", (2, 32, 32, 8, 1, 16), {}, False),
+        ("D16 B2/T32 window8", (2, 32, 32, 4, 2, 16), {"window": 8},
+         False),
+        ("D16 B2/T32 softcap15", (2, 32, 32, 4, 2, 16), {"softcap": 15.0},
+         False),
+        ("D16 B2/Tq24/Tk40", (2, 24, 40, 4, 2, 16), {}, False),
+        ("D16 B2/T32 non-causal", (2, 32, 32, 4, 2, 16), {"causal": False},
+         False),
+        ("D16 B2/T129 G4 valid(row 0 empty)", (2, 129, 129, 8, 2, 16),
+         {"valid": True}, False),
         # the encoders' widths: D 48 and 80, non-causal and causal, G 1
         # and GQA, ragged T, an empty row, softcap, explicit and index
         # positions
@@ -3733,8 +3855,14 @@ def phase_spec_exactness(torch):
     speculative token streams equal the non-speculative ones.  A token
     may differ only where the two best logits of the full forward are
     within 1e-3 (``phase_consistency``'s rule); the streams are compared
-    up to that token."""
+    up to that token.  Then ``spec_k_max`` 12 over fp32 pages, the
+    target's second layer writing back a fiftieth of its output (so the
+    draft is accepted often and its length climbs past 8: the verify
+    kernel at K1 up to 13, 104 rows of G 8 in two row groups), each
+    verify launch's K1 recorded.  Returns the launches of the
+    ``spec_k_max`` 12 run, counted from 0, and its requests."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, ops
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import ServingEngine
 
@@ -3743,20 +3871,42 @@ def phase_spec_exactness(torch):
     dcfg = dataclasses.replace(cfg, num_layers=1)
     model = Model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(3))
+    quiet = model.init(torch.Generator(device="cuda").manual_seed(3))
+    with torch.no_grad():
+        for name, part in (("w_o", "attn"), ("w_down", "mlp")):
+            quiet["stack"]["blocks"][part][name][1:] *= 0.02
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, size=n)
                for n in (40, 100, 7, 300)]
-    kw = dict(max_slots=4, max_seq=512, page_size=16, params=params,
-              device="cuda")
-    for kv in ("auto", "int8"):
+    k1s = []
+    plain = ops._pva
+
+    def spy(q, *a, **k):
+        k1s.append(q.shape[1])
+        return plain(q, *a, **k)
+
+    counted = None
+    for kv, k_max, p, new in (("auto", 4, params, 24),
+                              ("int8", 4, params, 24),
+                              ("auto", 12, quiet, 64)):
+        kw = dict(max_slots=4, max_seq=512, page_size=16, params=p,
+                  device="cuda")
         outs = []
         for spec in (True, False):
-            extra = dict(draft_cfg=dcfg, draft_params=_truncated(params, 1),
-                         spec_k_max=4) if spec else {}
+            extra = dict(draft_cfg=dcfg, draft_params=_truncated(p, 1),
+                         spec_k_max=k_max) if spec else {}
             eng = ServingEngine(cfg, kv_dtype=kv, **kw, **extra)
-            for p in prompts:
-                eng.submit(p, max_new_tokens=24)
-            done = sorted(eng.run_until_drained(), key=lambda r: r.rid)
+            if spec and k_max > 8:
+                _zero_launch_counts()
+                ops._pva = spy
+            try:
+                for x in prompts:
+                    eng.submit(x, max_new_tokens=new)
+                done = sorted(eng.run_until_drained(), key=lambda r: r.rid)
+            finally:
+                ops._pva = plain
+            if spec and k_max > 8:
+                counted = launch_counts(), len(prompts)
             check(not eng.failed and len(done) == len(prompts),
                   "a request failed")
             outs.append([r.generated for r in done])
@@ -3765,22 +3915,33 @@ def phase_spec_exactness(torch):
                 check(st["spec_rounds"] > 0 and st["speculative"],
                       f"no speculative tick ran: {st}")
         flips = 0
-        for p, s, b in zip(prompts, *outs):
-            j = next((i for i, (x, y) in enumerate(zip(s, b)) if x != y),
+        for x, s_, b in zip(prompts, *outs):
+            j = next((i for i, (u, w) in enumerate(zip(s_, b)) if u != w),
                      None)
             if j is None:
                 continue
             with torch.no_grad():
-                full = model.forward(params, {"tokens": torch.tensor(
-                    [list(p) + b[:j]], device="cuda")})[0, -1]
+                full = model.forward(p, {"tokens": torch.tensor(
+                    [list(x) + b[:j]], device="cuda")})[0, -1]
             top2 = torch.topk(full, 2).values
             check(float(top2[0] - top2[1]) <= 1e-3,
-                  f"speculative token differs at a clear margin ({kv})")
+                  f"speculative token differs at a clear margin ({kv}, "
+                  f"spec_k_max {k_max})")
             flips += 1
+        widest = ""
+        if k_max > 8:
+            check(max(k1s) > 8 and counted[0]["paged_verify_attention"]
+                  == cfg.num_layers * st["spec_rounds"],
+                  f"spec_k_max {k_max}: verify K1 {sorted(set(k1s))}, "
+                  f"launches {counted[0]}")
+            widest = (f"; verify K1 {min(k1s)}-{max(k1s)} over "
+                      f"{counted[0]['paged_verify_attention']} launches")
         print(f"[spec-exact] fp32 full width, 2-layer target, 1-layer "
-              f"draft, pages {kv}: acceptance {st['acceptance_rate']:.3f} "
-              f"over {st['spec_rounds']} rounds; {len(prompts)} streams "
-              f"of 24 equal the plain ones (near-tie flips {flips})")
+              f"draft, pages {kv}, spec_k_max {k_max}: acceptance "
+              f"{st['acceptance_rate']:.3f} over {st['spec_rounds']} rounds;"
+              f" {len(prompts)} streams of {new} equal the plain ones "
+              f"(near-tie flips {flips}){widest}")
+    return counted
 
 
 # ---------------------------------------------------------------------------
@@ -4096,6 +4257,171 @@ def phase_golden(torch):
         check(err < 2e-4 and same and lerr < 2e-4,
               f"golden encoder {hd}: logits {err}, argmax {same}, loss "
               f"{lerr}")
+    return _golden_shapes(torch, g, tree)
+
+
+def _fixture_maker():
+    """The golden fixture's generator, ``tests/torch_port_golden.py``
+    (numpy alone at import; JAX only inside the functions that run the
+    JAX package): its ``draw`` and ``spec_k12_params`` rebuild the
+    parameters the fixture stores as a spec, or derives from others."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_port_golden
+
+    return torch_port_golden
+
+
+def _golden_shapes(torch, g, tree):
+    """Phase 5's runs at the shapes the JAX examples and engine reach, each
+    against the fixture's JAX run, token for token, with every kernel's
+    launches counted from 0: the quickstart's model (four heads of 16)
+    served over the waves through flash and paged decode at D 16; reduced
+    deepseek at its default MLA widths through flash at q/k 48 over v 32
+    and the dense decode kernel at keys 48 over values 32; the
+    ``spec_k_max`` 12 run over the fixture's target (its second layer's
+    write-backs zeroed, its first layer the draft) through the verify
+    kernel at K1 past 8.  Returns (launches, requests) of the path."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.weights import from_numpy_tree, unflatten
+    from repro_torch.serving.engine import ServingEngine
+
+    def serve(eng, prompts, new, waves=True):
+        for w in (0, 1) if waves else (0,):
+            for p, pw in zip(prompts, g["waves"] if waves
+                             else [0] * len(prompts)):
+                if pw == w:
+                    eng.submit(p, max_new_tokens=new)
+            eng.run_until_drained()
+        check(not eng.failed, "golden shapes: a request failed")
+        return [r.generated for r in sorted(eng.completed.values(),
+                                            key=lambda r: r.rid)]
+
+    def logits_err(eng, params, prompts, want):
+        worst = 0.0
+        with torch.no_grad():
+            for p, w in zip(prompts, want):
+                lg = eng.model.forward(params, {"tokens": torch.tensor(
+                    p[None].astype(np.int64), device="cuda")})[0, -1]
+                w = torch.tensor(w, device="cuda")
+                worst = max(worst, float((lg - w).abs().max()
+                                         / w.abs().max()))
+        return worst
+
+    _zero_launch_counts()
+    n_req = 0
+    # the quickstart: the JAX engine's waves from the parameters the JAX
+    # trainer's 3 steps left (phase 8 replays the steps)
+    qcfg = ModelConfig.from_dict(json.loads(str(g["quickstart_train_config"])))
+    check((qcfg.num_heads, qcfg.num_kv_heads, qcfg.head_dim_) == (4, 4, 16),
+          f"golden quickstart: config {qcfg}")
+    qparams = tree("quickstart_train_final/", qcfg)
+    qprompts = [p[:n] for p, n in zip(g["quickstart_prompts"],
+                                      g["prompt_lens"])]
+    before = launch_counts()
+    qeng = ServingEngine(qcfg, params=qparams, device="cuda",
+                         **json.loads(str(g["engine"])))
+    got = serve(qeng, qprompts, int(g["max_new"]))
+    moved = {k: v - before[k] for k, v in launch_counts().items() if v}
+    n_req += len(qprompts)
+    check(got == g["quickstart_streams"].tolist(),
+          f"golden quickstart streams differ:\n{got}\n"
+          f"{g['quickstart_streams'].tolist()}")
+    check(moved.get("flash_attention", 0) > 0
+          and moved.get("paged_decode_attention", 0) > 0,
+          f"golden quickstart: the kernels did not run: {moved}")
+    worst = logits_err(qeng, qparams, qprompts, g["quickstart_first_logits"])
+    print(f"[golden] the quickstart's model ({qcfg.num_layers}L "
+          f"d{qcfg.d_model}, four heads of 16, fp32): the JAX engine's "
+          f"{len(got)} streams reproduced on the card (launches {moved}); "
+          f"first-token logits max rel err {worst:.3e} (bound 2e-4)")
+    check(worst < 2e-4, f"golden quickstart logits {worst} >= 2e-4")
+
+    # reduced deepseek at its default widths, parameters drawn from the
+    # fixture's spec
+    pre = "deepseek_reduced_"
+    rcfg = ModelConfig.from_dict(json.loads(str(g[pre + "config"])))
+    m = rcfg.mla
+    check((m.kv_lora_rank + m.qk_rope_head_dim, m.kv_lora_rank,
+           rcfg.num_heads) == (48, 32, 4) and rcfg.cdtype == torch.float32,
+          f"golden deepseek reduced: config {rcfg}")
+    maker = _fixture_maker()
+    rparams = from_numpy_tree(unflatten(maker.draw(
+        str(g[pre + "params_spec"]), int(g[pre + "params_seed"]))), rcfg,
+        "cuda")
+    rprompts = [p[:n] for p, n in zip(g[pre + "prompts"],
+                                      g[pre + "prompt_lens"])]
+    before = launch_counts()
+    reng = ServingEngine(rcfg, params=rparams, device="cuda",
+                         **json.loads(str(g[pre + "engine"])))
+    got = serve(reng, rprompts, int(g[pre + "max_new"]), waves=False)
+    moved = {k: v - before[k] for k, v in launch_counts().items() if v}
+    n_req += len(rprompts)
+    check(got == g[pre + "streams"].tolist(),
+          f"golden deepseek reduced streams differ:\n{got}\n"
+          f"{g[pre + 'streams'].tolist()}")
+    check(moved.get("flash_attention") == rcfg.num_layers * len(rprompts)
+          and moved.get("decode_attention")
+          == rcfg.num_layers * reng.decode_steps,
+          f"golden deepseek reduced: flash and dense decode launches "
+          f"{moved}")
+    worst = logits_err(reng, rparams, rprompts, g[pre + "last_logits"])
+    print(f"[golden] deepseek-v2-236b reduced at its default widths "
+          f"({rcfg.num_layers}L d{rcfg.d_model}, {rcfg.num_heads} heads, "
+          f"latent keys {m.kv_lora_rank}+{m.qk_rope_head_dim} over values "
+          f"{m.kv_lora_rank}, fp32): the JAX engine's {len(got)} streams "
+          f"reproduced on the card (launches {moved}); last-position "
+          f"logits max rel err {worst:.3e} (bound 2e-4)")
+    check(worst < 2e-4, f"golden deepseek reduced logits {worst} >= 2e-4")
+
+    # speculative at spec_k_max 12: the verify kernel at K1 up to 13 (a
+    # spy on the wrapper the dispatch calls records each call's K1)
+    from repro_torch.kernels import ops
+
+    setup = json.loads(str(g["spec_k12_setup"]))
+    cfg = ModelConfig.from_dict(json.loads(str(g["config"])))
+    dcfg = dataclasses.replace(cfg, num_layers=1)
+    target, draft = maker.spec_k12_params(
+        {k[len("params/"):]: v for k, v in g.items()
+         if k.startswith("params/")})
+    k1s = []
+    plain = ops._pva
+
+    def spy(q, *a, **k):
+        k1s.append(q.shape[1])
+        return plain(q, *a, **k)
+
+    before = launch_counts()
+    ops._pva = spy
+    try:
+        seng = ServingEngine(
+            cfg, params=from_numpy_tree(unflatten(target), cfg, "cuda"),
+            draft_cfg=dcfg, draft_params=from_numpy_tree(
+                unflatten(draft), dcfg, "cuda"),
+            spec_k_max=setup["spec_k_max"], device="cuda",
+            **setup["engine"])
+        got = serve(seng, [p[:n] for p, n in zip(g["prompts"],
+                                                 g["prompt_lens"])],
+                    setup["max_new"])
+    finally:
+        ops._pva = plain
+    moved = {k: v - before[k] for k, v in launch_counts().items() if v}
+    n_req += len(got)
+    st = seng.stats()
+    counts = {k: st[k] for k in ("spec_rounds", "spec_proposed",
+                                 "spec_accepted")}
+    check(got == g["spec_k12_streams"].tolist()
+          and counts == json.loads(str(g["spec_k12_stats"])),
+          f"golden spec_k12 streams or counters differ: {counts}\n{got}\n"
+          f"{g['spec_k12_streams'].tolist()}")
+    check(moved.get("paged_verify_attention")
+          == cfg.num_layers * st["spec_rounds"] and max(k1s) > 8,
+          f"golden spec_k12: verify launches {moved}, K1 {sorted(set(k1s))}")
+    print(f"[golden] spec_k_max 12 over the fixture's target: the JAX "
+          f"engine's {len(got)} streams of {setup['max_new']} and its "
+          f"counters {counts} reproduced on the card; verify K1 "
+          f"{sorted(set(k1s))} (launches {moved})")
+    return launch_counts(), n_req
 
 
 def phase_golden_train(torch, pre: str = "train_", loss_tol: float = 1e-4,
@@ -4126,6 +4452,9 @@ def phase_golden_train(torch, pre: str = "train_", loss_tol: float = 1e-4,
         if src:
             g.update({"params0/" + k[len(src):]: f[k] for k in f.files
                       if k.startswith(src)})
+    if "params0_spec" in g:             # drawn from a seed, not stored
+        g.update({"params0/" + k: v for k, v in _fixture_maker().draw(
+            str(g["params0_spec"]), int(g["params0_seed"])).items()})
     cfg = ModelConfig.from_dict(json.loads(str(g["config"])))
     setup = json.loads(str(g["setup"]))
 
@@ -4886,8 +5215,8 @@ def _mesh_launcher(torch, label):
     steps, then a restart for one more, whose parameters equal bit for
     bit those of 4 steps that did not stop (run in this process: at world
     size 1 every collective is the identity, so the 1 x 1 mesh computes
-    what one device does); and ``--mesh single`` exits non-zero naming
-    the world size it needs."""
+    what one device does); and ``--mesh single`` (in this process)
+    raises naming the world size it needs."""
     from repro_torch.checkpointing import checkpoint as ck
     from repro_torch.launch import train
     from repro_torch.tree import flatten_with_path
@@ -4932,15 +5261,17 @@ def _mesh_launcher(torch, label):
     check(same and len(b) == 1 and abs(b[0] - hist["loss"][-1]) <= 1e-4,
           "the restarted launcher differs from the unbroken run")
     del whole
-    refused, _ = run("--mesh", "single", "--distributed", "--steps", "1",
-                     "--ckpt-dir", ckpt + "_c")
-    msg = [line for line in refused.stderr.splitlines()
-           if "world size 256" in line]
-    check(refused.returncode != 0 and msg, f"--mesh single at world size "
-          f"1: exit {refused.returncode}, {refused.stderr[-1000:]}")
-    print(f"[mesh-train] --mesh single at world size 1 exits "
-          f"{refused.returncode}: {msg[0].strip()[:200]}; the launches took "
-          f"{time.monotonic() - t0:.1f}s")
+    # the launcher in this process, which holds no process group now: a
+    # production mesh names the world size it needs
+    try:
+        train.main(args + ["--mesh", "single", "--steps", "1", "--ckpt-dir",
+                           ckpt + "_c"])
+        msg = "no error"
+    except RuntimeError as e:
+        msg = str(e)
+    check("world size 256" in msg, f"--mesh single at world size 1: {msg}")
+    print(f"[mesh-train] --mesh single at world size 1 raises: "
+          f"{msg[:200]}; the launches took {time.monotonic() - t0:.1f}s")
     for d in (ckpt + "_a", ckpt + "_b", ckpt + "_c"):
         shutil.rmtree(d, ignore_errors=True)
 
@@ -5640,7 +5971,7 @@ def _start_example(name: str, *flags: str, tag: str = "",
                   f"{launched}")
         print(f"[examples] {tag}: {wall:.1f}s wall, launches "
               f"{ {k: v for k, v in launched.items() if v} }")
-        return out, wall, launched
+        return out, wall, launched, err
     return wait
 
 
@@ -5675,7 +6006,7 @@ def phase_examples(torch, card: str):
     100m`` (60 steps), stream analytics, the hybrid scenario, the
     quickstart and the elastic restart run at once (their walls share
     the card and the host; the first training run is a functional check
-    only); then edge_train alone for 60 more steps, resumed from its
+    only); then edge_train alone for 30 more steps, resumed from its
     step-60 checkpoint, whose median step and tokens/s are reported.  Returns the launches of the examples' own processes and
     the number of runs."""
     t_phase = time.monotonic()
@@ -5709,22 +6040,33 @@ def phase_examples(torch, card: str):
                         elastic) is not None
           and "elastic restart complete" in elastic,
           f"elastic restart: {elastic[-1500:]}")
-    train = [runs[0], _start_example("edge_train", *train_args,
-                                     tag="edge_train_resumed")()]
+    # the elastic restart trains in its ranks' processes: rank 0 of each
+    # phase prints its own launches to standard error, which must include
+    # the flash forward and both backward kernels at D 16
+    ranks = [json.loads(x.replace("'", '"')) for x in re.findall(
+        r"kernel launches on rank 0: (\{.*\})", runs[-1][3])]
+    check(len(ranks) == 2 and all(
+        r.get(k, 0) > 0 for r in ranks for k in EXAMPLE_KERNELS["edge_train"]),
+        f"elastic restart: rank 0's launches {ranks}")
+    print(f"[examples] elastic_restart rank 0 launches, phase 1 and 2: "
+          f"{ranks}")
+    train = [runs[0], _start_example(
+        "edge_train", *train_args[:3], "30", *train_args[4:],
+        tag="edge_train_resumed")()]
     first, resumed = train[0][0], train[1][0]
     check("resumed from step" not in first, f"edge_train: {first[-1500:]}")
     check("resumed from step 60" in resumed
-          and re.search(r"^step  120 ", resumed, re.M) is not None,
+          and re.search(r"^step +90 ", resumed, re.M) is not None,
           f"edge_train resumed: {resumed[-1500:]}")
-    out, wall, _ = train[1]
+    out, wall, _, _ = train[1]
     params = re.search(r"model: ([\d,]+) params", out).group(1)
     med, tps = re.search(r"median step ([\d.]+) ms, (\d+) tokens/s",
                          out).groups()
     print(f"[examples] edge_train --preset 100m ({params} params, B 8 x "
-          f"T 64), resumed to 120 alone: median step {med} ms, {tps} "
+          f"T 64), resumed to 90 alone: median step {med} ms, {tps} "
           f"tokens/s, {wall:.1f}s wall on {card}")
     total = {k: 0 for k in KERNELS}
-    for _, _, launched in runs + train[1:]:
+    for _, _, launched, _ in runs + train[1:]:
         for k in total:
             total[k] += launched.get(k, 0)
     secs = time.monotonic() - t_phase
@@ -5923,12 +6265,15 @@ WIDE_TRAIN_PATHS = ("mixtral_train", "deepseek_train", "gemma_train",
                     "mesh_train")
 PATH_OF = {"flash_attention": ("serve", "edge", "fleet", "hubert",
                                "hubert_train", "mixtral", "deepseek")
-           + DENSE_PATHS + WIDE_TRAIN_PATHS + ("cp_decode", "examples"),
+           + DENSE_PATHS + WIDE_TRAIN_PATHS + ("cp_decode", "examples",
+                                               "shapes"),
            "paged_decode_attention": ("serve", "edge", "fleet")
-           + DENSE_PATHS + ("examples",),
-           "paged_verify_attention": ("spec", "gemma_spec"),
+           + DENSE_PATHS + ("examples", "shapes"),
+           "paged_verify_attention": ("spec", "gemma_spec", "spec_k12",
+                                      "shapes"),
            "decode_attention": ("spec", "zamba2", "edge", "gemma_spec",
-                                "mixtral", "deepseek", "mesh_train"),
+                                "mixtral", "deepseek", "mesh_train",
+                                "shapes"),
            "decode_attention_lse": ("cp_decode",),
            "flash_attention_bwd_dq": ("train", "hubert_train")
            + WIDE_TRAIN_PATHS + ("examples",),
@@ -5941,7 +6286,8 @@ UNIT_OF = {"serve": "request", "spec": "request", "train": "step",
            "mixtral": "request", "deepseek": "request",
            **{p: "request" for p in DENSE_PATHS},
            **{p: "step" for p in WIDE_TRAIN_PATHS},
-           "cp_decode": "step", "examples": "run"}
+           "cp_decode": "step", "examples": "run", "shapes": "request",
+           "spec_k12": "request"}
 
 
 def _path_rate(paths: dict, name: str, tag: str) -> dict:
@@ -5973,36 +6319,53 @@ def main() -> int:
     import repro_torch  # noqa: F401 — fails here, before any output,
     # when the script stands alone without the package
     t_start = time.monotonic()
-    card = phase_device_and_build(torch)
+    secs = {}
+
+    def timed(phase, fn, *args, **kw):
+        """``fn``'s result; its wall seconds go under ``phase``."""
+        t0 = time.monotonic()
+        out = fn(*args, **kw)
+        secs[phase] = round(time.monotonic() - t0, 1)
+        return out
+
+    card = timed("1", phase_device_and_build, torch)
     timer = Timer(torch)
-    kernels = phase_kernels(torch, timer, card)
-    paths = {"serve": phase_serve(torch), "spec": phase_spec_serve(torch),
-             "mamba2": phase_ssm_serve(torch, "mamba2-2.7b"),
-             "zamba2": phase_ssm_serve(torch, "zamba2-1.2b"),
-             "edge": phase_edge(torch), "fleet": phase_fleet(torch),
-             "hubert": phase_hubert(torch)}
-    paths.update(phase_dense_variants(torch))
-    paths["mixtral"] = phase_mixtral(torch)
-    paths["deepseek"] = phase_deepseek(torch)
-    phase_consistency(torch)
-    phase_ssm_consistency(torch)
-    phase_spec_exactness(torch)
-    phase_golden(torch)
-    paths["train"] = phase_train(torch)
-    paths["hubert_train"] = phase_encoder_train(torch)
-    paths["mixtral_train"] = phase_mixtral_train(torch)
-    paths["deepseek_train"] = phase_deepseek_train(torch)
-    paths["gemma_train"] = phase_gemma_train(torch)
-    paths["mesh_train"] = phase_mesh_train(torch)
-    paths["cp_decode"] = phase_dryrun(torch)
-    paths["examples"] = phase_examples(torch, card)
-    phase_train_consistency(torch)
-    phase_encoder_train_consistency(torch)
-    for pre in ("train_", "encoder_train_48_", "encoder_train_80_"):
+    kernels = timed("2", phase_kernels, torch, timer, card)
+    paths = {"serve": timed("3", phase_serve, torch),
+             "spec": timed("3b", phase_spec_serve, torch),
+             "mamba2": timed("3c mamba2", phase_ssm_serve, torch,
+                             "mamba2-2.7b"),
+             "zamba2": timed("3c zamba2", phase_ssm_serve, torch,
+                             "zamba2-1.2b"),
+             "edge": timed("3d", phase_edge, torch),
+             "fleet": timed("3e", phase_fleet, torch),
+             "hubert": timed("3f", phase_hubert, torch)}
+    paths.update(timed("3g", phase_dense_variants, torch))
+    paths["mixtral"] = timed("3h", phase_mixtral, torch)
+    paths["deepseek"] = timed("3i", phase_deepseek, torch)
+    timed("4", phase_consistency, torch)
+    timed("4c", phase_ssm_consistency, torch)
+    paths["spec_k12"] = timed("4b", phase_spec_exactness, torch)
+    paths["shapes"] = timed("5", phase_golden, torch)
+    paths["train"] = timed("6", phase_train, torch)
+    paths["hubert_train"] = timed("6b", phase_encoder_train, torch)
+    paths["mixtral_train"] = timed("6c", phase_mixtral_train, torch)
+    paths["deepseek_train"] = timed("6d", phase_deepseek_train, torch)
+    paths["gemma_train"] = timed("6e", phase_gemma_train, torch)
+    paths["mesh_train"] = timed("6f", phase_mesh_train, torch)
+    paths["cp_decode"] = timed("6g", phase_dryrun, torch)
+    paths["examples"] = timed("7", phase_examples, torch, card)
+    timed("7b", phase_train_consistency, torch)
+    timed("7b encoder", phase_encoder_train_consistency, torch)
+    t0 = time.monotonic()
+    for pre in ("train_", "encoder_train_48_", "encoder_train_80_",
+                "quickstart_train_"):
         phase_golden_train(torch, pre)
     for pre in ("mixtral_train_", "deepseek_train_",
                 "dense_gemma-2b_train_"):
         phase_golden_train(torch, pre, loss_tol=2e-5, param_tol=2e-4)
+    secs["8"] = round(time.monotonic() - t0, 1)
+    print(f"[time] wall seconds by phase: {secs}")
     line = []
     for name, meta in KERNELS.items():
         k = kernels[name]

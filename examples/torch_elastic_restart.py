@@ -13,10 +13,9 @@ keeps them on the CPU (one thread a rank).  Each phase's ranks are
 spawned processes that must end within ``--deadline`` seconds; the rest
 are killed and the run fails.  Phase 1 starts from an empty
 ``--ckpt-dir`` (a non-empty one is refused; by default a fresh temporary
-directory).  The model has two heads of 32 where the JAX example has
-four of 16: the same widths and parameter count, at the smallest head dim
-the card's attention kernels take.  Without a GPU and without
-``--device cpu`` it raises.
+directory).  The model is the JAX example's (four heads of 16).  Rank
+0 of each phase prints the kernel launches of its own process to
+standard error.  Without a GPU and without ``--device cpu`` it raises.
 
     PYTHONPATH=src python examples/torch_elastic_restart.py [--device cpu] \\
         [--ckpt-dir DIR]
@@ -46,8 +45,7 @@ BATCH, SEQ = 8, 32
 
 def model_config():
     return get_reduced_config("tinyllama-1.1b", num_layers=2, d_model=64,
-                              num_heads=2, num_kv_heads=2, head_dim=32,
-                              d_ff=128, vocab_size=128)
+                              head_dim=16, d_ff=128, vocab_size=128)
 
 
 def _rank(rank: int, world: int, mesh_shape, device: str, store: str,
@@ -78,8 +76,13 @@ def _rank(rank: int, world: int, mesh_shape, device: str, store: str,
                                else {}))
     hist = tr.fit(data, num_steps=job["steps"])
     if rank == 0:
+        from repro_torch.kernels import launch_counts
+
         print(job["line"].format(step=tr.step, first=hist["loss"][0],
                                  last=hist["loss"][-1]), flush=True)
+        launched = {k: v for k, v in launch_counts().items() if v}
+        print(f"kernel launches on rank 0: {launched}", file=sys.stderr,
+              flush=True)
         with open(store + ".json", "w") as f:
             json.dump({"restored": restored, "step": tr.step,
                        "loss": hist["loss"]}, f)

@@ -24,10 +24,8 @@ orchestrator, image registry and work queue.  The core loop is:
 
 Below: train a tiny LM for a few steps, deploy the trained params as a
 continuous-batching serving service via a spec, and submit prompts.  The
-model has two heads of 32 where the JAX quickstart has four of 16: the
-same widths and parameter count, at the smallest head dim the card's
-attention kernels take.  The trainer's checkpoint goes to a temporary
-directory.
+model is the JAX quickstart's (four heads of 16).  The trainer's
+checkpoint goes to a temporary directory.
 
     PYTHONPATH=src python examples/torch_quickstart.py [--device cpu]
 
@@ -53,6 +51,13 @@ from repro_torch.serving.router import make_engine_builder
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
+def model_config():
+    """The JAX quickstart's model: reduced tinyllama, 2 layers, d_model
+    64, four heads of 16, vocabulary 128."""
+    return get_reduced_config("tinyllama-1.1b", num_layers=2, d_model=64,
+                              head_dim=16, d_ff=128, vocab_size=128)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None,
@@ -62,9 +67,7 @@ def main(argv=None):
     device = resolve_device(args.device)
 
     # 1) pick an architecture (any of the 10 assigned, reduced)
-    cfg = get_reduced_config("tinyllama-1.1b", num_layers=2, d_model=64,
-                             num_heads=2, num_kv_heads=2, head_dim=32,
-                             d_ff=128, vocab_size=128)
+    cfg = model_config()
     print(f"arch={cfg.name} params={cfg.num_params():,}")
 
     # 2) train a few steps

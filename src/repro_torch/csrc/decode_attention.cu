@@ -9,8 +9,10 @@
 // decode step over its slot cache (`serving/spec_decode.py`; tinyllama's
 // G 8), and zamba2's shared attention block at every decode step over its
 // dense slots (`models/attention.py:decode_step`; G 1).  The template
-// takes values as wide as keys (Dv == D); MLA's absorbed decode, whose
-// values are narrower, runs the kernels of namespace `mla` below.
+// takes values as wide as keys (Dv == D), and the reduced MLA config's
+// absorbed decode (keys of 48 over values of 32, one KV head at G 4; see
+// below); MLA's at the published widths runs the kernels of namespace
+// `mla` below.
 //
 // What bounds it on an H100: bytes.  Each (sequence, KV head) reads its
 // valid K and V once and does 4·G·D FLOP per key: 2 FLOP per byte at the
@@ -35,11 +37,17 @@
 // cores.
 //
 // MLA's absorbed decode (deepseek-v2-236b, `src/repro/models/attention.py:
-// 429-454`) calls the same function with keys of DK = 576 columns (the
-// latent c_kv and k_rope), values of DV = 512 (c_kv), one KV head and G =
-// 128 query heads.  The template above holds Dv = D, and a block's [64,
-// 512] f32 accumulator would be 256 floats a thread on its 4 warps, so
-// that shape runs the kernels of namespace `mla` below instead:
+// 429-454`) calls the same function with keys of the latent c_kv and
+// k_rope columns, values of c_kv, one KV head and all query heads.  At
+// the reduced config's widths (kv_lora 32, rope 16: keys of 48 over
+// values of 32, G 4) the template takes it: q·kᵀ walks 48 columns in 3
+// k16 steps, p·v covers 32, V tiles keep the K tiles' stride and load
+// their first 32 columns, and the 4 rows fit the smallest row layout (8
+// rows, the keys split 4 ways over the warps), where a 64-row wgmma tile
+// would be 60 rows of padding.  At the published widths, DK = 576 and
+// DV = 512 at G = 128, a block's [64, 512] f32 accumulator would be 256
+// floats a thread on its 4 warps, so that shape runs the kernels of
+// namespace `mla` below instead:
 //  - What bounds it: per key and sequence it reads 576·2 + 512·2 = 2176 B
 //    (bf16) and does 128·2·(576 + 512) = 278 528 FLOP, 128 FLOP a byte,
 //    under the card's ~295: bytes.  8 full caches of 4096 keys are 71.3 MB,
@@ -516,21 +524,21 @@ cudaError_t launch(Kernel kernel, size_t smem, int threads, int rows_a_block,
 }  // namespace mla
 
 // Plain C entry points, loaded with ctypes.  dtype: 0 = float32,
-// 1 = bfloat16, the same for q and the caches.  q [B,Hq,D], k/v caches
-// [B,S,Hkv,D], cache_len [B] int32.  `lse` is f32 [B,Hq], each row's
-// log-sum-exp of its scaled (and capped) logits, or nullptr (none
-// written; the output is the same either way).  All tensors contiguous,
-// the caches 16-byte aligned.  Returns cudaGetLastError() after the
-// launch.
+// 1 = bfloat16, the same for q and the caches.  q [B,Hq,D], k cache
+// [B,S,Hkv,D], v cache [B,S,Hkv,Dv] with Dv = D or (D, Dv) = (48, 32),
+// cache_len [B] int32.  `lse` is f32 [B,Hq], each row's log-sum-exp of
+// its scaled (and capped) logits, or nullptr (none written; the output is
+// the same either way).  All tensors contiguous, the caches 16-byte
+// aligned.  Returns cudaGetLastError() after the launch.
 extern "C" int decode_attention_fwd(const void* q, const void* k_cache,
                                     const void* v_cache, void* o, void* lse,
                                     const void* cache_len, int B, int S,
-                                    int Hq, int Hkv, int D, int dtype,
-                                    int window, float softcap,
+                                    int Hq, int Hkv, int D, int Dv,
+                                    int dtype, int window, float softcap,
                                     float sm_scale, void* stream) {
   return paged::run<dense_decode>(
       {q, k_cache, v_cache, nullptr, nullptr, o, nullptr, cache_len, B, 1,
-       Hq, Hkv, D, S, 1, dtype, 0, window, softcap, sm_scale,
+       Hq, Hkv, D, Dv, S, 1, dtype, 0, window, softcap, sm_scale,
        static_cast<cudaStream_t>(stream), lse});
 }
 

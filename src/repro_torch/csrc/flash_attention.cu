@@ -41,13 +41,17 @@
 //  - Tensor cores.  One warpgroup of 128 threads a block and 64 query
 //    rows, as the backward's dq kernel: s = q·kᵀ is a `wgmma` m64n64k16
 //    with both operands from 128-byte swizzled shared memory (64-byte at
-//    D 32, 32-byte at D 48 and 80, whose rows are then whole 16-column
-//    atoms: no pad column is stored or read) into f32 accumulators, and
-//    o += p·v a m64nNk16 (N = D: 32, 48, 64, 80 or 128) with p packed to
+//    D 32, 32-byte at D 16, 48 and 80, whose rows are then whole
+//    16-column atoms: no pad column is stored or read) into f32
+//    accumulators, and o += p·v a m64nNk16 (N = D: 16, 32, 48, 64, 80 or
+//    128) with p packed to
 //    bf16 straight from those accumulators as the A operand and the V
 //    tile as an MN-major B: p never touches shared memory.  The scale
 //    multiplies the f32 sum, never the bf16 operand, so the logits `lse`
 //    describes are the ones the backward recomputes.
+//  - D 16 (the reduced configs at the JAX examples' heads of 16): q·kᵀ is
+//    one k16 step, p·v an m64n16k16, and a row is two 16-byte chunks, so
+//    a tile's 128 chunks are one a thread of the warpgroup.
 //  - Values narrower than keys (MLA's 192 and 128): s = q·kᵀ walks the 192
 //    key columns in 12 k16 steps from a K tile of its own width, and the
 //    output columns follow V's 128, so one warpgroup holds them all (64
@@ -689,6 +693,7 @@ int run(const Args& a, int D, int Dv, int dtype) {
     return (int)cudaErrorInvalidValue;
   }
   switch (D) {
+    case 16: return (int)launch<16>(a, dtype);
     case 32: return (int)launch<32>(a, dtype);
     case 48: return (int)launch<48>(a, dtype);
     case 64: return (int)launch<64>(a, dtype);

@@ -16,8 +16,8 @@
 //   ds = p·(do·vᵀ − dsum), times 1 − tanh² with a softcap,
 // and write dq = ds·k·scale [B,Tq,Hq,D], dk = dsᵀ·(q·scale) [B,Tk,Hkv,D]
 // and dv = pᵀ·do [B,Tk,Hkv,Dv], dk and dv summed over the G query heads
-// of a KV head.  (D, Dv) is (D, D) for D 32, 48, 64, 80, 128, 192 and
-// 256, or MLA's (192, 128) and the reduced MLA config's (48, 32).  Masks
+// of a KV head.  (D, Dv) is (D, D) for D 16, 32, 48, 64, 80, 128, 192
+// and 256, or MLA's (192, 128) and the reduced MLA config's (48, 32).  Masks
 // `kp <= qp` (causal), `qp − kp < window` and `kp < kv_valid_len`, explicit int32 positions; ragged edges are bounds
 // masks, not padding.  Sums in f32, outputs in the input dtype.
 //
@@ -52,14 +52,15 @@
 //    to run.
 //  - Copies.  Tiles arrive by 16-byte `cp.async` into a two-stage ring in
 //    the swizzled layout `wgmma` reads (`Tile<D>`: 128-byte at D 64 and
-//    128, 64-byte at D 32, 32-byte at D 48 and 80), the next tile in
+//    128, 64-byte at D 32, 32-byte at D 16, 48 and 80), the next tile in
 //    flight while the current one is computed; rows outside the tensor
 //    are zero-filled, never read.
-//  - Head dims 32, 48, 64, 80 and 128, every one a template instance of
-//    the same code: s and do·vᵀ take D/16 k16 steps over `Tile<D>`'s
-//    K-major reads, and the three MN-major products N = D (m64n48k16 and
-//    m64n80k16 at the encoders' widths, D/2 accumulators a thread).  At
-//    D 80 the dk/dv thread holds 2 x 40 accumulators beside s and dp.
+//  - Head dims 16, 32, 48, 64, 80 and 128, every one a template instance
+//    of the same code: s and do·vᵀ take D/16 k16 steps over `Tile<D>`'s
+//    K-major reads (one at D 16), and the three MN-major products N = D
+//    (m64n16k16 at D 16, m64n48k16 and m64n80k16 at the encoders'
+//    widths, D/2 accumulators a thread, a `Frag`).  At D 80 the dk/dv
+//    thread holds 2 x 40 accumulators beside s and dp.
 //    The reduced MLA config's keys of 48 over values of 32 take the same
 //    code: s walks 48 columns, do·vᵀ 32, dq and dk are m64n48 and dv
 //    m64n32, each output stored over its own width.
@@ -1237,6 +1238,7 @@ int run(const Args& a, int D, int Dv, int dtype) {
     return (int)cudaErrorInvalidValue;
   }
   switch (D) {
+    case 16: return (int)launch<DQ, 16>(a, dtype);
     case 32: return (int)launch<DQ, 32>(a, dtype);
     case 48: return (int)launch<DQ, 48>(a, dtype);
     case 64: return (int)launch<DQ, 64>(a, dtype);

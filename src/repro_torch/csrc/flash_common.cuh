@@ -185,14 +185,15 @@ constexpr int kWG = 128;                // one warpgroup a block
 // blocks of W = SW/2 elements, each [64 rows][SW bytes] with the 16-byte
 // chunks of row r XOR-swizzled by the row.  SW is the widest swizzle whose
 // atom divides a row: 128 bytes at D 64, 128, 192 and 256, 64 at D 32,
-// and 32 at D 48 and 80 (atoms of 16 columns), so no width leaves a pad
-// column in the tile, and each k16 step of a K-major read at D 48 or 80
-// is one whole 32-byte atom row.  The tile starts aligned to its
-// swizzle's repeat (1024, 512 or 256 bytes).  The same tile is a K-major
-// operand (its D columns are the reduction, as for s = q·kᵀ) and an
-// MN-major B (its 64 rows are the reduction, as for dq = ds·k, or
-// o += p·v, where N = D takes the m64n48 and m64n80 shapes too, and a
-// slice of whole column blocks, from a block's start, is a B of its own).
+// and 32 at D 16, 48 and 80 (atoms of 16 columns), so no width leaves a
+// pad column in the tile, and each k16 step of a K-major read at D 16,
+// 48 or 80 is one whole 32-byte atom row (at D 16 the only one).  The
+// tile starts aligned to its swizzle's repeat (1024, 512 or 256 bytes).
+// The same tile is a K-major operand (its D columns are the reduction, as
+// for s = q·kᵀ) and an MN-major B (its 64 rows are the reduction, as for
+// dq = ds·k, or o += p·v, where N = D takes the m64n16, m64n48 and m64n80
+// shapes too, and a slice of whole column blocks, from a block's start,
+// is a B of its own).
 template <int D>
 struct Tile {
   static constexpr int SW = D % 64 == 0 ? 128 : D % 32 == 0 ? 64 : 32;
@@ -320,9 +321,24 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// d += A·B, m64nNk16 with N = 32, 48, 64, 80 or 128 (the overload by
+// d += A·B, m64nNk16 with N = 16, 32, 48, 64, 80 or 128 (the overload by
 // d's size, N/2 accumulators a thread):
 // A from registers (bf16 pairs), B from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[16],
                                          const uint32_t (&a)[4],
                                          uint64_t b) {

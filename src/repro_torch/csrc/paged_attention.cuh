@@ -92,6 +92,16 @@
 //   at G 8: 40) go to more row groups, each reading the KV again.  The
 //   largest block, gemma's decode over int8 pools in a cluster of 16,
 //   takes 205 KB.
+// - Any row count: past a layout's largest block (64 rows, 32 at D 192
+//   and 256) the rows go to row groups, each reading the KV again, so a
+//   verify pass takes any K1 whose row groups fit the grid (K1 16 at G 8:
+//   two groups of 64 rows).  Row r of group rg is row rg·64 + r of the
+//   (sequence, KV head), its query token and causal limit from that.
+// - D 16 (the reduced configs at the JAX examples' heads of 16): one
+//   m16n8k16 step covers q·kᵀ's whole depth, its q fragments come from
+//   half an ldmatrix.x4, and an int8 row is one 16-byte chunk.  Keys of 48
+//   over values of 32 (the reduced MLA config's absorbed decode, dense
+//   caches only): q·kᵀ over 48 columns, p·v and the partials over 32.
 // - Measured against (`PERF.md` §6): splits of 64 keys at fixed
 //   places combined by the last block to finish through an f32 workspace
 //   and an atomic counter, 1.4-2.9x slower at every timed shape.
@@ -139,7 +149,7 @@ constexpr int kRows = 8 * NTW * kWarps / KW;
 // dense cache), then the inbox that the cluster's warps write their
 // partials of this block's rows into.  Compute rows are padded by 16
 // bytes, so the 8 rows an ldmatrix reads start in different bank groups.
-template <typename TC, typename TKV, int D, int QR>
+template <typename TC, typename TKV, int D, int QR, int DV = D>
 struct Layout {
   static constexpr bool kScaled = sizeof(TKV) == 1;
   static constexpr bool kWide = D > 128;
@@ -154,12 +164,12 @@ struct Layout {
   static constexpr size_t SC =
       CONV + (kScaled ? 2 * (size_t)KT * CS * sizeof(TC) : 0);
   static constexpr size_t TAB = SC + (kScaled ? NS * 2 * KT * 4 : 0);
-  // [cl·KW sources][rows a block owns][D + 2]: acc, then m and l
+  // [cl·KW sources][rows a block owns][DV + 2]: acc, then m and l
   static __host__ __device__ size_t INBOX(int tab) {
     return (TAB + 4 * (size_t)tab + 15) / 16 * 16;
   }
   static size_t bytes(int tab, int sources, int rows) {
-    return INBOX(tab) + 4 * (size_t)sources * rows * (D + 2);
+    return INBOX(tab) + 4 * (size_t)sources * rows * (DV + 2);
   }
 };
 
@@ -178,10 +188,12 @@ struct Params {
 // a warp's products over 16 keys: Sᵀ = K·qᵀ into s[j][e], Oᵀ += Vᵀ·Pᵀ into
 // acc[md][j][e].  Element e of row tile j is key kb + lane/4 + 8·(e/2) and
 // query row 8·rt[j] + 2·(lane%4) + e%2 in s, column 16·md + lane/4 +
-// 8·(e/2) and the same row in acc: the m16n8 accumulator's places.
+// 8·(e/2) and the same row in acc: the m16n8 accumulator's places.  Keys
+// are D wide, values DV (the first DV columns of a V tile's rows, which
+// have the K tile's stride).
 // ---------------------------------------------------------------------------
 
-template <typename TC, int D, int NTW>
+template <typename TC, int D, int DV, int NTW>
 struct Products;
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -222,25 +234,30 @@ __device__ __forceinline__ uint32_t movmatrix_t(uint32_t x) {
   return y;
 }
 
-template <int D, int NTW>
-struct Products<bf16, D, NTW> {
+template <int D, int DV, int NTW>
+struct Products<bf16, D, DV, NTW> {
   static constexpr int CS = D + 8;
   uint32_t qf[NTW][D / 16][2];      // qᵀ as the B operand, per k16 step
 
+  // 32 columns (two k16 steps) an ldmatrix.x4; a last half of 16 (D 16
+  // and 48) has its two matrices loaded twice and kept once
   __device__ __forceinline__ void load_q(const bf16* q_s,
                                          const int (&rt)[NTW]) {
     const int lane = threadIdx.x % 32;
 #pragma unroll
     for (int j = 0; j < NTW; ++j)
 #pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk) {
+      for (int kk = 0; kk < (D + 31) / 32; ++kk) {
+        const bool half = 32 * kk + 16 == D;
         uint32_t r[4];
         ldsm4(r, smem_u32(q_s + (8 * rt[j] + lane % 8) * CS + 32 * kk +
-                          (lane / 8) * 8));
+                          (half ? (lane / 8) % 2 : lane / 8) * 8));
         qf[j][2 * kk][0] = r[0];
         qf[j][2 * kk][1] = r[1];
-        qf[j][2 * kk + 1][0] = r[2];
-        qf[j][2 * kk + 1][1] = r[3];
+        if (!half) {
+          qf[j][2 * kk + 1][0] = r[2];
+          qf[j][2 * kk + 1][1] = r[3];
+        }
       }
   }
 
@@ -265,7 +282,7 @@ struct Products<bf16, D, NTW> {
 
   __device__ __forceinline__ void pv(const bf16* v_t, int kb,
                                      const float (&p)[NTW][4],
-                                     float (&acc)[D / 16][NTW][4]) const {
+                                     float (&acc)[DV / 16][NTW][4]) const {
     const int lane = threadIdx.x % 32;
     uint32_t b[NTW][2];
 #pragma unroll
@@ -276,7 +293,7 @@ struct Products<bf16, D, NTW> {
     const bf16* row = v_t + (kb + lane % 8 + (lane / 16) * 8) * CS +
                       ((lane / 8) & 1) * 8;
 #pragma unroll
-    for (int md = 0; md < D / 16; ++md) {
+    for (int md = 0; md < DV / 16; ++md) {
       uint32_t a[4];
       ldsm4t(a, smem_u32(row + 16 * md));
 #pragma unroll
@@ -285,8 +302,8 @@ struct Products<bf16, D, NTW> {
   }
 };
 
-template <int D, int NTW>
-struct Products<float, D, NTW> {
+template <int D, int DV, int NTW>
+struct Products<float, D, DV, NTW> {
   static constexpr int CS = D + 4;
   const float* q_s;
   int rt[NTW];
@@ -329,7 +346,7 @@ struct Products<float, D, NTW> {
   // 4·kk + lane%4, which holds exactly those four values
   __device__ __forceinline__ void pv(const float* v_t, int kb,
                                      const float (&p)[NTW][4],
-                                     float (&acc)[D / 16][NTW][4]) const {
+                                     float (&acc)[DV / 16][NTW][4]) const {
     const int lane = threadIdx.x % 32;
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
@@ -342,7 +359,7 @@ struct Products<float, D, NTW> {
       const float* va = v_t + (kb + kk) * CS + lane / 4;
       const float* vb = va + 8 * CS;
 #pragma unroll
-      for (int md = 0; md < D / 16; ++md)
+      for (int md = 0; md < DV / 16; ++md)
 #pragma unroll
         for (int dh = 0; dh < 2; ++dh) {
           const float a = va[16 * md + 8 * dh], c = vb[16 * md + 8 * dh];
@@ -389,16 +406,21 @@ __device__ __forceinline__ void widen(const int8_t* k8, const int8_t* v8,
 // Hkv·RG, B) in clusters of (cl, 1, 1), or no cluster when cl is 1.  NTW
 // row tiles of 8 a warp, KW key slices a tile.  `Kind` names the entry
 // point (`paged_decode`, `paged_verify`, `dense_decode`) in profiles and
-// picks the row map.
-template <typename Kind, typename TC, typename TKV, int D, int NTW, int KW>
+// picks the row map.  Keys (and q) are D wide, values and the output DV
+// (narrower only for a dense cache: the reduced MLA config's absorbed
+// decode, keys of 48 over values of 32).
+template <typename Kind, typename TC, typename TKV, int D, int NTW, int KW,
+          int DV = D>
 __global__ void __launch_bounds__(kThreads,
                                   sizeof(TC) == 2 && D <= 64 ? 3 : 2)
     paged_attention_kernel(
     const Params p) {
   constexpr int QR = kRows<NTW, KW>;
-  using L = Layout<TC, TKV, D, QR>;
+  using L = Layout<TC, TKV, D, QR, DV>;
   constexpr bool SCALED = L::kScaled, DENSE = Kind::kDense;
-  constexpr int NS = L::NS, CS = L::CS, RS = L::RS, MD = D / 16, KT = L::KT;
+  constexpr int NS = L::NS, CS = L::CS, RS = L::RS, MD = DV / 16, KT = L::KT;
+  static_assert(DV == D || (DENSE && !SCALED && DV < D && DV % 16 == 0),
+                "values narrower than keys over a dense cache only");
   extern __shared__ __align__(16) uint8_t smem[];
   TC* q_s = reinterpret_cast<TC*>(smem + L::Q);
   int* tab_s = reinterpret_cast<int*>(smem + L::TAB);
@@ -473,9 +495,10 @@ __global__ void __launch_bounds__(kThreads,
     for (int i = tid; i < KT * CPR; i += kThreads) {
       const int key = i / CPR, c = (i % CPR) * VEC, pos = k0 + key;
       const bool ok = pos < hi;
-      const size_t off = ok ? row_of(pos) * D + c : 0;
-      cp_async16(smem_u32(kd + key * RS + c), kp + off, ok);
-      cp_async16(smem_u32(vd + key * RS + c), vp + off, ok);
+      const size_t r = ok ? row_of(pos) : 0;
+      cp_async16(smem_u32(kd + key * RS + c), kp + r * D + c, ok);
+      if (DV == D || c < DV)
+        cp_async16(smem_u32(vd + key * RS + c), vp + r * DV + c, ok);
     }
     if (SCALED && tid < KT) {
       const int pos = k0 + tid;
@@ -522,7 +545,7 @@ __global__ void __launch_bounds__(kThreads,
     if (s < n_tiles) load(s, s);
     cp_commit();
   }
-  Products<TC, D, NTW> mm;
+  Products<TC, D, DV, NTW> mm;
   cp_wait<NS - 1>();                               // q is in
   __syncthreads();
   mm.load_q(q_s, rt);
@@ -630,10 +653,10 @@ __global__ void __launch_bounds__(kThreads,
       if (r >= Rb) continue;
       float* dst =
           (clustered ? cluster.map_shared_rank(inbox, r % cl) : inbox) +
-          (src * rpo + r / cl) * (D + 2);
+          (src * rpo + r / cl) * (DV + 2);
       if (lane < 4) {
-        dst[D] = m[j][c];
-        dst[D + 1] = l[j][c];
+        dst[DV] = m[j][c];
+        dst[DV + 1] = l[j][c];
       }
 #pragma unroll
       for (int md = 0; md < MD; ++md)
@@ -646,22 +669,22 @@ __global__ void __launch_bounds__(kThreads,
     cluster.sync();
   else
     __syncthreads();
-  const int ns = cl * KW, pstride = rpo * (D + 2);
-  for (int e = tid; e < rpo * D; e += kThreads) {
-    const int lr = e / D, d = e % D, r = rank + cl * lr;
+  const int ns = cl * KW, pstride = rpo * (DV + 2);
+  for (int e = tid; e < rpo * DV; e += kThreads) {
+    const int lr = e / DV, d = e % DV, r = rank + cl * lr;
     if (r >= Rb) break;
-    const float* in = inbox + lr * (D + 2);
+    const float* in = inbox + lr * (DV + 2);
     float M = kNegInf, Ls = 0.f, A = 0.f;
 #pragma unroll 8
-    for (int sp = 0; sp < ns; ++sp) M = fmaxf(M, in[sp * pstride + D]);
+    for (int sp = 0; sp < ns; ++sp) M = fmaxf(M, in[sp * pstride + DV]);
 #pragma unroll 8
     for (int sp = 0; sp < ns; ++sp) {
       const float* part = in + sp * pstride;
-      const float w = ex2(part[D] - M);
-      Ls = fmaf(part[D + 1], w, Ls);
+      const float w = ex2(part[DV] - M);
+      Ls = fmaf(part[DV + 1], w, Ls);
       A = fmaf(part[d], w, A);
     }
-    store(o + q_row(r) * D + d, Ls == 0.f ? 0.f : A / Ls);
+    store(o + q_row(r) * DV + d, Ls == 0.f ? 0.f : A / Ls);
     // the row's natural log-sum-exp from its base-2 (M, Ls); NEG_INF for
     // a row with no visible key
     if (p.lse != nullptr && d == 0)
@@ -677,7 +700,7 @@ struct Call {
   const void *q, *kp, *vp, *ks, *vs;
   void* o;
   const void *table, *clen;
-  int B, K1, Hq, Hkv, D, page, MP, q_dtype, kv_dtype, window;
+  int B, K1, Hq, Hkv, D, Dv, page, MP, q_dtype, kv_dtype, window;
   float softcap, sm_scale;
   cudaStream_t stream;
   void* lse;               // f32 [B·K1·Hq], or nullptr (none written)
@@ -707,17 +730,21 @@ inline int cluster_size(int groups, int rows, int keys) {
   return cl;
 }
 
-template <typename Kind, typename TC, typename TKV, int D, int NTW, int KW>
+template <typename Kind, typename TC, typename TKV, int D, int NTW, int KW,
+          int DV>
 cudaError_t launch(const Call& c, Params p) {
   constexpr int QR = kRows<NTW, KW>;
-  using L = Layout<TC, TKV, D, QR>;
+  using L = Layout<TC, TKV, D, QR, DV>;
   p.RG = (p.R + QR - 1) / QR;
+  // the grid's y (KV heads times row groups) and z (sequences) limits
+  if ((long long)c.Hkv * p.RG > 65535 || c.B > 65535)
+    return cudaErrorInvalidValue;
   const int rows = p.R < QR ? p.R : QR;
   const int cl = cluster_size(c.B * c.Hkv * p.RG, rows, c.MP * c.page);
   const int share = ((c.MP * c.page + cl - 1) / cl + 15) / 16 * 16;
   p.tab = Kind::kDense ? 0 : table_slice(c.MP, share, c.page);
   const size_t smem = L::bytes(p.tab, cl * KW, (rows + cl - 1) / cl);
-  auto kernel = paged_attention_kernel<Kind, TC, TKV, D, NTW, KW>;
+  auto kernel = paged_attention_kernel<Kind, TC, TKV, D, NTW, KW, DV>;
   cudaError_t err = flash::set_smem(kernel, smem);
   if (err == cudaSuccess && cl > 8)
     err = cudaFuncSetAttribute(
@@ -745,21 +772,23 @@ cudaError_t launch(const Call& c, Params p) {
 // At D 192 and 256 a warp takes one row tile (its accumulators are D/4
 // floats a thread, and two tiles' would spill): the keys split 4 ways up
 // to 8 rows (bf16), 2 up to 16, else 1 way over row groups of 32.  An
-// fp32 tile of 32 keys splits at most 2 ways.
-template <typename Kind, typename TC, typename TKV, int D>
+// fp32 tile of 32 keys splits at most 2 ways.  Past the largest layout's
+// rows (64, or 32 at D 192 and 256) the rows go to more row groups, each
+// reading the KV again: a verify pass at any K1.
+template <typename Kind, typename TC, typename TKV, int D, int DV = D>
 cudaError_t by_rows(const Call& c, const Params& p) {
   if constexpr (D > 128) {
     if constexpr (sizeof(TC) == 2)
-      if (p.R <= 8) return launch<Kind, TC, TKV, D, 1, 4>(c, p);
-    if (p.R <= 16) return launch<Kind, TC, TKV, D, 1, 2>(c, p);
-    return launch<Kind, TC, TKV, D, 1, 1>(c, p);
+      if (p.R <= 8) return launch<Kind, TC, TKV, D, 1, 4, DV>(c, p);
+    if (p.R <= 16) return launch<Kind, TC, TKV, D, 1, 2, DV>(c, p);
+    return launch<Kind, TC, TKV, D, 1, 1, DV>(c, p);
   } else {
-    if (p.R <= 8) return launch<Kind, TC, TKV, D, 1, 4>(c, p);
+    if (p.R <= 8) return launch<Kind, TC, TKV, D, 1, 4, DV>(c, p);
     if constexpr (sizeof(TC) == 2) {
-      if (p.R <= 16) return launch<Kind, TC, TKV, D, 2, 4>(c, p);
-      if (p.R <= 32) return launch<Kind, TC, TKV, D, 2, 2>(c, p);
+      if (p.R <= 16) return launch<Kind, TC, TKV, D, 2, 4, DV>(c, p);
+      if (p.R <= 32) return launch<Kind, TC, TKV, D, 2, 2, DV>(c, p);
     }
-    return launch<Kind, TC, TKV, D, 2, 1>(c, p);
+    return launch<Kind, TC, TKV, D, 2, 1, DV>(c, p);
   }
 }
 
@@ -773,7 +802,17 @@ cudaError_t by_kv(const Call& c, const Params& p) {
 
 template <typename Kind, typename TC>
 cudaError_t by_dim(const Call& c, const Params& p) {
+  if (c.Dv != c.D) {
+    // values narrower than keys over a dense cache: the reduced MLA
+    // config's absorbed decode (keys of 32 latent and 16 rope columns,
+    // values of the 32 latent ones)
+    if constexpr (Kind::kDense)
+      if (c.D == 48 && c.Dv == 32 && c.kv_dtype == 0)
+        return by_rows<Kind, TC, TC, 48, 32>(c, p);
+    return cudaErrorInvalidValue;
+  }
   switch (c.D) {
+    case 16: return by_kv<Kind, TC, 16>(c, p);
     case 32: return by_kv<Kind, TC, 32>(c, p);
     case 64: return by_kv<Kind, TC, 64>(c, p);
     case 128: return by_kv<Kind, TC, 128>(c, p);

@@ -38,6 +38,6 @@ extern "C" int paged_decode_attention_fwd(
     float sm_scale, void* stream) {
   return paged::run<paged_decode>(
       {q, k_pages, v_pages, k_scale, v_scale, o, page_table, cache_len, B, 1,
-       Hq, Hkv, D, page, MP, q_dtype, kv_dtype, window, softcap, sm_scale,
+       Hq, Hkv, D, D, page, MP, q_dtype, kv_dtype, window, softcap, sm_scale,
        static_cast<cudaStream_t>(stream)});
 }

@@ -22,27 +22,26 @@
 // `paged_attention.cuh`.
 //
 // Design: the kernel of `paged_attention.cuh`.  All R = K1·G rows of a
-// (sequence, KV head), up to 64, share each block of its cluster, so a
-// verify pass reads each sequence's KV once, as the TPU kernel does
-// (`paged_verify_attention.py:30-31`); more rows take more row groups.
+// (sequence, KV head), up to 64 (32 at D 192 and 256), share each block
+// of its cluster, so a verify pass reads each sequence's KV once, as the
+// TPU kernel does (`paged_verify_attention.py:30-31`); more rows take
+// more row groups, each reading the KV again, so any K1 runs whose row
+// groups times the KV heads fit the grid's 65 535 (tinyllama's K1 16 at
+// G 8: 128 rows, two groups of 64).
 
 #include "paged_attention.cuh"
 
-namespace {
-constexpr int kMaxK1 = 8;                      // spec_k_max <= 7
-}
-
-// Plain C entry point, loaded with ctypes.  q [B,K1,Hq,D] with 1 <= K1 <= 8;
-// the other arguments as for `paged_decode_attention_fwd`.
+// Plain C entry point, loaded with ctypes.  q [B,K1,Hq,D] with K1 >= 1;
+// the other arguments as for `paged_decode_attention_fwd`.  A K1 whose
+// row groups times Hkv pass 65 535 returns cudaErrorInvalidValue.
 extern "C" int paged_verify_attention_fwd(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, void* o, const void* page_table,
     const void* cache_len, int B, int K1, int Hq,
     int Hkv, int D, int page, int MP, int q_dtype, int kv_dtype, int window,
     float softcap, float sm_scale, void* stream) {
-  if (K1 > kMaxK1) return (int)cudaErrorInvalidValue;
   return paged::run<paged_verify>(
       {q, k_pages, v_pages, k_scale, v_scale, o, page_table, cache_len, B, K1,
-       Hq, Hkv, D, page, MP, q_dtype, kv_dtype, window, softcap, sm_scale,
+       Hq, Hkv, D, D, page, MP, q_dtype, kv_dtype, window, softcap, sm_scale,
        static_cast<cudaStream_t>(stream)});
 }

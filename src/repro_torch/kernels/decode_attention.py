@@ -11,7 +11,9 @@ version is ``kernels.ref.decode_attention``.
 
 MLA's weight-absorbed decode (deepseek-v2-236b: keys of 576 latent and
 rope columns, values of the 512 latent ones, one KV head under 128 query
-heads) runs a kernel of its own, in ``csrc/decode_attention.cu``.
+heads) runs a kernel of its own, in ``csrc/decode_attention.cu``; at the
+reduced config's widths (keys of 48 over values of 32, G 4) it is the
+template's, with values narrower than keys.
 
 ``decode_attention_lse`` launches the same kernels asking them also for
 each row's f32 log-sum-exp (its output is the one ``decode_attention``
@@ -26,16 +28,14 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import ATTENTION_DIMS, build
 from repro_torch.kernels.flash_attention import (_DTYPE_CODE, _aligned,
                                                  _int32, _ptr, refuse_grad)
 
-# the head dims the kernel instantiates (csrc/paged_attention.cuh), with
-# values as wide as keys, and the (key, value) widths of MLA's latent
-# decode (csrc/decode_attention.cu)
-HEAD_DIMS = (32, 64, 128, 192, 256)
-NARROW_V = ((576, 512),)
-DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + NARROW_V
+# the (key, value) widths of MLA's latent decode at the published config,
+# which runs the kernels of namespace `mla` (csrc/decode_attention.cu);
+# every other pair runs the template of csrc/paged_attention.cuh
+MLA_DIMS = (576, 512)
 _fn = None
 _mla = None
 
@@ -45,8 +45,8 @@ def _entry():
     if _fn is None:
         f = build.load("decode_attention").decode_attention_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
-                      ctypes.c_float, p]
+        f.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                      ctypes.c_float, ctypes.c_float, p]
         f.restype = i
         _fn = f
     return _fn
@@ -91,11 +91,11 @@ def _launch(q, k_cache, v_cache, cache_len, softcap, window, sm_scale,
         raise ValueError(f"values {tuple(v_cache.shape)} and keys "
                          f"{tuple(k_cache.shape)} disagree")
     if k_cache.shape[0] != B or k_cache.shape[3] != D \
-            or (D, Dv) not in DIM_PAIRS:
+            or (D, Dv) not in ATTENTION_DIMS["decode"]:
         raise ValueError(f"q{tuple(q.shape)} and cache "
                          f"{tuple(k_cache.shape)} disagree, or head dims "
                          f"({D}, {Dv}) of keys and values not in "
-                         f"{DIM_PAIRS}")
+                         f"{ATTENTION_DIMS['decode']}")
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()) or \
@@ -110,10 +110,11 @@ def _launch(q, k_cache, v_cache, cache_len, softcap, window, sm_scale,
     scale = sm_scale if sm_scale is not None else D ** -0.5
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     code = _DTYPE_CODE[q.dtype]
-    if Dv == D:
+    if (D, Dv) != MLA_DIMS:
         err = _entry()(_ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(out),
-                       _ptr(row_lse), _ptr(clen), B, S, Hq, Hkv, D, code,
-                       int(window), float(softcap), float(scale), stream)
+                       _ptr(row_lse), _ptr(clen), B, S, Hq, Hkv, D, Dv,
+                       code, int(window), float(softcap), float(scale),
+                       stream)
     else:
         # MLA: the keys split over blocks, whose partials a second kernel
         # merges through an f32 workspace
@@ -144,8 +145,8 @@ def decode_attention(
 ) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors (raises on anything else).
     The caches are in the dtype of ``q``; ``(D, Dv)`` is one of
-    ``DIM_PAIRS``.  Returns ``[B, Hq, Dv]``.  Forward-only: raises under
-    grad mode for an input that needs one."""
+    ``ATTENTION_DIMS["decode"]``.  Returns ``[B, Hq, Dv]``.  Forward-only:
+    raises under grad mode for an input that needs one."""
     out = _launch(q, k_cache, v_cache, cache_len, softcap, window, sm_scale,
                   False, "decode_attention")
     build.count_launch(decode_attention)

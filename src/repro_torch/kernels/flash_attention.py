@@ -14,18 +14,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import ATTENTION_DIMS, build
 
-# The head dims the forward kernel instantiates: 48 for fig 3's apps and
-# 80 for hubert-xlarge beside the decoders' 32, 64 and 128, 192
-# (nemotron-4-340b) and 256 (gemma-2b).  Each kernel wrapper keeps its
-# own set.  Values are as wide as keys at these, and narrower at the
-# (key, value) pairs of ``NARROW_V``: MLA's prefill (deepseek-v2-236b,
-# q/k nope 128 + rope 64, v 128), and the reduced deepseek config's q/k
-# 32 + 16 over v 32.
-HEAD_DIMS = (32, 48, 64, 80, 128, 192, 256)
-NARROW_V = ((192, 128), (48, 32))
-DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + NARROW_V
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 
@@ -94,8 +84,8 @@ def flash_attention(  # analysis: oracle=mha
     ``kv_positions=None`` means the key positions are the key indices.
     Either way the kernel skips the key tiles whose positions no query of
     a block can see, and with index positions it reads no key at or past
-    ``kv_valid_len``.  ``(D, Dv)`` is one of ``DIM_PAIRS``.  Returns
-    ``out [B,Tq,Hq,Dv]`` (and ``lse [B,Tq,Hq]`` f32 if asked)."""
+    ``kv_valid_len``.  ``(D, Dv)`` is one of ``ATTENTION_DIMS["flash"]``.
+    Returns ``out [B,Tq,Hq,Dv]`` (and ``lse [B,Tq,Hq]`` f32 if asked)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention kernel needs q, k, v on one "
                          "CUDA device")
@@ -110,9 +100,9 @@ def flash_attention(  # analysis: oracle=mha
     Tk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"q{tuple(q.shape)} and k{tuple(k.shape)} disagree")
-    if (D, Dv) not in DIM_PAIRS:
+    if (D, Dv) not in ATTENTION_DIMS["flash"]:
         raise ValueError(f"head dims ({D}, {Dv}) of keys and values not "
-                         f"in {DIM_PAIRS}")
+                         f"in {ATTENTION_DIMS['flash']}")
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
     dev = q.device

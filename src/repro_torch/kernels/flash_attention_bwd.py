@@ -15,10 +15,11 @@ grad mode is on and an input needs a gradient, asks it for ``lse`` and
 saves what the backward recomputes from; its backward launches the dq
 and dk/dv kernels (on the CPU their plain version).  The backward
 kernels take every (key, value) head-dim pair of the forward
-(``HEAD_DIMS``): D 32, 48, 64, 80, 128, 192 (nemotron-4-340b) and 256
-(gemma-2b) with values as wide as keys, and keys of 192 over values of
-128 (deepseek-v2-236b's MLA) or of 48 over 32 (its reduced config).  Any other pair raises ``ValueError``, and
-a grad-mode call on the card at one raises before the forward runs: a
+(``ATTENTION_DIMS["flash"]``): D 16, 32, 48, 64, 80, 128, 192
+(nemotron-4-340b) and 256 (gemma-2b) with values as wide as keys, and
+keys of 192 over values of 128 (deepseek-v2-236b's MLA) or of 48 over 32
+(its reduced config).  Any other pair raises ``ValueError``, and a
+grad-mode call on the card at one raises before the forward runs: a
 grad-mode forward always has its backward.
 """
 from __future__ import annotations
@@ -28,17 +29,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, cost, ref
+from repro_torch.kernels import ATTENTION_DIMS, build, cost, ref
 from repro_torch.kernels.flash_attention import (_DTYPE_CODE, _aligned,
                                                  _int32, _ptr)
 from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_fwd
 
-# the (key, value) head dims the dq and dk/dv kernels instantiate: the
-# forward's pairs, values as wide as keys at every D it takes, and MLA's
-# keys of 192 over values of 128 (48 over 32 in the reduced config)
-HEAD_DIMS = tuple((d, d) for d in (32, 48, 64, 80, 128, 192, 256)) \
-    + ((192, 128), (48, 32))
 _fns = {}
 
 
@@ -77,9 +73,9 @@ def _prepare(q, k, v, lse, do, dsum, q_positions, kv_positions,
     Tk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"q{tuple(q.shape)} and k{tuple(k.shape)} disagree")
-    if (D, Dv) not in HEAD_DIMS:
+    if (D, Dv) not in ATTENTION_DIMS["flash"]:
         raise ValueError(f"head dims ({D}, {Dv}) of keys and values not "
-                         f"in {HEAD_DIMS}")
+                         f"in {ATTENTION_DIMS['flash']}")
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
     if lse.shape != (B, Tq, Hq) or dsum.shape != (B, Tq, Hq):
@@ -225,8 +221,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     save = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
     dims = (q.shape[-1], v.shape[-1])
-    if save and q.is_cuda and dims not in HEAD_DIMS:
+    if save and q.is_cuda and dims not in ATTENTION_DIMS["flash"]:
         raise ValueError(f"head dims {dims}: the backward kernels take "
-                         f"{HEAD_DIMS}")
+                         f"{ATTENTION_DIMS['flash']}")
     return _FlashMHA.apply(q, k, v, save, causal, window, softcap,
                            q_positions, kv_positions, kv_valid_len, sm_scale)

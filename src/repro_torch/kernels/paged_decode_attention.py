@@ -18,13 +18,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import ATTENTION_DIMS, build
 from repro_torch.kernels.flash_attention import (_aligned, _int32, _ptr,
                                                  refuse_grad)
 
-# the head dims the kernel instantiates (csrc/paged_attention.cuh); the
-# verify kernel takes the same
-HEAD_DIMS = (32, 64, 128, 192, 256)
 _Q_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 
@@ -79,9 +76,9 @@ def pool_args(name: str, q, k_pages, v_pages, page_table, cache_len,
                          f"v{tuple(v_pages.shape)}")
     B, Hq, D = q.shape[0], q.shape[-2], q.shape[-1]
     P, page, Hkv = k_pages.shape[:3]
-    if k_pages.shape[3] != D or D not in HEAD_DIMS:
+    if k_pages.shape[3] != D or (D, D) not in ATTENTION_DIMS["paged"]:
         raise ValueError(f"head dim {D} (pool {k_pages.shape[3]}) not in "
-                         f"{HEAD_DIMS}")
+                         f"{ATTENTION_DIMS['paged']}")
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
     if page_table.dim() != 2 or page_table.shape[0] != B:

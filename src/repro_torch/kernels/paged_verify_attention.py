@@ -4,7 +4,9 @@ Replaces ``repro.kernels.paged_verify_attention.paged_verify_attention``
 (the Pallas TPU kernel).  The kernel is the paged decode kernel's
 (``csrc/paged_attention.cuh``), instantiated by
 ``csrc/paged_verify_attention.cu`` for all ``K1·G`` query rows of a KV
-head; its header says what bounds it on the card and how it is laid out.
+head, in row groups of up to 64 (32 at D 192 and 256) past that, so it
+takes any K1 whose row groups fit the grid; its header says what bounds
+it on the card and how it is laid out.
 This wrapper checks the inputs, allocates the output with ``torch.empty``,
 launches on PyTorch's current stream and counts the launch.  The plain
 version is ``kernels.ref.paged_verify_attention``.
@@ -20,8 +22,16 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import _aligned, _ptr, refuse_grad
 from repro_torch.kernels.paged_decode_attention import _Q_CODE, pool_args
 
-MAX_K1 = 8          # query tokens per sequence the kernel takes
+MAX_GRID_Y = 65535      # the grid's y: KV heads times row groups
 _fn = None
+
+
+def row_groups(K1: int, G: int, D: int) -> int:
+    """The row groups the kernel splits a (sequence, KV head)'s ``K1·G``
+    query rows over: blocks of up to 64 rows, 32 at D 192 and 256
+    (``by_rows`` in ``csrc/paged_attention.cuh``)."""
+    rows = 64 if D <= 128 else 32
+    return -(-K1 * G // rows)
 
 
 def _entry():
@@ -51,18 +61,24 @@ def paged_verify_attention(
 ) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors (raises on anything else).
     Pools are in the dtype of ``q``, or int8 with both scale planes; K1 is
-    1 to ``MAX_K1``.  Forward-only: raises under grad mode for an input
+    any count from 1 whose row groups times the KV heads stay within
+    ``MAX_GRID_Y``.  Forward-only: raises under grad mode for an input
     that needs one."""
     refuse_grad("paged_verify_attention", q, k_pages, v_pages, k_scale,
                 v_scale)
     if q.dim() != 4:
         raise ValueError(f"q must be [B, K1, Hq, D], got {tuple(q.shape)}")
     B, K1, Hq, D = q.shape
-    if not 1 <= K1 <= MAX_K1:
-        raise ValueError(f"K1={K1} query tokens: the verify kernel takes 1 "
-                         f"to {MAX_K1}")
+    if K1 < 1:
+        raise ValueError(f"K1={K1} query tokens: the verify kernel takes "
+                         f"at least 1")
     a = pool_args("paged_verify_attention", q, k_pages, v_pages, page_table,
                   cache_len, k_scale, v_scale)
+    if a.Hkv * row_groups(K1, Hq // a.Hkv, D) > MAX_GRID_Y:
+        raise ValueError(f"K1={K1} at G {Hq // a.Hkv}: "
+                         f"{row_groups(K1, Hq // a.Hkv, D)} row groups of "
+                         f"{a.Hkv} KV heads pass the grid's limit of "
+                         f"{MAX_GRID_Y} blocks")
     q = _aligned(q)
     out = torch.empty((B, K1, Hq, D), dtype=q.dtype, device=q.device)
     scale = sm_scale if sm_scale is not None else D ** -0.5

@@ -74,7 +74,6 @@ from repro_torch.core.telemetry import DispatchSample, DispatchStats, percentile
 from repro_torch.core.workload import Workload, WorkloadKind
 from repro_torch.device import resolve_device
 from repro_torch.kernels.build import KernelError
-from repro_torch.kernels.paged_verify_attention import MAX_K1
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import build_model, cast_params, to_device
 from repro_torch.serving.kv_cache import (PagedKVCache, SlotKVCache,
@@ -301,10 +300,9 @@ class ServingEngine:
                 raise ValueError(
                     f"draft vocab {draft_cfg.vocab_size} != target vocab "
                     f"{cfg.vocab_size}: the models must share a tokenizer")
-            if not 1 <= self.spec_k_max < MAX_K1:
-                raise ValueError(f"spec_k_max must be in [1, {MAX_K1 - 1}] "
-                                 f"(the verify kernel takes at most {MAX_K1}"
-                                 f" query tokens), got {spec_k_max}")
+            if self.spec_k_max < 1:
+                raise ValueError(f"spec_k_max must be >= 1, "
+                                 f"got {spec_k_max}")
             self._draft = DraftSpeculator(draft_cfg, max_slots, max_seq,
                                           params=draft_params, seed=seed + 1,
                                           device=self.device)

@@ -234,14 +234,25 @@ def test_hybrid_edge_serving_routes_and_redeploys_as_jax(env, tmp_path,
 
 def test_quickstart_serves_every_request(env, tmp_path):
     """Twenty training steps, then both prompts served through the
-    engine's container with eight tokens each; the model keeps the JAX
-    quickstart's widths and parameter count."""
+    engine's container with eight tokens each; the model is the JAX
+    quickstart's (four heads of 16), whose ``arch=... params=...`` line
+    it prints."""
+    import importlib.util
+
     from repro.configs import get_reduced_config
 
     out = _example("torch_quickstart", env, tmp_path)
     jax_cfg = get_reduced_config("tinyllama-1.1b", num_layers=2, d_model=64,
                                  head_dim=16, d_ff=128, vocab_size=128)
-    assert f"params={jax_cfg.num_params():,}" in out
+    assert (jax_cfg.num_heads, jax_cfg.num_kv_heads, jax_cfg.head_dim) == \
+        (4, 4, 16)
+    assert out.splitlines()[0] == (f"arch={jax_cfg.name} "
+                                   f"params={jax_cfg.num_params():,}")
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", EXAMPLES / "torch_quickstart.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    assert example.model_config().to_dict() == jax_cfg.to_dict()
     first, last = map(float, re.search(r"loss: (\S+) -> (\S+)",
                                        out).groups())
     assert last < first

@@ -205,6 +205,67 @@ MLA_DECODE_CASES = [
     (4, 128, 300, [0, 1, 299, 300], 30.0),
     (1, 128, 64, [64], 0.0),
 ]
+# Every shape the JAX package's paths hand its Pallas kernels (the card
+# only; test_torch_shapes.py runs the same cases against JAX).  Head dim
+# 16: the JAX kernel tests' cases (tests/test_kernels.py:206-211,
+# :246-251: B 2, T 32, Hq 4 over 2 and 8 over 1, window 8, softcap 15,
+# cross lengths 24/40, non-causal), the JAX quickstart's train step (B 8
+# x T 32, four heads of 16), T 70 and 129 around the 64-row tile with
+# empty rows.  B, Tq, Tk, Hq, Hkv, D, causal, window, softcap, valid
+D16_FLASH_CASES = [
+    (2, 32, 32, 4, 2, 16, True, 0, 0.0, False),
+    (2, 32, 32, 8, 1, 16, True, 0, 0.0, False),
+    (2, 32, 32, 4, 2, 16, True, 8, 0.0, False),
+    (2, 32, 32, 4, 2, 16, True, 0, 15.0, False),
+    (2, 24, 40, 4, 2, 16, True, 0, 0.0, False),
+    (2, 32, 32, 4, 2, 16, False, 0, 0.0, False),
+    (8, 32, 32, 4, 4, 16, True, 0, 0.0, False),
+    (2, 70, 70, 4, 4, 16, True, 0, 0.0, True),
+    (2, 129, 129, 8, 2, 16, True, 0, 12.0, True),
+]
+# paged decode at D 16: the quickstart's tick (B 2, MP 4, four heads of
+# 16 at G 1), G 2 and G 8, a window and a softcap, the serving heads'
+# count over MP·page 1024.  B, Hq, Hkv, D, page, MP, num_pages, window,
+# softcap
+D16_PAGED_CASES = [
+    (2, 4, 4, 16, 16, 4, 11, 0, 0.0),
+    (2, 4, 2, 16, 16, 4, 11, 0, 0.0),
+    (3, 8, 1, 16, 16, 8, 30, 0, 0.0),
+    (2, 8, 2, 16, 16, 6, 15, 24, 20.0),
+    (8, 32, 4, 16, 16, 64, 520, 100, 0.0),
+]
+# verify at any K1: D 16, then K1 9, 13 and 16 (spec_k_max 8, 12 and 15)
+# at G 8 over one KV head at D 64 and 256, past a block's 64 rows (32 at
+# D 256: 72-128 rows in 2-4 row groups), with a window and a softcap; G
+# 12 at K1 16 (192 rows), and the reduced tinyllama's G 1 at K1 13.
+# B, K1, Hq, Hkv, D, page, MP, num_pages, softcap, window
+VERIFY_ANY_K1_CASES = [
+    (2, 3, 4, 4, 16, 16, 4, 11, 0.0, 0),
+    (2, 13, 8, 1, 16, 16, 8, 30, 20.0, 0),
+    (2, 9, 8, 1, 64, 16, 8, 30, 0.0, 0),
+    (2, 13, 8, 1, 64, 16, 8, 30, 0.0, 24),
+    (2, 16, 8, 1, 64, 16, 8, 30, 30.0, 0),
+    (2, 16, 24, 2, 64, 16, 8, 30, 0.0, 0),
+    (2, 9, 8, 1, 256, 16, 8, 30, 0.0, 0),
+    (2, 16, 8, 1, 256, 16, 8, 30, 0.0, 40),
+    (2, 13, 4, 4, 32, 16, 4, 11, 0.0, 0),
+]
+# dense decode at D 16.  B, Hq, Hkv, D, S, window, softcap
+D16_DECODE_CASES = [
+    (2, 4, 4, 16, 64, 0, 0.0),
+    (3, 8, 1, 16, 100, 0, 0.0),
+    (2, 8, 2, 16, 96, 40, 20.0),
+]
+# MLA's absorbed decode at the reduced config's widths: keys of 48 (the
+# 32 latent and 16 rope columns) over values of 32 (the latent ones),
+# one KV head at G 4 as get_reduced_config("deepseek-v2-236b") runs it,
+# and at G 16.  B, Hq, S, lengths (None: random 36-543), softcap
+MLA_REDUCED_DECODE_CASES = [
+    (8, 4, 1024, None, 0.0),
+    (2, 4, 128, [77, 128], 0.0),
+    (3, 4, 200, [0, 5, 199], 30.0),
+    (2, 16, 64, [64, 1], 0.0),
+]
 # the SSD scan: T 1, 63, 64, 100, 257 and 511 around the chunk and the
 # kernel's 64-row tiles (its bounds mask stands in for the JAX padding),
 # chunk 100 (a partial second tile), P 16/32/64, N 16/32/64/128, groups 1
@@ -475,7 +536,7 @@ def test_decode_kernel_serving_shapes(case, dtype, cuda):
     assert bool((got[empty] == 0).all())
 
 
-@pytest.mark.parametrize("D", [32, 64, 128, 192, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 192, 256])
 @pytest.mark.parametrize("G", [1, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_every_head_dim(D, G, dtype, cuda):
@@ -1189,6 +1250,100 @@ def test_backward_kernel_launch_failure_raises(cuda, monkeypatch):
     loss, _ = model.loss(params, batch)
     with pytest.raises(build.KernelError, match="flash_attention_bwd_dq"):
         loss.backward()
+
+
+# ---------------------------------------------------------------------------
+# every shape of the JAX package's paths: head dim 16, verify at any K1,
+# MLA's absorbed decode at keys of 48 over values of 32
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", D16_FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_d16_flash_kernel_matches_plain(case, dtype, cuda):
+    """One k16 step for q·kᵀ, an m64n16 p·v, one 16-byte chunk a thread."""
+    test_flash_kernel_matches_plain(case, dtype, cuda)
+
+
+@pytest.mark.parametrize("case", D16_FLASH_CASES)
+@pytest.mark.parametrize("positions", [None, "offset"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_d16_flash_bwd_kernels_match_plain(case, positions, dtype, cuda):
+    """dq and dk/dv at D 16 (m64n16 accumulators) on the forward
+    kernel's own ``out`` and ``lse``."""
+    test_flash_bwd_kernels_match_plain(case, dtype, positions, cuda)
+
+
+@pytest.mark.parametrize("case", D16_PAGED_CASES)
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_d16_paged_kernel_matches_plain(case, int8, dtype, cuda):
+    """One m16n8k16 step covers q·kᵀ; an int8 row is one 16-byte chunk."""
+    if int8:
+        test_paged_kernel_int8_matches_plain(case, dtype, cuda)
+    else:
+        test_paged_kernel_matches_plain(case, dtype, cuda)
+
+
+@pytest.mark.parametrize("case", VERIFY_ANY_K1_CASES)
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_kernel_at_any_k1(case, int8, dtype, cuda):
+    """Rows past a block's 64 (32 at D 256) go to more row groups; each
+    group's rows keep their own query token and causal limit."""
+    test_verify_kernel_matches_plain(case, int8, dtype, cuda)
+
+
+def test_verify_kernel_refuses_a_k1_past_the_grid(cuda):
+    """K1 4097 at 1024 KV heads of G 1 is 65 row groups a head, 66 560
+    blocks on the grid's y: the wrapper raises before any launch."""
+    from repro_torch.kernels import paged_verify_attention as pva
+
+    q = torch.zeros(1, 4097, 1024, 16, device=cuda, dtype=torch.bfloat16)
+    pools = torch.zeros(2, 16, 1024, 16, device=cuda, dtype=torch.bfloat16)
+    table = torch.ones(1, 1, dtype=torch.int32, device=cuda)
+    clen = torch.full((1,), 4097, dtype=torch.int32, device=cuda)
+    before = pva.paged_verify_attention.launches
+    with pytest.raises(ValueError, match="65535"):
+        pva.paged_verify_attention(q, pools, pools, table, clen)
+    assert pva.paged_verify_attention.launches == before
+
+
+@pytest.mark.parametrize("case", D16_DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_d16_decode_kernel_matches_plain(case, dtype, cuda):
+    test_decode_kernel_matches_plain(case, dtype, cuda)
+
+
+@pytest.mark.parametrize("case", MLA_REDUCED_DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_at_reduced_mla_widths(case, dtype, cuda):
+    """Keys of 48, values their first 32 columns as the absorbed decode
+    passes them, and independent values; the log-sum-exp variant's output
+    equals ``decode_attention``'s bit for bit and its lse the plain one's;
+    a row with no valid key gives exactly 0 (and NEG_INF)."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_lse)
+
+    B, Hq, S, lengths, softcap = case
+    g = torch.Generator(device=cuda).manual_seed(S + Hq + 48)
+    q, k, _, clen = _dense_inputs(g, B, Hq, 1, 48, S, lengths, dtype, cuda)
+    for v in (k[..., :32].contiguous(),
+              torch.randn(B, S, 1, 32, generator=g, device=cuda).to(dtype)):
+        kw = dict(softcap=softcap, sm_scale=48 ** -0.5)
+        got = decode_attention(q, k, v, clen, **kw)
+        out, lse = decode_attention_lse(q, k, v, clen, **kw)
+        want, want_lse = ref.decode_attention(q, k, v, clen,
+                                              return_lse=True, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == (B, Hq, 32) and got.dtype == dtype
+        assert bool(torch.isfinite(got).all())
+        assert _rel(want, got) < TOL[dtype]
+        assert torch.equal(out, got)
+        live = clen > 0
+        assert torch.allclose(lse[live], want_lse[live], atol=1e-4,
+                              rtol=1e-5)
+        assert bool((got[~live] == 0).all())
+        assert bool((lse[~live] == ref.NEG_INF).all())
 
 
 def test_forward_only_kernels_refuse_grad_inputs(cuda):

@@ -184,7 +184,7 @@ def test_decode_attention_matches_jax_ref_and_pallas(case, dtype):
 
 def test_new_wrappers_take_the_plain_path_only_on_cpu():
     """``ops`` sends CPU tensors to the plain versions without counting a
-    launch; the kernel wrappers refuse CPU tensors and a K1 past 8."""
+    launch; the kernel wrappers refuse CPU tensors and a K1 of 0."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import paged_verify_attention as pva
 
@@ -202,8 +202,8 @@ def test_new_wrappers_take_the_plain_path_only_on_cpu():
         pva.paged_verify_attention(q, pools, pools, table, clen)
     with pytest.raises(ValueError, match="CUDA"):
         da.decode_attention(q[:, 0], pools[:1], pools[:1], clen)
-    with pytest.raises(ValueError, match="K1=9"):
-        pva.paged_verify_attention(torch.zeros(1, 9, 2, 32), pools, pools,
+    with pytest.raises(ValueError, match="K1=0"):
+        pva.paged_verify_attention(torch.zeros(1, 0, 2, 32), pools, pools,
                                    table, clen)
 
 
@@ -425,7 +425,7 @@ def test_spec_engine_validates_and_survives_a_failing_draft():
     with pytest.raises(ValueError, match="kv_dtype"):
         ServingEngine(cfg, kv_dtype="float16", **kw)
     with pytest.raises(ValueError, match="spec_k_max"):
-        ServingEngine(cfg, draft_cfg=dcfg, spec_k_max=8, **kw)
+        ServingEngine(cfg, draft_cfg=dcfg, spec_k_max=0, **kw)
     with pytest.raises(ValueError, match="vocab"):
         ServingEngine(cfg, draft_cfg=dataclasses.replace(dcfg,
                                                          vocab_size=128),

@@ -93,6 +93,29 @@ dtype (``spec_streams_auto``) and once over int8 pages
 (``spec_streams_int8``); the draft's config and parameters are stored
 beside the target's.
 
+The shapes the JAX examples and engine reach past those ride along:
+- ``quickstart_*``: the JAX quickstart's model (``examples/quickstart.py``:
+  reduced tinyllama, 2 layers, d_model 64, four heads of 16) in fp32,
+  3 steps of JAX ``build_train_step`` from parameters drawn from a seed
+  (``quickstart_train_*``, replayed like ``train_*``), then the waves
+  (the prompts modulo its vocabulary of 128, ``quickstart_prompts``)
+  served by the JAX engine from the trained parameters: its streams and
+  each prompt's last-position logits.
+- ``deepseek_reduced_*``: ``get_reduced_config("deepseek-v2-236b")`` at
+  its default widths (MLA's latent keys of 32 + 16 over values of 32 at
+  4 heads: the absorbed decode at G 4 over one KV head), parameters
+  drawn from a seed, served by the warmed JAX engine on dense slots as
+  ``deepseek_*`` is.
+- ``spec_k12_*``: the waves served speculatively at ``spec_k_max=12``
+  with 64 new tokens each (so that the draft length climbs past 8),
+  the target the fixture's ``params/`` with its second layer's residual
+  write-backs zeroed and the draft its first layer (``spec_k12_params``):
+  the draft's logits are the target's, every draft token is accepted,
+  and the verify pass's first layer decides every token.
+Parameters drawn from a seed are stored as their spec (``draw``): each
+leaf's name, shape, mean and spread, which ``chip_smoke.py`` draws the
+same values from with numpy.
+
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_port_golden.py
 """
 from __future__ import annotations
@@ -147,6 +170,15 @@ MOE_TRAIN_RUNS = {"mixtral_train_": "mixtral_params/",
                   "deepseek_train_": "deepseek_params/",
                   "dense_gemma-2b_train_": "dense_gemma-2b_params/"}
 DEEPSEEK_TRAIN_CAPACITY = 0.25
+# the JAX quickstart's model and training (examples/quickstart.py:46-57)
+QUICKSTART_MODEL = dict(num_layers=2, d_model=64, head_dim=16, d_ff=128,
+                        vocab_size=128)
+QUICKSTART_TRAIN = dict(batch=8, seq=32, seed=21, steps=3,
+                        adamw=dict(lr=3e-3),
+                        sched=dict(warmup_steps=5, decay_steps=200))
+SPEC_K12 = dict(spec_k_max=12, max_new=64,
+                engine=dict(max_slots=2, max_seq=128, page_size=16,
+                            prefill_chunk=16, prefill_budget=16))
 # leaves that init makes zero or one, which a test could not tell from
 # missing: biases (and LayerNorm's) and norm scales
 _SEEDED = {"b_q": 0.0, "b_k": 0.0, "b_v": 0.0, "b_o": 0.0, "bias": 0.0,
@@ -181,14 +213,50 @@ def seeded(params, seed: int) -> dict:
     return walk(params)
 
 
-def _serve(eng, prompts):
-    """Serve the waves; the greedy streams in submission order."""
+def spec_of(params) -> str:
+    """The spec ``draw`` draws a parameter tree like ``params`` (a JAX
+    tree) from: JSON of [name, shape, mean, spread] for each leaf, in
+    ``_flat_params`` order.  The leaves init makes zero or one
+    (``_SEEDED``) get their init value as mean and a spread of 0.1, the
+    others mean 0 and the spread init gave them."""
+    flat = _flat_params("", params)
+    return json.dumps([
+        [k, list(v.shape), _SEEDED.get(k.split("/")[-1], 0.0),
+         0.1 if k.split("/")[-1] in _SEEDED else float(np.std(v))]
+        for k, v in flat.items()])
+
+
+def draw(spec: str, seed: int) -> dict:
+    """The flat float32 parameters ``spec`` describes: leaf by leaf in its
+    order, mean + spread·N(0, 1) from one numpy generator seeded with
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+    return {k: (mean + std * rng.standard_normal(shape)).astype(np.float32)
+            for k, shape, mean, std in json.loads(spec)}
+
+
+def spec_k12_params(flat: dict) -> tuple:
+    """The ``spec_k12`` run's (target, draft) flat parameters from the
+    fixture's ``params/`` leaves (named without the prefix): the target
+    with its second layer's ``w_o`` and ``w_down`` zero, the draft its
+    first layer alone."""
+    target = {k: v.copy() for k, v in flat.items()}
+    for k in ("stack/blocks/attn/w_o", "stack/blocks/mlp/w_down"):
+        target[k][1:] = 0.0
+    draft = {k: v[:1] if k.startswith("stack/blocks/") else v
+             for k, v in flat.items()}
+    return target, draft
+
+
+def _serve(eng, prompts, max_new=MAX_NEW, cow=1):
+    """Serve the waves; the greedy streams in submission order (``cow``:
+    the copy-on-write count the second wave must make, None for any)."""
     for w in (0, 1):
         for p, pw in zip(prompts, WAVES):
             if pw == w:
-                eng.submit(p, max_new_tokens=MAX_NEW)
+                eng.submit(p, max_new_tokens=max_new)
         eng.run_until_drained()
-    assert eng.kv.cow_copies == 1, eng.kv.cow_copies
+    assert cow is None or eng.kv.cow_copies == cow, eng.kv.cow_copies
     done = sorted(eng.completed.values(), key=lambda r: r.rid)
     return np.array([r.generated for r in done], np.int32)
 
@@ -203,13 +271,16 @@ def _flat_params(prefix: str, params) -> dict:
 
 
 def _train_run(pre: str, cfg, setup: dict, data, key: int,
-               params=None, params_from: str = None) -> dict:
+               params=None, params_from: str = None,
+               drawn: bool = False) -> dict:
     """``setup["steps"]`` fp32 steps of JAX ``build_train_step`` on
     ``data`` from ``Model.init(key)``, or from ``params`` that the
-    fixture already holds under ``params_from``: the config and setup,
-    the step-0 parameters (or ``params0_from``) and AdamW moments, each
-    step's loss and grad norm, and the final parameters, under keys that
-    start with ``pre``."""
+    fixture already holds under ``params_from``, or (``drawn``) from
+    parameters drawn from seed ``key`` by the spec of ``Model.init``'s:
+    the config and setup, the step-0 parameters (or ``params0_from``, or
+    ``params0_spec`` and ``params0_seed``) and AdamW moments, each step's
+    loss and grad norm, and the final parameters, under keys that start
+    with ``pre``."""
     import jax
 
     from repro.launch import programs
@@ -222,7 +293,12 @@ def _train_run(pre: str, cfg, setup: dict, data, key: int,
     out = {pre + "config": np.array(json.dumps(cfg.to_dict(),
                                                sort_keys=True)),
            pre + "setup": np.array(json.dumps(setup, sort_keys=True))}
-    if params is None:
+    if drawn:
+        spec = spec_of(build_model(cfg).init(jax.random.key(key)))
+        params = _unflat(draw(spec, key))
+        out[pre + "params0_spec"] = np.array(spec)
+        out[pre + "params0_seed"] = np.array(key, np.int32)
+    elif params is None:
         params = build_model(cfg).init(jax.random.key(key))
         out.update(_flat_params(pre + "params0/", params))
     else:
@@ -240,6 +316,20 @@ def _train_run(pre: str, cfg, setup: dict, data, key: int,
     out[pre + "grad_norms"] = np.array(norms, np.float32)
     out.update(_flat_params(pre + "final/", params))
     return out
+
+
+def _unflat(flat: dict):
+    """A JAX params tree from flat ``a/b/c`` names."""
+    import jax.numpy as jnp
+
+    tree = {}
+    for k, v in flat.items():
+        *path, leaf = k.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = jnp.asarray(v)
+    return tree
 
 
 def _train() -> dict:
@@ -479,6 +569,85 @@ def _deepseek() -> dict:
     return out
 
 
+def _shapes() -> dict:
+    """The ``quickstart_*``, ``deepseek_reduced_*`` and ``spec_k12_*``
+    entries of the module docstring."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_reduced_config
+    from repro.data.tokens import make_lm_iterator
+    from repro.models.model import build_model
+    from repro.serving.engine import ServingEngine
+
+    def logits(eng, params, prompts):
+        return np.stack([np.asarray(eng.model.forward(params, {
+            "tokens": jnp.asarray(p[None], jnp.int32)})[0])[0, -1]
+            for p in prompts]).astype(np.float32)
+
+    # the quickstart: 3 train steps, then the waves from the trained
+    # parameters
+    cfg = dataclasses.replace(
+        get_reduced_config("tinyllama-1.1b", **QUICKSTART_MODEL),
+        compute_dtype="float32")
+    t = QUICKSTART_TRAIN
+    out = _train_run("quickstart_train_", cfg, t, make_lm_iterator(
+        cfg, t["batch"], t["seq"], seed=t["seed"]), key=t["seed"],
+        drawn=True)
+    params = _unflat({k[len("quickstart_train_final/"):]: v
+                      for k, v in out.items()
+                      if k.startswith("quickstart_train_final/")})
+    prompts = [p % cfg.vocab_size for p in _prompts()]
+    eng = ServingEngine(cfg, params=params, **ENGINE)
+    padded, lens = _padded(prompts)
+    out["quickstart_prompts"] = padded
+    out["quickstart_streams"] = _serve(eng, prompts)
+    out["quickstart_first_logits"] = logits(eng, params, prompts)
+
+    # reduced deepseek at its default MLA widths, as _deepseek serves it
+    cfg = dataclasses.replace(get_reduced_config("deepseek-v2-236b"),
+                              compute_dtype="float32")
+    spec = spec_of(build_model(cfg).init(jax.random.key(13)))
+    params = _unflat(draw(spec, 13))
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, 256, size=int(n))
+               for n in rng.integers(40, 91, size=4)]
+    eng = ServingEngine(cfg, params=params, **MIXTRAL_ENGINE).warmup()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=MIXTRAL_MAX_NEW)
+    eng.run_until_drained()
+    done = sorted(eng.completed.values(), key=lambda r: r.rid)
+    padded, lens = _padded(prompts)
+    pre = "deepseek_reduced_"
+    out.update({
+        pre + "config": np.array(json.dumps(cfg.to_dict(), sort_keys=True)),
+        pre + "engine": np.array(json.dumps(MIXTRAL_ENGINE, sort_keys=True)),
+        pre + "params_spec": np.array(spec),
+        pre + "params_seed": np.array(13, np.int32),
+        pre + "prompts": padded, pre + "prompt_lens": lens,
+        pre + "max_new": np.array(MIXTRAL_MAX_NEW, np.int32),
+        pre + "streams": np.array([r.generated for r in done], np.int32),
+        pre + "last_logits": logits(eng, params, prompts)})
+
+    # speculative at spec_k_max 12 over the fixture's own target
+    cfg = dataclasses.replace(get_reduced_config("tinyllama-1.1b"),
+                              compute_dtype="float32")
+    base = ServingEngine(cfg, seed=0, **ENGINE).params
+    target, draft = spec_k12_params(_flat_params("", base))
+    eng = ServingEngine(cfg, params=_unflat(target), **SPEC_K12["engine"],
+                        draft_cfg=dataclasses.replace(cfg, num_layers=1),
+                        draft_params=_unflat(draft),
+                        spec_k_max=SPEC_K12["spec_k_max"])
+    out["spec_k12_setup"] = np.array(json.dumps(SPEC_K12, sort_keys=True))
+    out["spec_k12_streams"] = _serve(eng, _prompts(), SPEC_K12["max_new"],
+                                     cow=None)
+    st = eng.stats()
+    out["spec_k12_stats"] = np.array(json.dumps(
+        {k: st[k] for k in ("spec_rounds", "spec_proposed",
+                            "spec_accepted")}, sort_keys=True))
+    return out
+
+
 def make() -> dict:
     """Regenerate the fixture's arrays with the JAX package."""
     import jax
@@ -527,6 +696,7 @@ def make() -> dict:
     out.update(_mixtral())
     out.update(_deepseek())
     out.update(moe_train())
+    out.update(_shapes())
     return out
 
 
