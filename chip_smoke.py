@@ -462,33 +462,50 @@ def _kernel_resources(log: str) -> list:
     return out
 
 
-def _tensor_core_ops(build, name: str, full: bool = False) -> dict:
-    """The `HMMA`/`HGMMA` instructions of each kernel of a built library,
-    from `cuobjdump -sass` (instances that print alike are summed; with
-    ``full``, by each instance's whole demangled name, types included)."""
+def _sass_counts(build, names) -> dict:
+    """The `HMMA`/`HGMMA` instructions of each kernel (by mangled name) of
+    each built library, from `cuobjdump -sass`: one process a library, all
+    started at once, each listing scanned by one regular expression."""
     bindir = os.path.dirname(build._nvcc())
-    sass = subprocess.run([os.path.join(bindir, "cuobjdump"), "-sass",
-                           str(build._target(name))],
-                          capture_output=True, text=True, timeout=120)
-    check(sass.returncode == 0, f"cuobjdump: {sass.stderr.strip()[-300:]}")
-    counts, cur = {}, None
-    for line in sass.stdout.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            cur = m.group(1) if full else _demangle(m.group(1))
-            counts.setdefault(cur, 0)
-        elif cur and re.search(r"\bH(G)?MMA\b", line):
-            counts[cur] += 1
-    if full:
-        filt = os.path.join(bindir, "cu++filt")
-        out = subprocess.run([filt if os.path.exists(filt) else "c++filt",
-                              *counts], capture_output=True, text=True,
-                             timeout=60)
-        names = out.stdout.splitlines()
-        check(out.returncode == 0 and len(names) == len(counts),
-              f"demangling {name}'s kernels: {out.stderr.strip()[-300:]}")
-        counts = dict(zip(names, counts.values()))
-    return counts
+    procs = {n: subprocess.Popen([os.path.join(bindir, "cuobjdump"), "-sass",
+                                  str(build._target(n))],
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for n in names}
+    out = {}
+    for n, proc in procs.items():
+        text, err = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"cuobjdump {n}: {err.strip()[-300:]}")
+        counts, cur = {}, None
+        for m in re.finditer(r"Function : (\S+)|\bHG?MMA\b", text):
+            if m.group(1):
+                cur = m.group(1)
+                counts.setdefault(cur, 0)
+            elif cur is not None:
+                counts[cur] += 1
+        out[n] = counts
+    return out
+
+
+def _tensor_core_ops(build, counts: dict, full: bool = False) -> dict:
+    """One library's `_sass_counts` by kernel: ``name<int and bool template
+    args>`` (instances that print alike summed), or with ``full`` each
+    instance's whole demangled name, types included."""
+    if not full:
+        ops = {}
+        for k, v in counts.items():
+            d = _demangle(k)
+            ops[d] = ops.get(d, 0) + v
+        return ops
+    bindir = os.path.dirname(build._nvcc())
+    filt = os.path.join(bindir, "cu++filt")
+    out = subprocess.run([filt if os.path.exists(filt) else "c++filt",
+                          *counts], capture_output=True, text=True,
+                         timeout=60)
+    names = out.stdout.splitlines()
+    check(out.returncode == 0 and len(names) == len(counts),
+          f"demangling kernels: {out.stderr.strip()[-300:]}")
+    return dict(zip(names, counts.values()))
 
 
 def _template_args(kernel: str) -> list:
@@ -516,12 +533,14 @@ def phase_device_and_build(torch):
     # a tensor-core kernel (one with HMMA/HGMMA in its SASS, or a wgmma
     # kernel) keeps its accumulators in registers: no spill
     tc_ops = {}
+    t1 = time.monotonic()
+    sass = _sass_counts(build, sorted(logs))
     for name, log in sorted(logs.items()):
         kernels = _kernel_resources(log)
         print(f"[build] {name}: " + ", ".join(
             f"{k} {r} regs" + (f", {b} B spilled" if b else "")
             for k, r, b in kernels))
-        ops = tc_ops[name] = _tensor_core_ops(build, name)
+        ops = tc_ops[name] = _tensor_core_ops(build, sass[name])
         print(f"[build] {name} tensor-core instructions (HMMA/HGMMA, "
               f"cuobjdump -sass): " + ", ".join(
                   f"{k} {v}" for k, v in sorted(ops.items())))
@@ -593,7 +612,8 @@ def phase_device_and_build(torch):
                   f"regs, {fb} B spilled, no HMMA")
     for name in ("paged_decode_attention", "paged_verify_attention",
                  "decode_attention"):
-        inst = {k: v for k, v in _tensor_core_ops(build, name, True).items()
+        inst = {k: v for k, v in _tensor_core_ops(build, sass[name],
+                                                  True).items()
                 if "paged_attention_kernel<" in k}
         bf = [v for k, v in inst.items()
               if _template_args(k)[1] == "__nv_bfloat16"]
@@ -627,9 +647,8 @@ def phase_device_and_build(torch):
                  for k, r, b in _kernel_resources(logs[name])
                  if re.search(r"<(16|48|192|256),", k)]
         print(f"[build] {name} at D 16, 192 and 256 and keys 48 over "
-              f"values 32 (bf16 and fp32, "
-              f"{'bf16, fp32 and int8 pools' if len(pools) > 1 else 'dense'}"
-              f"): {', '.join(shown)}")
+              f"values 32 ({len(inst)} instances): {', '.join(shown)}")
+    print(f"[build] SASS read and checked in {time.monotonic() - t1:.1f}s")
     return card
 
 
@@ -1252,7 +1271,14 @@ def phase_kernels(torch, timer, card):
          "flash_attention@mixtral"),
         ("mixtral B1/T4600 window4096", 4600, 4600, 0, 4600, mix, None),
         ("mixtral B1/T4200 window4096, 4100 valid", 4200, 4200, 0, 4100,
-         mix, None)]
+         mix, None),
+        # phase 3j's chunks: the 4600-token prompt's last chunk (56 real
+        # tokens of a 64 bucket at 4544) over its pow2 span of 8192 keys,
+        # and a chunk after 256 radix-shared tokens, full attention
+        ("mixtral paged Tq64/Tk8192 tail@4544, 56 real", 64, 8192, 4544,
+         4600, {"heads": (32, 8, 128)}, "flash_attention@mixtral_paged"),
+        ("mixtral paged Tq64/Tk512 chunk@256", 64, 512, 256, 320,
+         {"heads": (32, 8, 128)}, None)]
     for dtype in ("bfloat16", "float32"):
         for label, Tq, Tk, start, valid, extra, key in flash_cases:
             args, kw, nb, fl = _flash_case(torch, gen, dtype, Tq, Tk, start,
@@ -1422,6 +1448,22 @@ def phase_kernels(torch, timer, card):
                 print(f"[kernel] paged_verify_attention {label} {dtype}: "
                       f"vs the paged decode kernel rel_err={err:.3e}")
                 check(err < TOL[dtype], f"verify K1=1 vs paged decode {err}")
+
+    # phase 3j's paged shapes (mixtral's G 4 at D 128), timed over bf16
+    # pools
+    mixp = {"heads": (32, 8, 128)}
+    for dtype in ("bfloat16", "float32"):
+        for kind, fn, plain, extra in (
+                ("paged_decode_attention", paged_decode_attention,
+                 ref.paged_decode_attention, {}),
+                ("paged_verify_attention", paged_verify_attention,
+                 ref.paged_verify_attention, {"K1": 5})):
+            args, kw, nb, fl = _paged_case(torch, gen, dtype, **mixp,
+                                           **extra)
+            run(kind, f"mixtral paged D128 G4 B8/MP64{' K1=5' * bool(extra)}",
+                dtype, fn, plain, args, kw, nb, fl,
+                _sdpa_paged(torch, F, args, kw), dtype == "bfloat16",
+                f"{kind}@mixtral_paged")
 
     # the dense decode kernel at the two shapes the serving paths run it
     # at, both timed: the draft's decode steps (G 8) and zamba2's shared
@@ -2808,6 +2850,273 @@ def phase_mixtral(torch):
     print(f"[mixtral] phase 3h {time.monotonic() - t_phase:.1f}s")
     return {k: launches[k] for k in ("flash_attention", "decode_attention")}, \
         len(done)
+
+
+# ---------------------------------------------------------------------------
+# phase 3j: a full-attention MoE on the paged data plane, mixtral's widths
+# ---------------------------------------------------------------------------
+
+# tinyllama-1.1b's widths for phase 3j's draft (d 2048, 32 heads of 64
+# over 4 KV heads, d_ff 5632), one layer, mixtral's vocabulary of 32 000
+PAGED_MOE_DRAFT = dict(num_layers=1)
+
+
+def _paged_moe_config(torch):
+    """mixtral-8x7b at full width without its window (``attn_type``
+    "full"), one leading dense layer of d_ff 14 336 before 7 MoE layers
+    (``MIXTRAL_CUT`` layers), bf16 parameters: 7 x 1 451 270 144 + (41 943
+    040 + 3 x 4096 x 14 336 + 8192) + 262 148 096 parameters."""
+    from repro_torch.configs import get_config
+
+    full = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(
+        full, num_layers=MIXTRAL_CUT, param_dtype="bfloat16",
+        attn_type="full", sliding_window=0,
+        moe=dataclasses.replace(full.moe, first_dense_layers=1,
+                                first_dense_d_ff=full.moe.d_expert))
+    check(cfg.d_model == 4096 and cfg.num_heads == 32
+          and cfg.num_kv_heads == 8 and cfg.head_dim_ == 128
+          and cfg.moe.num_experts == 8 and cfg.moe.top_k == 2
+          and cfg.moe.d_expert == 14336 and cfg.vocab_size == 32000,
+          f"phase 3j config {cfg}")
+    return cfg
+
+
+def _count_draft(eng) -> dict:
+    """Counts the speculative draft's prefills and decode steps (a propose
+    of k tokens takes k + 1) from here on, by wrapping the engine's draft:
+    each runs the draft's flash or dense decode kernel once a layer."""
+    seen = {"prefills": 0, "steps": 0}
+    draft = eng._draft
+    if draft is None:
+        return seen
+    prefill, propose = draft.prefill, draft.propose
+
+    def counted_prefill(*a, **kw):
+        seen["prefills"] += 1
+        return prefill(*a, **kw)
+
+    def counted_propose(last_tokens, active, k):
+        seen["steps"] += k + 1
+        return propose(last_tokens, active, k)
+
+    draft.prefill, draft.propose = counted_prefill, counted_propose
+    return seen
+
+
+def _paged_moe_run(torch, eng, prompts, tag, first_alone=(), follow=None,
+                   draft_layers=0):
+    """Serve ``prompts`` (``first_alone`` first, drained, then the rest,
+    then ``follow(first request)`` if given) with 32 new tokens each,
+    counting the four attention kernels' launches from 0; checks that
+    every request completes and each kernel ran exactly as many times as
+    the engine's chunks, decode steps and verify rounds and the draft's
+    prefills and decode steps say.  Returns (launches, requests, stats)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_verify_attention as pva
+
+    counters = ((fa, "flash_attention"), (pda, "paged_decode_attention"),
+                (pva, "paged_verify_attention"), (da, "decode_attention"))
+    eng._tick_log.clear()
+    st0 = eng.stats()
+    drafted = _count_draft(eng)
+    for mod, fn in counters:
+        getattr(mod, fn).launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with eng:
+        done = [eng.submit(p, max_new_tokens=32).result(timeout=900)
+                for p in first_alone]
+        handles = [eng.submit(p, max_new_tokens=32) for p in prompts]
+        if follow is not None:
+            handles.append(eng.submit(follow(done[0]), max_new_tokens=32))
+        done += [h.result(timeout=900) for h in handles]
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {fn: getattr(mod, fn).launches for mod, fn in counters}
+    st = eng.stats()
+    n = len(first_alone) + len(prompts) + (follow is not None)
+    check(not eng.failed and len(done) == n
+          and all(len(r.generated) == 32 for r in done),
+          f"{tag}: every request must complete with 32 tokens "
+          f"({[r.error for r in eng.failed.values()]})")
+    L = eng.cfg.num_layers
+    d = {k: st[k] - st0[k] for k in ("prefill_chunks", "decode_steps",
+                                     "spec_rounds", "draft_ticks")}
+    d.update(draft_prefills=drafted["prefills"],
+             draft_steps=drafted["steps"])
+    want = {"flash_attention": L * d["prefill_chunks"]
+            + draft_layers * d["draft_prefills"],
+            "paged_decode_attention": L * d["decode_steps"],
+            "paged_verify_attention": L * d["spec_rounds"],
+            "decode_attention": draft_layers * d["draft_steps"]}
+    check(launches == want, f"{tag}: launches {launches} != {want} ({d})")
+    check(not draft_layers or (d["spec_rounds"] > 0
+                               and d["draft_prefills"] >= n),
+          f"{tag}: the draft must prefill every request and speculate "
+          f"({d})")
+    toks = sum(len(r.generated) for r in done)
+    print(f"[paged-moe] {tag}: {n} requests, {toks} tokens in {wall:.2f}s "
+          f"({toks / wall:.1f} tok/s); ttft p50 "
+          f"{st['p50_ttft_s'] * 1e3:.1f} ms p95 {st['p95_ttft_s'] * 1e3:.1f}"
+          f" ms; decode tick p50 {st['p50_decode_tick_s'] * 1e3:.2f} ms "
+          f"p95 {st['p95_decode_tick_s'] * 1e3:.2f} ms; prefill tick p50 "
+          f"{st['p50_prefill_tick_s'] * 1e3:.2f} ms; peak memory "
+          f"{torch.cuda.max_memory_allocated()} B")
+    print(f"[paged-moe] {tag}: {d}, launches {launches} (exact); radix "
+          f"hits {st['kv_prefix_hits']}, cow copies {st['cow_copies']}, "
+          f"pages in use {st['pages_in_use']}, acceptance "
+          f"{st['acceptance_rate']:.3f}")
+    return launches, n, st
+
+
+def _paged_moe_golden(torch):
+    """``tests/data/torch_moe_paged_golden.npz``: reduced fp32 mixtral
+    without its window and with a leading dense layer, parameters drawn
+    from the stored spec; every run's JAX-made streams and counters (plain,
+    int8 pages, speculative over int8 pages, the target as its own draft,
+    capacity 0.25) replayed on the card through the kernels."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.weights import from_numpy_tree, unflatten
+    from repro_torch.serving.engine import ServingEngine
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_moe_paged_golden as fixture
+
+    maker = _fixture_maker()
+    with np.load(fixture.PATH) as f:
+        g = {k: f[k] for k in f.files}
+    cfg = ModelConfig.from_dict(json.loads(str(g["config"])))
+    dcfg = ModelConfig.from_dict(json.loads(str(g["draft_config"])))
+    params = from_numpy_tree(unflatten(maker.draw(
+        str(g["params_spec"]), int(g["params_seed"]))), cfg, "cuda")
+    dparams = from_numpy_tree(unflatten(maker.draw(
+        str(g["draft_spec"]), int(g["draft_seed"]))), dcfg, "cuda")
+    prompts = [p[:n] for p, n in zip(g["prompts"], g["prompt_lens"])]
+    for run in fixture.RUNS:
+        c, kw = fixture.run_setup(run, cfg, params, dcfg, dparams,
+                                  dataclasses.replace)
+        eng = ServingEngine(c, params=params, device="cuda",
+                            **json.loads(str(g["engine"])), **kw).warmup()
+        drafted = _count_draft(eng)
+        before = launch_counts()
+        got = fixture.serve(eng, prompts, int(g["max_new"]))
+        moved = {k: v - before[k] for k, v in launch_counts().items() if v
+                 and v != before[k]}
+        st = eng.stats()
+        stats = {k: st[k] for k in fixture.STATS}
+        check(got.tolist() == g[f"{run}_streams"].tolist(),
+              f"golden paged moe {run}: streams differ\n{got.tolist()}\n"
+              f"{g[run + '_streams'].tolist()}")
+        check(stats == json.loads(str(g[f"{run}_stats"])),
+              f"golden paged moe {run}: counters {stats}")
+        L = cfg.num_layers
+        Ld = kw["draft_cfg"].num_layers if "draft_cfg" in kw else 0
+        want = {"flash_attention": L * st["prefill_chunks"]
+                + Ld * drafted["prefills"],
+                "paged_decode_attention": L * st["decode_steps"],
+                "paged_verify_attention": L * st["spec_rounds"],
+                "decode_attention": Ld * drafted["steps"]}
+        check(moved == {k: v for k, v in want.items() if v},
+              f"golden paged moe {run}: launches {moved} != {want} "
+              f"({drafted})")
+        print(f"[paged-moe] golden {run}: {len(prompts)} requests' fp32 "
+              f"streams equal JAX's engine's, counters {stats}, launches "
+              f"{moved}")
+        del eng
+
+
+def phase_mixtral_paged(torch):
+    """A full-attention MoE on the paged data plane at mixtral-8x7b's
+    full width (``_paged_moe_config``, random bf16 weights from a seed):
+    8 slots, ``max_seq`` 8192, pages of 16, chunks of 64.  Three runs of
+    phase 3h's traffic (10 prompts of 4-511 tokens and one of 4600, which
+    attends to all of its keys, 32 new tokens each): plain over bf16
+    pages; the same prompts behind a shared 256-token prefix (the first
+    alone, so the rest attach its 16 pages from the radix) and the
+    first's second turn (which copies its tail page); and speculative
+    over int8 pages with a 1-layer draft at tinyllama-1.1b's widths,
+    ``spec_k_max`` 4.  Then the JAX golden of the reduced fp32 layout
+    (``_paged_moe_golden``).  Returns the launches and the requests."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import ServingEngine
+
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _paged_moe_config(torch)
+    start = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    params = Model(cfg, "cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    kw = dict(max_slots=8, max_seq=8192, page_size=16, prefill_chunk=64,
+              params=params, device="cuda")
+    eng = ServingEngine(cfg, **kw).warmup()
+    check(eng.paged and set(eng.kv.pools) == {"attn", "attn_dense"},
+          "phase 3j must serve on the paged plane over both stacks' pools")
+    print(f"[paged-moe] mixtral-8x7b widths, full attention, {cfg.num_layers}"
+          f" layers (1 dense of d_ff 14336, 7 MoE: 8 experts of 14336, top "
+          f"2), bf16 parameters ({cfg.num_params()} = "
+          f"{cfg.num_params() * 2} B, {torch.cuda.memory_allocated() - start}"
+          f" B on the card with the pools): init {init_s:.1f}s, warmup "
+          f"{eng.warmup_s:.2f}s, {eng.kv.num_pages} pages of 16 "
+          f"({eng.kv.capacity_bytes()} B)")
+    rng = np.random.default_rng(0)
+    lens = [int(rng.integers(4, 512)) for _ in range(10)] + [4600]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
+    total = {}
+    n_req = 0
+
+    def add(launches, n):
+        nonlocal n_req
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        n_req += n
+
+    launches, n, st = _paged_moe_run(torch, eng, prompts, "plain")
+    check(st["prefill_chunks"] > len(prompts),
+          "phase 3j: the 4600-token prompt must prefill in chunks")
+    add(launches, n)
+    shared = rng.integers(0, cfg.vocab_size, size=256)
+    behind = [np.concatenate([shared, p]) for p in prompts]
+    before = eng.stats()
+    launches, n, st = _paged_moe_run(
+        torch, eng, behind[1:], "shared prefix", first_alone=behind[:1],
+        follow=lambda r: np.concatenate(
+            [behind[0], np.asarray(r.generated),
+             rng.integers(0, cfg.vocab_size, size=8)]))
+    hits = st["kv_prefix_hits"] - before["kv_prefix_hits"]
+    cows = st["cow_copies"] - before["cow_copies"]
+    check(hits >= len(prompts) and cows >= 1,
+          f"phase 3j: radix hits {hits}, copies {cows}")
+    add(launches, n)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    dcfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+                               **PAGED_MOE_DRAFT)
+    check(dcfg.vocab_size == cfg.vocab_size, "draft vocabulary")
+    spec = ServingEngine(cfg, kv_dtype="int8", draft_cfg=dcfg, seed=1,
+                         spec_k_max=4, **kw).warmup()
+    launches, n, st = _paged_moe_run(torch, spec, prompts,
+                                     "speculative int8",
+                                     draft_layers=dcfg.num_layers)
+    check(st["speculative"] and "spec_disabled_reason" not in st,
+          f"phase 3j: speculation off: {st.get('spec_disabled_reason')}")
+    add(launches, n)
+    del spec, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _paged_moe_golden(torch)
+    print(f"[paged-moe] phase 3j {time.monotonic() - t_phase:.1f}s, "
+          f"launches {total} over {n_req} requests")
+    return total, n_req
 
 
 # ---------------------------------------------------------------------------
@@ -6264,16 +6573,17 @@ DENSE_PATHS = ("gemma", "gemma_spec", "command-r", "chameleon", "nemotron")
 WIDE_TRAIN_PATHS = ("mixtral_train", "deepseek_train", "gemma_train",
                     "mesh_train")
 PATH_OF = {"flash_attention": ("serve", "edge", "fleet", "hubert",
-                               "hubert_train", "mixtral", "deepseek")
+                               "hubert_train", "mixtral", "deepseek",
+                               "mixtral_paged")
            + DENSE_PATHS + WIDE_TRAIN_PATHS + ("cp_decode", "examples",
                                                "shapes"),
            "paged_decode_attention": ("serve", "edge", "fleet")
-           + DENSE_PATHS + ("examples", "shapes"),
+           + DENSE_PATHS + ("examples", "shapes", "mixtral_paged"),
            "paged_verify_attention": ("spec", "gemma_spec", "spec_k12",
-                                      "shapes"),
+                                      "shapes", "mixtral_paged"),
            "decode_attention": ("spec", "zamba2", "edge", "gemma_spec",
                                 "mixtral", "deepseek", "mesh_train",
-                                "shapes"),
+                                "shapes", "mixtral_paged"),
            "decode_attention_lse": ("cp_decode",),
            "flash_attention_bwd_dq": ("train", "hubert_train")
            + WIDE_TRAIN_PATHS + ("examples",),
@@ -6284,6 +6594,7 @@ UNIT_OF = {"serve": "request", "spec": "request", "train": "step",
            "mamba2": "request", "zamba2": "request", "edge": "dispatch",
            "fleet": "request", "hubert": "batch", "hubert_train": "step",
            "mixtral": "request", "deepseek": "request",
+           "mixtral_paged": "request",
            **{p: "request" for p in DENSE_PATHS},
            **{p: "step" for p in WIDE_TRAIN_PATHS},
            "cp_decode": "step", "examples": "run", "shapes": "request",
@@ -6343,6 +6654,7 @@ def main() -> int:
     paths.update(timed("3g", phase_dense_variants, torch))
     paths["mixtral"] = timed("3h", phase_mixtral, torch)
     paths["deepseek"] = timed("3i", phase_deepseek, torch)
+    paths["mixtral_paged"] = timed("3j", phase_mixtral_paged, torch)
     timed("4", phase_consistency, torch)
     timed("4c", phase_ssm_consistency, torch)
     paths["spec_k12"] = timed("4b", phase_spec_exactness, torch)

@@ -74,7 +74,8 @@ class ServiceSpec:
     donates_inputs: bool = False    # executors donate arg buffers → no
     # speculative re-dispatch of the same args (backups clone instead)
     kv_dtype: str = "auto"          # serving KV-page dtype ("auto" →
-    # compute dtype; "int8" → quantized pages, ~2x tokens per byte)
+    # compute dtype; "int8" → quantized pages, ~2x tokens per byte;
+    # another dtype's name → compute-dtype pages counted in it, as in JAX)
 
     def __post_init__(self):
         if self.replicas < 0:

@@ -106,8 +106,9 @@ def init_paged_pool(cfg: ModelConfig, num_pages: int, page_size: int,
     adds the per-token f32 scale planes ``k_scale``/``v_scale``."""
     if cfg.attn_type != "full":
         raise NotImplementedError(f"paged pools need full attention, got "
-                                  f"{cfg.attn_type!r} (ROADMAP Queue A "
-                                  f"item 11)")
+                                  f"{cfg.attn_type!r}: JAX's "
+                                  f"init_paged_pool asserts attn_type == "
+                                  f"'full' (AssertionError)")
     device = resolve_device(device)
     shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim_)
     pool = {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -133,11 +134,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     """Per-layer dense cache ``[batch, S, Hkv, D]`` with ``S =
     cache_capacity(cfg, max_seq)``, zero-filled; for MLA the latent cache
     ``c_kv [batch, S, kv_lora]`` and ``k_rope [batch, S, rope]`` (JAX
-    ``attention.py:82-87``)."""
-    if cfg.attn_type not in ("full", "swa", "mla"):
-        raise NotImplementedError(f"dense caches of attn_type "
-                                  f"{cfg.attn_type!r} are not ported (ROADMAP "
-                                  f"Queue A item 11)")
+    ``attention.py:79-92``).  ``attn_type`` "none" raises: JAX's cache
+    has no leaf then, and its first prefill fails on the missing ``k``."""
+    if cfg.attn_type == "none":
+        raise NotImplementedError(
+            "attn_type 'none' keeps no cache: JAX's init_cache returns no "
+            "leaf and its first prefill raises KeyError 'k'")
     device = resolve_device(device)
     if cfg.attn_type == "mla":
         S, m = cache_capacity(cfg, max_seq), cfg.mla

@@ -274,69 +274,34 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for the architecture features the port has not reached.
-
-    Ported: the dense decoder (RMSNorm or LayerNorm, parallel blocks,
-    qk-norm, attention biases, the ``vq_tokens`` frontend: token ids in a
-    shared vocabulary) and the hybrid with full attention, the
-    attention-free SSM family (Mamba2), the encoder-only family
-    (LayerNorm, the ``audio_frames`` frontend, non-causal attention), and
-    the moe family with sliding-window attention (Mixtral: ring caches,
-    the routed experts' local path) or with MLA and leading dense layers
-    (DeepSeek-V2: the latent cache, the weight-absorbed decode).  A
-    combination that no registered config uses is refused as such: MLA
-    outside the moe family, a moe model with full attention, leading
-    dense layers beside sliding-window attention."""
-    if cfg.attn_type == "mla" and (cfg.family != "moe" or cfg.mla is None):
-        raise NotImplementedError(
-            f"attn_type 'mla' in a {cfg.family} model with mla={cfg.mla!r}: "
-            "the port runs MLA in the moe family only, as deepseek-v2-236b "
-            "has it; no registered config has it elsewhere (ROADMAP Queue A "
-            "item 11)")
+    """Raise for the layouts the JAX package itself cannot build, each
+    refusal naming JAX's own failure (``tests/test_torch_layouts.py``
+    runs JAX into each one).  Every other combination builds and trains
+    as in JAX: the five families, full, sliding-window or latent (MLA)
+    attention in any of them, leading dense layers beside any attention,
+    encoders with either norm over features or token ids, causal or not,
+    and decoders over any frontend.  ``attn_type`` "none" (the SSM's)
+    builds full-attention projections outside the ssm family, as JAX's
+    does; neither package serves it (no cache)."""
     if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encoder"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: only the dense decoder, moe, ssm, "
-            "hybrid and encoder are ported (ROADMAP Queue A item 11)")
-    if cfg.encoder_only != (cfg.family == "encoder"):
+            f"family {cfg.family!r}: JAX's init_stack raises "
+            f"ValueError({cfg.family!r}) (src/repro/models/transformer.py"
+            ":init_stack)")
+    if cfg.family == "moe" and cfg.moe is None:
         raise NotImplementedError(
-            f"encoder_only={cfg.encoder_only} with family {cfg.family!r}: "
-            "the port runs encoder_only as the encoder family only "
-            "(ROADMAP Queue A item 11)")
-    if cfg.family == "moe":
-        swa = cfg.attn_type == "swa" and cfg.sliding_window > 0
-        mla = cfg.attn_type == "mla" and cfg.sliding_window == 0
-        if cfg.moe is None or not (swa or mla):
-            raise NotImplementedError(
-                f"a moe model with moe={cfg.moe!r}, attn_type "
-                f"{cfg.attn_type!r} and sliding_window "
-                f"{cfg.sliding_window}: the port runs the moe family with "
-                "sliding-window attention, as mixtral-8x7b has it, or with "
-                "MLA, as deepseek-v2-236b has it (a full-attention moe is "
-                "in no registered config; ROADMAP Queue A item 11)")
-        if swa and cfg.moe.first_dense_layers:
-            raise NotImplementedError(
-                f"first_dense_layers={cfg.moe.first_dense_layers} beside "
-                "sliding-window attention: no registered config has "
-                "leading dense layers without MLA (deepseek-v2-236b's), so "
-                "the port refuses them (ROADMAP Queue A item 11)")
-    elif cfg.family != "ssm" and (cfg.attn_type != "full"
-                                  or cfg.sliding_window > 0):
+            "a moe model with moe=None: JAX's init_stack reads "
+            "cfg.moe.first_dense_layers and raises AttributeError")
+    if cfg.family in ("ssm", "hybrid") and cfg.ssm is None:
         raise NotImplementedError(
-            f"attn_type {cfg.attn_type!r} / sliding_window "
-            f"{cfg.sliding_window} in a {cfg.family} model: the port runs "
-            "sliding-window attention in the moe family only, as no "
-            "registered config of another family has it (ROADMAP Queue A "
-            "item 11)")
-    if cfg.family == "encoder":
-        if cfg.norm != "layernorm" or cfg.frontend != "audio_frames":
-            raise NotImplementedError(
-                f"an encoder with norm {cfg.norm!r} and frontend "
-                f"{cfg.frontend!r}: no registered config has one, so the "
-                "port runs encoders with LayerNorm over audio_frames "
-                "features only")
-        return
-    if cfg.frontend not in ("none", "vq_tokens"):
+            f"a {cfg.family} model with ssm=None: JAX's Mamba2 reads "
+            "cfg.d_inner, whose assert fails (AssertionError)")
+    if cfg.family != "ssm" and cfg.attn_type == "mla" and cfg.mla is None:
         raise NotImplementedError(
-            f"frontend {cfg.frontend!r} in a {cfg.family} model: no "
-            "registered config has one, so the port's decoders take token "
-            "ids only (frontend 'none' or 'vq_tokens')")
+            f"attn_type 'mla' with mla=None in a {cfg.family} model: JAX's "
+            "init_attention reads cfg.mla and raises AttributeError")
+    if cfg.family == "moe" and cfg.parallel_block:
+        raise NotImplementedError(
+            "parallel_block in a moe model: JAX's attn_block reads the "
+            "moe block's 'mlp' leaf, which it does not have (KeyError "
+            "'mlp')")

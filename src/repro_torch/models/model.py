@@ -28,7 +28,8 @@ masked prediction: masked frames read ``mask_embed``).
 
 Params are nested dicts of tensors with the JAX leaf names and stacked
 ``[L, ...]`` block leaves.  Pools, caches and SSM states update in place.
-Paged pools and speculative verify are the dense family's only.
+Paged pools and speculative verify take the dense and moe families (full
+attention without a window), as the JAX engine pages them.
 """
 from __future__ import annotations
 
@@ -95,13 +96,18 @@ class Model:
 
     def unread_leaves(self) -> tuple:
         """The paths (``tree.flatten_with_path`` form) of the leaves that
-        ``init`` makes and no forward reads: an ``audio_frames`` encoder's
-        token embedding, kept because the JAX ``Model.init`` makes it too
-        (``src/repro/models/model.py:41-44``).  Their gradient is zero,
-        as ``jax.grad`` gives it, and AdamW still decays them."""
-        if self.cfg.frontend == "audio_frames":
+        ``init`` makes and a forward may not read: an ``audio_frames``
+        model's token embedding, kept because the JAX ``Model.init`` makes
+        it too (``src/repro/models/model.py:41-44``), and, outside the
+        encoder-only models (whose batches carry a mask), its
+        ``mask_embed``, read only by a batch with a ``mask``.  An unread
+        leaf's gradient is zero, as ``jax.grad`` gives it, and AdamW still
+        decays it."""
+        if self.cfg.frontend != "audio_frames":
+            return ()
+        if self.cfg.encoder_only:
             return ("['embed']['embedding']",)
-        return ()
+        return ("['embed']['embedding']", "['frontend']['mask_embed']")
 
     def _positions(self, B: int, T: int, start=None):
         pos = torch.arange(T, device=self.device, dtype=torch.int32)[None]

@@ -5,8 +5,8 @@ Layouts (the JAX ones):
            with ``parallel_block`` one norm feeds both, x + attn + MLP)
   moe    : n_dense × [attn + MLP of ``first_dense_d_ff``] (DeepSeek's
            leading dense blocks, ``dense_blocks``), then (L − n_dense) ×
-           [attn + MoE] (sliding-window attention or MLA; each layer's
-           load-balancing loss summed into the stack's ``aux``)
+           [attn + MoE] (any attention; each layer's load-balancing loss
+           summed into the stack's ``aux``)
   ssm    : L × [mamba2]
   hybrid : ⌊L/e⌋ super-blocks of (e × mamba2, then one application of a
            shared attn+MLP block) + (L mod e) trailing mamba2 blocks.
@@ -145,38 +145,50 @@ def _stack_tree(one: Params, n: int, device) -> Params:
 
 def init_paged_cache_tree(cfg: ModelConfig, num_pages: int, page_size: int,
                           dtype=torch.bfloat16, device=None) -> Params:
-    """Paged pools stacked along the layer axis (``[L, P, page, H, D]``).
-    Only the dense block stack pages (as in JAX, the encoder's too); the
+    """Paged pools stacked along the layer axis (``[L, P, page, H, D]``):
+    ``attn`` for the dense block stack (as in JAX, the encoder's too), and
+    for the moe family ``attn`` over the routed blocks and ``attn_dense``
+    over the leading dense ones (JAX ``transformer.py:181-197``).  One
+    page-table row addresses the same logical pages in every pool.  The
     stateful families keep dense slots."""
     check_ported(cfg)
-    if cfg.family not in ("dense", "encoder"):
+    if cfg.family not in ("dense", "encoder", "moe"):
         raise ValueError(f"paged KV cache unsupported for family "
                          f"{cfg.family!r}")
     device = resolve_device(device)
     one = attention.init_paged_pool(cfg, num_pages, page_size, dtype, "meta")
-    return {"attn": _stack_tree(one, cfg.num_layers, device)}
+    return _layer_stacks(cfg, one, device)
+
+
+def _layer_stacks(cfg: ModelConfig, one: Params, device) -> Params:
+    """``one`` layer's cache stacked for the dense and moe block stacks:
+    ``attn`` [L or L - n_dense, ...], and ``attn_dense`` [n_dense, ...]
+    beside it for a moe model's leading dense blocks."""
+    nd = cfg.moe.first_dense_layers if cfg.family == "moe" else 0
+    c = {"attn": _stack_tree(one, cfg.num_layers - nd, device)}
+    if nd:
+        c["attn_dense"] = _stack_tree(one, nd, device)
+    return c
 
 
 def init_cache_tree(cfg: ModelConfig, batch: int, max_seq: int,
                     dtype=torch.bfloat16, device=None) -> Params:
     """Dense caches stacked along the layer axis: ``attn`` [L, B, S, H, D]
-    for the dense and moe families (a sliding-window ring of ``S =
-    attention.cache_capacity`` slots; MLA's latent pair ``c_kv``/``k_rope``
-    [L, B, S, ·], with ``attn_dense`` [n_dense, B, S, ·] for the leading
-    dense blocks, ``attn`` then holding the moe blocks'); ``mamba`` states (conv f32 and ssm
-    f32, as the JAX ``init_mamba2_state`` makes them) [L, B, ...] for ssm
-    (the encoder takes the dense family's tree, as in JAX); for the
-    hybrid ``mamba`` [n_super, e, B, ...], ``attn`` [n_super, B, S, H, D]
-    in ``dtype`` and ``mamba_tail`` [rem, B, ...]."""
+    for the dense and moe families (a ring of ``S =
+    attention.cache_capacity`` slots where the config has a window; MLA's
+    latent pair ``c_kv``/``k_rope`` [L, B, S, ·]), with ``attn_dense``
+    [n_dense, B, S, ·] for a moe model's leading dense blocks, ``attn``
+    then holding the moe blocks'; ``mamba`` states (conv f32 and ssm f32,
+    as the JAX ``init_mamba2_state`` makes them) [L, B, ...] for ssm (the
+    encoder takes the dense family's tree, as in JAX); for the hybrid
+    ``mamba`` [n_super, e, B, ...], ``attn`` (the shared block's cache of
+    any attention type) [n_super, B, ...] in ``dtype`` and
+    ``mamba_tail`` [rem, B, ...]."""
     check_ported(cfg)
     device = resolve_device(device)
     if cfg.family in ("dense", "encoder", "moe"):
         one = attention.init_cache(cfg, batch, max_seq, dtype, "meta")
-        nd = cfg.moe.first_dense_layers if cfg.family == "moe" else 0
-        c = {"attn": _stack_tree(one, cfg.num_layers - nd, device)}
-        if nd:
-            c["attn_dense"] = _stack_tree(one, nd, device)
-        return c
+        return _layer_stacks(cfg, one, device)
     mstate = mamba2.init_mamba2_state(cfg, batch, device="meta")
     if cfg.family == "ssm":
         return {"mamba": _stack_tree(mstate, cfg.num_layers, device)}
@@ -306,7 +318,7 @@ def forward_stack(params: Params, x, cfg: ModelConfig, *, positions,
     layers' load-balancing losses summed (f32), ``None`` for the other
     families.  Pools, caches and states update in place.
     ``prefill``/``decode``/``verify`` need ``caches``: paged pools with a
-    ``page_table`` (the dense block stack only; ``verify`` is paged
+    ``page_table`` (the dense and moe block stacks; ``verify`` is paged
     only), else dense caches.  In paged and chunked prefill ``cache_len``
     carries the post-chunk valid length."""
     if mode not in ("train", "prefill", "decode", "verify"):
@@ -317,7 +329,7 @@ def forward_stack(params: Params, x, cfg: ModelConfig, *, positions,
         raise ValueError("verify mode is paged only (speculative decoding)")
     fam = cfg.family
     dense = fam in ("dense", "encoder")
-    if page_table is not None and not dense:
+    if page_table is not None and not (dense or fam == "moe"):
         raise ValueError(f"paged attention unsupported for family {fam!r}")
     if mode == "train":
         caches = None

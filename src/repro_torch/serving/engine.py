@@ -1,7 +1,8 @@
 """Continuous-batching serving engine: ``repro.serving.engine.
 ServingEngine`` over its two data planes.
 
-Paged (the dense decoder, by default): every tick admits queued requests
+Paged (the full-attention decoders without a window, the dense and moe
+families, by default, as in JAX): every tick admits queued requests
 while slots and pages last (attaching a radix-matched prefix by reference
 and copy-seeding a mid-page divergence), runs at most ``prefill_budget``
 prompt tokens of pow2-bucketed chunks round-robin in SLO-slack order,
@@ -9,19 +10,22 @@ then advances the whole decode batch by one token, growing pages on
 demand through the reclaim ladder (radix eviction, then preemption of a
 strictly-lower-QoS request, else a stall).
 
-Dense slots (the ssm, hybrid and moe families, and the dense decoder with
-``paged=False``): a request claims a slot of a ``SlotKVCache``.  The
-ssm and hybrid families prefill in exact-length chunks that resume a
-batch-1 staging cache of their own (their SSM state must not see pad
-tokens); a sliding-window arch (mixtral's ring caches) prefills the
-whole prompt at once at its exact length (pad KV would land in the ring,
-and pad tokens would change the experts' capacity and so which pairs
-drop); the dense decoder and MLA (deepseek-v2-236b's latent cache, its
-leading dense blocks' ``attn_dense`` beside the moe blocks' ``attn``)
-prefill the whole prompt at once, right-padded to a pow2 bucket, as the
-JAX engine does (``engine.py:918-925``).  A finished prefill is copied into the slot, and
-decode advances every slot together (the states of idle slots move on
-stale tokens, and the next ``insert`` overwrites them).  A failed chunk
+Dense slots (the ssm and hybrid families, sliding-window rings and MLA's
+latent caches in any family, and any decoder with ``paged=False``): a
+request claims a slot of a ``SlotKVCache``.  The ssm family and the
+windowless full-attention hybrid prefill in exact-length chunks that
+resume a batch-1 staging cache of their own (their SSM state must not
+see pad tokens); another hybrid and any arch with a window (mixtral's
+ring caches) prefill the whole prompt at once at its exact length (pad
+KV would land in the ring, and pad tokens would change the experts'
+capacity and so which pairs drop); the rest (MLA, deepseek-v2-236b's
+latent cache, its leading dense blocks' ``attn_dense`` beside the moe
+blocks' ``attn``) prefill the whole prompt at once, right-padded to a
+pow2 bucket, as the JAX engine does (``engine.py:918-925``).  On the
+paged plane a moe model's pad rows route through its experts and count
+toward their capacity, as in JAX.  A finished prefill is copied into the
+slot, and decode advances every slot together (the states of idle slots
+move on stale tokens, and the next ``insert`` overwrites them).  A failed chunk
 wrote only its own staging cache, so it fails only its own request.
 
 The engine is caller-driven (``step``/``run_until_drained``/a handle's
@@ -34,18 +38,25 @@ token, so greedy output is the same as without the draft.  A failing
 draft turns speculation off, as in the JAX engine, except when a kernel
 failed to build or launch (``KernelError``): that fails the batch, so a
 broken kernel never hides behind the plain tick.  ``kv_dtype="int8"``
-stores the pages as int8 with per-token scales.  Speculation and int8
-pages are the paged plane's only.
+stores the pages as int8 with per-token scales; any other dtype it names
+("float16", "float8_e4m3fn", ...) keeps them in the compute dtype and
+counts their bytes in the named one, as the JAX engine does: its pools
+are allocated in that dtype and turn into the compute dtype at their
+first write (``kv_cache.pool_dtype``).  Speculation and ``kv_dtype`` are
+the paged plane's only.
 
 Where the JAX engine jits each step with buffer donation, this one runs
 eagerly and updates the pools, slot caches, page table and lengths in
 place; the tensors live on the engine's device (``cuda`` unless
 ``device="cpu"``).  The dense slot tree is in the compute dtype from the
 start (the JAX engine's starts in bf16 and takes the compute dtype at its
-first decode; ROADMAP Queue C).  An encoder
-raises ``ValueError`` at construction: it serves through the container's
-``generic`` entry point (the JAX engine takes the config and fails at its
-first prefill; ROADMAP Queue C).
+first decode; ROADMAP Queue C).  An encoder over ``audio_frames``
+features raises ``ValueError`` at construction: it serves through the
+container's ``generic`` entry point (the JAX engine takes the config and
+fails at its first prefill; ROADMAP Queue C).  An encoder-only model
+over token ids serves on dense slots as in JAX: its prefill attends over
+the whole padded bucket, non-causal, and decode appends one token at a
+time.
 
 ``EngineExecutor`` wraps an engine as a container-class executor, so a
 serving deployment is declared through ``ServiceSpec``/``EdgeSystem``
@@ -85,6 +96,38 @@ from repro_torch.serving.spec_decode import DraftSpeculator
 # page-growth preemption order: a dry pool preempts strictly-lower-rank
 # requests only; preemption requeues, it never drops
 _QOS_RANK = {"best-effort": 0, "burstable": 1, "guaranteed": 2}
+
+# the dtypes ``kv_dtype`` may name: those of JAX's ``jnp.dtype`` that
+# PyTorch has
+KV_DTYPES = {str(d).removeprefix("torch."): d for d in (
+    torch.bool, torch.int8, torch.uint8, torch.int16, torch.uint16,
+    torch.int32, torch.uint32, torch.int64, torch.uint64, torch.float16,
+    torch.bfloat16, torch.float32, torch.float64, torch.complex64,
+    torch.complex128, torch.float8_e4m3fn, torch.float8_e5m2,
+    torch.float8_e4m3fnuz, torch.float8_e5m2fnuz)}
+
+
+def kv_dtype_of(kv_dtype, cfg: ModelConfig) -> torch.dtype:
+    """The serving KV dtype ``kv_dtype`` names (JAX's ``jnp.dtype(kv_dtype)``):
+    the compute dtype for "auto", else a torch dtype or a name numpy or
+    PyTorch gives it ("f2", "half", "float8_e4m3fn").  Anything else
+    raises ``TypeError``, as the JAX engine does where ``jnp.dtype``
+    refuses the name or ``jnp.zeros`` the dtype (a string dtype); the
+    sub-byte and other ml_dtypes types PyTorch lacks ("int4",
+    "float8_e3m4"), which JAX takes, raise it too (ROADMAP)."""
+    if isinstance(kv_dtype, str) and kv_dtype == "auto":
+        return cfg.cdtype
+    if isinstance(kv_dtype, torch.dtype):
+        name = str(kv_dtype).removeprefix("torch.")
+    else:
+        try:                     # numpy's aliases and codes: "f2", "half"
+            name = np.dtype(kv_dtype).name
+        except TypeError:        # numpy has no bfloat16 or fp8
+            name = str(kv_dtype)
+    if name not in KV_DTYPES:
+        raise TypeError(f"kv_dtype {kv_dtype!r} is no dtype PyTorch can "
+                        f"allocate a page pool in")
+    return KV_DTYPES[name]
 
 
 @dataclasses.dataclass
@@ -176,7 +219,7 @@ class ServingEngine:
                  draft_cfg: Optional[ModelConfig] = None,
                  draft_params: Optional[Dict] = None,
                  spec_k_max: int = 4):
-        if cfg.encoder_only:
+        if cfg.encoder_only and cfg.frontend == "audio_frames":
             raise ValueError(
                 f"{cfg.name} is encoder-only: it has no prefill or decode "
                 f"to batch; serve it through the container's 'generic' "
@@ -188,9 +231,6 @@ class ServingEngine:
                 and not isinstance(prefill_budget, bool))):
             raise ValueError(f"prefill_budget must be an int, None or "
                              f"'auto', got {prefill_budget!r}")
-        if kv_dtype not in ("auto", "int8"):
-            raise ValueError(f"kv_dtype must be 'auto' (the compute dtype) "
-                             f"or 'int8', got {kv_dtype!r}")
         self.cfg = cfg
         self.replica_id = replica_id     # fleet membership tag ("" = solo)
         self.device = resolve_device(device)
@@ -205,13 +245,19 @@ class ServingEngine:
         self.max_seq = max_seq
         self.buckets = _buckets(max_seq)
 
-        # data plane: paged pools for the dense decoder (the only
-        # paged-capable family the port has), dense slots otherwise
-        self.paged = cfg.family == "dense" and paged is not False
+        # data plane (JAX ``engine.py:196-201``): paged pools for the
+        # full-attention decoders without a window, dense slots otherwise
+        # or with ``paged=False``
+        paged_capable = (cfg.family in ("dense", "moe")
+                         and cfg.attn_type == "full"
+                         and cfg.sliding_window == 0
+                         and not cfg.encoder_only)
+        self.paged = paged_capable if paged is None \
+            else bool(paged) and paged_capable
         if self.paged:
             # int8 pages carry per-token f32 scales, dequantized in the
-            # kernels
-            self.kv_dtype = cfg.cdtype if kv_dtype == "auto" else torch.int8
+            # kernels; any other dtype keeps the compute dtype's pages
+            self.kv_dtype = kv_dtype_of(kv_dtype, cfg)
             if page_size == "auto":
                 page_size = autotune_page_size(cfg, dtype=self.kv_dtype)
             self.kv: Any = PagedKVCache(
@@ -243,9 +289,14 @@ class ServingEngine:
         self.chunk_buckets = [b for b in self.buckets
                               if b <= self.chunk_tokens]
         # stateful chunks are exact-length (an SSM state may not see pad
-        # tokens); the dense decoder on dense slots prefills whole prompts
-        # (a sliding-window arch's at their exact length, ``_stateful``)
-        self._chunkable_stateful = cfg.family in ("ssm", "hybrid")
+        # tokens): the ssm family and the windowless full-attention hybrid
+        # (JAX ``engine.py:246-249``); everything else on dense slots
+        # prefills whole prompts (at their exact length where
+        # ``_stateful``)
+        self._chunkable_stateful = (
+            cfg.family == "ssm"
+            or (cfg.family == "hybrid" and cfg.sliding_window == 0
+                and cfg.attn_type == "full"))
         self._chunkable = self.paged or self._chunkable_stateful
         # "auto" starts from the provisional 2 chunks; on the paged plane
         # warmup() refines it from timed chunk and decode walls

@@ -4,12 +4,12 @@ dense slot plane of the stateful families, and the speculative draft's
 cache).
 
 Every layer holds a ``[num_pages, page_size, Hkv, D]`` pool (stacked
-``[L, ...]``); each admitted request owns a page-table row mapping its
-logical pages to physical ones.  Physical page 0 is the trash page: masked
-writes land there, so it is never handed out.  Pages are refcounted so the
-prefix-sharing layer can attach one physical page to several requests;
-a mid-page divergence is resolved at admission by copying the boundary
-page (``cow_src``).
+``[L, ...]``, one stack a block stack); each admitted request owns a
+page-table row mapping its logical pages to physical ones.  Physical page
+0 is the trash page: masked writes land there, so it is never handed
+out.  Pages are refcounted so the prefix-sharing layer can attach one
+physical page to several requests; a mid-page divergence is resolved at
+admission by copying the boundary page (``cow_src``) in every pool.
 
 Host state (free lists, ownership, refcounts) is plain Python.  The pools,
 the shared ``page_table`` and ``cache_len`` are device tensors updated in
@@ -34,11 +34,34 @@ def _tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+# what a JAX array of a 64-bit dtype holds with 64-bit types off (JAX's
+# default), and so what JAX's byte accounting of a pool in it counts
+_JAX_32 = {torch.float64: torch.float32, torch.int64: torch.int32,
+           torch.uint64: torch.uint32, torch.complex128: torch.complex64}
+
+
+def pool_dtype(cfg: ModelConfig, dtype) -> torch.dtype:
+    """The dtype a page pool holds when the serving KV dtype is ``dtype``:
+    int8 (with per-token scales) as named, any other the compute dtype.
+    JAX's pools are allocated in ``dtype`` and turn into the compute dtype
+    at their first write (``attention.py:_page_scatter``), so from then on
+    they hold what these hold."""
+    return torch.int8 if dtype == torch.int8 else cfg.cdtype
+
+
+def _accounted_bytes(cfg: ModelConfig, num_pages: int, page_size: int,
+                     dtype) -> int:
+    """Bytes of a pool tree in ``dtype`` as JAX counts them: as allocated,
+    before a write turns it into the compute dtype (shapes only: the tree
+    lives on the meta device)."""
+    return _tree_bytes(transformer.init_paged_cache_tree(
+        cfg, num_pages, page_size, _JAX_32.get(dtype, dtype), "meta"))
+
+
 def kv_bytes_per_token(cfg: ModelConfig, dtype=torch.bfloat16) -> int:
-    """Per-token KV footprint of an arch, summed over layers and leaves
-    (shapes only: the tree lives on the meta device)."""
-    return _tree_bytes(transformer.init_paged_cache_tree(cfg, 1, 1, dtype,
-                                                         "meta"))
+    """Per-token KV footprint of an arch in ``dtype``, summed over layers
+    and leaves, as JAX counts it."""
+    return _accounted_bytes(cfg, 1, 1, dtype)
 
 
 def autotune_page_size(cfg: ModelConfig, dtype=torch.bfloat16,
@@ -112,7 +135,10 @@ class SlotKVCache:
 
 
 class PagedKVCache:
-    """Page-pool KV manager for the dense full-attention decoder.
+    """Page-pool KV manager for the full-attention decoders (the dense and
+    moe families).  The pools hold int8 with scales where ``dtype`` is
+    int8, else the compute dtype (``pool_dtype``); their bytes are counted
+    in ``dtype``, as JAX counts its pools.
 
     A request's prefill writes through a standalone table row (handed out
     by ``alloc``) and is installed into the shared ``page_table`` only when
@@ -136,7 +162,7 @@ class PagedKVCache:
                 f"({self.pages_per_slot} pages) plus the trash page")
         self.num_pages = num_pages
         self.pools = transformer.init_paged_cache_tree(
-            cfg, num_pages, page_size, dtype, self.device)
+            cfg, num_pages, page_size, pool_dtype(cfg, dtype), self.device)
         self.page_table = torch.zeros((max_slots, self.pages_per_slot),
                                       dtype=torch.int32, device=self.device)
         self.cache_len = torch.zeros((max_slots,), dtype=torch.int32,
@@ -148,7 +174,8 @@ class PagedKVCache:
         self.page_refs: Dict[int, int] = {}
         self.slot_shared: Dict[int, int] = {}
         self.cow_copies = 0
-        self._capacity_bytes = _tree_bytes(self.pools)
+        self._capacity_bytes = _accounted_bytes(cfg, num_pages, page_size,
+                                                dtype)
         self._page_bytes = self._capacity_bytes // num_pages
 
     # ------------------------------------------------------------- queries
@@ -231,9 +258,11 @@ class PagedKVCache:
         return slot, torch.from_numpy(row).to(self.device)
 
     def copy_page(self, src: int, dst: int):
-        """Copy one physical page across every layer pool, in place."""
-        for leaf in self.pools["attn"].values():
-            leaf[:, dst] = leaf[:, src]
+        """Copy one physical page across every layer pool of every stack
+        (a moe model's ``attn_dense`` beside ``attn``), in place."""
+        for stack in self.pools.values():
+            for leaf in stack.values():
+                leaf[:, dst] = leaf[:, src]
 
     def append_page(self, slot: int) -> Optional[int]:
         """Grow an installed slot by one private page and publish it in

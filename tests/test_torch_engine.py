@@ -260,22 +260,27 @@ def test_unported_branches_raise():
                                             make_container_builder)
 
     jcfg, tcfg = _cfgs()
-    # paged=False serves on dense slots now (tests/test_torch_ssm.py);
-    # MLA, a MoE or sliding window outside mixtral's pairing of them
-    # (tests/test_torch_moe.py) still raise, and an encoder-only
-    # model is refused at construction: it serves through a container's
-    # generic entry point (tests/test_torch_encoder.py)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # paged=False serves on dense slots (tests/test_torch_ssm.py), and so
+    # does a window over full attention (tests/test_torch_layouts.py);
+    # MLA without its config and the moe family without one raise with
+    # JAX's own failure, and an encoder-only model over features is
+    # refused at construction: it serves through a container's generic
+    # entry point (tests/test_torch_encoder.py); over token ids it serves
+    # on dense slots, as in JAX (tests/test_torch_layouts.py)
+    with pytest.raises(NotImplementedError, match="mla=None"):
         ServingEngine(dataclasses.replace(tcfg, attn_type="mla"),
                       device="cpu", paged=False)
     with pytest.raises(ValueError, match="encoder-only"):
-        ServingEngine(dataclasses.replace(tcfg, encoder_only=True),
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+        ServingEngine(dataclasses.replace(
+            tcfg, encoder_only=True, frontend="audio_frames",
+            frontend_dim=16), device="cpu")
+    assert not ServingEngine(dataclasses.replace(tcfg, encoder_only=True),
+                             device="cpu", max_seq=32).paged
+    with pytest.raises(NotImplementedError, match="moe=None"):
         ServingEngine(dataclasses.replace(tcfg, family="moe"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ServingEngine(dataclasses.replace(tcfg, sliding_window=8),
-                      device="cpu")
+    ring = ServingEngine(dataclasses.replace(tcfg, sliding_window=8),
+                         device="cpu", max_seq=32)
+    assert not ring.paged and ring._stateful
     # the fleet is ported (ROADMAP item 10): as in the JAX package,
     # deploy_fleet refuses instances that are not engine-backed
     system = EdgeSystem()

@@ -16,9 +16,10 @@ window 32) and in fp32.
   prefill and again in decode); the golden fixture's ``mixtral_*``
   entries, which ``chip_smoke.py`` replays on the card.
 - ``launch/serve.py --arch mixtral-8x7b --reduced --device cpu``.
-- ``num_params``/``active_params`` of mixtral and DeepSeek, what the
-  port still refuses (leading dense layers or a full-attention MoE in no
-  registered config), and that ``Trainer`` and ``launch/train.py`` take a
+- ``num_params``/``active_params`` of mixtral and DeepSeek, that the
+  port takes leading dense layers beside a window and a full-attention
+  MoE (which pages) and refuses the moe family without a config, and
+  that ``Trainer`` and ``launch/train.py`` take a
   moe arch (``tests/test_torch_moe_train.py`` holds MoE training against
   JAX).
 
@@ -367,10 +368,11 @@ def test_param_counts_match_jax(arch):
 
 def test_unported_moe_variants_raise():
     """DeepSeek (MLA with its leading dense layer) is ported
-    (``tests/test_torch_mla.py``); its leading dense layers beside
-    sliding-window attention and a full-attention MoE are in no registered
-    config.  The trainer and the train launcher take the moe family: one
-    CPU step each on reduced mixtral."""
+    (``tests/test_torch_mla.py``), and so are its leading dense layers
+    beside sliding-window attention and a full-attention MoE, which pages
+    (``tests/test_torch_moe_paged.py``); the moe family without a ``moe``
+    config is refused with JAX's failure.  The trainer and the train
+    launcher take the moe family: one CPU step each on reduced mixtral."""
     from repro_torch.launch import train
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -379,11 +381,11 @@ def test_unported_moe_variants_raise():
     assert get_config("deepseek-v2-236b") == ds
     mix = get_config("mixtral-8x7b")
     no_mla = dataclasses.replace(ds, attn_type="swa", sliding_window=64)
-    with pytest.raises(NotImplementedError, match="no registered config"):
-        check_ported(no_mla)
-    with pytest.raises(NotImplementedError, match="no registered config"):
-        check_ported(dataclasses.replace(mix, attn_type="full",
-                                         sliding_window=0))
+    check_ported(no_mla)
+    full = dataclasses.replace(mix, attn_type="full", sliding_window=0)
+    check_ported(full)
+    with pytest.raises(NotImplementedError, match="moe=None"):
+        check_ported(dataclasses.replace(mix, moe=None))
     import tempfile
 
     from repro_torch.data.tokens import make_lm_iterator
@@ -402,3 +404,6 @@ def test_unported_moe_variants_raise():
     with pytest.raises(ValueError, match="speculative decoding needs"):
         ServingEngine(get_reduced_config("mixtral-8x7b"), device="cpu",
                       draft_cfg=get_reduced_config("mixtral-8x7b"))
+    assert ServingEngine(dataclasses.replace(
+        get_reduced_config("mixtral-8x7b"), attn_type="full",
+        sliding_window=0), device="cpu").paged

@@ -423,7 +423,9 @@ def test_spec_engine_validates_and_survives_a_failing_draft():
     dcfg = dataclasses.replace(cfg, num_layers=1)
     kw = dict(max_slots=2, max_seq=64, seed=1, device="cpu")
     with pytest.raises(ValueError, match="kv_dtype"):
-        ServingEngine(cfg, kv_dtype="float16", **kw)
+        ServingEngine(cfg, kv_dtype="float16", paged=False, **kw)
+    with pytest.raises(TypeError, match="kv_dtype"):
+        ServingEngine(cfg, kv_dtype="float12", **kw)
     with pytest.raises(ValueError, match="spec_k_max"):
         ServingEngine(cfg, draft_cfg=dcfg, spec_k_max=0, **kw)
     with pytest.raises(ValueError, match="vocab"):
