@@ -96,10 +96,14 @@ continues:
    at the SSM prefill's (mamba2's 64-token chunk with the carried state
    and zamba2's H 64 N 64, both timed, a 511-token prompt whole, 511 and
    4096 tokens as 64-token calls that carry the state, groups 2, one
-   token; final state included) and
+   token; final state included) and at a rank's heads on a model axis
+   (phase 6h: mamba2's 40 and zamba2's 32 over a 512-token prompt, both
+   timed, 5 heads, two groups of one head each) and
    RMSNorm at its rows and widths (a 64 x 5120 chunk and the 8-row
    decode shapes timed, one row, widths that are not whole 16-byte
-   vectors, a misaligned row view), with
+   vectors, a misaligned row view), and in its form that reads each
+   row's mean of squares from outside (a rank's half of the gated norm:
+   2048 x 2560 timed, the decode rows, zamba2's, a misaligned view), with
    CUDA-event times for the kernel, its plain version and a library
    yardstick (``F.scaled_dot_product_attention`` with an explicit mask
    over the same dense or gathered KV, causal at the train shape, its
@@ -309,6 +313,19 @@ continues:
    decoded on a (1, 2) mesh of two gloo ranks sharing the card, their
    caches split along the sequence, against one rank (logits, tokens,
    the log-sum-exp decode kernel's launches); under 150 s;
+6h. the SSM families split over the model axis, as the JAX specs split
+   them, on a (1, 2) mesh of two gloo ranks sharing the card:
+   mamba2-2.7b (2 layers) and zamba2-1.2b (7: its shared block applied
+   once, then a trailing layer) at full width in bf16, a 512-token
+   prompt of 4 rows and 16 greedy decode steps through the prefill and
+   decode programs, each rank on its Mamba2 heads (40 of 80, 32 of 64)
+   and zamba2's block on 16 of its 32 heads, the caches JAX's shards:
+   logits within 3.5e-2 of one rank's, tokens equal but at top-2 ties,
+   each rank's launches exact and printed (the SSD scan at its heads,
+   RMSNorm in both forms, zamba2's flash and dense decode); then 2 fp32
+   train steps of each on the host's CPU (the SSD scan has no backward
+   kernel, in either package) against one rank, within phase 6f's 1e-5
+   bounds;
 7. the static analyzer and the examples: ``python -m
    repro_torch.analysis --check`` against ``analysis_baseline_torch.json``
    exits 0 and its kernel lint finds a wrapper for every kernel of the
@@ -1128,6 +1145,19 @@ def _rms_case(torch, gen, dtype, rows, d, misaligned=False):
     scale = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dt)
     es = x.element_size()
     return (x, scale), dict(eps=1e-5), (2 * rows + 1) * d * es, 4 * rows * d
+
+
+def _rms_ms_case(torch, gen, dtype, rows, d, misaligned=False):
+    """``_rms_case`` with ``ms``: each row's f32 mean of squares over the
+    row and a second half of it held by another rank (the whole row's
+    statistic), read by the kernel in place of x's own."""
+    args, kw, _, _ = _rms_case(torch, gen, dtype, rows, d, misaligned)
+    other = torch.randn(rows, d, generator=gen, device="cuda") * 3
+    x = args[0].float()
+    kw = dict(kw, ms=(x.square().sum(-1) + other.to(args[0].dtype).float()
+                      .square().sum(-1)) / (2 * d))
+    es = args[0].element_size()
+    return args, kw, (2 * rows + 1) * d * es + 4 * rows, 2 * rows * d
 
 
 def phase_kernels(torch, timer, card):
@@ -1963,6 +1993,16 @@ def phase_kernels(torch, timer, card):
         ("zamba2 T64 H64 N64", 64, 64, 64, 64, 1, True, "ssd_scan@zamba2"),
         ("T257 G2", 257, 80, 64, 128, 2, True, None),
         ("T1", 1, 80, 64, 128, 1, True, None),
+        # a rank's heads on a model axis (phase 6h): mamba2's 40 of 80 and
+        # zamba2's 32 of 64 over a 512-token prompt (timed), an odd count
+        # (80 over 16 ranks: 5, no head pairs in a cluster), a rank's two
+        # groups of one head each
+        ("mamba2 T512 H40 (a rank of 2)", 512, 40, 64, 128, 1, True,
+         "ssd_scan@ssm_mesh"),
+        ("zamba2 T512 H32 N64 (a rank of 2)", 512, 32, 64, 64, 1, True,
+         "ssd_scan@ssm_mesh_zamba2"),
+        ("T257 H5 (a rank of 16)", 257, 5, 64, 128, 1, True, None),
+        ("T64 H2 G2", 64, 2, 64, 128, 2, True, None),
     ]
     for dtype in ("bfloat16", "float32"):
         for label, T, H, P, N, G, init, key in ssd_cases:
@@ -2017,6 +2057,27 @@ def phase_kernels(torch, timer, card):
                 fl, lambda a=args: F.rms_norm(a[0], (a[0].shape[-1],),
                                               weight=a[1], eps=1e-5),
                 key is not None and dtype == "bfloat16", key)
+
+    # RMSNorm's form that reads each row's mean of squares from outside:
+    # a rank's half of a Mamba2 gated norm on a model axis of 2 (phase
+    # 6h), the statistic that of the whole row; a 512-token prompt of 4
+    # (timed), the decode rows, zamba2's, a misaligned view, short rows.
+    # No single PyTorch call takes the statistic from outside (library:
+    # none)
+    ms_cases = [
+        # label, rows, d, timed under, misaligned view
+        ("ms form 2048x2560 (mamba2 rank prefill)", 2048, 2560,
+         "rmsnorm@ssm_mesh", False),
+        ("ms form 4x2560 (mamba2 rank decode)", 4, 2560, None, False),
+        ("ms form 2048x2048 (zamba2 rank prefill)", 2048, 2048, None, False),
+        ("ms form 8x2560 misaligned view", 8, 2560, None, True),
+        ("ms form 3x100 elements", 3, 100, None, False),
+    ]
+    for dtype in ("bfloat16", "float32"):
+        for label, rows, d, key, off in ms_cases:
+            args, kw, nb, fl = _rms_ms_case(torch, gen, dtype, rows, d, off)
+            run("rmsnorm", label, dtype, rmsnorm, ref.rmsnorm, args, kw, nb,
+                fl, None, key is not None and dtype == "bfloat16", key)
 
     # the floor that event timing puts under a launch: an empty kernel
     # (one thread that returns at once) timed the same way
@@ -5942,21 +6003,7 @@ def _cp_run(torch, arch, comm, rules, mesh):
         torch.cuda.synchronize()
         launches = launch_counts()
         secs = time.monotonic() - t0
-    # a token may differ from the one rank's only where that rank's top
-    # two logits lie within the two runs' difference on that row
-    errs, ties, differ = [], 0, []
-    for i, (w, g) in enumerate(zip(want, got)):
-        errs.append(float((g - w).abs().max() / w.abs().max()))
-        top2 = w.topk(2, dim=-1).values
-        for b in range(B):
-            if int(g[b].argmax()) == int(tokens[i][b]):
-                continue
-            gap = float(top2[b, 0] - top2[b, 1])
-            diff = float((g[b] - w[b]).abs().max())
-            if gap > diff:
-                differ.append((i, b, gap, diff))
-            else:
-                ties += 1
+    errs, ties, differ = _greedy_agreement(want, got, tokens)
     out = {"rel_err": max(errs), "ties": ties, "differ": differ,
            "launches": launches, "secs": secs, "steps": steps,
            "layers": cfg.num_layers, "cache_spec": str(cspec),
@@ -5965,6 +6012,27 @@ def _cp_run(torch, arch, comm, rules, mesh):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def _greedy_agreement(want, got, tokens):
+    """Each step's logits error relative to the one rank's largest, and
+    the rows whose greedy token differs from the one rank's: a tie where
+    that rank's top two logits lie within the two runs' difference on the
+    row, else a real difference ``(step, row, gap, diff)``."""
+    errs, ties, differ = [], 0, []
+    for i, (w, g) in enumerate(zip(want, got)):
+        errs.append(float((g - w).abs().max() / w.abs().max()))
+        top2 = w.topk(2, dim=-1).values
+        for b in range(w.shape[0]):
+            if int(g[b].argmax()) == int(tokens[i][b]):
+                continue
+            gap = float(top2[b, 0] - top2[b, 1])
+            diff = float((g[b] - w[b]).abs().max())
+            if gap > diff:
+                differ.append((i, b, gap, diff))
+            else:
+                ties += 1
+    return errs, ties, differ
 
 
 def _cp_worker(rank: int, store: str) -> None:
@@ -6205,6 +6273,333 @@ def phase_dryrun(torch):
     print(f"[dryrun] phase 6g {secs:.1f}s")
     check(secs < 150, f"phase 6g took {secs:.1f}s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6h: the SSM families split over the model axis
+# ---------------------------------------------------------------------------
+
+# arch: (layers kept, batch, prompt, greedy decode steps), at full width in
+# bf16 on a (1, 2) mesh of two gloo ranks sharing the card: mamba2-2.7b's
+# 80 Mamba2 heads 40 a rank; zamba2-1.2b's 64 heads 32 a rank and its
+# shared attention block (32 heads, 16 a rank) applied once after 6
+# layers, then one trailing layer
+SSM_MESH_CASES = {"mamba2-2.7b": (2, 4, 512, 16),
+                  "zamba2-1.2b": (7, 4, 512, 16)}
+# the fp32 train steps' batch and length, on the host's CPU: the SSD scan
+# has no backward kernel (nor has the JAX package), so SSM training does
+# not run on the card
+SSM_MESH_TRAIN = (1, 16)
+
+
+def _ssm_mesh_config(arch: str, dtype: str):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch),
+                               num_layers=SSM_MESH_CASES[arch][0],
+                               param_dtype=dtype, compute_dtype=dtype)
+
+
+def _ssm_mesh_expected(cfg, steps: int) -> dict:
+    """A rank's launches over one prefill and ``steps`` decode steps: the
+    SSD scan once a Mamba2 layer (prefill), RMSNorm for each layer's block
+    norm and gated norm, the shared block's two norms and the final norm
+    at every prefill and step; zamba2's block flash at the prefill and
+    the dense decode kernel at every step."""
+    apps = cfg.num_layers // cfg.hybrid_attn_every \
+        if cfg.family == "hybrid" else 0
+    return {"ssd_scan": cfg.num_layers, "flash_attention": apps,
+            "decode_attention": apps * steps,
+            "rmsnorm": (2 * cfg.num_layers + 2 * apps + 1) * (1 + steps)}
+
+
+def _ssm_mesh_serve(torch, arch, comm, rules, mesh):
+    """One rank's serving part: the one-rank prefill and greedy decode (no
+    rules), then the same on this rank's shards of the parameters and of
+    the caches (``cache_partition_specs``: the SSM state over its heads,
+    the conv tail an even cut of the channels, zamba2's k and v over the
+    KV heads) under the (1, 2) mesh's rules, fed the one-rank tokens, its
+    launches counted from 0; the caches gathered whole against the one
+    rank's."""
+    from repro_torch.distributed import sharding as shlib, spmd
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import programs
+    from repro_torch.models.model import Model
+    from repro_torch.tree import flatten_with_path, leaves, unflatten_like
+
+    _, B, P, steps = SSM_MESH_CASES[arch]
+    cfg = _ssm_mesh_config(arch, "bfloat16")
+    model = Model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (B, P), device="cuda",
+                         dtype=torch.int32,
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+    pre = programs.build_prefill_step(cfg, "cuda")
+    dec = programs.build_decode_step(cfg, "cuda")
+    S = P + steps
+    want, tokens = [], []
+    with torch.no_grad():
+        one = model.init_caches(B, S, cfg.cdtype)
+        logits, one, clen = pre(params, {"tokens": toks}, one)
+        for i in range(steps + 1):
+            want.append(logits.float())
+            tokens.append(logits.argmax(-1).to(torch.int32))
+            if i < steps:
+                logits, one, clen = dec(params, tokens[-1], one, clen)
+        pspec = shlib.param_partition_specs(params, rules)
+        local = unflatten_like(params, [
+            spmd.shard_of(p, sp, comm) for p, sp in zip(
+                leaves(params), programs.flat_specs(pspec))])
+        whole = model.init_caches(B, S, cfg.cdtype)
+        cspec = shlib.cache_partition_specs(whole, rules)
+        lc = unflatten_like(whole, [
+            spmd.shard_of(c, sp, comm).contiguous()
+            for c, sp in zip(leaves(whole), programs.flat_specs(cspec))])
+        del whole
+        lspec = rules.resolve(("batch", "vocab"), (B, cfg.vocab_size))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        _zero_launch_counts()
+        got = []
+        with shlib.use_rules(mesh, rules.rules):
+            logits, lc, clen = pre(local, {"tokens": toks}, lc)
+            got.append(spmd.gather_of(logits, lspec, comm).float())
+            for i in range(steps):
+                logits, lc, clen = dec(local, tokens[i], lc, clen)
+                got.append(spmd.gather_of(logits, lspec, comm).float())
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        secs = time.monotonic() - t0
+        cache_err = {
+            path: float((spmd.gather_of(c, sp, comm).float() - w.float())
+                        .abs().max() / max(float(w.float().abs().max()),
+                                           1e-12))
+            for (path, c), sp, w in zip(flatten_with_path(lc),
+                                        programs.flat_specs(cspec),
+                                        leaves(one))}
+    errs, ties, differ = _greedy_agreement(want, got, tokens)
+    out = {"rel_err": max(errs), "ties": ties, "differ": differ,
+           "launches": launches, "want": _ssm_mesh_expected(cfg, steps),
+           "secs": secs, "steps": steps, "cache_err": cache_err,
+           "cache_spec": str(cspec), "tokens": [t.tolist() for t in tokens],
+           "heads": (cfg.ssm_heads, cfg.ssm_heads // comm.size(("model",)))}
+    del params, local, lc, one, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ssm_mesh_train(torch, arch, mesh, comm):
+    """Two fp32 train steps (the first at lr 0) of ``arch`` on the host's
+    CPU, on this rank's shards of ``mesh`` (a ``LocalMesh``: one rank):
+    each step's loss and grad norm, and the whole parameters after them.
+    Every process draws the same parameters and batches; ``conv_b``,
+    ``out_norm`` and ``d_skip`` are drawn around their init values (0, 1,
+    1), so that a rank taking the wrong channels of them shows and no
+    leaf's largest entry is one AdamW step."""
+    from repro_torch.data.tokens import make_lm_iterator
+    from repro_torch.distributed import sharding as shlib, spmd
+    from repro_torch.launch import programs
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.tree import flatten_with_path, unflatten_like
+
+    cfg = _ssm_mesh_config(arch, "float32")
+    B, T = SSM_MESH_TRAIN
+    tcfg = programs.TrainConfig(adamw=adamw.AdamWConfig(eps=1e-5))
+    gen = torch.Generator().manual_seed(0)
+    init = {"conv_b": 0.0, "out_norm": 1.0, "d_skip": 1.0}
+    params = [p + 0.1 * torch.randn(p.shape, generator=gen)
+              if path.split("'")[-2] in init else p
+              for path, p in flatten_with_path(
+                  Model(cfg, "cpu").init(gen))]
+    shape = Model(cfg, "meta").init_abstract()
+    data = make_lm_iterator(cfg, B, T, seed=0)
+    batches = [{k: torch.tensor(np.asarray(v)).long()
+                for k, v in next(data).items()} for _ in range(2)]
+    rules = programs.rules_for(mesh)
+    specs = programs.flat_specs(shlib.param_partition_specs(shape, rules))
+    mine = unflatten_like(shape, [
+        spmd.shard_of(p, sp, comm).clone().requires_grad_()
+        for p, sp in zip(params, specs)])
+    del params
+    opt = adamw.init_state(mine, tcfg.adamw)
+    step = programs.build_train_step(cfg, tcfg, "cpu", mesh=mesh)
+    bspec = rules.resolve(("batch",), (B,)) + (None,)
+    hist = []
+    for b in batches:
+        mine, opt, met = step(mine, opt, {k: spmd.shard_of(v, bspec, comm)
+                                          for k, v in b.items()})
+        hist.append({k: float(met[k]) for k in ("loss", "grad_norm")})
+    return hist, {p: spmd.gather_of(v.detach(), sp, comm)
+                  for (p, v), sp in zip(flatten_with_path(mine), specs)}
+
+
+def _ssm_mesh_compare(want, got, secs) -> dict:
+    """The split run's train steps against one rank's: metrics relative,
+    parameters against each leaf's largest entry."""
+    err = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got[0], want[0])
+              for k in ("loss", "grad_norm"))
+    perr, where = 0.0, ""
+    for path, w in want[1].items():
+        e = float((got[1][path] - w).abs().max()
+                  / max(float(w.abs().max()), 1e-6))
+        if e > perr:
+            perr, where = e, path
+    return {"losses": [m["loss"] for m in got[0]],
+            "one": [m["loss"] for m in want[0]], "err": err, "perr": perr,
+            "where": where, "secs": secs}
+
+
+def _ssm_mesh_worker(rank: int, store: str) -> None:
+    """One of two gloo ranks sharing the card: each ``SSM_MESH_CASES``
+    arch served on the (1, 2) mesh on cuda, then trained on the (1, 2)
+    mesh on the CPU; the results to ``<store>.<rank>``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import spmd
+    from repro_torch.launch import programs
+    from repro_torch.launch.mesh import make_test_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    out = {}
+    mesh = make_test_mesh(1, 2)
+    comm, rules = spmd.comm_of(mesh), programs.rules_for(mesh)
+    for arch in SSM_MESH_CASES:
+        out[arch] = {"serve": _ssm_mesh_serve(torch, arch, comm, rules,
+                                              mesh)}
+    torch.set_num_threads(4)
+    mesh = make_test_mesh(1, 2, device="cpu")
+    comm = spmd.comm_of(mesh)
+    for arch in SSM_MESH_CASES:
+        t0 = time.monotonic()
+        got = _ssm_mesh_train(torch, arch, mesh, comm)
+        if rank == 0:                        # one rank's run, the parent's
+            ref = f"{store}.ref_{arch}"
+            end = time.monotonic() + 120
+            while not os.path.exists(ref) and time.monotonic() < end:
+                time.sleep(0.5)
+            out[arch]["train"] = _ssm_mesh_compare(
+                torch.load(ref), got, time.monotonic() - t0)
+    torch.save(out, f"{store}.{rank}")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_ssm_mesh(torch):
+    """Phase 6h: the SSM families split over the model axis, as the JAX
+    specs split them, on a (1, 2) mesh of two spawned gloo ranks sharing
+    the card: mamba2-2.7b (2 layers) and zamba2-1.2b (7 layers: the
+    shared block applied once) at full width in bf16, a 512-token prompt
+    and 16 greedy decode steps through the prefill and decode programs,
+    each rank on its Mamba2 heads (40 of 80, 32 of 64) and zamba2's block
+    on its 16 of 32 heads, its caches JAX's shards: logits within 3.5e-2
+    of one rank's, greedy tokens equal but at a top-2 tie within the
+    runs' difference, the caches gathered whole within 3.5e-2 of one
+    rank's, each rank's launches exact (the SSD scan once a layer,
+    RMSNorm's two forms at every prefill and step); then 2 fp32 train
+    steps of each at full width on the host's CPU (no SSD backward
+    kernel) against one rank, metrics within 1e-5 relative and
+    parameters within 1e-5 of each leaf's largest (phase 6f's bounds).
+    Returns the launches over both ranks and the decode steps."""
+    import multiprocessing as mp
+
+    t_phase = time.monotonic()
+    store = os.path.join(ROOT, "build", "chip_smoke_ssm_mesh_store")
+    refs = [f"{store}.ref_{arch}" for arch in SSM_MESH_CASES]
+    for f in (store, store + ".0", store + ".1", *refs):
+        if os.path.exists(f):
+            os.remove(f)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_ssm_mesh_worker, args=(r, store))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    threads = torch.get_num_threads()
+    try:
+        # the one-rank train runs here, on the host's cores, while the
+        # ranks serve on the card
+        from repro_torch.distributed import spmd
+        from repro_torch.launch.mesh import LocalMesh
+
+        torch.set_num_threads(8)
+        one = LocalMesh("cpu")
+        for arch, ref in zip(SSM_MESH_CASES, refs):
+            t0 = time.monotonic()
+            torch.save(_ssm_mesh_train(torch, arch, one, spmd.comm_of(one)),
+                       ref + ".tmp")
+            os.replace(ref + ".tmp", ref)
+            print(f"[ssm-mesh] {arch}: the one-rank fp32 train steps on the "
+                  f"host's CPU {time.monotonic() - t0:.1f}s")
+    finally:
+        torch.set_num_threads(threads)
+        for p in procs:
+            p.join(300)
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+    check(not alive and all(p.exitcode == 0 for p in procs),
+          f"the SSM mesh ranks: exit codes {[p.exitcode for p in procs]}")
+    ranks = [torch.load(f"{store}.{r}") for r in range(2)]
+    launches = dict.fromkeys(
+        ranks[0][next(iter(SSM_MESH_CASES))]["serve"]["launches"], 0)
+    n_steps = 0
+    for arch, (L, B, P, steps) in SSM_MESH_CASES.items():
+        r0 = ranks[0][arch]["serve"]
+        for rank, r in enumerate(ranks):
+            got, want = r[arch]["serve"]["launches"], r[arch]["serve"]["want"]
+            print(f"[ssm-mesh] {arch} rank {rank}: ssd_scan launched "
+                  f"{got['ssd_scan']} times at {r0['heads'][1]} of "
+                  f"{r0['heads'][0]} heads, rmsnorm {got['rmsnorm']} "
+                  f"(want {want})")
+            check(all(got[k] == v for k, v in want.items()),
+                  f"{arch} rank {rank} launched {got}, not {want}")
+            check(not any(v for k, v in got.items() if k not in want),
+                  f"{arch} rank {rank} launched a kernel off its path: "
+                  f"{got}")
+            for k, v in got.items():
+                launches[k] += v
+        n_steps += steps
+        cerr = max(r0["cache_err"].values())
+        print(f"[ssm-mesh] {arch} at full width ({L} layers), bfloat16, B "
+              f"{B}, a {P}-token prompt and {steps} greedy steps on a (1, 2)"
+              f" mesh ({r0['cache_spec']}): logits within "
+              f"{r0['rel_err']:.3e} of one rank's (bound 3.5e-2); tokens "
+              f"equal but at {r0['ties']} top-2 ties; caches gathered "
+              f"whole within {cerr:.3e} of one rank's "
+              f"({ {k.split(']')[-2][2:-1] + k[:12]: round(v, 6) for k, v in r0['cache_err'].items()} }); "
+              f"the sharded run {r0['secs']:.2f}s")
+        check(r0["rel_err"] <= 3.5e-2 and not r0["differ"],
+              f"{arch}: two ranks against one: logits {r0['rel_err']}, "
+              f"tokens differing past a tie {r0['differ']}")
+        check(cerr <= 3.5e-2, f"{arch}: caches {r0['cache_err']}")
+        check(ranks[1][arch]["serve"]["tokens"] == r0["tokens"],
+              f"{arch}: the two ranks' one-rank runs differ")
+        t = ranks[0][arch]["train"]
+        print(f"[ssm-mesh] {arch} fp32 train steps on the host's CPU (B "
+              f"{SSM_MESH_TRAIN[0]} x T {SSM_MESH_TRAIN[1]}): losses "
+              f"{t['losses']} against one rank's {t['one']}; metrics "
+              f"within {t['err']:.2e} relative, parameters within "
+              f"{t['perr']:.2e} of a leaf (worst {t['where']}); "
+              f"{t['secs']:.1f}s")
+        check(t["err"] <= 1e-5 and t["perr"] <= 1e-5,
+              f"{arch} train: metrics {t['err']}, parameters {t['perr']} "
+              f"({t['where']})")
+    for f in (store, store + ".0", store + ".1", *refs):
+        if os.path.exists(f):
+            os.remove(f)
+    secs = time.monotonic() - t_phase
+    print(f"[ssm-mesh] launches over both ranks {launches}; phase 6h "
+          f"{secs:.1f}s")
+    return launches, n_steps
 
 
 # ---------------------------------------------------------------------------
@@ -6576,20 +6971,21 @@ PATH_OF = {"flash_attention": ("serve", "edge", "fleet", "hubert",
                                "hubert_train", "mixtral", "deepseek",
                                "mixtral_paged")
            + DENSE_PATHS + WIDE_TRAIN_PATHS + ("cp_decode", "examples",
-                                               "shapes"),
+                                               "shapes", "ssm_mesh"),
            "paged_decode_attention": ("serve", "edge", "fleet")
            + DENSE_PATHS + ("examples", "shapes", "mixtral_paged"),
            "paged_verify_attention": ("spec", "gemma_spec", "spec_k12",
                                       "shapes", "mixtral_paged"),
            "decode_attention": ("spec", "zamba2", "edge", "gemma_spec",
                                 "mixtral", "deepseek", "mesh_train",
-                                "shapes", "mixtral_paged"),
+                                "shapes", "mixtral_paged", "ssm_mesh"),
            "decode_attention_lse": ("cp_decode",),
            "flash_attention_bwd_dq": ("train", "hubert_train")
            + WIDE_TRAIN_PATHS + ("examples",),
            "flash_attention_bwd_dkv": ("train", "hubert_train")
            + WIDE_TRAIN_PATHS + ("examples",),
-           "ssd_scan": ("mamba2",), "rmsnorm": ("mamba2",)}
+           "ssd_scan": ("mamba2", "ssm_mesh"),
+           "rmsnorm": ("mamba2", "ssm_mesh")}
 UNIT_OF = {"serve": "request", "spec": "request", "train": "step",
            "mamba2": "request", "zamba2": "request", "edge": "dispatch",
            "fleet": "request", "hubert": "batch", "hubert_train": "step",
@@ -6597,7 +6993,8 @@ UNIT_OF = {"serve": "request", "spec": "request", "train": "step",
            "mixtral_paged": "request",
            **{p: "request" for p in DENSE_PATHS},
            **{p: "step" for p in WIDE_TRAIN_PATHS},
-           "cp_decode": "step", "examples": "run", "shapes": "request",
+           "cp_decode": "step", "ssm_mesh": "step", "examples": "run",
+           "shapes": "request",
            "spec_k12": "request"}
 
 
@@ -6666,6 +7063,7 @@ def main() -> int:
     paths["gemma_train"] = timed("6e", phase_gemma_train, torch)
     paths["mesh_train"] = timed("6f", phase_mesh_train, torch)
     paths["cp_decode"] = timed("6g", phase_dryrun, torch)
+    paths["ssm_mesh"] = timed("6h", phase_ssm_mesh, torch)
     paths["examples"] = timed("7", phase_examples, torch, card)
     timed("7b", phase_train_consistency, torch)
     timed("7b encoder", phase_encoder_train_consistency, torch)

@@ -8,6 +8,11 @@
 // the one rounding of `ref.rmsnorm`).  scale [d] comes in x's dtype (the
 // wrapper casts it).  The serving path of the SSM families runs it for
 // the block norms, the gated out-norm over d_inner and the final norm.
+// A second form takes each row's f32 mean of squares from outside (`ms`
+// [rows]) and skips the sum: a Mamba2 layer split over a model axis
+// holds d_inner / tp channels of a row, sums their squares, all-reduces
+// the sum over the axis and normalizes its channels by the whole row's
+// statistics (`models/mamba2.py`).
 //
 // What bounds it on an H100: bytes.  Each row is read once and written
 // once, 2 FLOP-ish per byte; the floor is 2·rows·d·sizeof(x) over
@@ -72,11 +77,12 @@ struct Unit<T, false> {
   }
 };
 
-// Block `row` normalizes one row of d / E units.
+// Block `row` normalizes one row of d / E units, by its own mean of
+// squares or, where `ms` is given, by ms[row].
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kMaxThreads) rmsnorm_kernel(
     const T* __restrict__ x, const T* __restrict__ scale,
-    T* __restrict__ out, int d, float eps) {
+    const float* __restrict__ ms, T* __restrict__ out, int d, float eps) {
   using U = Unit<T, VEC>;
   using V = typename U::type;
   constexpr int E = U::E;
@@ -90,41 +96,47 @@ __global__ void __launch_bounds__(kMaxThreads) rmsnorm_kernel(
   const V* sc = reinterpret_cast<const V*>(scale);
 
   V v[kRegUnits];
-  float ss = 0.f;
 #pragma unroll
   for (int k = 0; k < kRegUnits; ++k) {
     const int i = threadIdx.x + k * nthr;
     if (i < nu) v[k] = xr[i];
   }
+  float mean;
+  if (ms != nullptr) {                 // the row's statistics from outside
+    mean = ms[row];
+  } else {
+    float ss = 0.f;
 #pragma unroll
-  for (int k = 0; k < kRegUnits; ++k) {
-    const int i = threadIdx.x + k * nthr;
-    if (i < nu)
+    for (int k = 0; k < kRegUnits; ++k) {
+      const int i = threadIdx.x + k * nthr;
+      if (i < nu)
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float f = U::get(v[k], e);
+          ss = fmaf(f, f, ss);
+        }
+    }
+    // the rest of a row longer than the registers hold
+    for (int i = threadIdx.x + kRegUnits * nthr; i < nu; i += nthr) {
+      const V t = xr[i];
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        const float f = U::get(v[k], e);
+        const float f = U::get(t, e);
         ss = fmaf(f, f, ss);
       }
-  }
-  // the rest of a row longer than the registers hold
-  for (int i = threadIdx.x + kRegUnits * nthr; i < nu; i += nthr) {
-    const V t = xr[i];
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const float f = U::get(t, e);
-      ss = fmaf(f, f, ss);
     }
-  }
-  ss = warp_sum(ss);
-  if (lane == 0) part[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    ss = lane < nthr / 32 ? part[lane] : 0.f;
     ss = warp_sum(ss);
-    if (lane == 0) row_ss = ss;
+    if (lane == 0) part[warp] = ss;
+    __syncthreads();
+    if (warp == 0) {
+      ss = lane < nthr / 32 ? part[lane] : 0.f;
+      ss = warp_sum(ss);
+      if (lane == 0) row_ss = ss;
+    }
+    __syncthreads();
+    mean = row_ss / d;
   }
-  __syncthreads();
-  const float inv = round_to(1.f / sqrtf(row_ss / d + eps), x);
+  const float inv = round_to(1.f / sqrtf(mean + eps), x);
 
   auto norm = [&](const V& xv, const V& sv) {
     V o;
@@ -147,12 +159,13 @@ __global__ void __launch_bounds__(kMaxThreads) rmsnorm_kernel(
 // Rows of d elements of T, one block a row of `threads` threads: half the
 // row's units, rounded up to a warp, at most kMaxThreads.
 template <typename T, bool VEC>
-cudaError_t launch(const void* x, const void* scale, void* out, int rows,
-                   int d, float eps, cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* scale, const float* ms,
+                   void* out, int rows, int d, float eps,
+                   cudaStream_t stream) {
   const int nu = d / Unit<T, VEC>::E;
   const int threads = min(kMaxThreads, max(32, ((nu + 1) / 2 + 31) / 32 * 32));
   rmsnorm_kernel<T, VEC><<<rows, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(scale),
+      static_cast<const T*>(x), static_cast<const T*>(scale), ms,
       static_cast<T*>(out), d, eps);
   return cudaGetLastError();
 }
@@ -160,11 +173,12 @@ cudaError_t launch(const void* x, const void* scale, void* out, int rows,
 // 16-byte vectors where a row is whole vectors and every pointer is
 // 16-byte aligned, else single elements
 template <typename T>
-cudaError_t launch(const void* x, const void* scale, void* out, int rows,
-                   int d, float eps, bool aligned, cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* scale, const float* ms,
+                   void* out, int rows, int d, float eps, bool aligned,
+                   cudaStream_t stream) {
   return aligned && (d * sizeof(T)) % 16 == 0
-             ? launch<T, true>(x, scale, out, rows, d, eps, stream)
-             : launch<T, false>(x, scale, out, rows, d, eps, stream);
+             ? launch<T, true>(x, scale, ms, out, rows, d, eps, stream)
+             : launch<T, false>(x, scale, ms, out, rows, d, eps, stream);
 }
 
 bool aligned16(const void* p) {
@@ -175,17 +189,19 @@ bool aligned16(const void* p) {
 
 // Plain C entry point, loaded with ctypes.  dtype: 0 = float32,
 // 1 = bfloat16, the same for x [rows, d], scale [d] and out [rows, d]; all
-// contiguous.  Returns cudaGetLastError() after the launch.
-extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* out,
-                           int rows, int d, float eps, int dtype,
+// contiguous.  ms: null, or each row's f32 mean of squares [rows].
+// Returns cudaGetLastError() after the launch.
+extern "C" int rmsnorm_fwd(const void* x, const void* scale, const void* ms,
+                           void* out, int rows, int d, float eps, int dtype,
                            void* stream) {
   if (d <= 0 || rows < 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaSuccess;
   const bool aligned = aligned16(x) && aligned16(scale) && aligned16(out);
+  const float* m = static_cast<const float*>(ms);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(dtype == 0
-                   ? launch<float>(x, scale, out, rows, d, eps, aligned, s)
-                   : launch<__nv_bfloat16>(x, scale, out, rows, d, eps,
+                   ? launch<float>(x, scale, m, out, rows, d, eps, aligned, s)
+                   : launch<__nv_bfloat16>(x, scale, m, out, rows, d, eps,
                                            aligned, s));
 }

@@ -219,7 +219,7 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _ReduceFrom.apply(x, group)
 
 
-class _GatherScatter(torch.autograd.Function):
+class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
         ctx.dim, ctx.group = dim, group
@@ -227,14 +227,19 @@ class _GatherScatter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return narrow_dim(all_reduce(g, ctx.group), ctx.dim,
-                          ctx.group).contiguous(), None, None
+        return narrow_dim(g, ctx.dim, ctx.group).contiguous(), None, None
+
+
+def gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """All-gather along ``dim``; backward, this rank's piece of the
+    gradient as it is (each rank computed the whole one)."""
+    return x if group is None else _Gather.apply(x, dim, group)
 
 
 def gather_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """All-gather along ``dim``; backward, the gradient summed over the
     group and cut back to this rank's piece (a reduce-scatter)."""
-    return x if group is None else _GatherScatter.apply(x, dim, group)
+    return copy_to(gather(x, dim, group), group)
 
 
 class _AllToAll(torch.autograd.Function):

@@ -120,5 +120,5 @@ def ssd_scan(x, dt, A, B_, C, chunk: int, initial_state, final: bool):
             + (state if final else 0))
 
 
-def rmsnorm(x, scale):
-    return 0.0, _nb(x, scale) + _nb(x)
+def rmsnorm(x, scale, ms=None):
+    return 0.0, _nb(x, scale, ms) + _nb(x)

@@ -117,9 +117,10 @@ def ssd_decode_step(x, dt, A, B_, C, state):
     return ref.ssd_decode_step(x, dt, A, B_, C, state)
 
 
-def rmsnorm(x, scale, *, eps: float = 1e-6):
+def rmsnorm(x, scale, *, eps: float = 1e-6, ms=None):
     """Row-wise ``x·rsqrt(mean x² + eps)·scale``, statistics in f32 and the
-    products in x's dtype."""
+    products in x's dtype; ``ms`` (f32, ``x.shape[:-1]``) gives each row's
+    mean of squares in place of x's own."""
     fn = _rms if x.is_cuda else ref.rmsnorm
-    return cost.region("rmsnorm", *cost.rmsnorm(x, scale),
-                       lambda: fn(x, scale, eps=eps), (x, scale))
+    return cost.region("rmsnorm", *cost.rmsnorm(x, scale, ms),
+                       lambda: fn(x, scale, eps=eps, ms=ms), (x, scale))

@@ -355,14 +355,18 @@ def ssd_decode_step(
 # RMSNorm
 # ---------------------------------------------------------------------------
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+            ms: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The function of the Pallas kernel (``repro/kernels/rmsnorm.py:
     19-24``): the mean of squares and its rsqrt in f32, then the products
     in x's dtype, ``x * inv.to(dt) * scale.to(dt)``.  Not the JAX
     ``ref.rmsnorm`` (``repro/kernels/ref.py:294``), which multiplies in f32
-    and rounds once: in bf16 the two differ by a rounding."""
+    and rounds once: in bf16 the two differ by a rounding.  ``ms``
+    (f32, ``x.shape[:-1]``) gives each row's mean of squares from outside
+    (a row whose channels are split over ranks, the sum taken over all of
+    them) in place of x's own."""
     dt = x.dtype
-    ms = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
-    inv = torch.rsqrt(ms + eps)
+    if ms is None:
+        ms = torch.mean(torch.square(x.float()), dim=-1)
+    inv = torch.rsqrt(ms[..., None] + eps)
     return x * inv.to(dt) * scale.to(dt)

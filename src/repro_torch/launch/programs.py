@@ -179,9 +179,9 @@ def program_shardings(cfg: ModelConfig, shape_name: str, mesh,
     """Returns (in_specs, out_specs, arg_specs, step_fn, donate): spec
     trees of the step's arguments and results, its abstract arguments,
     the step and the donated argument indices.  ``shape_name`` names a
-    ``SHAPES`` entry or is a ``ShapeSpec``.  The SSM families keep their
-    caches whole over ``model`` (their layers run replicated over it,
-    ``forward_rules``), where the JAX specs split them."""
+    ``SHAPES`` entry or is a ``ShapeSpec``.  Caches take the JAX specs'
+    shards (``cache_partition_specs``): a Mamba2 layer's SSM state its
+    heads, its conv tail an even cut of the channels."""
     shape = shape_of(shape_name)
     rules = rules_for(mesh, rules_name)
     abstract_params = param_specs_abstract(cfg)
@@ -201,18 +201,17 @@ def program_shardings(cfg: ModelConfig, shape_name: str, mesh,
     logit_sh = rules.resolve(("batch", "vocab"),
                              (shape.global_batch, cfg.vocab_size))
     tok_sh = rules.resolve(("batch",), (shape.global_batch,))
-    crules = shlib.ShardingRules(mesh, forward_rules(cfg, rules.rules))
     if shape.kind == "prefill":
         bspecs = prefill_batch_specs(cfg, shape)
         bsh = batch_shardings(bspecs, rules)
         cspecs = cache_specs(cfg, shape.global_batch, shape.seq_len)
-        csh = shlib.cache_partition_specs(cspecs, crules)
+        csh = shlib.cache_partition_specs(cspecs, rules)
         fn = build_prefill_step(cfg, "meta")
         return ((psh, bsh, csh), (logit_sh, csh, tok_sh),
                 (abstract_params, bspecs, cspecs), fn, (2,))
 
     aspecs = decode_arg_specs(cfg, shape)
-    csh = shlib.cache_partition_specs(aspecs["caches"], crules)
+    csh = shlib.cache_partition_specs(aspecs["caches"], rules)
     fn = build_decode_step(cfg, "meta")
     return ((psh, tok_sh, csh, tok_sh), (logit_sh, csh, tok_sh),
             (abstract_params, aspecs["tokens"], aspecs["caches"],
@@ -223,30 +222,11 @@ def program_shardings(cfg: ModelConfig, shape_name: str, mesh,
 # the local view of sharded parameters
 # ---------------------------------------------------------------------------
 
-def _replicated_over_model(cfg: ModelConfig) -> bool:
-    """The SSM families run replicated over ``model``: Mamba2's ``inner``
-    split of ``in_proj`` is not a local view its layer computes."""
-    return cfg.family in ("ssm", "hybrid")
-
-
-def view_axes(cfg: ModelConfig, comm: spmd.MeshComm) -> tuple:
+def view_axes(comm: spmd.MeshComm) -> tuple:
     """The mesh axes a step gathers its parameters over: every axis but
-    ``model`` for the families whose layers run model-sharded (dense, moe,
-    encoder); every axis for the SSM families."""
-    if _replicated_over_model(cfg):
-        return comm.names
+    ``model``, over which each family's layers compute their own heads,
+    ``ffn``, vocabulary, experts or SSM heads."""
     return tuple(a for a in comm.names if a != "model")
-
-
-def forward_rules(cfg: ModelConfig, table: dict) -> dict:
-    """The rule table a step's forward runs under: ``table``, or for a
-    family that runs replicated over ``model`` the table with every
-    logical axis that maps to ``model`` unmapped (its layers then see
-    whole leaves and take no model-axis region)."""
-    if not _replicated_over_model(cfg):
-        return table
-    return {k: None if "model" in shlib.spec_axes(v) else v
-            for k, v in table.items()}
 
 
 def _cut(spec, comm: spmd.MeshComm, axes) -> bool:
@@ -292,9 +272,9 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, device=None,
 
     def train_step(params, opt_state, batch):
         comm = spmd.comm_of(mesh)
-        axes = view_axes(cfg, comm)
+        axes = view_axes(comm)
         flat = flat_specs(pspecs)
-        with shlib.use_rules(mesh, forward_rules(cfg, rules.rules)):
+        with shlib.use_rules(mesh, rules.rules):
             views = param_views(params, pspecs, comm, axes, grad=True)
             (loss, metrics), grads = gradlib.accumulate_grads(
                 model.loss, views, batch, tcfg.num_microbatches,
@@ -343,11 +323,9 @@ def _gathered(model, step):
             return step(params, *args)
         rules = shlib.current_rules()
         pspecs = shlib.param_partition_specs(abstract, rules)
-        params = param_views(params, pspecs, comm,
-                             view_axes(model.cfg, comm), grad=False)
-        with shlib.use_rules(rules.mesh, forward_rules(model.cfg,
-                                                       rules.rules)):
-            return step(params, *args)
+        params = param_views(params, pspecs, comm, view_axes(comm),
+                             grad=False)
+        return step(params, *args)
     return run
 
 

@@ -83,21 +83,25 @@ def init_norm(cfg: ModelConfig, device, dim: Optional[int] = None):
     return p
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             ms: Optional[torch.Tensor] = None) -> torch.Tensor:
     """f32 mean of squares and rsqrt, then the products in ``x.dtype``:
     ``x * inv.to(dt) * scale.to(dt)`` (``layers.py:_rmsnorm_fwd``), the
-    plain version of the RMSNorm kernel, differentiable by autograd."""
-    return ref.rmsnorm(x, scale, eps)
+    plain version of the RMSNorm kernel, differentiable by autograd;
+    ``ms`` as in ``ref.rmsnorm``."""
+    return ref.rmsnorm(x, scale, eps, ms)
 
 
-def rms_norm_simple(x, scale, eps: float = 1e-6, *, kernel: bool = False):
+def rms_norm_simple(x, scale, eps: float = 1e-6, *, kernel: bool = False,
+                    ms: Optional[torch.Tensor] = None):
     """Bare rmsnorm (the Mamba2 out-norm).  ``kernel`` sends it through
     ``ops.rmsnorm``, the CUDA kernel on the card (forward only): the
     serving path of the SSM families takes it, every training forward and
-    the dense family keep ``rms_norm``."""
+    the dense family keep ``rms_norm``.  ``ms``: each row's f32 mean of
+    squares, given from outside (a row split over ranks)."""
     if kernel:
-        return ops.rmsnorm(x, scale, eps=eps)
-    return rms_norm(x, scale, eps)
+        return ops.rmsnorm(x, scale, eps=eps, ms=ms)
+    return rms_norm(x, scale, eps, ms)
 
 
 def _layer_norm_fwd(x, scale, bias, eps):

@@ -1384,6 +1384,13 @@ def _ssd_inputs(case, dtype, device, seed=0):
 @pytest.mark.parametrize("case", SSD_CASES + [
     (1, 64, 80, 64, 1, 128, 256, True),     # mamba2-2.7b serving chunk
     (1, 64, 64, 64, 1, 64, 256, True),      # zamba2-1.2b serving chunk
+    # a rank's heads on a model axis: mamba2's 40 of 80 and zamba2's 32 of
+    # 64 on two ranks, 5 of 80 on sixteen (an odd count: no head pairs in
+    # a cluster), two heads reading a group each
+    (4, 130, 40, 64, 1, 128, 256, True),
+    (4, 130, 32, 64, 1, 64, 256, True),
+    (1, 257, 5, 64, 1, 128, 256, True),
+    (2, 64, 2, 64, 2, 128, 64, True),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_kernel_matches_plain(case, dtype, cuda):
@@ -1455,6 +1462,28 @@ def test_rmsnorm_kernel_matches_plain(case, dtype, cuda):
     want = ref.rmsnorm(x, scale, 1e-5)
     torch.cuda.synchronize()
     assert got.dtype == dtype and _rel(want, got) < TOL[dtype]
+
+
+@pytest.mark.parametrize("case", RMSNORM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_takes_the_mean_square_from_outside(case, dtype,
+                                                           cuda):
+    """The ``ms`` form (a rank's channels of a row split over a model
+    axis): each row normalized by a given f32 mean of squares, here the
+    whole row's of which x is half, against the plain version with the
+    same ``ms``; a misaligned view of the rows too."""
+    rows, d = case
+    g = torch.Generator(device=cuda).manual_seed(d + 1)
+    flat = (torch.randn(rows * d + 1, generator=g, device=cuda) * 3).to(dtype)
+    other = (torch.randn(rows, d, generator=g, device=cuda) * 3).to(dtype)
+    scale = 1 + 0.1 * torch.randn(d, generator=g, device=cuda)
+    for x in (flat[:-1].view(rows, d), flat[1:].view(rows, d)):
+        ms = (x.float().square().sum(-1) + other.float().square().sum(-1)) \
+            / (2 * d)
+        got = ops.rmsnorm(x, scale, eps=1e-5, ms=ms)
+        want = ref.rmsnorm(x, scale, 1e-5, ms)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and _rel(want, got) < TOL[dtype]
 
 
 @pytest.mark.parametrize("rows,d", [(8, 2560), (3, 5120), (64, 256)])

@@ -3,8 +3,9 @@ JAX package's one-device train step (the GSPMD contract: a step on any
 mesh gives what one device gives).
 
 One spawn of 4 ranks (``torch_mesh_ranks.mesh_train``, about 30 s) runs
-every mesh of this file; the JAX steps run here, in the parent, and the
-ranks read their inputs (a step-0 checkpoint written from the JAX
+every mesh of this file, the SSM families' prefill and decode over split
+caches (``SSM_CASES``) last; the JAX steps run here, in the parent, and
+the ranks read their inputs (a step-0 checkpoint written from the JAX
 parameters, the batches) from ``.npz`` and checkpoint files.  Bounds: the
 metrics within ``METRIC_TOL`` relative and the parameters within
 ``PARAM_TOL`` of each leaf's largest entry, 1e-5 both: the ranks sum the
@@ -73,10 +74,18 @@ def _cfgs():
         # heads with the one KV head they read
         "gqa": (dataclasses.replace(tiny, num_heads=8, num_kv_heads=2,
                                     head_dim=16), {}),
-        # the hybrid family runs replicated over the model axis (its
-        # shared attention block too), sharded over data
+        # the SSM families split over the model axis: 16 Mamba2 heads, 8
+        # a rank, and zamba2's shared attention block its 4 heads, 2 a
+        # rank, sharded over data too
         "zamba2": (dataclasses.replace(jreduced("zamba2-1.2b"),
                                        compute_dtype="float32"), {}),
+        "mamba2": (dataclasses.replace(jreduced("mamba2-2.7b"),
+                                       compute_dtype="float32"), {}),
+        # 15 heads (d_model 120) do not divide the axis: each rank runs
+        # the whole layer, its cut conv and out_proj leaves gathered
+        "mamba2_odd": (dataclasses.replace(jreduced("mamba2-2.7b",
+                                                    d_model=120),
+                                           compute_dtype="float32"), {}),
         "compress": (tiny, {"compress": True}),
         "int8": (tiny, {"state_dtype": "int8"}),
     }
@@ -95,6 +104,10 @@ RUNS = [
          steps=STEPS),
     dict(key="zamba222", spec="zamba2", mesh=[2, 2], restore="ck_zamba2",
          steps=STEPS),
+    dict(key="mamba222", spec="mamba2", mesh=[2, 2], restore="ck_mamba2",
+         steps=STEPS),
+    dict(key="mamba2odd22", spec="mamba2_odd", mesh=[2, 2],
+         restore="ck_mamba2_odd", steps=STEPS),
     dict(key="compress22", spec="compress", mesh=[2, 2],
          restore="ck_compress", steps=STEPS),
     dict(key="int822", spec="int8", mesh=[2, 2], restore="ck_int8",
@@ -102,6 +115,49 @@ RUNS = [
     dict(key="elastic41", spec="tiny", mesh=[4, 1], restore="elastic",
          steps=0, extra_step=True),
 ]
+
+
+# held against the port's own one-device step for the parameters: after
+# 3 steps zamba2's conv_b already sits 1.6e-5 of the leaf from JAX's there
+# (the scan's summation order)
+PORT_PARAMS = ("zamba2", "mamba2", "mamba2_odd")
+
+# the SSM families' prefill and decode on split caches: (config name of
+# ``_cfgs``, mesh, B, prompt T, decode steps, max_seq)
+SSM_CASES = {
+    "mamba2_2x2": ("mamba2", (2, 2), 4, 11, 4, 32),
+    "mamba2_1x4": ("mamba2", (1, 4), 4, 11, 4, 32),
+    "zamba2_2x2": ("zamba2", (2, 2), 4, 11, 4, 32),
+    "zamba2_1x4": ("zamba2", (1, 4), 4, 11, 4, 32),
+    "mamba2_odd_2x2": ("mamba2_odd", (2, 2), 4, 11, 4, 32),
+}
+
+
+def _seeded(params, seed: int, name: str) -> dict:
+    """``golden.seeded``, and for the SSM configs Mamba2's leaves that
+    init makes zero or one and ``_SEEDED`` does not list (``conv_b``,
+    ``out_norm``, ``d_skip``) seeded the same way: without them a rank
+    that took the wrong channels of ``conv_b`` or ``out_norm`` would not
+    show.  (A zero ``conv_b``'s largest entry after 3 steps is about two
+    AdamW steps, 4.5e-4, and 1e-5 of that lies under the summation-order
+    noise of any model-axis split: zamba2's came 2.5e-5 of the leaf off
+    the one device, 8.3e-6 with only its attention, MLP and vocabulary
+    split, its gradients within 7.5e-8 of one device's.)"""
+    out = golden.seeded(params, seed)
+    if name not in PORT_PARAMS:
+        return out
+    rng = np.random.default_rng(seed + 1)
+    init = {"conv_b": 0.0, "out_norm": 1.0, "d_skip": 1.0}
+
+    def walk(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k], k) for k in sorted(tree)}
+        if key in init:
+            return (init[key] + 0.1 * rng.standard_normal(tree.shape)) \
+                .astype(np.float32)
+        return tree
+
+    return walk(out)
 
 
 def _train_configs(extra):
@@ -127,8 +183,8 @@ def mesh_runs(tmp_path_factory):
     for name, (jcfg, extra) in _cfgs().items():
         aw, jt, tt = _train_configs(extra)
         cfg = ModelConfig.from_dict(jcfg.to_dict())
-        jparams = jax.tree.map(jnp.asarray, golden.seeded(
-            jax_build(jcfg).init(jax.random.key(7)), 7))
+        jparams = jax.tree.map(jnp.asarray, _seeded(
+            jax_build(jcfg).init(jax.random.key(7)), 7, name))
         params = from_numpy_tree(jax.tree.map(np.asarray, jparams), cfg,
                                  "cpu")
         ck.save(os.path.join(tmp, f"ck_{name}"), 0,
@@ -154,12 +210,9 @@ def mesh_runs(tmp_path_factory):
                                      {k: jnp.asarray(v) for k, v in b.items()})
             hist.append({k: float(v) for k, v in m.items()})
         want[name] = {"metrics": hist, "params": _flat(jparams)}
-        if name == "zamba2":
-            # zamba2's parameters are held against the port's own one
-            # device: after 3 steps its conv_b already sits 1.6e-5 of the
-            # leaf from JAX's there (the scan's summation order)
+        if name in PORT_PARAMS:
             tr = Trainer(cfg, "cpu", tt, TrainerConfig(
-                ckpt_dir=os.path.join(tmp, "ck_zamba2"), ckpt_every=0))
+                ckpt_dir=os.path.join(tmp, f"ck_{name}"), ckpt_every=0))
             tr.initialize(restore=True)
             for b in batches[:STEPS]:
                 tr.train_step(b)
@@ -167,9 +220,53 @@ def mesh_runs(tmp_path_factory):
                 p: v.detach().numpy() for p, v in flatten_with_path(tr.params)}
     with open(os.path.join(tmp, "runs.json"), "w") as f:
         json.dump(RUNS, f)
+    want_ssm = _ssm_decode_inputs(tmp)
     ranks.spawn("mesh_train", tmp, 4, deadline=300)
     got = {r["key"]: ranks.load(tmp, r["key"]) for r in RUNS}
+    for name in SSM_CASES:
+        got[name] = ranks.load(tmp, f"cp_{name}_out")
+    want.update(want_ssm)
     return tmp, want, got
+
+
+def _ssm_decode_inputs(tmp):
+    """``SSM_CASES``' JAX one-device prefill and greedy decode (fp32, from
+    seeded parameters), and the ranks' inputs for ``cp_decode``: each
+    config's parameters and prompt, the case list."""
+    want, cases, runs = {}, [], {}
+    for name, (spec, mesh, B, T, steps, S) in SSM_CASES.items():
+        if spec not in runs:
+            cfg = _cfgs()[spec][0]
+            model = jax_build(cfg)
+            flat = _seeded(jax.jit(model.init)(jax.random.key(0)), 0, spec)
+            prompt = np.random.default_rng(1).integers(
+                0, cfg.vocab_size, size=(B, T)).astype(np.int32)
+            params = jax.tree.map(jnp.asarray, flat)
+            caches = model.init_caches(B, S, jnp.float32)
+            logits, caches, clen = jax.jit(model.prefill)(
+                params, {"tokens": jnp.asarray(prompt)}, caches)
+            decode = jax.jit(model.decode)
+            got_l, got_t = [], []
+            for i in range(steps + 1):
+                got_l.append(np.asarray(logits, np.float32))
+                tok = jnp.argmax(logits, -1).astype(jnp.int32)
+                got_t.append(np.asarray(tok))
+                if i < steps:
+                    logits, caches = decode(params, tok, caches, clen)
+                    clen = clen + 1
+            runs[spec] = (np.stack(got_l), np.stack(got_t))
+            np.savez(os.path.join(tmp, f"cp_{spec}.npz"), prompt=prompt,
+                     **{"p/" + "/".join(k.key for k in path): np.asarray(v)
+                        for path, v in jax.tree_util.tree_flatten_with_path(
+                            flat)[0]})
+            with open(os.path.join(tmp, f"cp_{spec}.json"), "w") as f:
+                json.dump(cfg.to_dict(), f)
+        want[name] = runs[spec]
+        cases.append({"name": name, "spec": spec, "mesh": list(mesh),
+                      "B": B, "S": S, "steps": steps, "caches": True})
+    with open(os.path.join(tmp, "cp_cases.json"), "w") as f:
+        json.dump(cases, f)
+    return want
 
 
 def _check_run(want, got, keys=("loss", "ce", "aux", "grad_norm"),
@@ -194,15 +291,19 @@ def _check_run(want, got, keys=("loss", "ce", "aux", "grad_norm"),
 
 @pytest.mark.parametrize("key, name", [
     ("tiny22", "tiny"), ("tiny41", "tiny"), ("mixtral22", "mixtral"),
-    ("deepseek22", "deepseek"), ("zamba222", "zamba2")])
+    ("deepseek22", "deepseek"), ("zamba222", "zamba2"),
+    ("mamba222", "mamba2"), ("mamba2odd22", "mamba2_odd")])
 def test_sharded_train_steps_match_the_jax_one_device_step(mesh_runs, key,
                                                            name):
     """3 steps (the first at lr 0) of reduced fp32 tinyllama on (2, 2) and
     (4, 1), mixtral (expert parallel: 4 experts over a model axis of 2)
     deepseek (MLA, shared experts, the leading dense layer, remat
-    ``"full"``) and zamba2 (replicated over the model axis; its
-    parameters against the port's one-device step) on (2, 2): losses, ce, aux and grad norms, and the
-    parameters gathered whole, against the JAX one-device step."""
+    ``"full"``), zamba2 and mamba2 (the Mamba2 heads and zamba2's shared
+    attention block split over the model axis) and mamba2 at 15 heads
+    (which do not divide it: the layer replicated) on (2, 2): losses, ce,
+    aux and grad norms against the JAX one-device step, and the
+    parameters gathered whole against it (the SSM families' against the
+    port's one-device step, ``PORT_PARAMS``)."""
     _, want, got = mesh_runs
     run = got[key]
     assert run["mesh"] == dict(zip(("data", "model"),
@@ -212,6 +313,33 @@ def test_sharded_train_steps_match_the_jax_one_device_step(mesh_runs, key,
     if name in ("mixtral", "deepseek"):
         assert all(m["aux"] > 0 for m in run["metrics"])
     _check_run(want[name], run)
+
+
+@pytest.mark.parametrize("name", sorted(SSM_CASES))
+def test_ssm_split_prefill_and_decode_match_jax_one_device(mesh_runs, name):
+    """Reduced fp32 mamba2 and zamba2 prefilled and decoded on (2, 2) and
+    (1, 4), each rank on its heads, its caches JAX's shards (the SSM state
+    over its heads, the conv tail an even cut of the channels, zamba2's k
+    and v over the KV heads): every step's logits within 2e-4 relative of
+    the JAX one-device decode, greedy tokens equal, and the caches
+    gathered whole equal to one rank's within 1e-5 of each leaf's
+    largest.  mamba2 at 15 heads runs the layer replicated, its SSM state
+    whole and its conv tail still cut."""
+    _, want, got = mesh_runs
+    want_l, want_t = want[name]
+    spec, mesh = SSM_CASES[name][:2]
+    mamba = got[name]["cache_spec"]["mamba"]
+    split = spec != "mamba2_odd"
+    assert mamba["conv"][-1] == "model"
+    assert (mamba["ssm"][-1] == "model") == split, mamba
+    if spec == "zamba2":
+        assert got[name]["cache_spec"]["attn"]["k"][-1] == "model"
+    errs = [float(np.abs(g - w).max() / np.abs(w).max())
+            for g, w in zip(got[name]["logits"], want_l)]
+    assert max(errs) < 2e-4, errs
+    np.testing.assert_array_equal(got[name]["tokens"], want_t)
+    assert max(got[name]["cache_err"].values()) <= 1e-5, \
+        got[name]["cache_err"]
 
 
 def test_gqa_pairing_with_kv_heads_that_do_not_divide_the_model_axis(

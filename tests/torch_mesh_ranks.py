@@ -135,7 +135,8 @@ def _train_run(tmp, key, spec, mesh_shape, rank, *, restore_dir,
 
 
 def mesh_train(rank, world, tmp):
-    """Every run ``runs.json`` lists, in order."""
+    """Every run ``runs.json`` lists, in order; then the decode cases of
+    ``cp_cases.json``, if there is one (``cp_decode``)."""
     with open(os.path.join(tmp, "runs.json")) as f:
         runs = json.load(f)
     for run in runs:
@@ -147,6 +148,8 @@ def mesh_train(rank, world, tmp):
                    save_ckpt=(os.path.join(tmp, run["save"])
                               if run.get("save") else None),
                    extra_step=run.get("extra_step", False))
+    if os.path.exists(os.path.join(tmp, "cp_cases.json")):
+        cp_decode(rank, world, tmp)
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +331,10 @@ def cp_decode(rank, world, tmp):
     greedy tokens decoded on the case's mesh from the JAX parameters
     (``cp_<name>.npz``), each rank on its shards of the parameters and of
     the dense caches (``cache_partition_specs``); rank 0 keeps the
-    gathered logits of every step and the tokens."""
+    gathered logits of every step and the tokens.  A case with
+    ``"caches"`` also runs the same tokens through one rank (no rules)
+    and keeps each cache leaf's largest difference from the sharded run's
+    caches gathered whole, relative to the leaf's largest entry."""
     import torch
 
     from repro_torch.distributed import sharding as shlib, spmd
@@ -337,15 +343,16 @@ def cp_decode(rank, world, tmp):
     from repro_torch.models.config import ModelConfig
     from repro_torch.models.model import Model
     from repro_torch.models.weights import from_numpy_tree, unflatten
-    from repro_torch.tree import leaves, unflatten_like
+    from repro_torch.tree import flatten_with_path, leaves, unflatten_like
 
     with open(os.path.join(tmp, "cp_cases.json")) as f:
         cases = json.load(f)
     for case in cases:
         name = case["name"]
-        with open(os.path.join(tmp, f"cp_{name}.json")) as f:
+        src = case.get("spec", name)        # the inputs' file names
+        with open(os.path.join(tmp, f"cp_{src}.json")) as f:
             cfg = ModelConfig.from_dict(json.load(f))
-        arrays = np.load(os.path.join(tmp, f"cp_{name}.npz"))
+        arrays = np.load(os.path.join(tmp, f"cp_{src}.npz"))
         params = from_numpy_tree(unflatten(
             {k[2:]: arrays[k] for k in arrays.files if k.startswith("p/")}),
             cfg, "cpu")
@@ -378,8 +385,21 @@ def cp_decode(rank, world, tmp):
                 if i < case["steps"]:
                     logits, caches, clen = dec(
                         local, spmd.shard_of(tok, tspec, comm), caches, clen)
+        out = {"logits": np.stack(logits_all), "tokens": np.stack(tokens),
+               "cache_spec": {k: {n: s for n, s in v.items()}
+                              for k, v in cspec.items()}}
+        if case.get("caches"):
+            with torch.no_grad():
+                one = Model(cfg, "cpu").init_caches(B, S, torch.float32)
+                _, one, clen = pre(params, {"tokens": torch.tensor(
+                    arrays["prompt"])}, one)
+                for tok in tokens[:-1]:
+                    _, one, clen = dec(params, torch.tensor(tok), one, clen)
+            out["cache_err"] = {
+                path: float((spmd.gather_of(c, s, comm) - w).abs().max()
+                            / max(float(w.abs().max()), 1e-12))
+                for (path, c), s, w in zip(
+                    flatten_with_path(caches), programs.flat_specs(cspec),
+                    leaves(one))}
         if rank == 0:
-            save(tmp, f"cp_{name}_out", {
-                "logits": np.stack(logits_all), "tokens": np.stack(tokens),
-                "cache_spec": {k: {n: s for n, s in v.items()}
-                               for k, v in cspec.items()}})
+            save(tmp, f"cp_{name}_out", out)
